@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch / CUDA port (xequinet_torch) on one GPU.
 
     python3 chip_smoke.py                  # on a machine with a CUDA card
-    python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-4
+    python3 chip_smoke.py --profile DIR    # also trace forward+forces and a
+                                           # train step with torch.profiler
+    python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
                                            # with the plain versions
 
 Phases (any failed check exits non-zero):
@@ -12,17 +14,27 @@ Phases (any failed check exits non-zero):
   3. kernel vs plain: a bench-shaped batch (bench.py build_batch recipe,
      rng 1234, 1024 molecules of 12-28 atoms, BN 512, chunk 512, pad 32),
      flagship widths, f32 and bf16: the forward kernel against its plain
-     version, the backward kernel against the plain VJP on dx, d_ef, d_wf.
-  4. the slice: flagship XPaiNN (FLAGSHIP_KW of bench.py, seeded weights)
+     version, the backward kernel against the plain VJP on dx, d_ef, d_wf,
+     the second-order kernel against the plain double VJP on d2x, d2ef,
+     d2wf, d2g, with no cotangent on d_wf (force training) and a random one.
+  4. inference: flagship XPaiNN (FLAGSHIP_KW of bench.py, seeded weights)
      served by InferenceEngine.predict on the card through the kernels:
-     launch counts (3 + 3 per predict with forces, 3 + 0 energy only),
-     finite outputs, agreement with the plain route on the card (bf16:
-     energies and mean |F|; f32: also every force component), and in f32
-     the plain route on the CPU as a second reference, with the scale of
-     the backward's cotangents after each block.
-  5. times on the card (CUDA events): each kernel and its plain version,
+     launch counts (3 + 3 + 0 per predict with forces, 3 + 0 + 0 energy
+     only), finite outputs, agreement with the plain route on the card
+     (bf16: energies and mean |F|; f32: also every force component), and in
+     f32 the plain route on the CPU as a second reference.
+  5. training: flagship XPaiNN at full width and depth trains on the same
+     batch (bench.py's recipe: {energy: 1, forces: 10} l2, AdamW, cosine
+     schedule with warmup, grad clip 5.0, EMA 0.999): 3 + 6 + 3 launches per
+     step, finite loss and gradients, a falling loss over 20 steps; one f32
+     step on the kernel route against one on the plain route from the same
+     weights; then run_train from an overrides dict on an XDB dataset of
+     bench-recipe molecules it writes to a temporary directory, 2 epochs on
+     the kernels, its last checkpoint served by InferenceEngine.
+  6. times on the card (CUDA events): each kernel and its plain version,
      the bound (bytes and operations the function needs on this batch),
-     the predict wall time and edges/s.
+     the predict wall time and edges/s, the flagship train step's ms,
+     edges/s and peak memory.
 Then one JSON line with the kernels, the card line, and last the device
 JSON line.  It imports nothing of JAX or of the JAX package.
 """
@@ -136,6 +148,14 @@ def message_problem(batch, device, seed=7, bn=BN, chunk=CHUNK):
     wf = np.zeros((fm.F_PACK, hp), dtype=np.float32)
     wf[: nb + 1, :h] = rng.normal(size=(nb + 1, h)) / np.sqrt(nb)
     g = rng.normal(size=(n, sdp + dp)).astype(np.float32)
+    # cotangents on (dx, d_ef, d_wf), zero where the model's autograd
+    # hands in zero (cef columns >= Kf, cwf rows >= Kf and columns >= H)
+    kf = nb + 1 + n_y
+    cx = rng.normal(size=(n, hp + dp)).astype(np.float32)
+    cef = np.zeros((t, fm.F_PACK), dtype=np.float32)
+    cef[:, :kf] = rng.normal(size=(t, kf))
+    cwf = np.zeros((fm.F_PACK, hp), dtype=np.float32)
+    cwf[:kf, :h] = rng.normal(size=(kf, h))
     tt = lambda a: torch.as_tensor(a, device=device)
     ef = fm.pack_edge_features(tt(rbf), tt(fcut), tt(vec), Irreps(irreps))
     b = {k: tt(v) for k, v in batch.items()}
@@ -145,7 +165,8 @@ def message_problem(batch, device, seed=7, bn=BN, chunk=CHUNK):
     # the slot plan is built once per batch on the main path (the first
     # message block), so the kernels are compared and timed with it built
     plan = fm.build_slot_plan(slot_meta, n, n, bn, chunk)
-    return dict(x_cat=tt(x_cat), ef=ef.contiguous(), wf=tt(wf), g=tt(g),
+    return dict(x_cat=tt(x_cat), ef=ef.contiguous(), wf=tt(wf), g=tt(g), cx=tt(cx),
+                cef=tt(cef), cwf=tt(cwf),
                 slot_meta=slot_meta + (plan,), edge_mask=b[keys.EDGE_MASK], n_out=n,
                 n_atoms=int(batch[keys.NODE_MASK].sum()), statics=(irreps, nb, nd))
 
@@ -181,6 +202,23 @@ def kernel_bwd(p, mm):
                                *p["statics"], p["n_out"], BN, CHUNK, mm)
 
 
+def plain_bwd2(p, mm, cwf=None):
+    from xequinet_torch.ops import fused_message as fm
+
+    sm = p["slot_meta"]
+    return fm.plain_message_bwd2(p["x_cat"], p["ef"], p["wf"], p["g"], p["cx"], p["cef"],
+                                 cwf, sm[2], sm[3], p["edge_mask"], *p["statics"],
+                                 p["n_out"], getattr(torch, mm))
+
+
+def kernel_bwd2(p, mm, cwf=None):
+    from xequinet_torch.ops import fused_message as fm
+
+    return fm.message_bwd2_cuda(p["x_cat"], p["ef"], p["wf"], p["g"], p["cx"], p["cef"],
+                                cwf, p["slot_meta"], *p["statics"], p["n_out"], BN, CHUNK,
+                                mm)
+
+
 def phase_kernels(batch, device):
     """Phase 3: each kernel against its plain version, f32 and bf16."""
     p = message_problem(batch, device)
@@ -203,6 +241,22 @@ def phase_kernels(batch, device):
             if not (e <= tol and torch.isfinite(a).all()):
                 fail(f"message_bwd {mm} {name} disagrees with plain")
         abs_err["message_bwd"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        # second order: no cotangent on d_wf (force training) and a random one
+        for cwf_tag, cwf in (("cwf=None", None), ("random cwf", p["cwf"])):
+            got, want = kernel_bwd2(p, mm, cwf), plain_bwd2(p, mm, cwf)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("d2x", "d2ef", "d2wf", "d2g"), got, want):
+                e = rel_err(a, b)
+                print(f"[kernels] message_bwd2 {mm} {cwf_tag} {name}: max|err|/max|ref| = "
+                      f"{e:.3e} (limit {tol:g})")
+                if not (e <= tol and torch.isfinite(a).all()):
+                    fail(f"message_bwd2 {mm} {cwf_tag} {name} disagrees with plain")
+            if float(got[1][~p["edge_mask"]].abs().max()) != 0.0:
+                fail("message_bwd2: padding / tail slots got non-zero d2ef rows")
+            if cwf is None:
+                abs_err["message_bwd2"] = max(float((a - b).abs().max())
+                                              for a, b in zip(got, want))
+            del got, want
     return p, abs_err
 
 
@@ -251,8 +305,8 @@ def phase_slice(dps, device):
     torch.cuda.synchronize()
     counts = dict(fm.LAUNCHES)
     print(f"[slice] predict with forces: launches {counts}")
-    if counts != {"message_fwd": 3, "message_bwd": 3}:
-        fail(f"expected 3 + 3 kernel launches per predict, got {counts}")
+    if counts != {"message_fwd": 3, "message_bwd": 3, "message_bwd2": 0}:
+        fail(f"expected 3 + 3 + 0 kernel launches per predict, got {counts}")
     e = np.array([float(r[keys.TOTAL_ENERGY]) for r in res])
     f = np.concatenate([r[keys.FORCES] for r in res])
     if len(res) != len(dps) or f.shape != (sum(d.num_atoms for d in dps), 3):
@@ -268,8 +322,8 @@ def phase_slice(dps, device):
     torch.cuda.synchronize()
     counts = dict(fm.LAUNCHES)
     print(f"[slice] energy-only predict: launches {counts}")
-    if counts != {"message_fwd": 3, "message_bwd": 0}:
-        fail(f"expected 3 + 0 kernel launches for energy only, got {counts}")
+    if counts != {"message_fwd": 3, "message_bwd": 0, "message_bwd2": 0}:
+        fail(f"expected 3 + 0 + 0 kernel launches for energy only, got {counts}")
     e2 = np.array([float(r[keys.TOTAL_ENERGY]) for r in res_e])
     if not np.allclose(e2, e, rtol=1e-5, atol=1e-5):
         fail("energy-only predict differs from the predict with forces")
@@ -305,6 +359,169 @@ def phase_slice(dps, device):
     return eng, launch_counts
 
 
+TRAIN_WEIGHTS = {"energy": 1.0, "forces": 10.0}
+# per-parameter f32 gradient limit of the kernel route against the plain
+# route: GRAD_TOL + GRAD_ULP_FACTOR x the plain route's own change when the
+# positions move by one f32 ulp (x (1 + 1e-7)).  At random weights the
+# force loss's parameter gradient is that ill-conditioned (the equivariant
+# LayerNorm after the first message block divides by a small RMS); on the
+# CPU the JAX package's step sits at 0.65 of that change from the port's
+# (tests/test_torch_training.py).  A wrong sign or a dropped term moves a
+# gradient by its own size.
+GRAD_TOL, GRAD_ULP_FACTOR = 1e-4, 2.0
+
+
+def train_model(device, **over):
+    """Flagship XPaiNN with seeded weights, its forward for training and
+    the step core of bench.py's recipe."""
+    from xequinet_torch.models.model import init_params, resolve_model
+    from xequinet_torch.models.properties import make_forward
+    from xequinet_torch.training.loss import ErrorMetric, WeightedLoss
+    from xequinet_torch.training.lr_schedule import resolve_lr_schedule, resolve_optimizer
+    from xequinet_torch.training.trainer import make_step_core
+
+    kw = dict(FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
+    kw.update(over)
+    module, extra, _ = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    module = module.to(device)
+    params = list(module.parameters())
+    opt = resolve_optimizer("adamw", params)
+    sched = resolve_lr_schedule("cosine_annealing", 5e-4, 10000, warmup_steps=100)
+    forward = make_forward(module, extra, create_graph=True)
+    step = make_step_core(forward, WeightedLoss("l2", **TRAIN_WEIGHTS), params, opt, sched,
+                          True, False, 5.0, 0.999, ErrorMetric("energy", "forces"))
+    return module, forward, step, [p.detach().clone() for p in params]
+
+
+def model_grads(module, forward, batch, pos_scale=1.0):
+    from xequinet_torch import keys
+    from xequinet_torch.training.loss import WeightedLoss
+    from xequinet_torch.training.trainer import loss_and_grads
+
+    b = dict(batch)
+    b[keys.POSITIONS] = b[keys.POSITIONS] * pos_scale
+    named = list(module.named_parameters())
+    loss, _, _, grads = loss_and_grads(forward, WeightedLoss("l2", **TRAIN_WEIGHTS),
+                                       [p for _, p in named], b, True, False)
+    return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
+
+
+def phase_training(dps, batch, device, card):
+    """Phase 5: flagship training on the card.  Returns (launches per
+    train step, the step function and its inputs for phase 6)."""
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.ops import fused_message as fm
+    from xequinet_torch.run.inference import batch_to_device
+
+    b = batch_to_device(batch, device)
+    module, forward, step, ema = train_model(device)
+    loss0, _ = model_grads(module, forward, b)
+    fm.reset_launch_counts()
+    loss, _ = step(b, 0, 1.0, ema)
+    torch.cuda.synchronize()
+    counts = dict(fm.LAUNCHES)
+    print(f"[train] flagship bf16 train step: launches {counts}")
+    # per block: the forward, the backward that makes the forces, the
+    # second order of the parameter-gradient pass, and the backward again
+    # in that pass (the cotangent on the block's aggregate, from the energy
+    # term and through the later blocks' second derivatives), as the JAX
+    # package's train step runs its kernels (tests/test_torch_training.py)
+    if counts != {"message_fwd": 3, "message_bwd": 6, "message_bwd2": 3}:
+        fail(f"expected 3 + 6 + 3 kernel launches per train step, got {counts}")
+    if not (np.isfinite(float(loss)) and all(torch.isfinite(p).all()
+                                              for p in module.parameters())):
+        fail("non-finite loss or parameters after a train step")
+    _, grads = model_grads(module, forward, b)
+    bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
+    if bad or not np.isfinite(loss0):
+        fail(f"non-finite gradients: {bad[:5]}")
+    for i in range(1, 20):
+        step(b, i, 1.0, ema)
+    loss20, _ = model_grads(module, forward, b)
+    print(f"[train] loss on the fixed batch: {loss0:.6f} before, {loss20:.6f} after 20 steps")
+    if not loss20 < loss0:
+        fail("the training loss did not fall over 20 steps")
+
+    # f32: one step's loss and gradients, kernel route against plain route
+    f32 = dict(compute_dtype="float32", update_compute_dtype="float32")
+    plain_batch = batch_to_device(collate(dps), device)
+    mk, fk, _, _ = train_model(device, **f32)
+    mp, fp, _, _ = train_model(device, use_pallas_scatter=False, **f32)
+    mp.load_state_dict(mk.state_dict())
+    lk, gk = model_grads(mk, fk, b)
+    lp, gp = model_grads(mp, fp, plain_batch)
+    _, gp_nudged = model_grads(mp, fp, plain_batch, 1.0 + 1e-7)
+    print(f"[train] f32 kernel and plain route steps: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB — {card}")
+    rel = abs(lk - lp) / abs(lp)
+    worst, worst_ratio = "", 0.0
+    for n, g in gp.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        limit = GRAD_TOL + GRAD_ULP_FACTOR * float((gp_nudged[n] - g).abs().max()) / scale
+        err = float((gk[n] - g).abs().max()) / scale
+        if err / limit > worst_ratio:
+            worst, worst_ratio = n, err / limit
+        if err > limit:
+            fail(f"f32 train step: gradient of {n} differs by {err:.3e} of its max "
+                 f"(limit {limit:.3e})")
+    print(f"[train] f32 step, kernel vs plain route: loss rel diff {rel:.3e} (limit 1e-4); "
+          f"every parameter gradient within its limit, the closest {worst} at "
+          f"{worst_ratio:.3f} of it")
+    if rel > 1e-4:
+        fail("f32 train step: loss differs between kernel and plain route")
+    del mk, mp, gk, gp, gp_nudged
+    torch.cuda.empty_cache()
+    return counts, step, b, ema
+
+
+def phase_entry_point(device, card):
+    """Phase 5, continued: run_train from an overrides dict on an XDB dataset
+    of bench-recipe molecules, 2 epochs on the kernels; its last checkpoint
+    served by InferenceEngine on the card."""
+    import os
+    import tempfile
+
+    from xequinet_torch import keys
+    from xequinet_torch.data.store import create_dataset
+    from xequinet_torch.ops import fused_message as fm
+    from xequinet_torch.run.inference import InferenceEngine
+    from xequinet_torch.run.train import run_train
+    from xequinet_torch.utils.config import load_config
+
+    dps = build_molecules(320, seed=99)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        create_dataset(os.path.join(tmp, "db"), dps, units={})
+        over = {
+            "model": {"model_kwargs": dict(
+                FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))},
+            "data": {"db_path": os.path.join(tmp, "db"), "targets": ["energy", "forces"],
+                     "batch_size": 32, "valid_batch_size": 32},
+            "trainer": {"max_epochs": 2, "warmup_epochs": 1, "lossfn": "l2",
+                        "losses_weight": TRAIN_WEIGHTS, "ema_decay": 0.999, "grad_clip": 5.0,
+                        "save_dir": os.path.join(tmp, "out"), "log_steps": 4, "seed": 0},
+        }
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = run_train(load_config(overrides=over))
+        torch.cuda.synchronize()
+        counts = dict(fm.LAUNCHES)
+        print(f"[train] run_train: 2 epochs, {tr.step} steps in "
+              f"{time.perf_counter() - t0:.1f} s on {tr.device}, launches {counts} — {card}")
+        if tr.device.type != "cuda" or counts["message_bwd2"] != 3 * tr.step or \
+                min(counts.values()) == 0:
+            fail(f"run_train did not train through the kernels: {counts}")
+        eng = InferenceEngine(os.path.join(tmp, "out", "xequinet_last.ckpt"))
+        fm.reset_launch_counts()
+        res = eng.predict(dps[:8])
+        torch.cuda.synchronize()
+        f = np.concatenate([r[keys.FORCES] for r in res])
+        print(f"[train] last checkpoint served on {eng.device}: 8 structures, launches "
+              f"{dict(fm.LAUNCHES)}, mean|F| {np.abs(f).mean():.6f}")
+        if not (np.isfinite(f).all() and fm.LAUNCHES["message_bwd"] == 3):
+            fail("the trained checkpoint did not serve through the kernels")
+
+
 def cotangent_scales(eng, batch):
     """The largest |dE/d node features| after each block (forces pass):
     the scale of the backward's cotangents, against which a last-bit
@@ -335,7 +552,8 @@ def cotangent_scales(eng, batch):
 
 
 def kernel_costs(p, mm):
-    """(bytes, flops) each function needs on these inputs: only the live
+    """(bytes, flops) each function (forward, backward, second order) needs
+    on these inputs: only the live
     part of each operand (the real atoms' H + D columns of x_cat, the
     real edges' kf = nb+1+nY columns of ef, the kw = nb+1 live rows and H
     columns of wf_aug, the node_dim + D live columns of the cotangent and
@@ -353,7 +571,16 @@ def kernel_costs(p, mm):
     fwd_flops = n_e * (2 * kw * h + h + 3 * d + nd + d)
     bwd_bytes = inputs + n_at * (nd + d) * isz + (n_at * (h + d) + n_e * kf + kw * h) * 4
     bwd_flops = n_e * (4 * kw * h + 2 * kf * h + 4 * h + 8 * d)
-    return (fwd_bytes, fwd_flops), (bwd_bytes, bwd_flops)
+    # second order, no cotangent on d_wf (force training): reads x, cx, ef,
+    # cef, g, wf once, writes d2x, d2ef, d2wf, d2g once; per real edge the
+    # closed form's fw and r (4 Kw H), the d2ef filter row (2 Kw H), the d2wf
+    # outer products (4 Kf H), a, fo, dfw2, dfwr and the d2x rows (12 H), the
+    # lane sums of dfo and u and the d2g / d2x vector rows (16 D) and the
+    # scalar d2g row (2 node_dim)
+    bwd2_bytes = (2 * n_at * (h + d) + 2 * n_e * kf + n_at * (nd + d) + kw * h) * isz \
+        + 2 * n_e * 4 + (n_at * (h + d) + n_e * kf + kf * h + n_at * (nd + d)) * 4
+    bwd2_flops = n_e * (6 * kw * h + 4 * kf * h + 12 * h + 16 * d + 2 * nd)
+    return (fwd_bytes, fwd_flops), (bwd_bytes, bwd_flops), (bwd2_bytes, bwd2_flops)
 
 
 def bound_ms(nbytes, flops, mm):
@@ -362,50 +589,52 @@ def bound_ms(nbytes, flops, mm):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_forward(eng, batch, out_dir, card):
-    """Where the device time of one forward+forces goes: torch.profiler
-    over 3 calls after a warm-up; the busy share is the summed kernel time
-    over the window's host wall time."""
+def profile_call(tag, fn, out_dir, card, calls=3):
+    """Where the device time of ``fn`` goes: torch.profiler over ``calls``
+    calls after a warm-up; the busy share is the summed kernel time over
+    the window's host wall time.  Writes DIR/profile_<tag>.txt."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
 
-    eng.forward_batch(batch)
+    fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            eng.forward_batch(batch)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     avgs = prof.key_averages()
     dev = lambda e: getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0.0)
     kernels = [e for e in avgs if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy_ms = sum(dev(e) for e in kernels) / 1e3 / 3
+    busy_ms = sum(dev(e) for e in kernels) / 1e3 / calls
     try:
         table = avgs.table(sort_by="self_device_time_total", row_limit=40)
     except (AttributeError, KeyError):
         table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile.txt"), "w") as fh:
+    with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as fh:
         fh.write(f"{card}\nwall {wall_ms:.3f} ms/call, device busy {busy_ms:.3f} ms/call\n")
         fh.write(table)
-    print(f"[profile] forward+forces: wall {wall_ms:.3f} ms/call, device kernels "
-          f"{busy_ms:.3f} ms/call, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} — {card}")
+    print(f"[profile] {tag}: wall {wall_ms:.3f} ms/call, device kernels {busy_ms:.3f} "
+          f"ms/call, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} — {card}")
     top = sorted(kernels, key=dev, reverse=True)[:15]
     for e in top:
-        print(f"[profile]   {dev(e) / 1e3 / 3:9.3f} ms/call  {e.count // 3:5d} calls  {e.key[:90]}")
+        print(f"[profile]   {dev(e) / 1e3 / calls:9.3f} ms/call  {e.count // calls:5d} calls  "
+              f"{e.key[:90]}")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
-                    help="also trace one device forward+forces with torch.profiler "
-                         "and write the per-kernel table to DIR/profile.txt")
+                    help="also trace forward+forces and a train step with "
+                         "torch.profiler and write the per-kernel tables to "
+                         "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-4 at a tiny size on the CPU with the plain "
+                    help="run phases 3-5 at a tiny size on the CPU with the plain "
                          "versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -446,33 +675,54 @@ def main():
           f"node rows ({time.perf_counter() - t0:.1f} s on the host)")
     p, abs_err = phase_kernels(batch, device)
 
-    # phase 4: the slice
+    # phase 4: inference
     eng, launches = phase_slice(dps, device)
 
-    # phase 5: times (bf16, the flagship's dtype)
+    # phase 5: training
+    per_step, step, b, ema = phase_training(dps, batch, device, card)
+    phase_entry_point(device, card)
+
+    # phase 6: times (bf16, the flagship's dtype)
     mm = "bfloat16"
     rows = []
-    costs = kernel_costs(p, mm)
     timed = (
         ("message_fwd", "xequinet_torch/csrc/message_fwd.cu",
          "xequinet_tpu/ops/pallas_message.py:177", kernel_fwd, plain_fwd),
         ("message_bwd", "xequinet_torch/csrc/message_bwd.cu",
          "xequinet_tpu/ops/pallas_message.py:331", kernel_bwd, plain_bwd),
+        ("message_bwd2", "xequinet_torch/csrc/message_bwd2.cu",
+         "xequinet_tpu/ops/pallas_message.py:563", kernel_bwd2, plain_bwd2),
     )
     # inputs already in the kernels' dtype, so the wrappers launch the
-    # kernels and nothing else
-    p_mm = dict(p, **{k: p[k].to(getattr(torch, mm)) for k in ("x_cat", "ef", "wf", "g")})
-    for (name, src, rep, kfn, pfn), (nbytes, flops) in zip(timed, costs):
+    # kernels and nothing else; the second order without a cotangent on
+    # d_wf, as force training runs it
+    p_mm = dict(p, **{k: p[k].to(getattr(torch, mm))
+                      for k in ("x_cat", "ef", "wf", "g", "cx", "cef")})
+    for (name, src, rep, kfn, pfn), (nbytes, flops) in zip(timed, kernel_costs(p, mm)):
         k_ms = time_ms(lambda: kfn(p_mm, mm))
         p_ms = time_ms(lambda: pfn(p_mm, mm), iters=5, warmup=1)
         b_ms, b_by = bound_ms(nbytes, flops, mm)
         print(f"[time] {name} ({mm}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP), launches/predict {launches[name]} — {card}")
+              f"{flops / 1e9:.2f} GFLOP), launches per predict {launches[name]}, per train "
+              f"step {per_step[name]} — {card}")
+        # "launches" is this slice's main path (one train step); the two
+        # paths' counts stand beside it, each read just after its own reset
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": launches[name], "max_abs_err": abs_err[name],
+                     "launches": per_step[name], "launches_predict": launches[name],
+                     "launches_train_step": per_step[name], "max_abs_err": abs_err[name],
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
+    # why the second order has a specialisation without the cwf terms:
+    # against the general kernel on a materialised zero cwf, interleaved
+    # so that the two repeats of each show the noise
+    zero_cwf = torch.zeros_like(p_mm["wf"])
+    spec = [time_ms(lambda: kernel_bwd2(p_mm, mm))]
+    gen = [time_ms(lambda: kernel_bwd2(p_mm, mm, zero_cwf)) for _ in range(2)]
+    spec.append(time_ms(lambda: kernel_bwd2(p_mm, mm)))
+    print(f"[time] message_bwd2 ({mm}) without cwf {spec[0]:.4f}, {spec[1]:.4f} ms; general "
+          f"kernel on a zero cwf {gen[0]:.4f}, {gen[1]:.4f} ms — {card}")
+    del p_mm, zero_cwf
 
     mega_b = eng.collate(dps)
     dev_ms = time_ms(lambda: eng.forward_batch(mega_b), iters=5, warmup=1)
@@ -488,8 +738,31 @@ def main():
     print(f"[time] predict wall (neighbour lists + collate + device + host copy), "
           f"median of 3: {wall * 1e3:.1f} ms, {n_real / wall:.1f} edges/s — {card}")
 
+    # the flagship train step: the batch on the device, the slot plan
+    # built inside the step (the first message block builds it), each step
+    # ending in a synchronize
+    i0 = 20
+    steps = []
+    for i in range(i0, i0 + 7):
+        t0 = time.perf_counter()
+        step(b, i, 1.0, ema)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    step_ms = float(np.median(steps)) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step(b, i0 + 7, 1.0, ema)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[time] flagship train step (bf16, mega, 3 + 6 + 3 kernels), median of 7: "
+          f"{step_ms:.3f} ms (min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}), "
+          f"{n_real / (step_ms / 1e3):.1f} edges/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
+          f"{held / 2**30:.3f} GiB held before the step — {card}")
+
     if args.profile:
-        profile_forward(eng, mega_b, args.profile, card)
+        profile_call("forward_forces", lambda: eng.forward_batch(mega_b), args.profile, card)
+        profile_call("train_step", lambda: step(b, i0 + 8, 1.0, ema), args.profile, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -499,11 +772,11 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-4 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.models.model import init_params, resolve_model
-    from xequinet_torch.run.inference import InferenceEngine
+    from xequinet_torch.run.inference import InferenceEngine, batch_to_device
 
     torch.set_num_threads(2)
     dps = build_molecules(12)
@@ -512,7 +785,7 @@ def rehearsal():
     p = message_problem(batch, "cpu", bn=bn, chunk=chunk)
     for mm in ("float32", "bfloat16"):
         out = plain_fwd(p, mm)
-        grads = plain_bwd(p, mm)
+        grads = plain_bwd(p, mm) + plain_bwd2(p, mm) + plain_bwd2(p, mm, p["cwf"])
         assert torch.isfinite(out).all() and all(torch.isfinite(t).all() for t in grads)
     kw = dict(FLAGSHIP_KW, action_blocks=1, pallas_layout=(bn, chunk, PAD_NODES, MAX_CHUNKS))
     module, extra, cutoff = resolve_model("xpainn", **kw)
@@ -534,11 +807,19 @@ def rehearsal():
     cotangent_scales(e, b)
     compare_outputs("f32 mega vs plain route on the CPU", *outs, len(dps),
                     sum(d.num_atoms for d in dps), 1e-4, F32_FORCE_TOL)
-    for (nbytes, flops), name in zip(kernel_costs(p, "bfloat16"), ("fwd", "bwd")):
+    # one tiny train step of bench.py's recipe through the plain versions
+    module, forward, step, ema = train_model(
+        "cpu", action_blocks=1, pallas_layout=(bn, chunk, PAD_NODES, MAX_CHUNKS))
+    tb = batch_to_device(batch, "cpu")
+    loss0, _ = model_grads(module, forward, tb)
+    loss, _ = step(tb, 0, 1.0, ema)
+    assert np.isfinite(float(loss)) and all(torch.isfinite(q).all() for q in module.parameters())
+    print(f"[rehearsal] one train step on the CPU: loss {float(loss):.6f}")
+    for (nbytes, flops), name in zip(kernel_costs(p, "bfloat16"), ("fwd", "bwd", "bwd2")):
         print(f"[rehearsal] message_{name} needs {nbytes / 1e6:.3f} MB, "
               f"{flops / 1e9:.4f} GFLOP at this size")
-    print(f"[rehearsal] {len(dps)} structures on the CPU: plain message op and "
-          f"predict ran (not a device result)")
+    print(f"[rehearsal] {len(dps)} structures on the CPU: plain message op, predict and "
+          f"a train step ran (not a device result)")
 
 
 if __name__ == "__main__":

@@ -1,17 +1,25 @@
 """The port's host data path (xequinet_torch.data, ops.radius_graph,
 ops.slot_layout) against the JAX package: neighbour lists compared as
-edge sets, and collate compared bit for bit on every key, including the
-kernel slot keys and a slot_cap tail."""
+edge sets, collate compared bit for bit on every key, including the
+kernel slot keys and a slot_cap tail, the XDB store read across the two
+packages byte for byte, the loader's batches bit for bit for one seed,
+and the unit transform."""
 
 import numpy as np
 import pytest
 
 from xequinet_tpu.data import batching as jb
+from xequinet_tpu.data import dataset as jds
+from xequinet_tpu.data import store as jstore
+from xequinet_tpu.data import transforms as jtf
 from xequinet_tpu.data.datapoint import Datapoint as JDatapoint
 from xequinet_tpu.data.transforms import NeighborTransform as JNeighborTransform
 from xequinet_tpu.ops import radius_graph as jrg
 from xequinet_tpu.ops.pallas_scatter_v2 import prepare_v2 as jprepare
 from xequinet_torch.data import batching as tb
+from xequinet_torch.data import dataset as tds
+from xequinet_torch.data import store as tstore
+from xequinet_torch.data import transforms as ttf
 from xequinet_torch.data.datapoint import Datapoint
 from xequinet_torch.data.transforms import NeighborTransform
 from xequinet_torch.ops import radius_graph as trg
@@ -128,3 +136,95 @@ def test_prepare_v2_matches(rng):
     for got, want in zip(prepare_v2(src, dst, n_pad, 16, 8, 16),
                          jprepare(src, dst, n_pad, 16, 8, 16)):
         np.testing.assert_array_equal(got, want)
+
+
+def _labelled_pair(rng, n, cell_every=0):
+    """The same structures as port and JAX Datapoints, with labels and an
+    extra field; every ``cell_every``-th one periodic."""
+    dps_t, dps_j = [], []
+    for i in range(n):
+        k = int(rng.integers(3, 9))
+        kw = dict(atomic_numbers=rng.integers(1, 9, k), pos=rng.normal(size=(k, 3)) * 1.5,
+                  energy=float(rng.normal()), forces=rng.normal(size=(k, 3)), charge=0,
+                  extras={"tag": np.arange(k, dtype=np.int32)})
+        if cell_every and i % cell_every == 0:
+            kw.update(cell=np.eye(3) * 6.0, pbc=np.array([True, True, False]),
+                      virial=rng.normal(size=(3, 3)))
+        dps_t.append(Datapoint(**kw))
+        dps_j.append(JDatapoint(**kw))
+    return dps_t, dps_j
+
+
+def _assert_same_datapoint(a, b):
+    for f in ("atomic_numbers", "pos", "pbc", "cell", "edge_index", "cell_offsets", "forces",
+              "virial", "charge", "spin", "energy"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=f)
+            assert np.asarray(x).dtype == np.asarray(y).dtype, f
+    assert sorted(a.extras) == sorted(b.extras)
+    for k in a.extras:
+        np.testing.assert_array_equal(a.extras[k], b.extras[k])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_xdb_store_read_across_packages(tmp_path, rng, writer):
+    """A dataset written by one package's create_dataset is read by the
+    other's XDBDataset field for field, and the two writers' files are
+    the same bytes."""
+    dps_t, dps_j = _labelled_pair(rng, 10, cell_every=3)
+    units = {"energy": "eV", "pos": "Angstrom"}
+    jstore.create_dataset(tmp_path / "j", dps_j, units=units)
+    tstore.create_dataset(tmp_path / "t", dps_t, units=units)
+    for f in ("data.xdb", "info.json", "split.json"):
+        assert (tmp_path / "j" / f).read_bytes() == (tmp_path / "t" / f).read_bytes(), f
+    src = tmp_path / ("j" if writer == "jax" else "t")
+    got = (tstore if writer == "jax" else jstore).XDBDataset(src, split="train")
+    want = (jstore if writer == "jax" else tstore).XDBDataset(src, split="train")
+    assert len(got) == len(want) == 8 and got.units == units
+    for i in range(len(want)):
+        _assert_same_datapoint(got[i], want[i])
+
+
+@pytest.mark.parametrize("layout", [None, {"block_nodes": 16, "chunk": 16, "pad_nodes": 16,
+                                           "max_chunks": 32}])
+def test_dataloader_batches_bit_for_bit(rng, layout):
+    """Shuffled by seed, capacity-packed, with the kernel slot layout at a
+    fixed slot_cap: the same batches as the JAX loader over two epochs,
+    the port's through its prefetch thread."""
+    dps_t, dps_j = _labelled_pair(rng, 30)
+    for a, b in zip(dps_t, dps_j):  # one edge list: the radius graphs order edges apart
+        a.edge_index = b.edge_index = jrg.radius_graph_np(b.pos, 5.0)[0].astype(np.int64)
+    ds_t, ds_j = tds.InMemoryDataset(dps_t), jds.InMemoryDataset(dps_j)
+    caps_t = tds.compute_capacities(ds_t, 6)
+    assert caps_t == jds.compute_capacities(ds_j, 6)
+    if layout:  # node capacity a multiple of block_nodes covering the window
+        caps_t["n_nodes"] = 64
+    lt = tds.DataLoader(ds_t, 6, capacities=dict(caps_t), shuffle=True, seed=3,
+                        kernel_layout=layout, prefetch=2)
+    lj = jds.DataLoader(ds_j, 6, capacities=dict(caps_t), shuffle=True, seed=3,
+                        kernel_layout=layout)
+    assert len(lt) == len(lj)
+    for epoch in (0, 1):
+        lt.set_epoch(epoch)
+        lj.set_epoch(epoch)
+        got, want = list(lt), list(lj)
+        assert len(got) == len(want) > 1
+        for a, b in zip(got, want):
+            _assert_same_batch(a, b)
+    assert tds.calculate_stats(ds_t, ["energy"]) == jds.calculate_stats(ds_j, ["energy"])
+
+
+def test_unit_transform_pipeline_matches(rng):
+    units = {"energy": "kcal/mol", "pos": "Bohr", "forces": "kcal/mol/Bohr"}
+    (a,), (b,) = _labelled_pair(rng, 1, cell_every=1)
+    got = ttf.build_transform_pipeline(data_units=units, cutoff=4.0)(a)
+    want = jtf.build_transform_pipeline(data_units=units, cutoff=4.0)(b)
+    assert got.energy == want.energy
+    for f in ("pos", "cell", "forces", "virial"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert _edge_set(got.edge_index, got.cell_offsets) == _edge_set(want.edge_index,
+                                                                   want.cell_offsets)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        ttf.build_transform_pipeline(base_targets=["energy"])

@@ -20,7 +20,11 @@ from xequinet_torch.models.model import init_params, resolve_model
 from xequinet_torch.ops import fused_message as fm
 from xequinet_torch.ops.irreps import Irreps
 from xequinet_torch.ops.radius_graph import radius_graph_np
-from xequinet_torch.run.inference import InferenceEngine
+from xequinet_torch.models.properties import make_forward
+from xequinet_torch.run.inference import InferenceEngine, batch_to_device
+from xequinet_torch.training.loss import ErrorMetric, WeightedLoss
+from xequinet_torch.training.lr_schedule import resolve_lr_schedule, resolve_optimizer
+from xequinet_torch.training.trainer import make_step_core
 
 CASES = [("16x0e+8x1o+4x2e", 8, 16), ("120x0e+24x1o", 8, 16),
          ("128x0e+64x1o+32x2e", 20, 128)]
@@ -129,23 +133,121 @@ def test_cuda_engine_refuses_batch_outside_kernel_layout(cuda_device):
     big = Datapoint(rng.integers(1, 9, 40), rng.normal(size=(40, 3)) * 2.0)
     fm.reset_launch_counts()
     eng.predict([small])
-    assert fm.LAUNCHES == {"message_fwd": 1, "message_bwd": 1}
+    assert fm.LAUNCHES == {"message_fwd": 1, "message_bwd": 1, "message_bwd2": 0}
     with pytest.raises(ValueError, match="slot layout"):
         eng.predict([small, big])
     with pytest.raises(ValueError, match="mega message route"):
         eng.forward_batch(collate([eng.transform(small), eng.transform(big)]))
 
 
+def _cotangents(p, seed=1, with_cwf=True):
+    """(cx, cef, cwf) on (dx, d_ef, d_wf), zero outside the entries the
+    model's autograd reaches (the kernel's contract: cef columns >= Kf,
+    cwf rows >= Kf and columns >= H)."""
+    irreps, nb, sd = p["statics"]
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, sd)
+    kf = nb + 1 + n_y
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rand = lambda t: torch.randn(t.shape, generator=gen).to(t.device)
+    cx, cef = rand(p["x"]), rand(p["ef"])
+    cef[:, kf:] = 0.0
+    cwf = None
+    if with_cwf:
+        cwf = torch.zeros_like(p["wf"])
+        cwf[:kf, :h] = rand(p["wf"])[:kf, :h]
+    return cx, cef, cwf
+
+
 @pytest.mark.gpu
-def test_cuda_second_order_raises(cuda_device):
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("with_cwf", [False, True])
+def test_cuda_bwd2_kernel_matches_plain(cuda_device, case, mm, rel, with_cwf):
+    p = _problem(cuda_device, *case)
+    m = p["meta"]
+    cots = _cotangents(p, with_cwf=with_cwf)
+    got = fm.message_bwd2_cuda(p["x"], p["ef"], p["wf"], p["g"], *cots, m, *p["statics"],
+                               p["n"], p["bn"], p["chunk"], mm)
+    want = fm.plain_message_bwd2(p["x"], p["ef"], p["wf"], p["g"], *cots, m[2], m[3],
+                                 p["mask"], *p["statics"], p["n"], getattr(torch, mm))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        _close(a, b, rel)
+    # padding slots and the slot_cap tail get zero d2ef rows
+    assert float(got[1][~p["mask"]].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_bwd2_kernel_repeats_bit_for_bit(cuda_device):
+    p = _problem(cuda_device, *CASES[0])
+    cots = _cotangents(p)
+    run = lambda: fm.message_bwd2_cuda(p["x"], p["ef"], p["wf"], p["g"], *cots,
+                                       p["meta"], *p["statics"], p["n"], p["bn"],
+                                       p["chunk"], "bfloat16")
+    for x, y in zip(run(), run()):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_cuda_grad_of_grad_runs_bwd2_kernel(cuda_device):
+    """Force-training shape on the card: grad-of-grad through
+    FusedMessage launches forward, backward and second-order kernels once
+    each and equals the double backward through the plain op."""
     p = _problem(cuda_device, *CASES[0])
     m = p["meta"]
-    x = p["x"].clone().requires_grad_()
-    out = fm.fused_message(x, p["ef"], p["wf"], m, p["mask"], *p["statics"], p["n"],
-                           p["bn"], p["chunk"], p["bn"] + 32, 64, "float32")
-    (gx,) = torch.autograd.grad(out.sum(), (x,))
-    assert torch.isfinite(gx).all()
-    out = fm.fused_message(x, p["ef"], p["wf"], m, p["mask"], *p["statics"], p["n"],
-                           p["bn"], p["chunk"], p["bn"] + 32, 64, "float32")
-    with pytest.raises(NotImplementedError):
-        torch.autograd.grad(out.sum(), (x,), create_graph=True)
+
+    def run(fn):
+        xx, ee, ww, gg = (a.clone().requires_grad_() for a in (p["x"], p["ef"], p["wf"],
+                                                                p["g"]))
+        out = fn(xx, ee, ww)
+        first = torch.autograd.grad((out * gg).sum(), (xx, ee), create_graph=True)
+        return torch.autograd.grad(sum((t ** 2).sum() for t in first), (xx, ee, ww, gg))
+
+    fm.reset_launch_counts()
+    got = run(lambda a, b, c: fm.fused_message(a, b, c, m, p["mask"], *p["statics"],
+                                               p["n"], p["bn"], p["chunk"], p["bn"] + 32,
+                                               64, "float32"))
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == {"message_fwd": 1, "message_bwd": 1, "message_bwd2": 1}
+    want = run(lambda a, b, c: fm.plain_message(a, b, c, m[2], m[3], p["mask"],
+                                                *p["statics"], p["n"]))
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_launches_all_three_kernels(cuda_device):
+    """One energy + force train step of a 3-block mega model on the card:
+    each message block launches its forward kernel once, its backward
+    twice (for the forces, and in the parameter-gradient pass) and its
+    second order once, 3 + 6 + 3 as the JAX package's step
+    (test_torch_training.py), and the loss and the updated parameters are
+    finite."""
+    kw = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
+              num_basis=8, action_blocks=3, output_modes=["energy"],
+              compute_dtype="bfloat16", update_compute_dtype="bfloat16",
+              use_pallas_scatter="mega", pallas_layout=(16, 16, 16, 64))
+    module, extra, _ = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    module = module.to(cuda_device)
+    rng = np.random.default_rng(0)
+    dps = []
+    for _ in range(6):
+        n = int(rng.integers(4, 10))
+        pos = rng.normal(size=(n, 3)) * 1.5
+        dps.append(Datapoint(rng.integers(1, 9, n), pos, edge_index=radius_graph_np(pos, 5.0)[0],
+                             energy=float(rng.normal()), forces=rng.normal(size=(n, 3))))
+    layout = {"block_nodes": 16, "chunk": 16, "pad_nodes": 16, "max_chunks": 64}
+    batch = batch_to_device(collate(dps, kernel_layout=layout), cuda_device)
+    params = list(module.parameters())
+    opt = resolve_optimizer("adamw", params)
+    step = make_step_core(make_forward(module, extra, create_graph=True),
+                          WeightedLoss("l2", energy=1.0, forces=10.0), params, opt,
+                          resolve_lr_schedule("cosine_annealing", 5e-4, 100, warmup_steps=10),
+                          True, False, 5.0, 0.999, ErrorMetric("energy", "forces"))
+    fm.reset_launch_counts()
+    loss, _ = step(batch, 0, 1.0, [p.detach().clone() for p in params])
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == {"message_fwd": 3, "message_bwd": 6, "message_bwd2": 3}
+    assert torch.isfinite(loss) and all(torch.isfinite(p).all() for p in params)

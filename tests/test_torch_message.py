@@ -1,9 +1,10 @@
 """The port's fused message op (xequinet_torch.ops.fused_message) against
 the JAX package: the plain forward against ``xla_reference``, the plain
-backward against ``jax.vjp`` of it, both against the JAX mega kernels in
-interpret mode (including the asymmetric-dims case), and the CUDA
-kernels' algorithm (index maps + CSR slot plan) emulated on the CPU.  The
-kernels themselves are held against their plain versions on a card by
+backward against ``jax.vjp`` of it, the plain second order (double VJP
+and closed form) against the JAX double VJP, all against the JAX mega
+kernels in interpret mode (including the asymmetric-dims case), and the
+CUDA kernels' algorithm (index maps + CSR slot plan) emulated on the CPU.
+The kernels themselves are held against their plain versions on a card by
 tests/test_torch_gpu.py.
 
 Tolerances: f32 1e-5 relative to the largest reference magnitude (sums in
@@ -21,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from tests.test_pallas_mega import _slot_problem
 from xequinet_tpu.ops.irreps import Irreps as JIrreps
 from xequinet_tpu.ops.pallas_message import (
+    _mega_bwd2_call,
     _mega_bwd_call,
     _mega_call,
     _structure_matrices,
@@ -237,3 +239,163 @@ def test_fused_message_autograd_cpu(rng):
                                                 *p["statics"], p["n"]))
     for a, b in zip(got, want):
         _close(a, b.detach(), 1e-5)
+
+
+def _cotangents(p, rng, live_only=False):
+    """Cotangents (cx, cef, cwf) on (dx, d_ef, d_wf).  ``live_only``: zero
+    outside the entries the model's autograd can reach (cef columns >= Kf,
+    cwf rows >= Kf and columns >= H), the contract of the CUDA kernel."""
+    irreps, nb, sd = p["statics"]
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, sd)
+    kf = nb + 1 + n_y
+    cx = rng.normal(size=p["x"].shape).astype(np.float32)
+    cef = rng.normal(size=p["ef"].shape).astype(np.float32)
+    cwf = rng.normal(size=p["wf"].shape).astype(np.float32)
+    if live_only:
+        cef[:, kf:] = 0.0
+        cwf[kf:] = 0.0
+        cwf[:, h:] = 0.0
+    return cx, cef, cwf
+
+
+@pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2)])
+def test_plain_message_bwd2_matches_jax(rng, dims):
+    """The plain second order (double VJP and closed form) against the JAX
+    double VJP of the XLA backward and against ``_mega_bwd2_call`` in
+    interpret mode, f32, on general cotangents."""
+    p = _problem(rng, *dims)
+    cots = _cotangents(p, rng)
+    j = lambda k: jnp.asarray(p[k])
+    n = p["n"]
+
+    def xla_bwd(x, e, w, gg):
+        fwd = lambda xx, ee, ww: xla_reference(xx, ee, ww, j("src_g"), j("dst_g"),
+                                               j("valid"), *dims, n)
+        return jax.vjp(fwd, x, e, w)[1](gg)
+
+    _, vjp2 = jax.vjp(xla_bwd, j("x"), j("ef"), j("wf"), j("g"))
+    want = vjp2(tuple(jnp.asarray(c) for c in cots))
+    statics = (*dims, n, p["bn"], p["chunk"], p["window"], p["mx"], "float32")
+    with pltpu.force_tpu_interpret_mode():
+        kern = _mega_bwd2_call(j("x"), j("ef"), j("wf"), j("g"),
+                               *(jnp.asarray(c) for c in cots), j("src2"), j("dst2"),
+                               j("cb"), j("nc"), j("ws"), *statics)
+    x, ef, wf, g, meta, valid = _t(p)
+    tc = [torch.as_tensor(c) for c in cots]
+    got = fm.plain_message_bwd2(x, ef, wf, g, *tc, meta[2], meta[3], valid, *dims, n)
+    closed = fm.message_bwd2_closed(x, ef, wf, g, *tc, meta[2], meta[3], valid, *dims, n)
+    for a, b, w, k in zip(got, closed, want, kern):
+        _close(a, w, 1e-5)
+        _close(b, w, 1e-5)
+        _close(a, k, 1e-5)
+        _close(b, a, 1e-5)
+
+
+def test_bwd2_closed_form_bf16_within_band(rng):
+    """bf16: the closed form (the TPU kernel's rounding points) against the
+    double VJP of the plain version (XLA's rounding points)."""
+    p = _problem(rng)
+    x, ef, wf, g, meta, valid = _t(p)
+    tc = [torch.as_tensor(c) for c in _cotangents(p, rng, live_only=True)]
+    args = (x, ef, wf, g, *tc, meta[2], meta[3], valid, *p["statics"], p["n"],
+            torch.bfloat16)
+    for a, b in zip(fm.message_bwd2_closed(*args), fm.plain_message_bwd2(*args)):
+        _close(a, b, 2e-2)
+
+
+def _emulate_bwd2(p, x, ef, wf, g, cx, cef, cwf, meta):
+    """``message_bwd2.cu``'s algorithm in f32 tensor ops: the slot plan's
+    CSR lists (d2g summed by destination, d2x by source, in plan order),
+    the index maps in place of the structure matrices, and only the live
+    rows / columns the kernel reads (Kw rows of wf, Kf columns of ef and
+    cef, Kf rows of cwf)."""
+    irreps, nb, sd = p["statics"]
+    ni = Irreps(irreps).num_irreps
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, sd)
+    kw, kf = nb + 1, nb + 1 + n_y
+    maps = {k: torch.as_tensor(v).long() for k, v in fm.index_maps(irreps, nb).items()}
+    lg, ly = maps["lane_gate"], maps["lane_ycol"]
+    plan = fm.build_slot_plan(meta, p["n"], x.shape[0], p["bn"], p["chunk"])
+    ok = plan["slot_dst"] >= 0
+    ks = torch.nonzero(ok)[:, 0]
+    s, i = plan["slot_src"].long()[ks], plan["slot_dst"].long()[ks]
+    e, c = ef[ks, :kf], cef[ks, :kf]
+    w = wf[:kw, :h]
+    fw = e[:, :kw] @ w
+    r = c[:, :kw] @ w + (0.0 if cwf is None else e @ cwf[:kf, :h])
+    xs, cxs, gm = x[s], cx[s], g[i]
+    gs, gv, cxh, cxv = xs[:, :h], xs[:, hp:hp + d], cxs[:, :h], cxs[:, hp:hp + d]
+    gms_v = gm[:, sdp:sdp + d]
+    fo = gs * fw
+    a = cxh * fw + r * gs
+    lane_sum = lambda v: torch.zeros(len(ks), ni).index_add_(1, lg, v)
+    dfo = torch.cat([lane_sum(gv * gms_v), lane_sum(e[:, ly] * gms_v), gm[:, :sd]], 1)
+    u = torch.cat([lane_sum(cxv * gms_v), lane_sum(c[:, ly] * gms_v),
+                   torch.zeros(len(ks), sd)], 1)
+    pos = torch.full((ok.numel(),), -1, dtype=torch.long)
+    pos[ks] = torch.arange(len(ks))
+    # d2g: the destination CSR walk
+    rows_g = torch.zeros(len(ks), sdp + dp)
+    rows_g[:, :sd] = a[:, 2 * ni:]
+    rows_g[:, sdp:sdp + d] = (gv * a[:, lg] + e[:, ly] * a[:, ni + lg] + cxv * fo[:, lg]
+                              + fo[:, ni + lg] * c[:, ly])
+    order = plan["dst_slots"].long()[: int(plan["dst_ptr"][-1])]
+    d2g = torch.zeros(p["n"], sdp + dp).index_add_(
+        0, plan["slot_dst"].long()[order], rows_g[pos[order]])
+    # d2x: the source CSR walk
+    rows_x = torch.zeros(len(ks), hp + dp)
+    rows_x[:, :h] = dfo * r + u * fw
+    rows_x[:, hp:hp + d] = gms_v * a[:, lg]
+    order = plan["src_slots"].long()[: int(plan["src_ptr"][-1])]
+    d2x = torch.zeros_like(x).index_add_(
+        0, plan["slot_src"].long()[order], rows_x[pos[order]])
+    # the slot kernel: d2ef rows, d2wf over all slots
+    dfw2, dfwr = dfo * cxh + u * gs, dfo * gs
+    d2ef = torch.zeros(ef.shape)
+    d2ef[ks, :kw] = dfw2 @ w.t()
+    harm = gms_v * a[:, ni + lg]
+    yp, yi = maps["ylane_ptr"], maps["ylane_idx"]
+    for y in range(n_y):
+        d2ef[ks, kw + y] = harm[:, yi[yp[y]:yp[y + 1]]].sum(1)
+    if cwf is not None:
+        d2ef[ks, :kf] += dfwr @ cwf[:kf, :h].t()
+    d2wf = torch.zeros(wf.shape)
+    d2wf[:kf, :h] = e.t() @ dfw2 + c.t() @ dfwr
+    return d2x, d2ef, d2wf, d2g
+
+
+@pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2)])
+@pytest.mark.parametrize("with_cwf", [False, True])
+def test_bwd2_kernel_algorithm_emulation_matches_plain(rng, dims, with_cwf):
+    p = _problem(rng, *dims)
+    x, ef, wf, g, meta, valid = _t(p)
+    cx, cef, cwf = (torch.as_tensor(c) for c in _cotangents(p, rng, live_only=True))
+    cwf = cwf if with_cwf else None
+    got = _emulate_bwd2(p, x, ef, wf, g, cx, cef, cwf, meta)
+    want = fm.plain_message_bwd2(x, ef, wf, g, cx, cef, cwf, meta[2], meta[3], valid,
+                                 *dims, p["n"])
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
+
+
+def test_fused_message_grad_of_grad_cpu(rng):
+    """Force-training shape on the CPU: the cotangent g itself depends on
+    the inputs, and the second-order grads w.r.t. x_cat, edge_feat, wf_aug
+    and g through FusedMessage (FusedMessageBwd on the CPU) equal the
+    double backward through plain_message."""
+    p = _problem(rng)
+    x, ef, wf, g, meta, valid = _t(p)
+    statics = (*p["statics"], p["n"], p["bn"], p["chunk"], p["window"], p["mx"], "float32")
+
+    def run(fn):
+        xx, ee, ww, gg = (a.clone().requires_grad_() for a in (x, ef, wf, g))
+        out = fn(xx, ee, ww)
+        first = torch.autograd.grad((out * gg).sum(), (xx, ee), create_graph=True)
+        loss = sum((t ** 2).sum() for t in first)
+        return torch.autograd.grad(loss, (xx, ee, ww, gg))
+
+    got = run(lambda a, b, c: fm.fused_message(a, b, c, meta, valid, *statics))
+    want = run(lambda a, b, c: fm.plain_message(a, b, c, meta[2], meta[3], valid,
+                                                *p["statics"], p["n"]))
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)

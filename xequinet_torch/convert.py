@@ -8,7 +8,9 @@
 * :func:`load_checkpoint` reads a checkpoint written by the JAX trainer
   (``xequinet_tpu/training/trainer.py:179-214``): a pickle whose
   ``"model"`` / ``"ema_model"`` entries are flax ``serialization.to_bytes``
-  msgpack and whose ``"config"`` is a plain dict.  It needs neither jax,
+  msgpack and whose ``"config"`` is a plain dict.  The port's trainer
+  writes the same keys with torch state_dicts in place of the msgpack
+  blobs; :func:`load_params` loads either kind.  It needs neither jax,
   flax nor the ``msgpack`` package: :func:`msgpack_restore` decodes the
   subset flax writes (maps, arrays, str, bin, ints, floats, nil, bools and
   the ext types 1 = ndarray, 2 = complex, 3 = numpy scalar, each ndarray
@@ -193,15 +195,26 @@ def load_flax_params(module: torch.nn.Module, tree: Dict) -> torch.nn.Module:
     return module
 
 
+def load_params(module: torch.nn.Module, tree: Dict) -> torch.nn.Module:
+    """Load either package's checkpointed parameters into ``module``
+    (strict): a torch state_dict (the port's checkpoints: flat, tensor
+    leaves) as it is, a flax tree (the JAX trainer's) through
+    :func:`params_from_flax`."""
+    if tree and all(torch.is_tensor(v) for v in tree.values()):
+        module.load_state_dict(tree, strict=True)
+        return module
+    return load_flax_params(module, tree)
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The JAX trainer's checkpoint with its parameter blobs decoded:
-    ``"model"`` / ``"ema_model"`` become nested dicts of numpy arrays,
-    ``"config"`` stays the plain dict."""
+    """Either trainer's checkpoint, with the JAX trainer's parameter blobs
+    decoded: its ``"model"`` / ``"ema_model"`` become nested dicts of numpy
+    arrays (the port's are state_dicts already); its ``"opt_state"`` stays
+    flax bytes; ``"config"`` is the plain dict."""
     with open(path, "rb") as f:
         blob = pickle.load(f)
     out = dict(blob)
     for key in ("model", "ema_model"):
         if key in out and isinstance(out[key], (bytes, bytearray)):
             out[key] = msgpack_restore(out[key])
-    out.pop("opt_state", None)
     return out

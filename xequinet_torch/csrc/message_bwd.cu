@@ -35,8 +35,8 @@
 //    element owned by one thread.  Shared memory is
 //    4 * (16 * (ni + H + Kf) + (Kf + Kw) * H) bytes, 168 KB at the flagship
 //    widths, so one block runs per SM; the wrapper launches one per SM.
-//  * message_bwd_dwf_reduce_kernel: the second pass, summing the per-block
-//    d_wf partials in block order.
+//  * xeq_dwf_reduce_kernel (message_common.cuh): the second pass, summing
+//    the per-block d_wf partials in block order.
 //
 // Padding slots (dst2 == BN) and slots past the covered chunk range
 // (slot_dst < 0 in the wrapper's plan) add nothing and get zero d_ef rows
@@ -54,36 +54,6 @@
 // Rounding in bf16 mode mirrors _bwd_kernel (:411-433): fo, dgv, drsh,
 // dgs and dfw are rounded to bf16; sums are f32.
 #include "message_common.cuh"
-
-// dfo at hidden column h for one slot: e = its staged edge-feature row
-// (shared memory, f32), gr = its g row, xr = its x row.  An irrep has at
-// most XEQ_MAXM lanes (the wrapper checks), so the lane loop is unrolled
-// with predicates and its loads issue together.
-template <typename T, bool BF16>
-__device__ __forceinline__ float dfo_at(int h, const float* e,
-                                        const T* __restrict__ gr,
-                                        const T* __restrict__ xr,
-                                        const int* __restrict__ gate_lane0,
-                                        const int* __restrict__ gate_dim,
-                                        const int* __restrict__ lane_ycol,
-                                        int ni, int hp, int sdp) {
-  if (h < 2 * ni) {
-    const bool state = h < ni;
-    const int u = state ? h : h - ni;
-    const int l0 = gate_lane0[u], m1 = gate_dim[u];
-    float acc = 0.f;
-#pragma unroll
-    for (int m = 0; m < XEQ_MAXM; ++m) {
-      if (m < m1) {
-        const int j = l0 + m;
-        const float a = state ? xeq_ld(xr, hp + j) : e[lane_ycol[j]];
-        acc += xeq_rnd<BF16>(a * xeq_ld(gr, sdp + j));
-      }
-    }
-    return acc;
-  }
-  return xeq_ld(gr, h - 2 * ni);
-}
 
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(128)
@@ -316,20 +286,6 @@ message_bwd_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
   for (int i = tid; i < kf * h_dim; i += nthr) part[i] = dwf_s[i];
 }
 
-__global__ void message_bwd_dwf_reduce_kernel(const float* __restrict__ part,
-                                              float* __restrict__ dwf,
-                                              int n_part, int kf, int h_dim,
-                                              int hp) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= XEQ_FPACK * hp) return;
-  const int f = i / hp, h = i - f * hp;
-  float acc = 0.f;
-  if (f < kf && h < h_dim) {
-    for (int p = 0; p < n_part; ++p) acc += part[((int64_t)p * kf + f) * h_dim + h];
-  }
-  dwf[i] = acc;
-}
-
 template <typename T, bool BF16>
 static int launch_bwd(const void* x, const void* ef, const void* wf,
                       const void* g, const void* src_ptr,
@@ -370,7 +326,7 @@ static int launch_bwd(const void* x, const void* ef, const void* wf,
       (float*)dwf_part, n_slots, per, ni, h_dim, hp, dp, sdp, kw, kf);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  message_bwd_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
+  xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
       (const float*)dwf_part, (float*)dwf, n_part, kf, h_dim, hp);
   return (int)cudaGetLastError();
 }

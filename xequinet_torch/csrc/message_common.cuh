@@ -1,5 +1,5 @@
 // Shared helpers of the fused XPaiNN message kernels (message_fwd.cu,
-// message_bwd.cu).  Plain C entry points, built by nvcc for sm_90a into
+// message_bwd.cu, message_bwd2.cu).  Plain C entry points, built by nvcc for sm_90a into
 // shared libraries that xequinet_torch/ops/fused_message.py loads with
 // ctypes.
 #pragma once
@@ -85,4 +85,66 @@ __device__ __forceinline__ void xeq_load_column(const T* __restrict__ wf,
   for (int f = 0; f < XEQ_MAXK; ++f) {
     w[f] = (h >= 0 && f < kw) ? xeq_ld(wf, (int64_t)f * hp + h) : 0.f;
   }
+}
+
+// Sum over the lanes j of irrep u of rnd(a_j * gr[sdp + j]), with a_j the
+// row ar's vector lane (ar[hp + j], state gate) or the staged edge-feature
+// row's harmonic column (e[lane_ycol[j]], harmonic gate).  An irrep has at
+// most XEQ_MAXM lanes (the wrapper checks), so the lane loop is unrolled
+// with predicates and its loads issue together.
+template <typename T, bool BF16>
+__device__ __forceinline__ float xeq_gate_sum(bool state, int u, const float* e,
+                                              const T* __restrict__ ar,
+                                              const T* __restrict__ gr,
+                                              const int* __restrict__ gate_lane0,
+                                              const int* __restrict__ gate_dim,
+                                              const int* __restrict__ lane_ycol,
+                                              int hp, int sdp) {
+  const int l0 = gate_lane0[u], m1 = gate_dim[u];
+  float acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < XEQ_MAXM; ++m) {
+    if (m < m1) {
+      const int j = l0 + m;
+      const float a = state ? xeq_ld(ar, hp + j) : e[lane_ycol[j]];
+      acc += xeq_rnd<BF16>(a * xeq_ld(gr, sdp + j));
+    }
+  }
+  return acc;
+}
+
+// dfo at hidden column h for one slot (the cotangent of filter_out): e =
+// its staged edge-feature row (shared memory, f32), gr = its g row, xr =
+// its x row.
+template <typename T, bool BF16>
+__device__ __forceinline__ float dfo_at(int h, const float* e,
+                                        const T* __restrict__ gr,
+                                        const T* __restrict__ xr,
+                                        const int* __restrict__ gate_lane0,
+                                        const int* __restrict__ gate_dim,
+                                        const int* __restrict__ lane_ycol,
+                                        int ni, int hp, int sdp) {
+  if (h < 2 * ni) {
+    const bool state = h < ni;
+    return xeq_gate_sum<T, BF16>(state, state ? h : h - ni, e, xr, gr, gate_lane0,
+                                 gate_dim, lane_ycol, hp, sdp);
+  }
+  return xeq_ld(gr, h - 2 * ni);
+}
+
+// Second pass of a filter-weight gradient: the sum of the per-block
+// partials part [n_part, kf, h_dim] in block order into dwf [128, hp]
+// (zero outside the live rows and columns).  No float atomics, so the
+// result repeats from run to run.
+static __global__ void xeq_dwf_reduce_kernel(const float* __restrict__ part,
+                                             float* __restrict__ dwf, int n_part,
+                                             int kf, int h_dim, int hp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= XEQ_FPACK * hp) return;
+  const int f = i / hp, h = i - f * hp;
+  float acc = 0.f;
+  if (f < kf && h < h_dim) {
+    for (int p = 0; p < n_part; ++p) acc += part[((int64_t)p * kf + f) * h_dim + h];
+  }
+  dwf[i] = acc;
 }

@@ -222,8 +222,6 @@ def collate(
         out[keys.CELL_OFFSETS] = cell_offsets
     for k, v in extras_out.items():
         out[k] = v
-    if kernel_layout is not None:
-        out = _apply_kernel_layout(out, kernel_layout)
     if has["charge"]:
         out[keys.TOTAL_CHARGE] = charge
     if has["spin"]:
@@ -240,6 +238,11 @@ def collate(
         out[keys.DIPOLE] = dipole
     if has["polar"]:
         out[keys.POLARIZABILITY] = polar
+    # after the labels, so that its node re-pad covers the node-level ones
+    # (the JAX package applies it before them, and its forces label then
+    # keeps the un-padded row count when the layout re-pads the nodes)
+    if kernel_layout is not None:
+        out = _apply_kernel_layout(out, kernel_layout)
     return out
 
 

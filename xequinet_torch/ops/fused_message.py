@@ -3,10 +3,12 @@ block, as hand-written CUDA kernels for Hopper with plain PyTorch beside
 them.
 
 Port of ``xequinet_tpu/ops/pallas_message.py``: ``_kernel`` (:177, via
-``_mega_call`` :264-325) becomes ``csrc/message_fwd.cu`` and
-``_bwd_kernel`` (:331, via ``_mega_bwd_call`` :458-557) becomes
-``csrc/message_bwd.cu``; the source notes there say what bounds each on
-the H100 and what the design does about it.  Per slot (a padded edge of
+``_mega_call`` :264-325) becomes ``csrc/message_fwd.cu``, ``_bwd_kernel``
+(:331, via ``_mega_bwd_call`` :458-557) becomes ``csrc/message_bwd.cu``
+and ``_bwd2_kernel`` (:563, via ``_mega_bwd2_call`` :770-879), the
+second order that force training runs, becomes ``csrc/message_bwd2.cu``;
+the source notes there say what bounds each on the H100 and what the
+design does about it.  Per slot (a padded edge of
 the block-aligned layout of ``ops/slot_layout.py``):
 
     fw        = ef @ Wf_aug                  [Hp]   radial filter
@@ -48,11 +50,12 @@ F_PACK = 128  # packed edge-feature width
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = {"message_fwd": "message_fwd.cu", "message_bwd": "message_bwd.cu"}
+_SOURCES = {"message_fwd": "message_fwd.cu", "message_bwd": "message_bwd.cu",
+            "message_bwd2": "message_bwd2.cu"}
 _HEADERS = ("message_common.cuh",)
 
 # launches of each CUDA kernel wrapper (one per wrapper call that launched)
-LAUNCHES: Dict[str, int] = {"message_fwd": 0, "message_bwd": 0}
+LAUNCHES: Dict[str, int] = {"message_fwd": 0, "message_bwd": 0, "message_bwd2": 0}
 # per source: {"seconds": nvcc wall time, "ptxas": registers / smem report}
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -236,6 +239,98 @@ def plain_message_bwd(
         return torch.autograd.grad(out, ins, g, create_graph=create_graph)
 
 
+def plain_message_bwd2(
+    x_cat, edge_feat, wf_aug, g, cx, cef, cwf, src_g, dst_g, edge_mask,
+    irreps_str, num_basis, node_dim, n_out, compute_dtype=torch.float32,
+    create_graph: bool = False,
+):
+    """(d2x_cat, d2_edge_feat, d2_wf_aug, d2g): the VJP of
+    :func:`plain_message_bwd` w.r.t. (x_cat, edge_feat, wf_aug, g) for the
+    cotangents (cx, cef, cwf) on its outputs, ``None`` meaning zero.  Port
+    of ``_fmb_bwd``'s double VJP of the XLA backward
+    (pallas_message.py:1032-1047)."""
+    cots = (cx, cef, cwf)
+    with torch.enable_grad():
+        ins = [
+            t if (create_graph and t.requires_grad) else t.detach().requires_grad_()
+            for t in (x_cat, edge_feat, wf_aug, g)
+        ]
+        outs = plain_message_bwd(
+            *ins, src_g, dst_g, edge_mask, irreps_str, num_basis, node_dim,
+            n_out, compute_dtype, create_graph=True,
+        )
+        used = [(o, c) for o, c in zip(outs, cots) if c is not None]
+        grads = [None] * 4
+        if used:
+            grads = torch.autograd.grad(
+                [o for o, _ in used], ins, [c for _, c in used],
+                create_graph=create_graph, allow_unused=True,
+            )
+    return tuple(torch.zeros_like(t) if d is None else d for t, d in zip(ins, grads))
+
+
+def message_bwd2_closed(
+    x_cat, edge_feat, wf_aug, g, cx, cef, cwf, src_g, dst_g, edge_mask,
+    irreps_str, num_basis, node_dim, n_out, compute_dtype=torch.float32,
+):
+    """The same second order in closed form, as ``_bwd2_kernel`` computes it
+    (pallas_message.py:591-610): per slot, with fw = ef@W, [gs|gv] = x[src],
+    fo = gs*fw, g1|g2 = fo@E1|E2, rsh = ef@BY, gms = g[dst] and
+    dfo = (gv*gms_v)@E1' + (rsh*gms_v)@E2' + gms_s@MS',
+
+        R  = cef@W + ef@cwf,  A = cxh*fw + R*gs,
+        U  = (cxv*gms_v)@E1' + ((cef@BY)*gms_v)@E2',
+        d2g[dst]  += [A@MS | gv*(A@E1) + rsh*(A@E2) + cxv*g1 + g2*(cef@BY)]
+        d2x[src]  += [dfo*R + U*fw | gms_v*(A@E1)]
+        d2ef       = (dfo*cxh + U*gs)@W' + (gms_v*(A@E2))@BY' + (dfo*gs)@cwf'
+        d2wf      += ef'@(dfo*cxh + U*gs) + cef'@(dfo*gs)
+
+    In bf16 ``compute_dtype`` it rounds where the TPU kernel rounds (the
+    operands, fo, dfo's and U's products, A, the d2x / d2g rows and the
+    two fw cotangents); sums are f32.  ``None`` cotangents are zero.  The
+    CUDA kernel follows this form; the tests hold it against
+    :func:`plain_message_bwd2`."""
+    e1, e2, ms, by, (h, hp, d, dp, sdp, n_y) = structure_matrices(
+        irreps_str, num_basis, node_dim
+    )
+    dev = x_cat.device
+    cd = compute_dtype
+    rnd = lambda t: t.to(cd).float()
+    mat = lambda a: torch.as_tensor(a, device=dev)
+    e1, e2, ms, by = mat(e1), mat(e2), mat(ms), mat(by)
+    zero_or = lambda t, like: torch.zeros_like(like) if t is None else t
+    cx, cef, cwf = zero_or(cx, x_cat), zero_or(cef, edge_feat), zero_or(cwf, wf_aug)
+    x, ef, wf, gq = rnd(x_cat), rnd(edge_feat), rnd(wf_aug), rnd(g)
+    cx, cef, cwf = rnd(cx), rnd(cef), rnd(cwf)
+    src, dst = src_g.long(), dst_g.long()
+    valid = edge_mask[:, None]
+    gm = torch.where(valid, gq[dst], torch.zeros((), device=dev))
+    gms_s, gms_v = gm[:, :sdp], gm[:, sdp:]
+    xs, cxs = x[src], cx[src]
+    gs, gv, cxh, cxv = xs[:, :hp], xs[:, hp:], cxs[:, :hp], cxs[:, hp:]
+    fw, rsh = ef @ wf, ef @ by
+    fo = rnd(gs * fw)
+    g1, g2 = fo @ e1, fo @ e2
+    dfo = rnd(gv * gms_v) @ e1.t() + rnd(rsh * gms_v) @ e2.t() + gms_s @ ms.t()
+    cefby = cef @ by
+    r_cot = cef @ wf + ef @ cwf
+    a_cot = rnd(cxh * fw + r_cot * gs)
+    ae1, ae2, ams = a_cot @ e1, a_cot @ e2, a_cot @ ms
+    u_cot = rnd(cxv * gms_v) @ e1.t() + rnd(cefby * gms_v) @ e2.t()
+    dfw2 = rnd(dfo * cxh + u_cot * gs)
+    dfwr = rnd(dfo * gs)
+    d2ef = dfw2 @ wf.t() + rnd(gms_v * ae2) @ by.t() + dfwr @ cwf.t()
+    d2wf = ef.t() @ dfw2 + cef.t() @ dfwr
+    d2x_rows = torch.cat([rnd(dfo * r_cot + u_cot * fw), rnd(gms_v * ae1)], dim=-1)
+    d2x = torch.zeros_like(x).index_add(0, src, d2x_rows)
+    d2g_rows = torch.cat(
+        [rnd(ams), rnd(gv * ae1 + rsh * ae2 + cxv * g1 + g2 * cefby)], dim=-1
+    )
+    d2g_rows = torch.where(valid, d2g_rows, torch.zeros((), device=dev))
+    d2g = torch.zeros((n_out, sdp + dp), device=dev).index_add(0, dst, d2g_rows)
+    return d2x, d2ef, d2wf, d2g
+
+
 # ---------------------------------------------------------------------------
 # Slot plan: the CSR lists by destination and by source the kernels walk
 # ---------------------------------------------------------------------------
@@ -335,6 +430,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "message_fwd": ("xeq_message_fwd", [_P] * 10 + [_I] * 10 + [_P]),
     "message_bwd": ("xeq_message_bwd", [_P] * 18 + [_I] * 12 + [_P]),
+    "message_bwd2": ("xeq_message_bwd2", [_P] * 24 + [_I] * 15 + [_P]),
 }
 
 
@@ -446,6 +542,72 @@ def message_bwd_cuda(
     return dx, d_ef, d_wf
 
 
+def message_bwd2_cuda(
+    x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta,
+    irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d2x_cat, d2_edge_feat, d2_wf_aug, d2g), f32, by
+    ``csrc/message_bwd2.cu``: the VJP of :func:`message_bwd_cuda` for the
+    cotangents (cx, cef, cwf).
+
+    A ``None`` cx or cef is materialized as zeros; a ``None`` cwf (force
+    training: ``wf_aug`` is not on the path to the positions) selects the
+    kernel's specialization without the cwf terms.  As for the operands
+    (``edge_feat`` columns >= Kf and ``wf_aug`` rows >= Kw are zero), the
+    kernel takes the cotangents the model hands it: ``cef`` columns >= Kf
+    and ``cwf`` rows >= Kf are zero, because ``pack_edge_features`` and the
+    ``wf_aug`` probe pad those entries with constants."""
+    if not x_cat.is_cuda:
+        raise ValueError("message_bwd2_cuda takes CUDA tensors")
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    mm = _mm_dtype(mm_dtype)
+    dev = x_cat.device
+    n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
+    if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
+        raise ValueError("fused message: operand shapes do not match the irreps")
+    if g.shape != (n_out, sdp + dp):
+        raise ValueError("fused message: g must be [n_out, SDp + Dp]")
+    cx = torch.zeros_like(x_cat) if cx is None else cx
+    cef = torch.zeros_like(edge_feat) if cef is None else cef
+    if cx.shape != x_cat.shape or cef.shape != edge_feat.shape or (
+            cwf is not None and cwf.shape != wf_aug.shape):
+        raise ValueError("fused message: cotangent shapes do not match the operands")
+    cast = lambda t: t.to(mm).contiguous()
+    xk, efk, wfk, gk, cxk, cefk = map(cast, (x_cat, edge_feat, wf_aug, g, cx, cef))
+    cwfk = None if cwf is None else cast(cwf)
+    plan = _plan(slot_meta, n_out, n_rows, block_nodes, chunk)
+    maps = _device_maps(irreps_str, num_basis, dev)
+    n_part = torch.cuda.get_device_properties(dev).multi_processor_count
+    f32 = dict(dtype=torch.float32, device=dev)
+    d2x = torch.empty((n_rows, hp + dp), **f32)
+    d2ef = torch.empty((t_slots, F_PACK), **f32)
+    d2wf_part = torch.empty((n_part, kf, h), **f32)
+    d2wf = torch.empty((F_PACK, hp), **f32)
+    d2g = torch.empty((n_out, sdp + dp), **f32)
+    _check_cuda(xk, efk, wfk, gk, cxk, cefk, plan["dst_ptr"], plan["src_ptr"], d2x,
+                *(() if cwfk is None else (cwfk,)))
+    fn = _fn("message_bwd2")
+    err = fn(
+        xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), gk.data_ptr(),
+        cxk.data_ptr(), cefk.data_ptr(), None if cwfk is None else cwfk.data_ptr(),
+        plan["dst_ptr"].data_ptr(), plan["dst_slots"].data_ptr(),
+        plan["src_ptr"].data_ptr(), plan["src_slots"].data_ptr(),
+        plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(),
+        maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
+        maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
+        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(),
+        d2x.data_ptr(), d2ef.data_ptr(), d2wf_part.data_ptr(), d2wf.data_ptr(),
+        d2g.data_ptr(),
+        n_out, n_rows, t_slots, n_part, ni, node_dim, h, hp, d, dp, sdp, kw, kf,
+        int(mm == torch.bfloat16), int(cwfk is not None),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"message_bwd2 launch failed: CUDA error {err}")
+    LAUNCHES["message_bwd2"] += 1
+    return d2x, d2ef, d2wf, d2g
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and autograd
 # ---------------------------------------------------------------------------
@@ -468,6 +630,26 @@ def message_forward(
     )
 
 
+def message_backward(
+    x_cat, edge_feat, wf_aug, g, slot_meta, edge_mask,
+    irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
+):
+    """The op's first-order VJP (dx, d_ef, d_wf) in the operands' dtypes:
+    the backward kernel for CUDA tensors, the plain VJP for CPU tensors."""
+    if x_cat.is_cuda:
+        dx, d_ef, d_wf = message_bwd_cuda(
+            x_cat, edge_feat, wf_aug, g.contiguous(), slot_meta, irreps_str,
+            num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
+        )
+        return dx.to(x_cat.dtype), d_ef.to(edge_feat.dtype), d_wf.to(wf_aug.dtype)
+    if x_cat.device.type != "cpu":
+        raise NotImplementedError(f"fused message on {x_cat.device}")
+    return plain_message_bwd(
+        x_cat, edge_feat, wf_aug, g, slot_meta[2], slot_meta[3], edge_mask,
+        irreps_str, num_basis, node_dim, n_out, _mm_dtype(mm_dtype),
+    )
+
+
 class FusedMessage(torch.autograd.Function):
     """Shaped like ``fused_message`` (pallas_message.py:914-975):
     arguments (x_cat, edge_feat, wf_aug, slot_meta, edge_mask, irreps_str,
@@ -475,16 +657,17 @@ class FusedMessage(torch.autograd.Function):
     mm_dtype, kernel_bwd).  ``slot_meta`` = (src2, dst2, src_global,
     dst_global, chunk_base, n_chunks, window_starts[, slot plan]).
 
-    Backward: the backward kernel on CUDA, the plain VJP on CPU.  On CUDA
-    a second-order use (``create_graph=True``) raises: its kernel
-    (``_bwd2_kernel``) belongs to the training slice."""
+    Backward: the backward kernel on CUDA, the plain VJP on CPU.  Under
+    ``create_graph=True`` (force training) the backward is itself the
+    differentiable :class:`FusedMessageBwd`, whose backward is the
+    second-order kernel."""
 
     @staticmethod
     def forward(ctx, x_cat, edge_feat, wf_aug, slot_meta, edge_mask,
                 irreps_str, num_basis, node_dim, n_out, block_nodes, chunk,
                 window, max_chunks, mm_dtype, kernel_bwd):
         ctx.statics = (irreps_str, num_basis, node_dim, n_out, block_nodes,
-                       chunk, window, max_chunks, mm_dtype, kernel_bwd)
+                       chunk, mm_dtype, kernel_bwd)
         ctx.slot_meta = slot_meta
         ctx.save_for_backward(x_cat, edge_feat, wf_aug, edge_mask)
         return message_forward(
@@ -495,33 +678,63 @@ class FusedMessage(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x_cat, edge_feat, wf_aug, edge_mask = ctx.saved_tensors
-        (irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, window,
-         max_chunks, mm_dtype, kernel_bwd) = ctx.statics
+        *statics, kernel_bwd = ctx.statics
+        if x_cat.is_cuda and not kernel_bwd:
+            raise NotImplementedError(
+                "the plain backward does not run on the card; use kernel_bwd"
+            )
+        # a differentiable function of (x_cat, edge_feat, wf_aug, g): under
+        # create_graph=True autograd records it, and its backward is the
+        # second order
+        dx, d_ef, d_wf = FusedMessageBwd.apply(x_cat, edge_feat, wf_aug, g, ctx.slot_meta,
+                                               edge_mask, *statics)
+        return (dx, d_ef, d_wf) + (None,) * 12
+
+
+class FusedMessageBwd(torch.autograd.Function):
+    """Shaped like ``fused_message_bwd`` (pallas_message.py:978-1050): the
+    first-order VJP (dx, d_ef, d_wf) of the op as a differentiable
+    function of (x_cat, edge_feat, wf_aug, g).  Forward: the backward
+    kernel on CUDA, the plain VJP on CPU.  Backward: the second-order
+    kernel (``csrc/message_bwd2.cu``) on CUDA, :func:`plain_message_bwd2`
+    on CPU; unused output cotangents arrive as ``None`` and count as zero.
+    A third order has no kernel and raises on CUDA."""
+
+    @staticmethod
+    def forward(ctx, x_cat, edge_feat, wf_aug, g, slot_meta, edge_mask,
+                irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype):
+        ctx.set_materialize_grads(False)
+        ctx.statics = (irreps_str, num_basis, node_dim, n_out, block_nodes,
+                       chunk, mm_dtype)
+        ctx.slot_meta = slot_meta
+        ctx.save_for_backward(x_cat, edge_feat, wf_aug, g, edge_mask)
+        return message_backward(x_cat, edge_feat, wf_aug, g, slot_meta, edge_mask,
+                                *ctx.statics)
+
+    @staticmethod
+    def backward(ctx, cx, cef, cwf):
+        x_cat, edge_feat, wf_aug, g, edge_mask = ctx.saved_tensors
+        (irreps_str, num_basis, node_dim, n_out, block_nodes, chunk,
+         mm_dtype) = ctx.statics
         sm = ctx.slot_meta
         if x_cat.is_cuda:
             if torch.is_grad_enabled():
                 raise NotImplementedError(
-                    "second-order gradients through the fused message kernel "
-                    "need its second-order kernel (_bwd2_kernel), which comes "
-                    "with the training slice"
+                    "third-order gradients through the fused message op have "
+                    "no kernel"
                 )
-            if not kernel_bwd:
-                raise NotImplementedError(
-                    "the plain backward does not run on the card; use kernel_bwd"
-                )
-            dx, d_ef, d_wf = message_bwd_cuda(
-                x_cat, edge_feat, wf_aug, g.contiguous(), sm, irreps_str,
+            d2 = message_bwd2_cuda(
+                x_cat, edge_feat, wf_aug, g, cx, cef, cwf, sm, irreps_str,
                 num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
             )
-            dx, d_ef, d_wf = (dx.to(x_cat.dtype), d_ef.to(edge_feat.dtype),
-                              d_wf.to(wf_aug.dtype))
+            d2 = tuple(t.to(like.dtype) for t, like in zip(d2, (x_cat, edge_feat, wf_aug, g)))
         else:
-            dx, d_ef, d_wf = plain_message_bwd(
-                x_cat, edge_feat, wf_aug, g, sm[2], sm[3], edge_mask,
+            d2 = plain_message_bwd2(
+                x_cat, edge_feat, wf_aug, g, cx, cef, cwf, sm[2], sm[3], edge_mask,
                 irreps_str, num_basis, node_dim, n_out, _mm_dtype(mm_dtype),
                 create_graph=torch.is_grad_enabled(),
             )
-        return (dx, d_ef, d_wf) + (None,) * 12
+        return tuple(d2) + (None,) * 9
 
 
 def fused_message(x_cat, edge_feat, wf_aug, slot_meta, edge_mask,

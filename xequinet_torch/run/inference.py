@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .. import keys
-from ..convert import load_checkpoint, load_flax_params
+from ..convert import load_checkpoint, load_params
 from ..data.batching import (
     bucket_capacity,
     collate,
@@ -41,14 +41,15 @@ def resolve_device(device=None) -> torch.device:
 
 def load_model_from_checkpoint(ckpt_file: str, use_ema: bool = True):
     """Rebuild the model from the checkpoint's embedded config and load
-    its (EMA) weights.  Returns (module, extra, cutoff, blob, config)."""
+    its (EMA) weights, from either package's trainer.  Returns (module,
+    extra, cutoff, blob, config)."""
     blob = load_checkpoint(ckpt_file)
     model_config = blob["config"]
     module, extra, cutoff = resolve_model(
         model_config["model_name"], **model_config["model_kwargs"]
     )
     key = "ema_model" if (use_ema and "ema_model" in blob) else "model"
-    load_flax_params(module, blob[key])
+    load_params(module, blob[key])
     return module, extra, cutoff, blob, model_config
 
 
