@@ -2,39 +2,50 @@
 
     python3 chip_smoke.py                  # on a machine with a CUDA card
     python3 chip_smoke.py --profile DIR    # also trace forward+forces and a
-                                           # train step with torch.profiler
+                                           # train step of each route with
+                                           # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
                                            # with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
   2. build: nvcc builds every kernel from xequinet_torch/csrc (sm_90a),
-     one process per source, started together; prints seconds and the
-     ptxas register / shared-memory report.
+     one process per source (five), started together; prints seconds and
+     the ptxas register / shared-memory report.
   3. kernel vs plain: a bench-shaped batch (bench.py build_batch recipe,
      rng 1234, 1024 molecules of 12-28 atoms, BN 512, chunk 512, pad 32),
      flagship widths, f32 and bf16: the forward kernel against its plain
      version, the backward kernel against the plain VJP on dx, d_ef, d_wf,
      the second-order kernel against the plain double VJP on d2x, d2ef,
-     d2wf, d2g, with no cotangent on d_wf (force training) and a random one.
+     d2wf, d2g, with no cotangent on d_wf (force training) and a random one;
+     the v2 gather-scale-scatter at the model's call on the same slots (x
+     [24576, 480] f32, w2 on every slot in f32 and in bf16); the v1 one at
+     bench_kernels.py run's shape (n 16384, e 163840, d 480, bn 256) with
+     [E, D] and [E, 1] weights, and the v1 op's entry point forward and
+     backward (one launch).
   4. inference: flagship XPaiNN (FLAGSHIP_KW of bench.py, seeded weights)
      served by InferenceEngine.predict on the card through the kernels:
-     launch counts (3 + 3 + 0 per predict with forces, 3 + 0 + 0 energy
-     only), finite outputs, agreement with the plain route on the card
-     (bf16: energies and mean |F|; f32: also every force component), and in
-     f32 the plain route on the CPU as a second reference.
+     on the mega route 3 + 3 + 0 message launches per predict with forces,
+     3 + 0 + 0 energy only; on the v2 route (use_pallas_scatter=True) 3 v2
+     launches either way; finite outputs, agreement with the plain route on
+     the card (bf16: energies and mean |F|; f32: also every force
+     component), and in f32 the plain route on the CPU as a second reference.
   5. training: flagship XPaiNN at full width and depth trains on the same
      batch (bench.py's recipe: {energy: 1, forces: 10} l2, AdamW, cosine
-     schedule with warmup, grad clip 5.0, EMA 0.999): 3 + 6 + 3 launches per
-     step, finite loss and gradients, a falling loss over 20 steps; one f32
-     step on the kernel route against one on the plain route from the same
-     weights; then run_train from an overrides dict on an XDB dataset of
-     bench-recipe molecules it writes to a temporary directory, 2 epochs on
-     the kernels, its last checkpoint served by InferenceEngine.
+     schedule with warmup, grad clip 5.0, EMA 0.999): on the mega route 3 +
+     6 + 3 launches per step and a falling loss over 20 steps, on the v2
+     route 3 v2 launches per step and a falling loss over 10; finite loss
+     and gradients; one f32 step on each kernel route against one on the
+     plain route from the same weights; then run_train from an overrides
+     dict on an XDB dataset of bench-recipe molecules it writes to a
+     temporary directory, 2 epochs on the mega kernels, its last checkpoint
+     served by InferenceEngine.
   6. times on the card (CUDA events): each kernel and its plain version,
-     the bound (bytes and operations the function needs on this batch),
-     the predict wall time and edges/s, the flagship train step's ms,
-     edges/s and peak memory.
+     the bound (bytes and operations the function needs on these inputs),
+     the library yardstick where one PyTorch call computes the same
+     function (torch.sparse.mm for the v1 op at an [E, 1] weight), each
+     route's device forward+forces, the mega predict wall time and
+     edges/s, each route's train step ms, edges/s and peak memory.
 Then one JSON line with the kernels, the card line, and last the device
 JSON line.  It imports nothing of JAX or of the JAX package.
 """
@@ -44,6 +55,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -56,6 +68,9 @@ FLAGSHIP_KW = dict(
     use_pallas_scatter="mega",
 )
 BN, CHUNK, PAD_NODES, MAX_CHUNKS = 512, 512, 32, 64
+MESSAGE_KERNELS = ("message_fwd", "message_bwd", "message_bwd2")
+# the v2 route (use_pallas_scatter=True) of the same model
+V2 = {"use_pallas_scatter": True}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 pipes,
 # HBM3 bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -260,6 +275,199 @@ def phase_kernels(batch, device):
     return p, abs_err
 
 
+def v2_problem(batch, device, seed=11):
+    """The v2 kernel's call in the flagship model on the batch's slots: x
+    [n, D] f32 (the equivariant state), w2 [T, D] random on every slot
+    (padding and tail slots add nothing however large their weight), in
+    f32 (the model's) and bf16 (bench_kernels.py make_v2(bfloat16)); the
+    slot plan built once, as the first message block builds it."""
+    from xequinet_torch import keys
+    from xequinet_torch.ops import gather_scatter_v2 as gs2
+    from xequinet_torch.ops.irreps import Irreps
+    from xequinet_torch.ops.slot_layout import window_size
+
+    d = Irreps(FLAGSHIP_KW["node_irreps"]).dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n, t = batch[keys.POSITIONS].shape[0], batch[keys.EDGE_MASK].shape[0]
+    tt = lambda a: torch.as_tensor(a, device=device)
+    x = torch.randn((n, d), generator=gen, device=device)
+    w2 = torch.randn((t, d), generator=gen, device=device)
+    args = tuple(tt(batch[k]) for k in (keys.K_SRC2, keys.K_DST2, keys.K_CHUNK_BASE,
+                                        keys.K_NCHUNKS, keys.K_WSTARTS))
+    args += (n, BN, CHUNK, window_size(BN, PAD_NODES), MAX_CHUNKS)
+    return dict(x=x, w2={"float32": w2, "bfloat16": w2.to(torch.bfloat16)}, args=args,
+                plan=gs2.v2_slot_plan(*args[:5], n, n, BN, CHUNK), n=n, d=d,
+                n_atoms=int(batch[keys.NODE_MASK].sum()), n_e=int(batch[keys.EDGE_MASK].sum()))
+
+
+def v2_kernel(p, wdt):
+    from xequinet_torch.ops import gather_scatter_v2 as gs2
+
+    return gs2.gather_scale_scatter_v2_cuda(p["x"], p["w2"][wdt], p["plan"], p["n"])
+
+
+def v2_plain(p, wdt):
+    from xequinet_torch.ops import gather_scatter_v2 as gs2
+
+    return gs2.gather_scale_scatter_v2_plain(p["x"], p["w2"][wdt], *p["args"][:8])
+
+
+def v1_problem(device, n=16384, e=163840, d=480, bn=256):
+    """bench_kernels.py run's default problem: its indices (rng 0: sorted
+    uniform dst, uniform src; its counts_cap capacity), x and w [E, D]
+    drawn on the card, and the [E, 1] weight of w's first column; the CSR
+    matrix (dst, src, w[:, 0]) of the library yardstick."""
+    from xequinet_torch.ops import gather_scatter as gs1
+
+    rng = np.random.default_rng(0)
+    dst = np.sort(rng.integers(0, n, size=e)).astype(np.int32)
+    src = rng.integers(0, n, size=e).astype(np.int32)
+    counts_cap = int(e / (n / bn) * 2.5 + 64)  # bench_kernels.py counts_cap
+    starts, counts = gs1.prepare_blocks(dst, n, bn, counts_cap)
+    tt = lambda a: torch.as_tensor(a, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((n, d), generator=gen, device=device)
+    w = torch.randn((e, d), generator=gen, device=device)
+    w_cols = {"[E, D]": w, "[E, 1]": w[:, :1].contiguous()}
+    # duplicate (dst, src) pairs summed into one entry: the same sum
+    coo = torch.sparse_coo_tensor(torch.stack([tt(dst).long(), tt(src).long()]),
+                                  w_cols["[E, 1]"][:, 0], (n, n), check_invariants=False)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = coo.coalesce().to_sparse_csr()
+    return dict(x=x, src=tt(src), dst=tt(dst), w=w_cols, starts=tt(starts),
+                counts=tt(counts), n=n, e=e, d=d, bn=bn, csr=csr)
+
+
+def v1_args(q, wk):
+    return (q["x"], q["src"], q["dst"], q["w"][wk], q["starts"], q["counts"], q["n"], q["bn"])
+
+
+def v1_kernel(q, wk):
+    from xequinet_torch.ops import gather_scatter as gs1
+
+    return gs1.gather_scale_scatter_cuda(*v1_args(q, wk))
+
+
+def v1_plain(q, wk):
+    from xequinet_torch.ops import gather_scatter as gs1
+
+    return gs1.gather_scale_scatter_plain(*v1_args(q, wk))
+
+
+def v1_library(q):
+    """One PyTorch call of the same function at the [E, 1] weight: the
+    sparse product of the CSR matrix (dst, src, w) with x.  Timed as a
+    yardstick only; the port never calls it."""
+    return torch.sparse.mm(q["csr"], q["x"])
+
+
+def phase_scatter_kernels(batch, device):
+    """Phase 3, continued: the v2 kernel against its plain version at the
+    model's flagship call (w2 in f32 and in bf16), the v1 kernel at
+    bench_kernels.py run's shape ([E, D] and [E, 1] weights), and the
+    library yardstick against the v1 kernel at [E, 1].  Returns the two
+    problems and max |kernel - plain| per case."""
+    pv2 = v2_problem(batch, device)
+    abs_err = {}
+    for wdt in ("float32", "bfloat16"):
+        got, want = v2_kernel(pv2, wdt), v2_plain(pv2, wdt)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        print(f"[kernels] gather_scatter_v2 w2 {wdt}: max|err|/max|ref| = {e:.3e} "
+              f"(limit {TOL[wdt]:g})")
+        if not (e <= TOL[wdt] and torch.isfinite(got).all()):
+            fail(f"gather_scatter_v2 w2 {wdt} disagrees with plain")
+        abs_err[("gather_scatter_v2", wdt)] = float((got - want).abs().max())
+        del got, want
+    q = v1_problem(device)
+    for wk in ("[E, D]", "[E, 1]"):
+        got, want = v1_kernel(q, wk), v1_plain(q, wk)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        print(f"[kernels] gather_scatter w {wk}: max|err|/max|ref| = {e:.3e} (limit 1e-05)")
+        if not (e <= TOL["float32"] and torch.isfinite(got).all()):
+            fail(f"gather_scatter w {wk} disagrees with plain")
+        abs_err[("gather_scatter", wk)] = float((got - want).abs().max())
+        if wk == "[E, 1]":
+            e = rel_err(v1_library(q), got)
+            print(f"[kernels] torch.sparse.mm (CSR dst, src, w) vs gather_scatter w [E, 1]: "
+                  f"max|err|/max|ref| = {e:.3e} (the same function)")
+            if not e <= TOL["float32"]:
+                fail("the library yardstick computes another function")
+        del got, want
+    return pv2, q, abs_err
+
+
+def phase_v1_op(q):
+    """The v1 op through its entry point, ``gather_scale_scatter`` (the
+    call bench_kernels.py run times), forward and backward on the card;
+    its launches, read just after their own reset."""
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.ops import gather_scatter as gs1
+
+    x = q["x"].clone().requires_grad_()
+    cuda_build.reset_launch_counts()
+    out = gs1.gather_scale_scatter(x, (q["src"], q["dst"]), q["w"]["[E, D]"],
+                                   (q["starts"], q["counts"]), q["n"], q["bn"])
+    (gx,) = torch.autograd.grad((out * out).sum(), (x,))
+    torch.cuda.synchronize()
+    counts = expect_launches("v1 op forward + backward", gather_scatter=1)
+    if not (torch.isfinite(out).all() and torch.isfinite(gx).all()):
+        fail("v1 op: non-finite output or gradient")
+    return counts
+
+
+def phase_v2_slice(dps, device, refs):
+    """Phase 4, continued: flagship XPaiNN with use_pallas_scatter=True
+    served by InferenceEngine.predict through the v2 kernel: 3 v2
+    launches per predict and none of the message kernels, bench.py's bf16
+    aggregates against the plain route, and in f32 the element-wise forces
+    against the plain route on the card and on the CPU.  Returns the
+    engine and its launches per predict."""
+    from xequinet_torch import keys
+    from xequinet_torch.ops import cuda_build
+
+    eng = make_engine(device, **V2)
+    eng.module.load_state_dict(refs["state"])
+    cuda_build.reset_launch_counts()
+    res = eng.predict(dps, compute_forces=True)
+    torch.cuda.synchronize()
+    counts = expect_launches("v2 predict with forces", gather_scatter_v2=3)
+    e = np.array([float(r[keys.TOTAL_ENERGY]) for r in res])
+    f = np.concatenate([r[keys.FORCES] for r in res])
+    if len(res) != len(dps) or f.shape != (refs["n_at"], 3):
+        fail("v2 predict returned wrong shapes")
+    if not (np.isfinite(e).all() and np.isfinite(f).all()):
+        fail("v2: non-finite energies or forces")
+    cuda_build.reset_launch_counts()
+    eng.predict(dps, compute_forces=False)
+    torch.cuda.synchronize()
+    expect_launches("v2 energy-only predict", gather_scatter_v2=3)
+    n_g, n_at = refs["n_g"], refs["n_at"]
+    v2_b = eng.collate(dps)
+    if keys.K_SRC2 not in v2_b:
+        fail("the v2 engine collated without the slot layout")
+    compare_outputs("bf16 v2 vs plain route", eng.forward_batch(v2_b), refs["want_bf16"], n_g,
+                    n_at, TOL["bfloat16"])
+    k32 = make_engine(device, **V2, **F32)
+    k32.module.load_state_dict(refs["state"])
+    out_k = k32.forward_batch(v2_b)
+    compare_outputs("f32 v2 vs plain route on the card", out_k, refs["out_p"], n_g, n_at, 1e-4,
+                    F32_FORCE_TOL)
+    compare_outputs("f32 v2 on the card vs plain route on the CPU", out_k, refs["out_c"], n_g,
+                    n_at, 1e-4, F32_FORCE_TOL)
+    return eng, counts
+
+
+def scatter_costs(n_rows_live, n_slots_live, d, w_bytes_per_slot):
+    """(bytes, flops) of one gather-scale-scatter: the live rows of x read
+    once and of out written once (f32), each live slot's weight row and
+    its two int32 indices read once, 2 FLOPs per live slot and column."""
+    nbytes = 2 * n_rows_live * d * 4 + n_slots_live * (w_bytes_per_slot + 8)
+    return nbytes, 2 * n_slots_live * d
+
+
 def compare_outputs(tag, got, want, n_graphs, n_atoms, tol, f_tol=None):
     """Per-graph energies and mean |F| within ``tol`` (bench.py's gate);
     with ``f_tol`` = (max, p99) also the forces element-wise."""
@@ -285,28 +493,45 @@ def compare_outputs(tag, got, want, n_graphs, n_atoms, tol, f_tol=None):
         fail(f"{tag}: forces disagree element-wise")
 
 
-def phase_slice(dps, device):
-    """Phase 4: flagship XPaiNN served through the kernels."""
-    from xequinet_torch import keys
+def make_engine(device, **over):
+    """InferenceEngine of flagship XPaiNN (FLAGSHIP_KW with ``over``) on
+    seeded weights."""
     from xequinet_torch.models.model import init_params, resolve_model
-    from xequinet_torch.ops import fused_message as fm
     from xequinet_torch.run.inference import InferenceEngine
 
-    def engine(dev=device, **over):
-        kw = dict(FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS), **over)
-        module, extra, cutoff = resolve_model("xpainn", **kw)
-        init_params(module, seed=0)
-        return InferenceEngine(module=module, model_kwargs=kw, extra=extra,
-                               cutoff=cutoff, device=dev)
+    kw = dict(FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
+    kw.update(over)
+    module, extra, cutoff = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    return InferenceEngine(module=module, model_kwargs=kw, extra=extra, cutoff=cutoff,
+                           device=device)
 
+
+def expect_launches(tag, **want):
+    """Fail unless the launch counts since the last reset are ``want``
+    (every other kernel at 0)."""
+    from xequinet_torch.ops import cuda_build
+
+    counts = dict(cuda_build.LAUNCHES)
+    print(f"[launches] {tag}: {counts}")
+    if counts != {name: want.get(name, 0) for name in counts}:
+        fail(f"{tag}: expected launches {want} (the rest 0), got {counts}")
+    return counts
+
+
+def phase_slice(dps, device):
+    """Phase 4: flagship XPaiNN served through the kernels (mega route).
+    Returns the engine, its launches per predict and the plain route's
+    outputs that the v2 route is compared with."""
+    from xequinet_torch import keys
+    from xequinet_torch.ops import fused_message as fm
+
+    engine = lambda dev=device, **over: make_engine(dev, **over)
     eng = engine()
     fm.reset_launch_counts()
     res = eng.predict(dps, compute_forces=True)
     torch.cuda.synchronize()
-    counts = dict(fm.LAUNCHES)
-    print(f"[slice] predict with forces: launches {counts}")
-    if counts != {"message_fwd": 3, "message_bwd": 3, "message_bwd2": 0}:
-        fail(f"expected 3 + 3 + 0 kernel launches per predict, got {counts}")
+    counts = expect_launches("mega predict with forces", message_fwd=3, message_bwd=3)
     e = np.array([float(r[keys.TOTAL_ENERGY]) for r in res])
     f = np.concatenate([r[keys.FORCES] for r in res])
     if len(res) != len(dps) or f.shape != (sum(d.num_atoms for d in dps), 3):
@@ -320,10 +545,7 @@ def phase_slice(dps, device):
     fm.reset_launch_counts()
     res_e = eng.predict(dps, compute_forces=False)
     torch.cuda.synchronize()
-    counts = dict(fm.LAUNCHES)
-    print(f"[slice] energy-only predict: launches {counts}")
-    if counts != {"message_fwd": 3, "message_bwd": 0, "message_bwd2": 0}:
-        fail(f"expected 3 + 0 + 0 kernel launches for energy only, got {counts}")
+    expect_launches("mega energy-only predict", message_fwd=3)
     e2 = np.array([float(r[keys.TOTAL_ENERGY]) for r in res_e])
     if not np.allclose(e2, e, rtol=1e-5, atol=1e-5):
         fail("energy-only predict differs from the predict with forces")
@@ -356,7 +578,9 @@ def phase_slice(dps, device):
     compare_outputs("f32 mega on the card vs plain route on the CPU", out_k, out_c, n_g,
                     n_at, 1e-4, F32_FORCE_TOL)
     cotangent_scales(p32, plain_b)
-    return eng, launch_counts
+    refs = dict(state=state, plain_b=plain_b, want_bf16=want, out_p=out_p, out_c=out_c,
+                n_g=n_g, n_at=n_at)
+    return eng, launch_counts, refs
 
 
 TRAIN_WEIGHTS = {"energy": 1.0, "forces": 10.0}
@@ -407,52 +631,35 @@ def model_grads(module, forward, batch, pos_scale=1.0):
     return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
 
 
-def phase_training(dps, batch, device, card):
-    """Phase 5: flagship training on the card.  Returns (launches per
-    train step, the step function and its inputs for phase 6)."""
+F32 = dict(compute_dtype="float32", update_compute_dtype="float32")
+
+
+def plain_f32_reference(dps, device):
+    """The f32 plain route's weights, loss and parameter gradients on the
+    flagship batch (collated without the slot layout), and its gradients
+    again with the positions moved by one f32 ulp (x (1 + 1e-7))."""
     from xequinet_torch.data.batching import collate
-    from xequinet_torch.ops import fused_message as fm
     from xequinet_torch.run.inference import batch_to_device
 
-    b = batch_to_device(batch, device)
-    module, forward, step, ema = train_model(device)
-    loss0, _ = model_grads(module, forward, b)
-    fm.reset_launch_counts()
-    loss, _ = step(b, 0, 1.0, ema)
-    torch.cuda.synchronize()
-    counts = dict(fm.LAUNCHES)
-    print(f"[train] flagship bf16 train step: launches {counts}")
-    # per block: the forward, the backward that makes the forces, the
-    # second order of the parameter-gradient pass, and the backward again
-    # in that pass (the cotangent on the block's aggregate, from the energy
-    # term and through the later blocks' second derivatives), as the JAX
-    # package's train step runs its kernels (tests/test_torch_training.py)
-    if counts != {"message_fwd": 3, "message_bwd": 6, "message_bwd2": 3}:
-        fail(f"expected 3 + 6 + 3 kernel launches per train step, got {counts}")
-    if not (np.isfinite(float(loss)) and all(torch.isfinite(p).all()
-                                              for p in module.parameters())):
-        fail("non-finite loss or parameters after a train step")
-    _, grads = model_grads(module, forward, b)
-    bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
-    if bad or not np.isfinite(loss0):
-        fail(f"non-finite gradients: {bad[:5]}")
-    for i in range(1, 20):
-        step(b, i, 1.0, ema)
-    loss20, _ = model_grads(module, forward, b)
-    print(f"[train] loss on the fixed batch: {loss0:.6f} before, {loss20:.6f} after 20 steps")
-    if not loss20 < loss0:
-        fail("the training loss did not fall over 20 steps")
+    mp, fp, _, _ = train_model(device, use_pallas_scatter=False, **F32)
+    pb = batch_to_device(collate(dps), device)
+    lp, gp = model_grads(mp, fp, pb)
+    _, gp_nudged = model_grads(mp, fp, pb, 1.0 + 1e-7)
+    state = {k: v.clone() for k, v in mp.state_dict().items()}
+    del mp, pb
+    return state, lp, gp, gp_nudged
 
-    # f32: one step's loss and gradients, kernel route against plain route
-    f32 = dict(compute_dtype="float32", update_compute_dtype="float32")
-    plain_batch = batch_to_device(collate(dps), device)
-    mk, fk, _, _ = train_model(device, **f32)
-    mp, fp, _, _ = train_model(device, use_pallas_scatter=False, **f32)
-    mp.load_state_dict(mk.state_dict())
+
+def f32_step_check(tag, over, b, ref, device, card):
+    """One f32 step's loss and parameter gradients on the kernel route
+    ``over`` from the plain route's weights, against the plain route's
+    (``ref`` from :func:`plain_f32_reference`), under the per-parameter
+    limit GRAD_TOL + GRAD_ULP_FACTOR x the plain route's one-ulp change."""
+    state, lp, gp, gp_nudged = ref
+    mk, fk, _, _ = train_model(device, **F32, **over)
+    mk.load_state_dict(state)
     lk, gk = model_grads(mk, fk, b)
-    lp, gp = model_grads(mp, fp, plain_batch)
-    _, gp_nudged = model_grads(mp, fp, plain_batch, 1.0 + 1e-7)
-    print(f"[train] f32 kernel and plain route steps: peak device memory "
+    print(f"[train] f32 {tag} and plain route steps: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB — {card}")
     rel = abs(lk - lp) / abs(lp)
     worst, worst_ratio = "", 0.0
@@ -463,16 +670,47 @@ def phase_training(dps, batch, device, card):
         if err / limit > worst_ratio:
             worst, worst_ratio = n, err / limit
         if err > limit:
-            fail(f"f32 train step: gradient of {n} differs by {err:.3e} of its max "
+            fail(f"f32 {tag} train step: gradient of {n} differs by {err:.3e} of its max "
                  f"(limit {limit:.3e})")
-    print(f"[train] f32 step, kernel vs plain route: loss rel diff {rel:.3e} (limit 1e-4); "
+    print(f"[train] f32 step, {tag} vs plain route: loss rel diff {rel:.3e} (limit 1e-4); "
           f"every parameter gradient within its limit, the closest {worst} at "
           f"{worst_ratio:.3f} of it")
     if rel > 1e-4:
-        fail("f32 train step: loss differs between kernel and plain route")
-    del mk, mp, gk, gp, gp_nudged
+        fail(f"f32 {tag} train step: loss differs between kernel and plain route")
+    del mk, gk
     torch.cuda.empty_cache()
-    return counts, step, b, ema
+
+
+def phase_training(tag, over, n_steps, want, b, ref, device, card):
+    """Phase 5: flagship bf16 training on the kernel route ``over`` on the
+    card: launches per step ``want``, finite loss, parameters and
+    gradients, a falling loss over ``n_steps`` steps, and the f32 step
+    check.  Returns (launches per train step, the step function and its
+    EMA for phase 6)."""
+    from xequinet_torch.ops import cuda_build
+
+    module, forward, step, ema = train_model(device, **over)
+    loss0, _ = model_grads(module, forward, b)
+    cuda_build.reset_launch_counts()
+    loss, _ = step(b, 0, 1.0, ema)
+    torch.cuda.synchronize()
+    counts = expect_launches(f"flagship bf16 {tag} train step", **want)
+    if not (np.isfinite(float(loss)) and all(torch.isfinite(p).all()
+                                              for p in module.parameters())):
+        fail(f"{tag}: non-finite loss or parameters after a train step")
+    _, grads = model_grads(module, forward, b)
+    bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
+    if bad or not np.isfinite(loss0):
+        fail(f"{tag}: non-finite gradients: {bad[:5]}")
+    for i in range(1, n_steps):
+        step(b, i, 1.0, ema)
+    loss_n, _ = model_grads(module, forward, b)
+    print(f"[train] {tag}: loss on the fixed batch {loss0:.6f} before, {loss_n:.6f} after "
+          f"{n_steps} steps")
+    if not loss_n < loss0:
+        fail(f"{tag}: the training loss did not fall over {n_steps} steps")
+    f32_step_check(tag, over, b, ref, device, card)
+    return counts, step, ema
 
 
 def phase_entry_point(device, card):
@@ -509,8 +747,9 @@ def phase_entry_point(device, card):
         print(f"[train] run_train: 2 epochs, {tr.step} steps in "
               f"{time.perf_counter() - t0:.1f} s on {tr.device}, launches {counts} — {card}")
         if tr.device.type != "cuda" or counts["message_bwd2"] != 3 * tr.step or \
-                min(counts.values()) == 0:
-            fail(f"run_train did not train through the kernels: {counts}")
+                min(counts[k] for k in MESSAGE_KERNELS) == 0 or \
+                counts["gather_scatter_v2"] + counts["gather_scatter"] != 0:
+            fail(f"run_train did not train through the message kernels: {counts}")
         eng = InferenceEngine(os.path.join(tmp, "out", "xequinet_last.ckpt"))
         fm.reset_launch_counts()
         res = eng.predict(dps[:8])
@@ -589,6 +828,28 @@ def bound_ms(nbytes, flops, mm):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def time_train_step(tag, step, b, ema, i0, n_real, card):
+    """Host clock around 7 flagship train steps, each ending in a
+    synchronize (median), then one more step's peak device memory."""
+    steps = []
+    for i in range(i0, i0 + 7):
+        t0 = time.perf_counter()
+        step(b, i, 1.0, ema)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    step_ms = float(np.median(steps)) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step(b, i0 + 7, 1.0, ema)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[time] flagship train step (bf16, {tag}), median of 7: "
+          f"{step_ms:.3f} ms (min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}), "
+          f"{n_real / (step_ms / 1e3):.1f} edges/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
+          f"{held / 2**30:.3f} GiB held before the step — {card}")
+
+
 def profile_call(tag, fn, out_dir, card, calls=3):
     """Where the device time of ``fn`` goes: torch.profiler over ``calls``
     calls after a warm-up; the busy share is the summed kernel time over
@@ -648,6 +909,7 @@ def main():
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.ops import fused_message as fm
+    from xequinet_torch.run.inference import batch_to_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -674,15 +936,33 @@ def main():
           f"{batch[keys.EDGE_MASK].shape[0]} slots, {batch[keys.POSITIONS].shape[0]} "
           f"node rows ({time.perf_counter() - t0:.1f} s on the host)")
     p, abs_err = phase_kernels(batch, device)
+    pv2, pv1, scatter_err = phase_scatter_kernels(batch, device)
+    v1_launches = phase_v1_op(pv1)
 
-    # phase 4: inference
-    eng, launches = phase_slice(dps, device)
+    # phase 4: inference, the mega route and the v2 route
+    eng, launches, refs = phase_slice(dps, device)
+    eng_v2, launches_v2 = phase_v2_slice(dps, device, refs)
+    del refs
 
-    # phase 5: training
-    per_step, step, b, ema = phase_training(dps, batch, device, card)
+    # phase 5: training.  Mega: per block the forward, the backward that
+    # makes the forces, the second order of the parameter-gradient pass,
+    # and the backward again in that pass (the cotangent on the block's
+    # aggregate, from the energy term and through the later blocks' second
+    # derivatives), as the JAX package's train step runs its kernels
+    # (tests/test_torch_training.py).  v2: the kernel is the forward only;
+    # its backward is plain ops, as in the JAX package.
+    b = batch_to_device(batch, device)
+    ref = plain_f32_reference(dps, device)
+    per_step, step, ema = phase_training(
+        "mega", {}, 20, dict(message_fwd=3, message_bwd=6, message_bwd2=3), b, ref, device,
+        card)
+    per_step_v2, step_v2, ema_v2 = phase_training(
+        "v2", V2, 10, dict(gather_scatter_v2=3), b, ref, device, card)
+    del ref
+    torch.cuda.empty_cache()
     phase_entry_point(device, card)
 
-    # phase 6: times (bf16, the flagship's dtype)
+    # phase 6: times.  The message kernels in bf16, the flagship's dtype
     mm = "bfloat16"
     rows = []
     timed = (
@@ -706,8 +986,8 @@ def main():
               f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP), launches per predict {launches[name]}, per train "
               f"step {per_step[name]} — {card}")
-        # "launches" is this slice's main path (one train step); the two
-        # paths' counts stand beside it, each read just after its own reset
+        # "launches" is the mega route's train step; the two paths' counts
+        # stand beside it, each read just after its own reset
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": per_step[name], "launches_predict": launches[name],
                      "launches_train_step": per_step[name], "max_abs_err": abs_err[name],
@@ -722,12 +1002,67 @@ def main():
     spec.append(time_ms(lambda: kernel_bwd2(p_mm, mm)))
     print(f"[time] message_bwd2 ({mm}) without cwf {spec[0]:.4f}, {spec[1]:.4f} ms; general "
           f"kernel on a zero cwf {gen[0]:.4f}, {gen[1]:.4f} ms — {card}")
-    del p_mm, zero_cwf
+    del p_mm, zero_cwf, p
+
+    # the gather-scale-scatter kernels, f32 x: v2 at the model's call with
+    # w2 in f32 (the model's) and bf16, v1 at bench_kernels.py run's shape
+    # with an [E, 1] weight (where one library call computes the same
+    # function) and an [E, D] weight
+    def scatter_case(tag, kfn, pfn, nbytes, flops, err):
+        k_ms = time_ms(kfn)
+        p_ms = time_ms(pfn, iters=5, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        print(f"[time] {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) — {card}")
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err": err}
+
+    v2_cases = {
+        wdt: scatter_case(f"gather_scatter_v2 (w2 {wdt})", lambda: v2_kernel(pv2, wdt),
+                          lambda: v2_plain(pv2, wdt),
+                          *scatter_costs(pv2["n_atoms"], pv2["n_e"], pv2["d"],
+                                         pv2["d"] * (4 if wdt == "float32" else 2)),
+                          scatter_err[("gather_scatter_v2", wdt)])
+        for wdt in ("float32", "bfloat16")}
+    print(f"[time] gather_scatter_v2: launches per predict {launches_v2['gather_scatter_v2']}, "
+          f"per train step {per_step_v2['gather_scatter_v2']} (v2 route)")
+    rows.append(dict(
+        {"name": "gather_scatter_v2", "route": "cuda",
+         "source": "xequinet_torch/csrc/gather_scatter_v2.cu",
+         "replaces": "xequinet_tpu/ops/pallas_scatter_v2.py:105",
+         "launches": per_step_v2["gather_scatter_v2"],
+         "launches_predict": launches_v2["gather_scatter_v2"],
+         "launches_train_step": per_step_v2["gather_scatter_v2"]},
+        **v2_cases["float32"], library_ms=None,
+        library="none: no single PyTorch call gathers, scales by a [T, D] weight and scatters",
+        w2_bfloat16=v2_cases["bfloat16"]))
+    del pv2
+    v1_cases = {
+        wk: scatter_case(f"gather_scatter (w {wk})", lambda: v1_kernel(pv1, wk),
+                         lambda: v1_plain(pv1, wk),
+                         *scatter_costs(pv1["n"], pv1["e"], pv1["d"],
+                                        4 * pv1["w"][wk].shape[1]),
+                         scatter_err[("gather_scatter", wk)])
+        for wk in ("[E, 1]", "[E, D]")}
+    lib_ms = time_ms(lambda: v1_library(pv1))
+    print(f"[time] torch.sparse.mm (CSR dst, src, w) at w [E, 1]: {lib_ms:.4f} ms, beside the "
+          f"kernel's {v1_cases['[E, 1]']['ms']:.4f} ms — {card}")
+    rows.append(dict(
+        {"name": "gather_scatter", "route": "cuda",
+         "source": "xequinet_torch/csrc/gather_scatter.cu",
+         "replaces": "xequinet_tpu/ops/pallas_scatter.py:74",
+         "launches": v1_launches["gather_scatter"], "launches_predict": 0,
+         "launches_train_step": 0, "weight": "[E, 1]"},
+        **v1_cases["[E, 1]"], library_ms=lib_ms, library="torch.sparse.mm of CSR (dst, src, w)",
+        w_full=dict(v1_cases["[E, D]"], library_ms=None)))
+    del pv1
 
     mega_b = eng.collate(dps)
-    dev_ms = time_ms(lambda: eng.forward_batch(mega_b), iters=5, warmup=1)
-    print(f"[time] device forward+forces on the collated batch: {dev_ms:.3f} ms, "
-          f"{n_real / (dev_ms / 1e3):.1f} edges/s — {card}")
+    v2_b = eng_v2.collate(dps)
+    for tag, e, bb in (("mega", eng, mega_b), ("v2", eng_v2, v2_b)):
+        dev_ms = time_ms(lambda: e.forward_batch(bb), iters=5, warmup=1)
+        print(f"[time] {tag} device forward+forces on the collated batch: {dev_ms:.3f} ms, "
+              f"{n_real / (dev_ms / 1e3):.1f} edges/s — {card}")
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -735,34 +1070,23 @@ def main():
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
-    print(f"[time] predict wall (neighbour lists + collate + device + host copy), "
+    print(f"[time] mega predict wall (neighbour lists + collate + device + host copy), "
           f"median of 3: {wall * 1e3:.1f} ms, {n_real / wall:.1f} edges/s — {card}")
 
     # the flagship train step: the batch on the device, the slot plan
     # built inside the step (the first message block builds it), each step
     # ending in a synchronize
     i0 = 20
-    steps = []
-    for i in range(i0, i0 + 7):
-        t0 = time.perf_counter()
-        step(b, i, 1.0, ema)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
-    step_ms = float(np.median(steps)) * 1e3
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    step(b, i0 + 7, 1.0, ema)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[time] flagship train step (bf16, mega, 3 + 6 + 3 kernels), median of 7: "
-          f"{step_ms:.3f} ms (min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}), "
-          f"{n_real / (step_ms / 1e3):.1f} edges/s; peak device memory "
-          f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
-          f"{held / 2**30:.3f} GiB held before the step — {card}")
+    time_train_step("mega, 3 + 6 + 3 message kernels", step, b, ema, i0, n_real, card)
+    time_train_step("v2, 3 v2 kernels", step_v2, b, ema_v2, i0, n_real, card)
 
     if args.profile:
         profile_call("forward_forces", lambda: eng.forward_batch(mega_b), args.profile, card)
         profile_call("train_step", lambda: step(b, i0 + 8, 1.0, ema), args.profile, card)
+        profile_call("v2_forward_forces", lambda: eng_v2.forward_batch(v2_b), args.profile,
+                     card)
+        profile_call("v2_train_step", lambda: step_v2(b, i0 + 8, 1.0, ema_v2), args.profile,
+                     card)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -775,51 +1099,55 @@ def rehearsal():
     """Phases 3-5 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
-    from xequinet_torch.models.model import init_params, resolve_model
-    from xequinet_torch.run.inference import InferenceEngine, batch_to_device
+    from xequinet_torch.run.inference import batch_to_device
 
     torch.set_num_threads(2)
     dps = build_molecules(12)
     bn, chunk = 32, 32
+    lay = (bn, chunk, PAD_NODES, MAX_CHUNKS)
     batch = collate(dps, kernel_layout=layout(bn, chunk))
     p = message_problem(batch, "cpu", bn=bn, chunk=chunk)
     for mm in ("float32", "bfloat16"):
         out = plain_fwd(p, mm)
         grads = plain_bwd(p, mm) + plain_bwd2(p, mm) + plain_bwd2(p, mm, p["cwf"])
         assert torch.isfinite(out).all() and all(torch.isfinite(t).all() for t in grads)
-    kw = dict(FLAGSHIP_KW, action_blocks=1, pallas_layout=(bn, chunk, PAD_NODES, MAX_CHUNKS))
-    module, extra, cutoff = resolve_model("xpainn", **kw)
-    init_params(module, seed=0)
-    eng = InferenceEngine(module=module, model_kwargs=kw, extra=extra, cutoff=cutoff,
-                          device="cpu")
-    res = eng.predict(dps)
-    f = np.concatenate([r[keys.FORCES] for r in res])
-    assert np.isfinite(f).all() and len(res) == len(dps)
-    f32 = dict(kw, compute_dtype="float32", update_compute_dtype="float32")
-    outs = []
-    for kwi in (f32, dict(f32, use_pallas_scatter=False)):
-        module, extra, cutoff = resolve_model("xpainn", **kwi)
-        init_params(module, seed=0)
-        e = InferenceEngine(module=module, model_kwargs=kwi, extra=extra, cutoff=cutoff,
-                            device="cpu")
-        b = e.collate([e.transform(d) for d in dps])
-        outs.append(e.forward_batch(b))
+    pv2 = v2_problem(batch, "cpu")
+    pv2["args"] = pv2["args"][:6] + (bn, chunk) + pv2["args"][8:]
+    q = v1_problem("cpu", n=256, e=2048, d=32, bn=32)
+    assert torch.isfinite(v2_plain(pv2, "bfloat16")).all()
+    assert rel_err(v1_library(q), v1_plain(q, "[E, 1]")) <= TOL["float32"]
+    n_at = sum(d.num_atoms for d in dps)
+    for over in ({}, V2):
+        tag = "v2" if over else "mega"
+        eng = make_engine("cpu", action_blocks=2, pallas_layout=lay, **over)
+        res = eng.predict(dps)
+        f = np.concatenate([r[keys.FORCES] for r in res])
+        assert np.isfinite(f).all() and len(res) == len(dps)
+        outs = []
+        for route in (over, {"use_pallas_scatter": False}):
+            e = make_engine("cpu", action_blocks=2, pallas_layout=lay, **F32, **route)
+            b = e.collate([e.transform(d) for d in dps])
+            assert (keys.K_SRC2 in b) == bool(route["use_pallas_scatter"] if route else True)
+            outs.append(e.forward_batch(b))
+        compare_outputs(f"f32 {tag} vs plain route on the CPU", *outs, len(dps), n_at, 1e-4,
+                        F32_FORCE_TOL)
+        # one tiny train step of bench.py's recipe through the plain versions
+        module, forward, step, ema = train_model("cpu", action_blocks=1, pallas_layout=lay,
+                                                 **over)
+        tb = batch_to_device(batch, "cpu")
+        loss, _ = step(tb, 0, 1.0, ema)
+        assert np.isfinite(float(loss)) and all(torch.isfinite(t).all()
+                                                for t in module.parameters())
+        print(f"[rehearsal] one {tag} train step on the CPU: loss {float(loss):.6f}")
     cotangent_scales(e, b)
-    compare_outputs("f32 mega vs plain route on the CPU", *outs, len(dps),
-                    sum(d.num_atoms for d in dps), 1e-4, F32_FORCE_TOL)
-    # one tiny train step of bench.py's recipe through the plain versions
-    module, forward, step, ema = train_model(
-        "cpu", action_blocks=1, pallas_layout=(bn, chunk, PAD_NODES, MAX_CHUNKS))
-    tb = batch_to_device(batch, "cpu")
-    loss0, _ = model_grads(module, forward, tb)
-    loss, _ = step(tb, 0, 1.0, ema)
-    assert np.isfinite(float(loss)) and all(torch.isfinite(q).all() for q in module.parameters())
-    print(f"[rehearsal] one train step on the CPU: loss {float(loss):.6f}")
     for (nbytes, flops), name in zip(kernel_costs(p, "bfloat16"), ("fwd", "bwd", "bwd2")):
         print(f"[rehearsal] message_{name} needs {nbytes / 1e6:.3f} MB, "
               f"{flops / 1e9:.4f} GFLOP at this size")
-    print(f"[rehearsal] {len(dps)} structures on the CPU: plain message op, predict and "
-          f"a train step ran (not a device result)")
+    nbytes, flops = scatter_costs(pv2["n_atoms"], pv2["n_e"], pv2["d"], 4 * pv2["d"])
+    print(f"[rehearsal] gather_scatter_v2 needs {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP "
+          f"at this size")
+    print(f"[rehearsal] {len(dps)} structures on the CPU: plain message and scatter ops, mega "
+          f"and v2 predict and train steps ran (not a device result)")
 
 
 if __name__ == "__main__":

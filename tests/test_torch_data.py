@@ -122,8 +122,17 @@ def test_collate_bit_for_bit_crystals(rng):
 
 def test_layout_helpers_match():
     for kw in ({}, {"use_pallas_scatter": "mega", "pallas_layout": (512, 512, 32, 64)},
-               {"use_pallas_scatter": "mega-xb"}, {"use_pallas_scatter": True}):
+               {"use_pallas_scatter": "mega-xb"}):
         assert tb.kernel_layout_from_model_kwargs(kw) == jb.kernel_layout_from_model_kwargs(kw)
+    # the v2 route: the port's entry points emit the layout the JAX
+    # package's emit for the mega route (the JAX ones emit none, and run a v2
+    # model on its XLA path; ROADMAP section 3)
+    for mode in (True, "v2"):
+        for lay in ({}, {"pallas_layout": (512, 512, 32, 64)}):
+            kw = dict(lay, use_pallas_scatter=mode)
+            assert jb.kernel_layout_from_model_kwargs(kw) is None
+            assert tb.kernel_layout_from_model_kwargs(kw) == \
+                jb.kernel_layout_from_model_kwargs(dict(lay, use_pallas_scatter="mega"))
     for n in (1, 7, 9, 25, 100, 1000, 4097):
         assert tb.bucket_capacity(n) == jb.bucket_capacity(n)
 

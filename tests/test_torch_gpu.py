@@ -1,6 +1,7 @@
-"""The port's CUDA message kernels against their plain PyTorch versions,
-on a card.  Imports neither JAX nor the JAX package, so it also runs
-where only PyTorch is installed:
+"""The port's CUDA kernels (the fused message kernels and the v2 and v1
+gather-scale-scatter) against their plain PyTorch versions, on a card,
+and the launches of the mega and v2 routes.  Imports neither JAX nor the
+JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -18,6 +19,8 @@ from xequinet_torch.data.batching import collate
 from xequinet_torch.data.datapoint import Datapoint
 from xequinet_torch.models.model import init_params, resolve_model
 from xequinet_torch.ops import fused_message as fm
+from xequinet_torch.ops import gather_scatter as gs1
+from xequinet_torch.ops import gather_scatter_v2 as gs2
 from xequinet_torch.ops.irreps import Irreps
 from xequinet_torch.ops.radius_graph import radius_graph_np
 from xequinet_torch.models.properties import make_forward
@@ -78,6 +81,11 @@ def _close(got, want, rel):
     assert err <= rel * scale, (err, scale)
 
 
+def _counts(**nonzero):
+    """The whole launch-count dict with the given entries, others 0."""
+    return {name: nonzero.get(name, 0) for name in fm.LAUNCHES}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
@@ -133,7 +141,7 @@ def test_cuda_engine_refuses_batch_outside_kernel_layout(cuda_device):
     big = Datapoint(rng.integers(1, 9, 40), rng.normal(size=(40, 3)) * 2.0)
     fm.reset_launch_counts()
     eng.predict([small])
-    assert fm.LAUNCHES == {"message_fwd": 1, "message_bwd": 1, "message_bwd2": 0}
+    assert fm.LAUNCHES == _counts(message_fwd=1, message_bwd=1)
     with pytest.raises(ValueError, match="slot layout"):
         eng.predict([small, big])
     with pytest.raises(ValueError, match="mega message route"):
@@ -209,11 +217,44 @@ def test_cuda_grad_of_grad_runs_bwd2_kernel(cuda_device):
                                                p["n"], p["bn"], p["chunk"], p["bn"] + 32,
                                                64, "float32"))
     torch.cuda.synchronize()
-    assert fm.LAUNCHES == {"message_fwd": 1, "message_bwd": 1, "message_bwd2": 1}
+    assert fm.LAUNCHES == _counts(message_fwd=1, message_bwd=1, message_bwd2=1)
     want = run(lambda a, b, c: fm.plain_message(a, b, c, m[2], m[3], p["mask"],
                                                 *p["statics"], p["n"]))
     for a, b in zip(got, want):
         _close(a, b, 1e-5)
+
+
+def _train_step_launches(device, route):
+    """Launch counts of one energy + force train step of a 3-block bf16
+    model on ``route``, after checking its loss and updated parameters are
+    finite."""
+    kw = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
+              num_basis=8, action_blocks=3, output_modes=["energy"],
+              compute_dtype="bfloat16", update_compute_dtype="bfloat16",
+              use_pallas_scatter=route, pallas_layout=(16, 16, 16, 64))
+    module, extra, _ = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    module = module.to(device)
+    rng = np.random.default_rng(0)
+    dps = []
+    for _ in range(6):
+        n = int(rng.integers(4, 10))
+        pos = rng.normal(size=(n, 3)) * 1.5
+        dps.append(Datapoint(rng.integers(1, 9, n), pos, edge_index=radius_graph_np(pos, 5.0)[0],
+                             energy=float(rng.normal()), forces=rng.normal(size=(n, 3))))
+    layout = {"block_nodes": 16, "chunk": 16, "pad_nodes": 16, "max_chunks": 64}
+    batch = batch_to_device(collate(dps, kernel_layout=layout), device)
+    params = list(module.parameters())
+    opt = resolve_optimizer("adamw", params)
+    step = make_step_core(make_forward(module, extra, create_graph=True),
+                          WeightedLoss("l2", energy=1.0, forces=10.0), params, opt,
+                          resolve_lr_schedule("cosine_annealing", 5e-4, 100, warmup_steps=10),
+                          True, False, 5.0, 0.999, ErrorMetric("energy", "forces"))
+    fm.reset_launch_counts()
+    loss, _ = step(batch, 0, 1.0, [p.detach().clone() for p in params])
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and all(torch.isfinite(p).all() for p in params)
+    return dict(fm.LAUNCHES)
 
 
 @pytest.mark.gpu
@@ -224,30 +265,112 @@ def test_cuda_train_step_launches_all_three_kernels(cuda_device):
     second order once, 3 + 6 + 3 as the JAX package's step
     (test_torch_training.py), and the loss and the updated parameters are
     finite."""
+    counts = _train_step_launches(cuda_device, "mega")
+    assert counts == _counts(message_fwd=3, message_bwd=6, message_bwd2=3)
+
+
+# ---------------------------------------------------------------------------
+# the v2 and v1 gather-scale-scatter kernels and the v2 route
+# ---------------------------------------------------------------------------
+def _v2_problem(device, d=480, seed=0):
+    """A molecule batch in the v2 slot layout with a slot_cap tail; x and
+    w2 random, w2 on every slot (padding and tail slots add nothing)."""
+    p = _problem(device, *CASES[0], seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    t = p["meta"][0].shape[0]
+    p["xv"] = torch.as_tensor(rng.normal(size=(p["n"], d)).astype(np.float32), device=device)
+    p["w2"] = torch.as_tensor(rng.normal(size=(t, d)).astype(np.float32), device=device)
+    m = p["meta"]
+    p["v2args"] = (m[0], m[1], m[4], m[5], m[6], p["n"], p["bn"], p["chunk"], p["bn"] + 32, 64)
+    return p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdt,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_cuda_gather_scatter_v2_matches_plain(cuda_device, wdt, rel):
+    p = _v2_problem(cuda_device)
+    w2 = p["w2"].to(getattr(torch, wdt))
+    a = p["v2args"]
+    plan = gs2.v2_slot_plan(*a[:5], p["n"], p["n"], p["bn"], p["chunk"])
+    got = gs2.gather_scale_scatter_v2_cuda(p["xv"], w2, plan, p["n"])
+    want = gs2.gather_scale_scatter_v2_plain(p["xv"].cpu(), w2.cpu(),
+                                             *(t.cpu() for t in a[:5]), *a[5:8])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got.cpu(), want, rel)
+
+
+def _v1_problem(device, w_cols, n=512, e=4096, d=480, bn=64, seed=0):
+    rng = np.random.default_rng(seed)
+    dst = np.sort(rng.integers(0, n, size=e)).astype(np.int32)
+    src = rng.integers(0, n, size=e).astype(np.int32)
+    starts, counts = gs1.prepare_blocks(dst, n, bn, e)
+    tt = lambda a: torch.as_tensor(a, device=device)
+    return dict(x=tt(rng.normal(size=(n, d)).astype(np.float32)), src=tt(src), dst=tt(dst),
+                w=tt(rng.normal(size=(e, d if w_cols == "D" else 1)).astype(np.float32)),
+                starts=tt(starts), counts=tt(counts), n=n, bn=bn)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_cols", ["D", "1"])
+def test_cuda_gather_scatter_matches_plain(cuda_device, w_cols):
+    p = _v1_problem(cuda_device, w_cols)
+    args = (p["x"], p["src"], p["dst"], p["w"], p["starts"], p["counts"], p["n"], p["bn"])
+    got = gs1.gather_scale_scatter_cuda(*args)
+    want = gs1.gather_scale_scatter_plain(*(t.cpu() if torch.is_tensor(t) else t for t in args))
+    torch.cuda.synchronize()
+    _close(got.cpu(), want, 1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_gather_scatter_kernels_repeat_bit_for_bit(cuda_device):
+    p = _v2_problem(cuda_device)
+    a = p["v2args"]
+    for w2 in (p["w2"], p["w2"].to(torch.bfloat16)):
+        run = lambda: gs2.gather_scale_scatter_v2(p["xv"], w2, *a)
+        assert torch.equal(run(), run())
+    q = _v1_problem(cuda_device, "D")
+    run = lambda: gs1.gather_scale_scatter(q["x"], (q["src"], q["dst"]), q["w"],
+                                           (q["starts"], q["counts"]), q["n"], q["bn"])
+    assert torch.equal(run(), run())
+
+
+def _engine(device, route):
     kw = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
               num_basis=8, action_blocks=3, output_modes=["energy"],
-              compute_dtype="bfloat16", update_compute_dtype="bfloat16",
-              use_pallas_scatter="mega", pallas_layout=(16, 16, 16, 64))
-    module, extra, _ = resolve_model("xpainn", **kw)
+              use_pallas_scatter=route, pallas_layout=(16, 16, 16, 64))
+    module, extra, cutoff = resolve_model("xpainn", **kw)
     init_params(module, seed=0)
-    module = module.to(cuda_device)
+    return InferenceEngine(module=module, model_kwargs=kw, extra=extra, cutoff=cutoff,
+                           device=device)
+
+
+@pytest.mark.gpu
+def test_cuda_v2_route_launches_and_refuses_batch_without_layout(cuda_device):
+    """A 3-block v2 model on the card: one v2 kernel launch per block per
+    predict (none of the message kernels), the same energies (1e-4) and
+    forces (3e-3 of max |F|, chip_smoke.py's element-wise f32 gate: the
+    plain route's index_add sums in another order) as the plain route with
+    the same weights, and a batch collated without the slot layout is
+    refused, not sent down the plain route."""
+    eng, plain = _engine(cuda_device, True), _engine(cuda_device, False)
     rng = np.random.default_rng(0)
-    dps = []
-    for _ in range(6):
-        n = int(rng.integers(4, 10))
-        pos = rng.normal(size=(n, 3)) * 1.5
-        dps.append(Datapoint(rng.integers(1, 9, n), pos, edge_index=radius_graph_np(pos, 5.0)[0],
-                             energy=float(rng.normal()), forces=rng.normal(size=(n, 3))))
-    layout = {"block_nodes": 16, "chunk": 16, "pad_nodes": 16, "max_chunks": 64}
-    batch = batch_to_device(collate(dps, kernel_layout=layout), cuda_device)
-    params = list(module.parameters())
-    opt = resolve_optimizer("adamw", params)
-    step = make_step_core(make_forward(module, extra, create_graph=True),
-                          WeightedLoss("l2", energy=1.0, forces=10.0), params, opt,
-                          resolve_lr_schedule("cosine_annealing", 5e-4, 100, warmup_steps=10),
-                          True, False, 5.0, 0.999, ErrorMetric("energy", "forces"))
+    dps = [Datapoint(rng.integers(1, 9, n), rng.normal(size=(n, 3)) * 1.5) for n in (6, 9, 7)]
     fm.reset_launch_counts()
-    loss, _ = step(batch, 0, 1.0, [p.detach().clone() for p in params])
+    res = eng.predict(dps)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES == {"message_fwd": 3, "message_bwd": 6, "message_bwd2": 3}
-    assert torch.isfinite(loss) and all(torch.isfinite(p).all() for p in params)
+    assert fm.LAUNCHES == _counts(gather_scatter_v2=3)
+    want = plain.predict(dps)
+    energy = lambda rs: torch.tensor([float(r[keys.TOTAL_ENERGY]) for r in rs])
+    forces = lambda rs: torch.as_tensor(np.concatenate([r[keys.FORCES] for r in rs]))
+    _close(energy(res), energy(want), 1e-4)
+    _close(forces(res), forces(want), 3e-3)
+    with pytest.raises(ValueError, match="v2 message route"):
+        eng.forward_batch(collate([eng.transform(d) for d in dps]))
+
+
+@pytest.mark.gpu
+def test_cuda_v2_train_step_launches(cuda_device):
+    """One energy + force train step of a 3-block v2 model: 3 v2 launches
+    (its backward is plain ops, as in the JAX package), no message kernel."""
+    assert _train_step_launches(cuda_device, True) == _counts(gather_scatter_v2=3)

@@ -251,8 +251,14 @@ def kernel_layout_from_model_kwargs(
 ) -> Optional[Dict[str, int]]:
     """Loader-side slot layout matching a model's kernel settings
     (``use_pallas_scatter`` / ``pallas_layout``, the JAX package's
-    config names), or None when the model doesn't use the mega kernels."""
-    if model_kwargs.get("use_pallas_scatter") not in ("mega", "mega-xb"):
+    config names), or None when the model uses no kernel route.
+
+    Unlike the JAX package's (which emits it for the mega modes only, so
+    its entry points run a v2 model on the XLA path), the layout also comes for
+    the v2 route (True / "v2"): on the card the port's v2 model runs its
+    kernel or raises.  The numbers are the same either way."""
+    mode = model_kwargs.get("use_pallas_scatter")
+    if not (mode is True or mode in ("v2", "mega", "mega-xb")):
         return None
     bn, chunk, pad_nodes, max_chunks = model_kwargs.get(
         "pallas_layout", (256, 1024, 32, 8)

@@ -88,7 +88,7 @@ class DataLoader:
         self.dataset = dataset
         self.batch_size = batch_size
         self.caps = capacities or compute_capacities(dataset, batch_size)
-        # Pallas mega-kernel slot layout: fix the flat slot capacity from
+        # kernel-route slot layout (v2, mega): fix the flat slot capacity from
         # the bucket capacities so EVERY batch compiles to one program
         self.kernel_layout = None
         if kernel_layout is not None:

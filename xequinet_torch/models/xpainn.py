@@ -5,10 +5,13 @@ blackboard dict -> dict.  Submodules keep flax's automatic names
 (``Dense_0``, ``LayerNorm_0``, ...) so that ``convert.params_from_flax``
 maps a JAX parameter tree onto them one to one.
 
-``XPainnMessage`` has two routes: the plain route (``use_pallas=False``,
-xpainn.py:169-262) and the mega route (``"mega"``, xpainn.py:264-352)
-through ``ops.fused_message``, whose forward and first-order backward are
-CUDA kernels on the card.
+``XPainnMessage`` has three routes: the plain route (``use_pallas=False``,
+xpainn.py:169-262); the v2 route (``True`` / ``"v2"``, xpainn.py:172-230),
+whose equivariant-state aggregate goes through
+``ops.gather_scatter_v2`` (a CUDA kernel on the card); and the mega route
+(``"mega"``, xpainn.py:264-352) through ``ops.fused_message``, whose
+forward, first-order and second-order backward are CUDA kernels on the
+card.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch import nn
 
 from .. import keys
 from ..ops.fused_message import F_PACK, build_slot_plan, fused_message, pack_edge_features
+from ..ops.gather_scatter_v2 import fused_gather_scale_scatter
 from ..ops.irreps import Irreps
 from ..ops.o3ops import equivariant_dot, invariant, scalar_gate
 from ..ops.scatter import segment_sum
@@ -89,28 +93,24 @@ class XPainnMessage(nn.Module):
     """Message block.  ``compute_dtype="bfloat16"`` runs the per-edge
     pipeline in bf16 (parameters, LayerNorm and the residual stay f32).
 
-    ``use_pallas``: False (plain route) or "mega" (fused message kernels;
-    needs a batch collated with the kernel layout).  "mega-xb" (mega
-    forward, plain backward) serves as "mega": the backward kernel
-    computes the same VJP.  The v2 route (True / "v2") is ROADMAP queue 2
-    item 4 and raises."""
+    ``use_pallas``: False (plain route), True / "v2" (the equivariant-state
+    gather and scatter through the v2 kernel) or "mega" (fused message
+    kernels); the kernel routes need a batch collated with the kernel
+    layout.  "mega-xb" (mega forward, plain backward) serves as "mega":
+    the backward kernel computes the same VJP."""
 
     def __init__(self, node_dim: int = 128, node_irreps="128x0e+64x1o+32x2e",
                  num_basis: int = 20, activation: str = "silu",
                  layer_norm: bool = True, compute_dtype: str = "float32",
                  use_pallas=False, pallas_layout=(256, 1024, 32, 8)):
         super().__init__()
-        if use_pallas is True or use_pallas == "v2":
-            raise NotImplementedError(
-                "the v2 scatter-kernel route (use_pallas_scatter=True) is not "
-                "ported yet (ROADMAP queue 2 item 4); use False or 'mega'"
-            )
-        if use_pallas not in (False, None, "mega", "mega-xb"):
+        if use_pallas not in (False, None, True, "v2", "mega", "mega-xb"):
             raise ValueError(f"unknown use_pallas {use_pallas!r}")
         self.irreps = Irreps(node_irreps)
         self.node_dim = node_dim
         self.num_basis = num_basis
         self.cdtype = getattr(torch, compute_dtype)
+        self.use_v2 = use_pallas is True or use_pallas == "v2"
         self.use_mega = use_pallas in ("mega", "mega-xb")
         self.pallas_layout = tuple(pallas_layout)
         self.act = resolve_activation(activation)
@@ -144,9 +144,13 @@ class XPainnMessage(nn.Module):
         if self.use_mega and keys.K_SRC2 in data and keys.K_EDGE_FEAT in data:
             agg = self._mega_path(data, scalar_out, node_equi, center_idx,
                                   neighbor_idx, n_nodes)
-        elif self.use_mega and node_scalar.device.type != "cpu":
+        elif self.use_v2 and keys.K_SRC2 in data:
+            agg = self._v2_path(data, scalar_out, node_equi, center_idx,
+                                neighbor_idx, n_nodes)
+        elif (self.use_mega or self.use_v2) and node_scalar.device.type != "cpu":
+            route = "mega" if self.use_mega else "v2"
             raise ValueError(
-                "the mega message route needs a batch collated with the kernel "
+                f"the {route} message route needs a batch collated with the kernel "
                 "slot layout on the card (the plain route does not stand in for "
                 "the kernels there); collate with kernel_layout=..."
             )
@@ -175,6 +179,52 @@ class XPainnMessage(nn.Module):
         message_cat = torch.cat([filter_out[..., 2 * ni :], message_equi], dim=-1)
         return segment_sum(message_cat, center_idx, n_nodes, data[keys.EDGE_MASK])
 
+    def _slot_plan(self, data, slot_meta, n_nodes):
+        """The batch's CSR slot plan, built by the first kernel-route block
+        on the card and reused by the others."""
+        if SLOT_PLAN not in data:
+            bn, chunk = self.pallas_layout[:2]
+            data[SLOT_PLAN] = build_slot_plan(slot_meta, n_nodes, n_nodes, bn, chunk)
+        return data[SLOT_PLAN]
+
+    def _v2_path(self, data, scalar_out, node_equi, center_idx, neighbor_idx, n_nodes):
+        """xpainn.py:172-230 with the kernel: only the scalars are gathered
+        here; the equivariant-state message sum_e x_eq[src] * g1exp goes
+        through the v2 op in f32 (the JAX module casts both operands to f32
+        there, xpainn.py:214, :227, also in bf16 mode), and its aggregate is
+        added to the segment sum of the scalar and harmonic messages.  The
+        feature axis is not padded to 128 (a TPU tiling constraint)."""
+        ni = self.irreps.num_irreps
+        cd = self.cdtype
+        edge_mask = data[keys.EDGE_MASK]
+        rsh = data[keys.SPHERICAL_HARMONICS].to(cd)
+        filter_weight = self.Dense_2(data[keys.RADIAL_BASIS_FUNCTION]) * \
+            data[keys.ENVELOPE_FUNCTION].to(cd)
+        filter_out = scalar_out.index_select(0, neighbor_idx.long()) * filter_weight
+        gate_state = filter_out[..., :ni]
+        g1exp = scalar_gate(torch.ones((gate_state.shape[0], self.irreps.dim),
+                                       dtype=gate_state.dtype, device=gate_state.device),
+                            gate_state, self.irreps)
+        g1exp = torch.where(edge_mask[:, None], g1exp,
+                            torch.zeros((), dtype=g1exp.dtype, device=g1exp.device))
+        bn, chunk, pad_nodes, max_chunks = self.pallas_layout
+        slot_meta = (data[keys.K_SRC2], data[keys.K_DST2], center_idx,
+                     data[keys.K_CHUNK_BASE], data[keys.K_NCHUNKS], data[keys.K_WSTARTS])
+        if node_equi.is_cuda:
+            plan = self._slot_plan(data, slot_meta[:2] + (neighbor_idx,) + slot_meta[2:],
+                                   n_nodes)
+            slot_meta = slot_meta + (plan,)
+        equi_state_agg = fused_gather_scale_scatter(
+            node_equi.float(), g1exp.float(), neighbor_idx, slot_meta, n_nodes, bn, chunk,
+            window_size(bn, pad_nodes), max_chunks,
+        )
+        message_equi = scalar_gate(rsh, filter_out[..., ni : 2 * ni], self.irreps)
+        message_cat = torch.cat([filter_out[..., 2 * ni :], message_equi], dim=-1)
+        agg = segment_sum(message_cat, center_idx, n_nodes, edge_mask)
+        agg = agg.to(data[keys.NODE_INVARIANT].dtype)
+        return torch.cat([agg[..., : self.node_dim],
+                          agg[..., self.node_dim :] + equi_state_agg.to(agg.dtype)], dim=-1)
+
     def _mega_path(self, data, scalar_out, node_equi, center_idx, neighbor_idx,
                    n_nodes):
         """xpainn.py:264-352.  ``wf_aug`` is probed out of the filter Dense
@@ -202,9 +252,7 @@ class XPainnMessage(nn.Module):
             data[keys.K_CHUNK_BASE], data[keys.K_NCHUNKS], data[keys.K_WSTARTS],
         )
         if x_cat.is_cuda:
-            if SLOT_PLAN not in data:
-                data[SLOT_PLAN] = build_slot_plan(slot_meta, n_nodes, n_nodes, bn, chunk)
-            slot_meta = slot_meta + (data[SLOT_PLAN],)
+            slot_meta = slot_meta + (self._slot_plan(data, slot_meta, n_nodes),)
         mm = "bfloat16" if cd == torch.bfloat16 else "float32"
         agg_full = fused_message(
             x_cat, data[keys.K_EDGE_FEAT], wf_aug, slot_meta, data[keys.EDGE_MASK],

@@ -23,47 +23,25 @@ E1/E2/MS/BY are 0/1 structure matrices; the plain version multiplies by
 them, the kernels use them as index maps.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU
-(the tests); for CUDA tensors it launches its kernel or raises.  Each
-CUDA wrapper counts its launches in ``LAUNCHES``.  The kernels are built
-with ``nvcc`` at first use from ``xequinet_torch/csrc`` into
-``xequinet_torch/_build`` and bound with ``ctypes``.
+(the tests); for CUDA tensors it launches its kernel or raises.  The
+kernels are built, loaded and counted by ``ops/cuda_build.py`` (its
+``LAUNCHES``, ``reset_launch_counts`` and ``build_kernels`` are
+importable from here too).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from .cuda_build import BUILD_INFO, LAUNCHES, build_kernels, reset_launch_counts  # noqa: F401
+from .cuda_build import launch
 from .irreps import Irreps
 
 F_PACK = 128  # packed edge-feature width
-
-_PKG = Path(__file__).resolve().parents[1]
-CSRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-_SOURCES = {"message_fwd": "message_fwd.cu", "message_bwd": "message_bwd.cu",
-            "message_bwd2": "message_bwd2.cu"}
-_HEADERS = ("message_common.cuh",)
-
-# launches of each CUDA kernel wrapper (one per wrapper call that launched)
-LAUNCHES: Dict[str, int] = {"message_fwd": 0, "message_bwd": 0, "message_bwd2": 0}
-# per source: {"seconds": nvcc wall time, "ptxas": registers / smem report}
-BUILD_INFO: Dict[str, Dict[str, object]] = {}
-_LIBS: Dict[str, ctypes.CDLL] = {}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _pad128(n: int) -> int:
@@ -334,6 +312,24 @@ def message_bwd2_closed(
 # ---------------------------------------------------------------------------
 # Slot plan: the CSR lists by destination and by source the kernels walk
 # ---------------------------------------------------------------------------
+def slot_rows(src2, dst2, chunk_base, n_chunks, window_starts, n_out: int, n_rows: int,
+              block_nodes: int, chunk: int):
+    """(src_row, dst_row, valid) per slot, int64 / bool: the global source
+    and destination rows the slot layout names, and whether the slot adds
+    anything (not padding, dst2 == BN; inside the covered chunk range;
+    rows inside the output and the source array)."""
+    dev = src2.device
+    k = torch.arange(src2.shape[0], device=dev, dtype=torch.int64)
+    cb64 = chunk_base.long()
+    blk = torch.searchsorted(cb64, k // chunk, right=True) - 1
+    blk = blk.clamp(0, cb64.numel() - 1)
+    n_cov = chunk * (cb64[-1] + n_chunks.long()[-1])
+    src_row = window_starts.long()[blk] + src2.long()
+    dst_row = blk * block_nodes + dst2.long()
+    valid = (dst2.long() < block_nodes) & (k < n_cov) & (dst_row < n_out) & (src_row < n_rows)
+    return src_row, dst_row, valid
+
+
 def build_slot_plan(slot_meta, n_out: int, n_rows: int, block_nodes: int,
                     chunk: int) -> Dict[str, torch.Tensor]:
     """From (src2, dst2, _, _, chunk_base, n_chunks, window_starts):
@@ -343,15 +339,8 @@ def build_slot_plan(slot_meta, n_out: int, n_rows: int, block_nodes: int,
     source.  Index glue in plain tensor ops, on the slots' device."""
     src2, dst2, _, _, cb, nc, ws = slot_meta[:7]
     dev = src2.device
-    t = src2.shape[0]
-    k = torch.arange(t, device=dev, dtype=torch.int64)
-    cb64 = cb.long()
-    blk = torch.searchsorted(cb64, k // chunk, right=True) - 1
-    blk = blk.clamp(0, cb64.numel() - 1)
-    n_cov = chunk * (cb64[-1] + nc.long()[-1])
-    src_row = ws.long()[blk] + src2.long()
-    dst_row = blk * block_nodes + dst2.long()
-    valid = (dst2.long() < block_nodes) & (k < n_cov) & (dst_row < n_out) & (src_row < n_rows)
+    src_row, dst_row, valid = slot_rows(src2, dst2, cb, nc, ws, n_out, n_rows,
+                                        block_nodes, chunk)
 
     def csr(key, n):
         key = torch.where(valid, key, torch.full_like(key, n))
@@ -378,73 +367,8 @@ def _plan(slot_meta, n_out, n_rows, block_nodes, chunk):
 
 
 # ---------------------------------------------------------------------------
-# Build and bind
+# CUDA wrappers
 # ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME / nvcc)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha1()
-    for f in (_SOURCES[name],) + _HEADERS:
-        h.update((CSRC_DIR / f).read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
-
-
-def build_kernels(names=None) -> Dict[str, Dict[str, object]]:
-    """Compile the named sources (all by default) that are not built yet,
-    one nvcc per source, all started together; raises on a failed build.
-    Returns BUILD_INFO."""
-    names = list(_SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": "(cached)"})
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(CSRC_DIR / _SOURCES[name]),
-        ]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       time.perf_counter(), tmp, out)
-    for name, (p, t0, tmp, out) in procs.items():
-        so, se = p.communicate()
-        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": se + so}
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SOURCES[name]}:\n{se}{so}")
-        os.replace(tmp, out)
-    return BUILD_INFO
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = {
-    "message_fwd": ("xeq_message_fwd", [_P] * 10 + [_I] * 10 + [_P]),
-    "message_bwd": ("xeq_message_bwd", [_P] * 18 + [_I] * 12 + [_P]),
-    "message_bwd2": ("xeq_message_bwd2", [_P] * 24 + [_I] * 15 + [_P]),
-}
-
-
-def _fn(name: str):
-    if name not in _LIBS:
-        build_kernels([name])
-        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
-    sym, argtypes = _ARGTYPES[name]
-    fn = getattr(_LIBS[name], sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_cuda(*tensors):
     dev = tensors[0].device
     for t in tensors:
@@ -486,8 +410,8 @@ def message_fwd_cuda(
     maps = _device_maps(irreps_str, num_basis, x_cat.device)
     out = torch.empty((n_out, sdp + dp), dtype=torch.float32, device=x_cat.device)
     _check_cuda(xk, efk, wfk, plan["dst_ptr"], out)
-    fn = _fn("message_fwd")
-    err = fn(
+    launch(
+        "message_fwd",
         xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), plan["dst_ptr"].data_ptr(),
         plan["dst_slots"].data_ptr(), plan["slot_src"].data_ptr(),
         plan["slot_dst"].data_ptr(), maps["lane_gate"].data_ptr(),
@@ -495,9 +419,6 @@ def message_fwd_cuda(
         n_out, ni, node_dim, hp, d, dp, sdp, kw, kf, int(mm == torch.bfloat16),
         torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"message_fwd launch failed: CUDA error {err}")
-    LAUNCHES["message_fwd"] += 1
     return out
 
 
@@ -524,8 +445,8 @@ def message_bwd_cuda(
     dwf_part = torch.empty((n_part, kf, h), dtype=torch.float32, device=dev)
     d_wf = torch.empty((F_PACK, hp), dtype=torch.float32, device=dev)
     _check_cuda(xk, efk, wfk, gk, plan["src_ptr"], dx)
-    fn = _fn("message_bwd")
-    err = fn(
+    launch(
+        "message_bwd",
         xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), gk.data_ptr(),
         plan["src_ptr"].data_ptr(), plan["src_slots"].data_ptr(),
         plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(),
@@ -536,9 +457,6 @@ def message_bwd_cuda(
         n_rows, t_slots, n_part, ni, h, hp, d, dp, sdp, kw, kf,
         int(mm == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"message_bwd launch failed: CUDA error {err}")
-    LAUNCHES["message_bwd"] += 1
     return dx, d_ef, d_wf
 
 
@@ -586,8 +504,8 @@ def message_bwd2_cuda(
     d2g = torch.empty((n_out, sdp + dp), **f32)
     _check_cuda(xk, efk, wfk, gk, cxk, cefk, plan["dst_ptr"], plan["src_ptr"], d2x,
                 *(() if cwfk is None else (cwfk,)))
-    fn = _fn("message_bwd2")
-    err = fn(
+    launch(
+        "message_bwd2",
         xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), gk.data_ptr(),
         cxk.data_ptr(), cefk.data_ptr(), None if cwfk is None else cwfk.data_ptr(),
         plan["dst_ptr"].data_ptr(), plan["dst_slots"].data_ptr(),
@@ -602,9 +520,6 @@ def message_bwd2_cuda(
         int(mm == torch.bfloat16), int(cwfk is not None),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"message_bwd2 launch failed: CUDA error {err}")
-    LAUNCHES["message_bwd2"] += 1
     return d2x, d2ef, d2wf, d2g
 
 

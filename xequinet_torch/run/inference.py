@@ -75,8 +75,8 @@ class InferenceEngine:
         self.cutoff = cutoff
         self.transform = NeighborTransform(cutoff)
         self.forward = make_forward(self.module, extra)
-        # models using the mega kernels keep them at inference: batches
-        # carry the slot layout
+        # models on a kernel route (v2 or mega) keep it at inference:
+        # batches carry the slot layout
         self._kernel_layout = kernel_layout_from_model_kwargs(model_kwargs or {})
 
     def collate(self, dps: List[Datapoint]) -> Dict[str, np.ndarray]:

@@ -72,8 +72,8 @@ def run_train(config: XequiConfig, logger=None, device=None) -> Trainer:
     if dc.max_nodes and dc.max_edges:
         caps = {"n_nodes": dc.max_nodes, "n_edges": dc.max_edges,
                 "n_graphs": dc.batch_size + 1}
-    # mega message kernels: the loaders emit the block-aligned slot layout
-    # with a fixed slot capacity
+    # kernel routes (v2, mega): the loaders emit the block-aligned slot
+    # layout with a fixed slot capacity
     kernel_layout = kernel_layout_from_model_kwargs(mc.model_kwargs)
     train_loader = DataLoader(train_set, dc.batch_size, capacities=caps, shuffle=True,
                               seed=tc.seed or 0, kernel_layout=kernel_layout, prefetch=2)
