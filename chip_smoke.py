@@ -43,7 +43,9 @@ Phases (any failed check exits non-zero):
   6. times on the card (CUDA events): each kernel and its plain version,
      the bound (bytes and operations the function needs on these inputs),
      the library yardstick where one PyTorch call computes the same
-     function (torch.sparse.mm for the v1 op at an [E, 1] weight), each
+     function (torch.sparse.mm for the v1 op at an [E, 1] weight, timed in
+     turns with the kernel), the backward's split per launch (tile pass,
+     dx pass, d_wf reduction; torch.profiler) and its scratch bytes, each
      route's device forward+forces, the mega predict wall time and
      edges/s, each route's train step ms, edges/s and peak memory.
 Then one JSON line with the kernels, the card line, and last the device
@@ -822,6 +824,44 @@ def kernel_costs(p, mm):
     return (fwd_bytes, fwd_flops), (bwd_bytes, bwd_flops), (bwd2_bytes, bwd2_flops)
 
 
+BWD_PASSES = (("tile pass", "message_bwd_tile_kernel"),
+              ("dx pass", "message_bwd_dx_rows_kernel"),
+              ("d_wf reduction", "xeq_dwf_reduce_kernel"))
+
+
+def bwd_split(p_mm, mm, card, calls=10):
+    """The backward's device time per launch by pass (torch.profiler over
+    ``calls`` wrapper calls after a warm-up) and its bf16 scratch bytes.
+    Returns ({pass: ms per call}, scratch bytes); passes the profiler did
+    not see are None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xequinet_torch.ops import fused_message as fm
+
+    kernel_bwd(p_mm, mm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernel_bwd(p_mm, mm)
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0.0)
+    split = {}
+    for tag, name in BWD_PASSES:
+        us = sum(dev(e) for e in prof.key_averages() if e.key.startswith(name))
+        split[tag] = us / 1e3 / calls if us else None
+    irreps, nb, nd = p_mm["statics"]
+    _, _, _, _, (h, _, d, _, _, _) = fm.structure_matrices(irreps, nb, nd)
+    rows, width = fm.bwd_scratch_shape(p_mm["ef"].shape[0], h, d)
+    scratch = rows * width * 2
+    shown = ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f} ms")
+                      for k, v in split.items())
+    print(f"[time] message_bwd ({mm}) per launch by pass (torch.profiler, {calls} calls): "
+          f"{shown}; scratch {rows} x {width} bf16 = {scratch / 1e6:.1f} MB written once, "
+          f"read once — {card}")
+    return split, scratch
+
+
 def bound_ms(nbytes, flops, mm):
     peak = PEAK_BF16 if mm == "bfloat16" else PEAK_F32
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
@@ -993,6 +1033,8 @@ def main():
                      "launches_train_step": per_step[name], "max_abs_err": abs_err[name],
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
+        if name == "message_bwd":
+            rows[-1]["split_ms"], rows[-1]["scratch_bytes"] = bwd_split(p_mm, mm, card)
     # why the second order has a specialisation without the cwf terms:
     # against the general kernel on a materialised zero cwf, interleaved
     # so that the two repeats of each show the noise
@@ -1044,9 +1086,14 @@ def main():
                                         4 * pv1["w"][wk].shape[1]),
                          scatter_err[("gather_scatter", wk)])
         for wk in ("[E, 1]", "[E, D]")}
-    lib_ms = time_ms(lambda: v1_library(pv1))
+    # the kernel and the library call at [E, 1] in turns, twice, so that
+    # the pairs show the noise; the row keeps the library's first time
+    turns = [(time_ms(lambda: v1_kernel(pv1, "[E, 1]")), time_ms(lambda: v1_library(pv1)))
+             for _ in range(2)]
+    lib_ms = turns[0][1]
     print(f"[time] torch.sparse.mm (CSR dst, src, w) at w [E, 1]: {lib_ms:.4f} ms, beside the "
-          f"kernel's {v1_cases['[E, 1]']['ms']:.4f} ms — {card}")
+          f"kernel's {v1_cases['[E, 1]']['ms']:.4f} ms; in turns, kernel / library: "
+          + ", ".join(f"{k:.4f} / {l:.4f} ms" for k, l in turns) + f" — {card}")
     rows.append(dict(
         {"name": "gather_scatter", "route": "cuda",
          "source": "xequinet_torch/csrc/gather_scatter.cu",

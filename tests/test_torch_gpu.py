@@ -42,17 +42,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _problem(device, irreps, nb, sd, seed=0, bn=16, chunk=16, slot_tail=2):
+def _problem(device, irreps, nb, sd, seed=0, bn=16, chunk=16, slot_tail=2, n_mols=10,
+             odd_tail=0):
+    """A molecule batch in the slot layout with a slot_cap tail (``odd_tail``
+    more slots make the slot count no multiple of 16) and seeded operands."""
     rng = np.random.default_rng(seed)
     dps = []
-    for _ in range(10):
+    for _ in range(n_mols):
         n = int(rng.integers(4, 12))
         pos = rng.normal(size=(n, 3)) * 1.5
         ei, _ = radius_graph_np(pos, 5.0)
         dps.append(Datapoint(rng.integers(1, 9, n), pos, edge_index=ei))
     layout = {"block_nodes": bn, "chunk": chunk, "pad_nodes": 16, "max_chunks": 64}
     n_edges = sum(d.num_edges for d in dps)
-    layout["slot_cap"] = ((n_edges + chunk - 1) // chunk) * chunk + 16 * chunk
+    n_blocks = sum(d.num_atoms for d in dps) // bn + 2  # each block pads its run
+    layout["slot_cap"] = ((n_edges + chunk - 1) // chunk + n_blocks + 16) * chunk + odd_tail
     batch = collate(dps, kernel_layout=layout)
     _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, sd)
     n, t = batch[keys.POSITIONS].shape[0], batch[keys.EDGE_MASK].shape[0]
@@ -122,6 +126,51 @@ def test_cuda_kernels_repeat_bit_for_bit(cuda_device):
         a, b = fn(), fn()
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_cuda_message_bwd_ragged_tiles(cuda_device, case, mm, rel):
+    """The backward on a slot count that is no multiple of the bf16 tile
+    (16 slots), with padding slots inside the blocks and a slot_cap tail:
+    dx, d_ef and d_wf against the plain VJP, zero d_ef rows on every slot
+    that adds nothing."""
+    p = _problem(cuda_device, *case, odd_tail=5)
+    mask = p["mask"]
+    assert mask.shape[0] % 16 == 5 and not bool(mask[-5:].any())
+    m = p["meta"]
+    got = fm.message_bwd_cuda(p["x"], p["ef"], p["wf"], p["g"], m, *p["statics"], p["n"],
+                              p["bn"], p["chunk"], mm)
+    want = fm.plain_message_bwd(p["x"], p["ef"], p["wf"], p["g"], m[2], m[3], mask,
+                                *p["statics"], p["n"], getattr(torch, mm))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        _close(a, b, rel)
+    assert float(got[1][~mask].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_cuda_message_bwd_many_tiles_per_block(cuda_device, mm, rel):
+    """Flagship widths on a batch of more slot tiles than the card has SMs,
+    so each persistent block walks several tiles through both shared-memory
+    stages: against the plain VJP, and the same bits on a second call."""
+    p = _problem(cuda_device, *CASES[2], n_mols=240)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert p["mask"].shape[0] > 3 * 16 * n_sm
+    m = p["meta"]
+    run = lambda: fm.message_bwd_cuda(p["x"], p["ef"], p["wf"], p["g"], m, *p["statics"],
+                                      p["n"], p["bn"], p["chunk"], mm)
+    got = run()
+    want = fm.plain_message_bwd(p["x"], p["ef"], p["wf"], p["g"], m[2], m[3], p["mask"],
+                                *p["statics"], p["n"], getattr(torch, mm))
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, run()):
+        _close(a, b, rel)
+        assert torch.equal(a, c)
+    assert float(got[1][~p["mask"]].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
@@ -300,15 +349,31 @@ def test_cuda_gather_scatter_v2_matches_plain(cuda_device, wdt, rel):
     _close(got.cpu(), want, rel)
 
 
-def _v1_problem(device, w_cols, n=512, e=4096, d=480, bn=64, seed=0):
+def _v1_problem(device, w_cols, n=512, e=4096, d=480, bn=64, seed=0, n_out=None,
+                gap=None, cut=0):
+    """bench_kernels.py's v1 problem at a small size: sorted uniform dst,
+    uniform src.  ``n_out`` below n cuts the rows past it (and leaves the
+    last block short of block_nodes); ``gap`` = (r0, r1) gives those rows
+    no edge; ``cut`` edges at the end of block 1's run fall outside it."""
     rng = np.random.default_rng(seed)
-    dst = np.sort(rng.integers(0, n, size=e)).astype(np.int32)
+    n_out = n if n_out is None else n_out
+    dst = rng.integers(0, n, size=e)
+    if gap is not None:
+        dst = dst[(dst < gap[0]) | (dst >= gap[1])]
+        e = dst.size
+    dst = np.sort(dst).astype(np.int32)
     src = rng.integers(0, n, size=e).astype(np.int32)
-    starts, counts = gs1.prepare_blocks(dst, n, bn, e)
+    starts, counts = gs1.prepare_blocks(dst, n_out, bn, e)
+    counts = counts.copy()
+    counts[1] -= cut
     tt = lambda a: torch.as_tensor(a, device=device)
     return dict(x=tt(rng.normal(size=(n, d)).astype(np.float32)), src=tt(src), dst=tt(dst),
                 w=tt(rng.normal(size=(e, d if w_cols == "D" else 1)).astype(np.float32)),
-                starts=tt(starts), counts=tt(counts), n=n, bn=bn)
+                starts=tt(starts), counts=tt(counts), n=n_out, bn=bn)
+
+
+def _v1_args(p):
+    return (p["x"], p["src"], p["dst"], p["w"], p["starts"], p["counts"], p["n"], p["bn"])
 
 
 @pytest.mark.gpu
@@ -319,6 +384,39 @@ def test_cuda_gather_scatter_matches_plain(cuda_device, w_cols):
     got = gs1.gather_scale_scatter_cuda(*args)
     want = gs1.gather_scale_scatter_plain(*(t.cpu() if torch.is_tensor(t) else t for t in args))
     torch.cuda.synchronize()
+    _close(got.cpu(), want, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 480, 481])
+@pytest.mark.parametrize("w_cols", ["D", "1"])
+def test_cuda_gather_scatter_column_widths(cuda_device, d, w_cols):
+    """The v1 kernel's float4 columns (D % 4 == 0) and scalar columns
+    (D = 1, 3, 481) against the plain version, 1e-5, bit for bit on a
+    second call, one launch per call."""
+    p = _v1_problem(cuda_device, w_cols, d=d)
+    fm.reset_launch_counts()
+    got = gs1.gather_scale_scatter_cuda(*_v1_args(p))
+    assert fm.LAUNCHES == _counts(gather_scatter=1)
+    want = gs1.gather_scale_scatter_plain(*(t.cpu() if torch.is_tensor(t) else t
+                                            for t in _v1_args(p)))
+    torch.cuda.synchronize()
+    _close(got.cpu(), want, 1e-5)
+    assert torch.equal(got, gs1.gather_scale_scatter_cuda(*_v1_args(p)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_cols", ["D", "1"])
+def test_cuda_gather_scatter_block_runs_and_empty_rows(cuda_device, w_cols):
+    """Rows with no edge (a band of them), edges left outside their block's
+    run, n_out no multiple of block_nodes with the rows past it cut:
+    against the plain version, 1e-5."""
+    p = _v1_problem(cuda_device, w_cols, n=520, n_out=500, gap=(130, 150), cut=7)
+    got = gs1.gather_scale_scatter_cuda(*_v1_args(p))
+    want = gs1.gather_scale_scatter_plain(*(t.cpu() if torch.is_tensor(t) else t
+                                            for t in _v1_args(p)))
+    torch.cuda.synchronize()
+    assert got.shape == (500, 480) and float(got[130:150].abs().max()) == 0.0
     _close(got.cpu(), want, 1e-5)
 
 

@@ -202,6 +202,81 @@ def test_kernel_algorithm_emulation_matches_plain(rng, dims):
         _close(a, b, 1e-5)
 
 
+def _dx_of_rows(rows, src, n, h, hp, d, dp):
+    """dx [n, Hp+Dp] from per-slot [dgs | dgv] rows: the sum by source."""
+    dx = torch.zeros(n, hp + dp)
+    dx[:, :h] = torch.zeros(n, h).index_add(0, src, rows[:, :h])
+    dx[:, hp:hp + d] = torch.zeros(n, d).index_add(0, src, rows[:, h:])
+    return dx
+
+
+@pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2)])
+def test_message_bwd_rows_match_jax_bwd_kernel(rng, dims):
+    """The per-slot rows of the bf16 tile pass, in f32: their sum by
+    source is the plain VJP's dx, and their d_ef / d_wf are those of
+    ``_bwd_kernel`` (``_mega_bwd_call`` in interpret mode), 1e-5."""
+    p = _problem(rng, *dims)
+    j = lambda k: jnp.asarray(p[k])
+    statics = (*dims, p["n"], p["bn"], p["chunk"], p["window"], p["mx"], "float32")
+    with pltpu.force_tpu_interpret_mode():
+        wdx, wdef, wdwf = _mega_bwd_call(j("x"), j("ef"), j("wf"), j("g"), j("src2"),
+                                         j("dst2"), j("cb"), j("nc"), j("ws"), *statics)
+    x, ef, wf, g, meta, valid = _t(p)
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(*dims)
+    rows, dfw, d_ef, d_wf = fm.message_bwd_rows(x, ef, wf, g, meta[2], meta[3], valid, *dims)
+    assert rows.shape == (ef.shape[0], h + d) and dfw.shape == (ef.shape[0], h)
+    assert float(rows[~valid].abs().max()) == 0.0 and float(d_ef[~valid].abs().max()) == 0.0
+    dx = _dx_of_rows(rows, meta[2].long(), p["n"], h, hp, d, dp)
+    want_dx = fm.plain_message_bwd(x, ef, wf, g, meta[2], meta[3], valid, *dims, p["n"])[0]
+    _close(dx, want_dx, 1e-5)
+    _close(dx, wdx, 1e-5)
+    _close(d_ef, wdef, 1e-5)
+    _close(d_wf, wdwf, 1e-5)
+
+
+def test_message_bwd_rows_bf16_within_band(rng):
+    """bf16: the rows at the TPU kernel's rounding points against the plain
+    VJP at XLA's, bench.py's 2e-2 band."""
+    p = _problem(rng)
+    x, ef, wf, g, meta, valid = _t(p)
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(*p["statics"])
+    rows, _, d_ef, d_wf = fm.message_bwd_rows(x, ef, wf, g, meta[2], meta[3], valid,
+                                              *p["statics"], torch.bfloat16)
+    want = fm.plain_message_bwd(x, ef, wf, g, meta[2], meta[3], valid, *p["statics"], p["n"],
+                                torch.bfloat16)
+    got = (_dx_of_rows(rows, meta[2].long(), p["n"], h, hp, d, dp), d_ef, d_wf)
+    for a, b in zip(got, want):
+        _close(a, b, 2e-2)
+
+
+@pytest.mark.parametrize("tail", [0, 3 * 16 + 5])
+def test_slot_plan_scratch_positions(rng, tail):
+    """``src_pos`` puts each valid slot at its place in the list by source
+    (-1 elsewhere, tail slots included), so the scratch rows of one source
+    row are contiguous: the backward's dx pass, segment sums of the scratch
+    along ``src_ptr``, equals the sum of the rows by source."""
+    p = _problem(rng)
+    x, ef, wf, g, meta, valid = _t(p)
+    meta = list(meta)
+    meta[0] = torch.cat([meta[0], torch.zeros(tail, dtype=meta[0].dtype)])
+    meta[1] = torch.cat([meta[1], torch.full((tail,), p["bn"], dtype=meta[1].dtype)])
+    plan = fm.build_slot_plan(tuple(meta), p["n"], p["n"], p["bn"], p["chunk"])
+    valid = torch.cat([valid, torch.zeros(tail, dtype=torch.bool)])
+    pos, slots = plan["src_pos"].long(), plan["src_slots"].long()
+    n_valid = int(plan["src_ptr"][-1])
+    assert pos.shape == valid.shape and bool((pos[~valid] == -1).all())
+    assert torch.equal(slots[pos[valid]], torch.nonzero(valid)[:, 0])
+    assert sorted(pos[valid].tolist()) == list(range(n_valid))
+    rows = torch.as_tensor(rng.normal(size=(valid.numel(), 7)).astype(np.float32))
+    scratch = torch.zeros(n_valid, 7)
+    scratch[pos[valid]] = rows[valid]
+    ptr = plan["src_ptr"].long()
+    seg = torch.stack([scratch[ptr[r]:ptr[r + 1]].sum(0) for r in range(p["n"])])
+    src = plan["slot_src"].long()
+    want = torch.zeros(p["n"], 7).index_add(0, src[valid], rows[valid])
+    _close(seg, want, 1e-6)
+
+
 def test_slot_plan_with_slot_cap_tail(rng):
     """Tail slots past the covered chunk range and padding slots are not
     in either CSR list; every valid slot is in both exactly once."""

@@ -230,6 +230,43 @@ def test_v1_block_runs_bound_the_edges(rng):
     assert int((hi - lo).sum()) == int(keep.sum())
 
 
+def _warp_lower_bound(dst, lo, hi, r):
+    """One search of ``xeq_row_range`` (csrc/gather_scatter.cu): the first
+    index in [lo, hi) with dst >= r (hi if none), 32 probes per round."""
+    while hi - lo > 32:
+        step = (hi - lo + 31) // 32
+        probes = lo + (np.arange(32) + 1) * step - 1
+        k = int(((probes < hi) & (dst[np.minimum(probes, len(dst) - 1)] < r)).sum())
+        lo = min(lo + k * step, hi)
+        hi = min(lo + step, hi)
+    idx = lo + np.arange(32)
+    return lo + int(((idx < hi) & (dst[np.minimum(idx, len(dst) - 1)] < r)).sum())
+
+
+@pytest.mark.parametrize("n,n_out,bn,e,cut", [(32, 30, 8, 128, 3), (700, 650, 64, 9000, 40),
+                                              (300, 300, 256, 4000, 0)])
+def test_v1_kernel_search_gives_row_edge_ranges(rng, n, n_out, bn, e, cut):
+    """The v1 kernel's per-row search of the sorted dst inside the block's
+    run finds the edges ``row_edge_ranges`` states, with a run cut short,
+    rows past n_out, a band of rows with no edge and runs of thousands of
+    edges (several probe rounds)."""
+    dst = rng.integers(0, n, size=e)
+    dst = np.sort(dst[(dst < n // 3) | (dst >= n // 3 + 5)]).astype(np.int32)
+    starts, counts = tv1.prepare_blocks(dst, n_out, bn, len(dst))
+    counts = counts.copy()
+    counts[min(1, len(counts) - 1)] -= cut
+    t = torch.as_tensor
+    lo, hi = (a.numpy() for a in tv1.row_edge_ranges(t(dst), t(starts), t(counts), n_out, bn))
+    for r in range(n_out):
+        b = min(r // bn, len(starts) - 1)
+        s, end = int(starts[b]), int(starts[b] + counts[b])
+        k_lo = _warp_lower_bound(dst, s, end, r)
+        k_hi = _warp_lower_bound(dst, s, end, r + 1)
+        assert k_hi - k_lo == hi[r] - lo[r]
+        if k_hi > k_lo:
+            assert (k_lo, k_hi) == (lo[r], hi[r])
+
+
 def test_prepare_blocks_overflow():
     dst = np.zeros(100, dtype=np.int32)  # all edges into node 0
     with pytest.raises(ValueError, match="edge capacity"):

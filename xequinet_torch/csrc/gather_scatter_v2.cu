@@ -33,7 +33,67 @@
 // products; w2 in bf16 (bench_kernels.py make_v2(bfloat16)) rounds x to
 // bf16 and each product to bf16 and sums in f32, as the TPU kernel's
 // one-hot products do (:141-154).
-#include "gather_scatter_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ float xeq_gss_ld(const float* p, int64_t i) {
+  return __ldg(p + i);
+}
+
+__device__ __forceinline__ float xeq_gss_ld(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+
+// Rounding point of the TPU kernel's bf16 mode (a value cast to bf16
+// before the next one-hot product); identity in f32 mode.
+template <bool BF16>
+__device__ __forceinline__ float xeq_gss_rnd(float v) {
+  if (BF16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// One output element: the sum, in list order, over positions p in
+// [p0, p1) of x[src[k], col] * w[k, col], with k = order[p].  Four slots'
+// loads go out before their sums so that they overlap; the sum itself
+// stays in list order, so the result repeats bit for bit.  In bf16 mode (w in bf16) x is rounded to bf16 and
+// each product to bf16, and the sum is f32, as the TPU kernel's one-hot
+// products round.
+template <typename W, bool BF16>
+__device__ __forceinline__ float xeq_gss_sum(const float* __restrict__ x,
+                                             const W* __restrict__ w,
+                                             const int* __restrict__ order,
+                                             const int* __restrict__ src,
+                                             int p0, int p1, int d, int col) {
+  constexpr int kIlp = 4;
+  float acc = 0.f;
+  for (int p = p0; p < p1; p += kIlp) {
+    float v[kIlp];
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      v[u] = 0.f;
+      if (p + u < p1) {
+        const int k = __ldg(order + p + u);
+        const float xv = xeq_gss_ld(x, (int64_t)__ldg(src + k) * d + col);
+        const float wv = xeq_gss_ld(w, (int64_t)k * d + col);
+        v[u] = xeq_gss_rnd<BF16>(xeq_gss_rnd<BF16>(xv) * wv);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      if (p + u < p1) acc += v[u];
+    }
+  }
+  return acc;
+}
+
+// Threads per block: one per column, in whole warps, at most 512; the
+// grid's second axis covers wider rows.
+static inline int xeq_gss_threads(int d) {
+  const int t = ((d + 31) / 32) * 32;
+  return t < 512 ? t : 512;
+}
+
 
 template <typename W, bool BF16>
 __global__ void __launch_bounds__(512)
@@ -45,8 +105,8 @@ gather_scatter_v2_kernel(const float* __restrict__ x, const W* __restrict__ w2,
   const int row = blockIdx.x;
   const int col = blockIdx.y * blockDim.x + threadIdx.x;
   if (col >= d) return;
-  out[(int64_t)row * d + col] = xeq_gss_sum<W, BF16, true>(
-      x, w2, dst_slots, slot_src, dst_ptr[row], dst_ptr[row + 1], d, col, d, col);
+  out[(int64_t)row * d + col] = xeq_gss_sum<W, BF16>(
+      x, w2, dst_slots, slot_src, dst_ptr[row], dst_ptr[row + 1], d, col);
 }
 
 extern "C" int xeq_gather_scatter_v2(const void* x, const void* w2,

@@ -31,13 +31,13 @@ _KERNELS = {
     "message_fwd": ("message_fwd.cu", ("message_common.cuh",), "xeq_message_fwd",
                     [_P] * 10 + [_I] * 10 + [_P]),
     "message_bwd": ("message_bwd.cu", ("message_common.cuh",), "xeq_message_bwd",
-                    [_P] * 18 + [_I] * 12 + [_P]),
+                    [_P] * 20 + [_I] * 12 + [_P]),
     "message_bwd2": ("message_bwd2.cu", ("message_common.cuh",), "xeq_message_bwd2",
                      [_P] * 24 + [_I] * 15 + [_P]),
-    "gather_scatter_v2": ("gather_scatter_v2.cu", ("gather_scatter_common.cuh",),
-                          "xeq_gather_scatter_v2", [_P] * 6 + [_I] * 3 + [_P]),
-    "gather_scatter": ("gather_scatter.cu", ("gather_scatter_common.cuh",),
-                       "xeq_gather_scatter", [_P] * 6 + [_I] * 3 + [_P]),
+    "gather_scatter_v2": ("gather_scatter_v2.cu", (), "xeq_gather_scatter_v2",
+                          [_P] * 6 + [_I] * 3 + [_P]),
+    "gather_scatter": ("gather_scatter.cu", (), "xeq_gather_scatter",
+                       [_P] * 7 + [_I] * 5 + [_P]),
 }
 
 # launches of each CUDA kernel wrapper (one per wrapper call that launched)

@@ -217,6 +217,47 @@ def plain_message_bwd(
         return torch.autograd.grad(out, ins, g, create_graph=create_graph)
 
 
+def message_bwd_rows(
+    x_cat, edge_feat, wf_aug, g, src_g, dst_g, edge_mask,
+    irreps_str, num_basis, node_dim, compute_dtype=torch.float32,
+):
+    """The first-order VJP per slot, as the bf16 tile pass of
+    ``csrc/message_bwd.cu`` (and ``_bwd_kernel``, pallas_message.py:386-448)
+    computes it: with fw = ef@W, [gs|gv] = x[src], fo = gs*fw, rsh = ef@BY,
+    gms = g[dst] and dfo = (gv*gms_v)@E1' + (rsh*gms_v)@E2' + gms_s@MS',
+
+        rows = [dgs | dgv] = [dfo*fw | (fo@E1)*gms_v]   [T, H + D]
+        dfw  = dfo*gs,  drsh = (fo@E2)*gms_v
+        d_ef = dfw@W' + drsh@BY'                        [T, 128]
+        d_wf = ef'@dfw                                  [128, Hp]
+
+    Returns (rows, dfw [T, H], d_ef, d_wf), zero on slots that add nothing
+    (``edge_mask`` False).  ``dx`` is the sum of the rows by source: the
+    kernel's second pass (``[dgs | dgv]`` into columns ``[:H]`` and
+    ``[Hp:Hp+D]``).  In bf16 ``compute_dtype`` it rounds where the TPU
+    kernel rounds (the operands, fo, the gate products, dgs, dgv, dfw and
+    drsh); sums are f32."""
+    e1, e2, ms, by, (h, hp, d, dp, sdp, n_y) = structure_matrices(
+        irreps_str, num_basis, node_dim
+    )
+    dev = x_cat.device
+    rnd = lambda t: t.to(compute_dtype).float()
+    mat = lambda a: torch.as_tensor(a, device=dev)
+    e1, e2, ms, by = mat(e1), mat(e2), mat(ms), mat(by)
+    x, ef, wf, gq = rnd(x_cat), rnd(edge_feat), rnd(wf_aug), rnd(g)
+    gm = torch.where(edge_mask[:, None], gq[dst_g.long()], torch.zeros((), device=dev))
+    gms_s, gms_v = gm[:, :sdp], gm[:, sdp:]
+    xs = x[src_g.long()]
+    gs, gv = xs[:, :hp], xs[:, hp:]
+    fw, rsh = ef @ wf, ef @ by
+    fo = rnd(gs * fw)
+    dfo = rnd(gv * gms_v) @ e1.t() + rnd(rsh * gms_v) @ e2.t() + gms_s @ ms.t()
+    dfw = rnd(dfo * gs)
+    drsh = rnd((fo @ e2) * gms_v)
+    rows = torch.cat([rnd(dfo * fw)[:, :h], rnd((fo @ e1) * gms_v)[:, :d]], dim=-1)
+    return rows, dfw[:, :h], dfw @ wf.t() + drsh @ by.t(), ef.t() @ dfw
+
+
 def plain_message_bwd2(
     x_cat, edge_feat, wf_aug, g, cx, cef, cwf, src_g, dst_g, edge_mask,
     irreps_str, num_basis, node_dim, n_out, compute_dtype=torch.float32,
@@ -335,8 +376,10 @@ def build_slot_plan(slot_meta, n_out: int, n_rows: int, block_nodes: int,
     """From (src2, dst2, _, _, chunk_base, n_chunks, window_starts):
     per slot its global source / destination row (-1 destination on
     padding slots, dst2 == BN, and on slots past the covered chunk range),
-    and stable CSR orderings of the valid slots by destination and by
-    source.  Index glue in plain tensor ops, on the slots' device."""
+    stable CSR orderings of the valid slots by destination and by source,
+    and per slot its position in the list by source (``src_pos``, -1 on
+    slots that add nothing: the scratch row of the backward's bf16 tile
+    pass).  Index glue in plain tensor ops, on the slots' device."""
     src2, dst2, _, _, cb, nc, ws = slot_meta[:7]
     dev = src2.device
     src_row, dst_row, valid = slot_rows(src2, dst2, cb, nc, ws, n_out, n_rows,
@@ -352,11 +395,16 @@ def build_slot_plan(slot_meta, n_out: int, n_rows: int, block_nodes: int,
 
     dst_ptr, dst_slots = csr(dst_row, n_out)
     src_ptr, src_slots = csr(src_row, n_rows)
+    # the valid slots come first in the stable sort, in list order
+    src_pos = torch.full_like(src_slots, -1)
+    n_valid = valid.sum()
+    pos = torch.arange(src_slots.numel(), device=dev, dtype=torch.int32)
+    src_pos.index_copy_(0, src_slots.long(), torch.where(pos < n_valid, pos, -1))
     return {
         "slot_src": torch.where(valid, src_row, 0).int().contiguous(),
         "slot_dst": torch.where(valid, dst_row, -1).int().contiguous(),
         "dst_ptr": dst_ptr, "dst_slots": dst_slots,
-        "src_ptr": src_ptr, "src_slots": src_slots,
+        "src_ptr": src_ptr, "src_slots": src_slots, "src_pos": src_pos,
     }
 
 
@@ -426,11 +474,18 @@ def message_bwd_cuda(
     x_cat, edge_feat, wf_aug, g, slot_meta,
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx_cat, d_edge_feat, d_wf_aug), f32, by ``csrc/message_bwd.cu``."""
+    """(dx_cat, d_edge_feat, d_wf_aug), f32, by ``csrc/message_bwd.cu``.
+    In bf16 the tile pass writes each valid slot's ``[dgs | dgv]`` row to a
+    bf16 scratch of :func:`bwd_scratch_shape` (at the slot's position in
+    the list by source), which the dx pass sums by source."""
     if not x_cat.is_cuda:
         raise ValueError("message_bwd_cuda takes CUDA tensors")
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
     mm = _mm_dtype(mm_dtype)
+    bf16 = mm == torch.bfloat16
+    if bf16 and (kf > 32 or h > 768):
+        raise ValueError("the bf16 message backward takes num_basis + 1 + nY <= 32 "
+                         "edge-feature columns and a filter width H <= 768")
     dev = x_cat.device
     n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
     xk = x_cat.to(mm).contiguous()
@@ -444,20 +499,35 @@ def message_bwd_cuda(
     d_ef = torch.empty((t_slots, F_PACK), dtype=torch.float32, device=dev)
     dwf_part = torch.empty((n_part, kf, h), dtype=torch.float32, device=dev)
     d_wf = torch.empty((F_PACK, hp), dtype=torch.float32, device=dev)
-    _check_cuda(xk, efk, wfk, gk, plan["src_ptr"], dx)
+    rows = torch.empty(bwd_scratch_shape(t_slots, h, d) if bf16 else (0,),
+                       dtype=torch.bfloat16, device=dev)
+    _check_cuda(xk, efk, wfk, gk, plan["src_ptr"], dx, rows)
+    if any(t.data_ptr() % 16 for t in (xk, efk, gk)):
+        raise ValueError("fused message: operands must be 16-byte aligned")
     launch(
         "message_bwd",
         xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), gk.data_ptr(),
         plan["src_ptr"].data_ptr(), plan["src_slots"].data_ptr(),
         plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(),
+        plan["src_pos"].data_ptr(),
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
-        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(),
+        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), rows.data_ptr(),
         dx.data_ptr(), d_ef.data_ptr(), dwf_part.data_ptr(), d_wf.data_ptr(),
         n_rows, t_slots, n_part, ni, h, hp, d, dp, sdp, kw, kf,
-        int(mm == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+        int(bf16), torch.cuda.current_stream(dev).cuda_stream,
     )
     return dx, d_ef, d_wf
+
+
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def bwd_scratch_shape(t_slots: int, h: int, d: int) -> Tuple[int, int]:
+    """The bf16 backward's scratch: one ``[dgs | dgv]`` row per slot, H and
+    D each rounded up to 8 columns (16-byte rows)."""
+    return t_slots, _round8(h) + _round8(d)
 
 
 def message_bwd2_cuda(

@@ -72,7 +72,8 @@ def gather_scale_scatter_plain(x, src, dst, w, starts, counts, n_out: int, block
 def row_edge_ranges(dst, starts, counts, n_out: int, block_nodes: int):
     """(row_lo, row_hi) int32 [n_out]: the edges of destination row c are
     ``row_lo[c] .. row_hi[c] - 1`` of the sorted ``dst``, cut to c's block
-    run.  Index preparation for the kernel, on ``dst``'s device."""
+    run.  The plain statement of the ranges the kernel finds itself (by a
+    search of ``dst`` inside the block's run), on ``dst``'s device."""
     d64 = dst.long().contiguous()
     rows = torch.arange(n_out, device=dst.device, dtype=torch.int64)
     s, e = _run_bounds(rows, starts, counts, block_nodes)
@@ -82,7 +83,8 @@ def row_edge_ranges(dst, starts, counts, n_out: int, block_nodes: int):
 
 
 def gather_scale_scatter_cuda(x, src, dst, w, starts, counts, n_out: int, block_nodes: int):
-    """out [n_out, D] f32 by ``csrc/gather_scatter.cu``; x and w float32."""
+    """out [n_out, D] f32 by ``csrc/gather_scatter.cu``: one launch, which
+    finds each row's edge range itself; x and w float32."""
     if not x.is_cuda:
         raise ValueError("gather_scale_scatter_cuda takes CUDA tensors")
     if x.dtype != torch.float32 or w.dtype != torch.float32:
@@ -90,15 +92,18 @@ def gather_scale_scatter_cuda(x, src, dst, w, starts, counts, n_out: int, block_
     d = x.shape[1]
     if w.dim() != 2 or w.shape[0] != src.numel() or w.shape[1] not in (d, 1):
         raise ValueError("gather_scale_scatter: w must be [E, D] or [E, 1]")
-    row_lo, row_hi = row_edge_ranges(dst, starts, counts, n_out, block_nodes)
-    xk, wk, sk = x.contiguous(), w.contiguous(), src.int().contiguous()
+    if dst.numel() != src.numel():
+        raise ValueError("gather_scale_scatter: src and dst differ in length")
+    xk, wk = x.contiguous(), w.contiguous()
+    # no-ops for the int32 indices of prepare_blocks
+    sk, dk, stk, ck = (t.int().contiguous() for t in (src, dst, starts, counts))
     out = torch.empty((n_out, d), dtype=torch.float32, device=x.device)
-    if any(t.device != x.device for t in (wk, sk, row_lo)):
+    if any(t.device != x.device for t in (wk, sk, dk, stk, ck)):
         raise ValueError("gather_scale_scatter: tensors must be on x's device")
     launch(
-        "gather_scatter", xk.data_ptr(), wk.data_ptr(), sk.data_ptr(), row_lo.data_ptr(),
-        row_hi.data_ptr(), out.data_ptr(), n_out, d, int(w.shape[1] == d),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        "gather_scatter", xk.data_ptr(), wk.data_ptr(), sk.data_ptr(), dk.data_ptr(),
+        stk.data_ptr(), ck.data_ptr(), out.data_ptr(), n_out, d, int(w.shape[1] == d),
+        block_nodes, stk.numel(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     return out
 
