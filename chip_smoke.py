@@ -44,8 +44,9 @@ Phases (any failed check exits non-zero):
      the bound (bytes and operations the function needs on these inputs),
      the library yardstick where one PyTorch call computes the same
      function (torch.sparse.mm for the v1 op at an [E, 1] weight, timed in
-     turns with the kernel), the backward's split per launch (tile pass,
-     dx pass, d_wf reduction; torch.profiler) and its scratch bytes, each
+     turns with the kernel), the backward's and the second order's split
+     per launch (tile pass, row passes, reduction; torch.profiler) and
+     their scratch bytes, each
      route's device forward+forces, the mega predict wall time and
      edges/s, each route's train step ms, edges/s and peak memory.
 Then one JSON line with the kernels, the card line, and last the device
@@ -824,41 +825,50 @@ def kernel_costs(p, mm):
     return (fwd_bytes, fwd_flops), (bwd_bytes, bwd_flops), (bwd2_bytes, bwd2_flops)
 
 
-BWD_PASSES = (("tile pass", "message_bwd_tile_kernel"),
-              ("dx pass", "message_bwd_dx_rows_kernel"),
-              ("d_wf reduction", "xeq_dwf_reduce_kernel"))
+# each wrapper's launches by pass (kernel names as torch.profiler shows them)
+PASSES = {
+    "message_bwd": (("tile pass", "message_bwd_tile_kernel"),
+                    ("dx pass", "message_bwd_dx_rows_kernel"),
+                    ("d_wf reduction", "xeq_dwf_reduce_kernel")),
+    "message_bwd2": (("tile pass", "message_bwd2_tile_kernel"),
+                     ("d2x pass", "message_bwd2_d2x_rows_kernel"),
+                     ("d2g pass", "message_bwd2_d2g_rows_kernel"),
+                     ("d2wf reduction", "xeq_dwf_reduce_kernel")),
+}
 
 
-def bwd_split(p_mm, mm, card, calls=10):
-    """The backward's device time per launch by pass (torch.profiler over
-    ``calls`` wrapper calls after a warm-up) and its bf16 scratch bytes.
+def pass_split(name, fn, p_mm, mm, card, calls=10):
+    """A wrapper's device time per launch by pass (torch.profiler over
+    ``calls`` calls of ``fn`` after a warm-up) and its bf16 scratch bytes.
     Returns ({pass: ms per call}, scratch bytes); passes the profiler did
     not see are None."""
     from torch.profiler import ProfilerActivity, profile
 
     from xequinet_torch.ops import fused_message as fm
 
-    kernel_bwd(p_mm, mm)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            kernel_bwd(p_mm, mm)
+            fn()
         torch.cuda.synchronize()
     dev = lambda e: getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0.0)
     split = {}
-    for tag, name in BWD_PASSES:
-        us = sum(dev(e) for e in prof.key_averages() if e.key.startswith(name))
+    for tag, kname in PASSES[name]:
+        us = sum(dev(e) for e in prof.key_averages() if e.key.startswith(kname))
         split[tag] = us / 1e3 / calls if us else None
     irreps, nb, nd = p_mm["statics"]
     _, _, _, _, (h, _, d, _, _, _) = fm.structure_matrices(irreps, nb, nd)
-    rows, width = fm.bwd_scratch_shape(p_mm["ef"].shape[0], h, d)
-    scratch = rows * width * 2
+    t = p_mm["ef"].shape[0]
+    shapes = ([fm.bwd_scratch_shape(t, h, d)] if name == "message_bwd"
+              else list(fm.bwd2_scratch_shapes(t, h, nd, d)))
+    scratch = sum(r * w * 2 for r, w in shapes)
     shown = ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f} ms")
                       for k, v in split.items())
-    print(f"[time] message_bwd ({mm}) per launch by pass (torch.profiler, {calls} calls): "
-          f"{shown}; scratch {rows} x {width} bf16 = {scratch / 1e6:.1f} MB written once, "
-          f"read once — {card}")
+    print(f"[time] {name} ({mm}) per launch by pass (torch.profiler, {calls} calls): "
+          f"{shown}; scratch " + " + ".join(f"{r} x {w}" for r, w in shapes)
+          + f" bf16 = {scratch / 1e6:.1f} MB written once, read once — {card}")
     return split, scratch
 
 
@@ -1033,8 +1043,9 @@ def main():
                      "launches_train_step": per_step[name], "max_abs_err": abs_err[name],
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
-        if name == "message_bwd":
-            rows[-1]["split_ms"], rows[-1]["scratch_bytes"] = bwd_split(p_mm, mm, card)
+        if name in PASSES:
+            rows[-1]["split_ms"], rows[-1]["scratch_bytes"] = pass_split(
+                name, lambda: kfn(p_mm, mm), p_mm, mm, card)
     # why the second order has a specialisation without the cwf terms:
     # against the general kernel on a materialised zero cwf, interleaved
     # so that the two repeats of each show the noise

@@ -246,6 +246,89 @@ def test_cuda_bwd2_kernel_repeats_bit_for_bit(cuda_device):
         assert torch.equal(x, y)
 
 
+def _empty_rows(p):
+    """The rows of the problem's output with no slot (padding node rows)."""
+    m = p["meta"]
+    ptr = fm.build_slot_plan(m, p["n"], p["n"], p["bn"], p["chunk"])["dst_ptr"]
+    empty = ptr[1:] == ptr[:-1]
+    assert bool(empty.any())
+    return empty
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_cuda_message_fwd_ragged_tiles(cuda_device, case, mm, rel):
+    """The forward on a slot count that is no multiple of the bf16 tile,
+    with padding slots, a slot_cap tail and destination rows with no slot
+    (zero rows): against the plain version, and the same bits on a second
+    call."""
+    p = _problem(cuda_device, *case, odd_tail=5)
+    assert p["mask"].shape[0] % 16 == 5
+    m = p["meta"]
+    run = lambda: fm.message_fwd_cuda(p["x"], p["ef"], p["wf"], m, *p["statics"], p["n"],
+                                      p["bn"], p["chunk"], mm)
+    out = run()
+    want = fm.plain_message(p["x"], p["ef"], p["wf"], m[2], m[3], p["mask"], *p["statics"],
+                            p["n"], getattr(torch, mm))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _close(out, want, rel)
+    assert float(out[_empty_rows(p)].abs().max()) == 0.0
+    assert torch.equal(out, run())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("with_cwf", [False, True])
+def test_cuda_message_bwd2_ragged_tiles(cuda_device, case, mm, rel, with_cwf):
+    """The second order on a slot count that is no multiple of the bf16
+    tile (16 slots), with padding slots inside the blocks, a slot_cap tail
+    and destination rows with no slot: d2x, d2ef, d2wf and d2g against the
+    plain double VJP, zero d2ef rows on every slot that adds nothing, zero
+    d2g rows where no slot ends."""
+    p = _problem(cuda_device, *case, odd_tail=5)
+    mask = p["mask"]
+    assert mask.shape[0] % 16 == 5 and not bool(mask[-5:].any())
+    m = p["meta"]
+    cots = _cotangents(p, with_cwf=with_cwf)
+    got = fm.message_bwd2_cuda(p["x"], p["ef"], p["wf"], p["g"], *cots, m, *p["statics"],
+                               p["n"], p["bn"], p["chunk"], mm)
+    want = fm.plain_message_bwd2(p["x"], p["ef"], p["wf"], p["g"], *cots, m[2], m[3], mask,
+                                 *p["statics"], p["n"], getattr(torch, mm))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        _close(a, b, rel)
+    assert float(got[1][~mask].abs().max()) == 0.0
+    assert float(got[3][_empty_rows(p)].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_cuda_message_bwd2_many_tiles_per_block(cuda_device, mm, rel):
+    """Flagship widths, no cotangent on d_wf (force training), on a batch
+    of more slot tiles than the card has SMs, so each persistent block of
+    the bf16 tile pass walks several tiles through its stage: against the
+    plain double VJP, and the same bits on a second call."""
+    p = _problem(cuda_device, *CASES[2], n_mols=240)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert p["mask"].shape[0] > 3 * 16 * n_sm
+    m = p["meta"]
+    cots = _cotangents(p, with_cwf=False)
+    run = lambda: fm.message_bwd2_cuda(p["x"], p["ef"], p["wf"], p["g"], *cots, m,
+                                       *p["statics"], p["n"], p["bn"], p["chunk"], mm)
+    got = run()
+    want = fm.plain_message_bwd2(p["x"], p["ef"], p["wf"], p["g"], *cots, m[2], m[3],
+                                 p["mask"], *p["statics"], p["n"], getattr(torch, mm))
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, run()):
+        _close(a, b, rel)
+        assert torch.equal(a, c)
+    assert float(got[1][~p["mask"]].abs().max()) == 0.0
+
+
 @pytest.mark.gpu
 def test_cuda_grad_of_grad_runs_bwd2_kernel(cuda_device):
     """Force-training shape on the card: grad-of-grad through

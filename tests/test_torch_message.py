@@ -202,12 +202,15 @@ def test_kernel_algorithm_emulation_matches_plain(rng, dims):
         _close(a, b, 1e-5)
 
 
-def _dx_of_rows(rows, src, n, h, hp, d, dp):
-    """dx [n, Hp+Dp] from per-slot [dgs | dgv] rows: the sum by source."""
-    dx = torch.zeros(n, hp + dp)
-    dx[:, :h] = torch.zeros(n, h).index_add(0, src, rows[:, :h])
-    dx[:, hp:hp + d] = torch.zeros(n, d).index_add(0, src, rows[:, h:])
-    return dx
+def _sum_rows(rows, idx, n, w1, off2, width):
+    """[n, width] from per-slot rows: their sum by ``idx``, the first w1
+    columns into [:w1] and the rest into [off2:] (dx from [dgs | dgv] rows
+    by source, d2g from d2g rows by destination)."""
+    out = torch.zeros(n, width)
+    rest = rows.shape[1] - w1
+    out[:, :w1] = torch.zeros(n, w1).index_add(0, idx, rows[:, :w1])
+    out[:, off2:off2 + rest] = torch.zeros(n, rest).index_add(0, idx, rows[:, w1:])
+    return out
 
 
 @pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2)])
@@ -226,7 +229,7 @@ def test_message_bwd_rows_match_jax_bwd_kernel(rng, dims):
     rows, dfw, d_ef, d_wf = fm.message_bwd_rows(x, ef, wf, g, meta[2], meta[3], valid, *dims)
     assert rows.shape == (ef.shape[0], h + d) and dfw.shape == (ef.shape[0], h)
     assert float(rows[~valid].abs().max()) == 0.0 and float(d_ef[~valid].abs().max()) == 0.0
-    dx = _dx_of_rows(rows, meta[2].long(), p["n"], h, hp, d, dp)
+    dx = _sum_rows(rows, meta[2].long(), p["n"], h, hp, hp + dp)
     want_dx = fm.plain_message_bwd(x, ef, wf, g, meta[2], meta[3], valid, *dims, p["n"])[0]
     _close(dx, want_dx, 1e-5)
     _close(dx, wdx, 1e-5)
@@ -244,37 +247,49 @@ def test_message_bwd_rows_bf16_within_band(rng):
                                               *p["statics"], torch.bfloat16)
     want = fm.plain_message_bwd(x, ef, wf, g, meta[2], meta[3], valid, *p["statics"], p["n"],
                                 torch.bfloat16)
-    got = (_dx_of_rows(rows, meta[2].long(), p["n"], h, hp, d, dp), d_ef, d_wf)
+    got = (_sum_rows(rows, meta[2].long(), p["n"], h, hp, hp + dp), d_ef, d_wf)
     for a, b in zip(got, want):
         _close(a, b, 2e-2)
 
 
-@pytest.mark.parametrize("tail", [0, 3 * 16 + 5])
-def test_slot_plan_scratch_positions(rng, tail):
-    """``src_pos`` puts each valid slot at its place in the list by source
-    (-1 elsewhere, tail slots included), so the scratch rows of one source
-    row are contiguous: the backward's dx pass, segment sums of the scratch
-    along ``src_ptr``, equals the sum of the rows by source."""
-    p = _problem(rng)
+def _check_plan_positions(rng, p, tail, side):
+    """The plan's ``<side>_pos`` puts each valid slot at its place in the
+    list by ``side`` (-1 elsewhere, tail slots included), so the scratch
+    rows of one row are contiguous: segment sums of the scratch along
+    ``<side>_ptr`` equal the sum of the rows by ``side``."""
     x, ef, wf, g, meta, valid = _t(p)
     meta = list(meta)
     meta[0] = torch.cat([meta[0], torch.zeros(tail, dtype=meta[0].dtype)])
     meta[1] = torch.cat([meta[1], torch.full((tail,), p["bn"], dtype=meta[1].dtype)])
     plan = fm.build_slot_plan(tuple(meta), p["n"], p["n"], p["bn"], p["chunk"])
     valid = torch.cat([valid, torch.zeros(tail, dtype=torch.bool)])
-    pos, slots = plan["src_pos"].long(), plan["src_slots"].long()
-    n_valid = int(plan["src_ptr"][-1])
+    pos, slots = plan[f"{side}_pos"].long(), plan[f"{side}_slots"].long()
+    n_valid = int(plan[f"{side}_ptr"][-1])
     assert pos.shape == valid.shape and bool((pos[~valid] == -1).all())
     assert torch.equal(slots[pos[valid]], torch.nonzero(valid)[:, 0])
     assert sorted(pos[valid].tolist()) == list(range(n_valid))
     rows = torch.as_tensor(rng.normal(size=(valid.numel(), 7)).astype(np.float32))
     scratch = torch.zeros(n_valid, 7)
     scratch[pos[valid]] = rows[valid]
-    ptr = plan["src_ptr"].long()
+    ptr = plan[f"{side}_ptr"].long()
     seg = torch.stack([scratch[ptr[r]:ptr[r + 1]].sum(0) for r in range(p["n"])])
-    src = plan["slot_src"].long()
-    want = torch.zeros(p["n"], 7).index_add(0, src[valid], rows[valid])
+    row = plan[f"slot_{side}"].long()
+    want = torch.zeros(p["n"], 7).index_add(0, row[valid], rows[valid])
     _close(seg, want, 1e-6)
+
+
+@pytest.mark.parametrize("tail", [0, 3 * 16 + 5])
+def test_slot_plan_scratch_positions(rng, tail):
+    """``src_pos``: the scratch rows of the backward's dx pass and of the
+    second order's d2x pass."""
+    _check_plan_positions(rng, _problem(rng), tail, "src")
+
+
+@pytest.mark.parametrize("tail", [0, 3 * 16 + 5])
+def test_slot_plan_dst_positions(rng, tail):
+    """``dst_pos``: the scratch rows of the second order's d2g pass, summed
+    by destination."""
+    _check_plan_positions(rng, _problem(rng), tail, "dst")
 
 
 def test_slot_plan_with_slot_cap_tail(rng):
@@ -379,64 +394,28 @@ def test_bwd2_closed_form_bf16_within_band(rng):
 
 
 def _emulate_bwd2(p, x, ef, wf, g, cx, cef, cwf, meta):
-    """``message_bwd2.cu``'s algorithm in f32 tensor ops: the slot plan's
-    CSR lists (d2g summed by destination, d2x by source, in plan order),
-    the index maps in place of the structure matrices, and only the live
-    rows / columns the kernel reads (Kw rows of wf, Kf columns of ef and
-    cef, Kf rows of cwf)."""
+    """``message_bwd2.cu``'s algorithm in f32 tensor ops: the per-slot rows
+    of ``message_bwd2_rows`` (the index maps in place of the structure
+    matrices) summed along the slot plan's CSR lists, d2x by source and
+    d2g by destination, in plan order at the plan's scratch positions."""
     irreps, nb, sd = p["statics"]
-    ni = Irreps(irreps).num_irreps
     _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, sd)
-    kw, kf = nb + 1, nb + 1 + n_y
-    maps = {k: torch.as_tensor(v).long() for k, v in fm.index_maps(irreps, nb).items()}
-    lg, ly = maps["lane_gate"], maps["lane_ycol"]
     plan = fm.build_slot_plan(meta, p["n"], x.shape[0], p["bn"], p["chunk"])
     ok = plan["slot_dst"] >= 0
-    ks = torch.nonzero(ok)[:, 0]
-    s, i = plan["slot_src"].long()[ks], plan["slot_dst"].long()[ks]
-    e, c = ef[ks, :kf], cef[ks, :kf]
-    w = wf[:kw, :h]
-    fw = e[:, :kw] @ w
-    r = c[:, :kw] @ w + (0.0 if cwf is None else e @ cwf[:kf, :h])
-    xs, cxs, gm = x[s], cx[s], g[i]
-    gs, gv, cxh, cxv = xs[:, :h], xs[:, hp:hp + d], cxs[:, :h], cxs[:, hp:hp + d]
-    gms_v = gm[:, sdp:sdp + d]
-    fo = gs * fw
-    a = cxh * fw + r * gs
-    lane_sum = lambda v: torch.zeros(len(ks), ni).index_add_(1, lg, v)
-    dfo = torch.cat([lane_sum(gv * gms_v), lane_sum(e[:, ly] * gms_v), gm[:, :sd]], 1)
-    u = torch.cat([lane_sum(cxv * gms_v), lane_sum(c[:, ly] * gms_v),
-                   torch.zeros(len(ks), sd)], 1)
-    pos = torch.full((ok.numel(),), -1, dtype=torch.long)
-    pos[ks] = torch.arange(len(ks))
-    # d2g: the destination CSR walk
-    rows_g = torch.zeros(len(ks), sdp + dp)
-    rows_g[:, :sd] = a[:, 2 * ni:]
-    rows_g[:, sdp:sdp + d] = (gv * a[:, lg] + e[:, ly] * a[:, ni + lg] + cxv * fo[:, lg]
-                              + fo[:, ni + lg] * c[:, ly])
-    order = plan["dst_slots"].long()[: int(plan["dst_ptr"][-1])]
-    d2g = torch.zeros(p["n"], sdp + dp).index_add_(
-        0, plan["slot_dst"].long()[order], rows_g[pos[order]])
-    # d2x: the source CSR walk
-    rows_x = torch.zeros(len(ks), hp + dp)
-    rows_x[:, :h] = dfo * r + u * fw
-    rows_x[:, hp:hp + d] = gms_v * a[:, lg]
-    order = plan["src_slots"].long()[: int(plan["src_ptr"][-1])]
-    d2x = torch.zeros_like(x).index_add_(
-        0, plan["slot_src"].long()[order], rows_x[pos[order]])
-    # the slot kernel: d2ef rows, d2wf over all slots
-    dfw2, dfwr = dfo * cxh + u * gs, dfo * gs
-    d2ef = torch.zeros(ef.shape)
-    d2ef[ks, :kw] = dfw2 @ w.t()
-    harm = gms_v * a[:, ni + lg]
-    yp, yi = maps["ylane_ptr"], maps["ylane_idx"]
-    for y in range(n_y):
-        d2ef[ks, kw + y] = harm[:, yi[yp[y]:yp[y + 1]]].sum(1)
-    if cwf is not None:
-        d2ef[ks, :kf] += dfwr @ cwf[:kf, :h].t()
-    d2wf = torch.zeros(wf.shape)
-    d2wf[:kf, :h] = e.t() @ dfw2 + c.t() @ dfwr
-    return d2x, d2ef, d2wf, d2g
+    rows_x, rows_g, _, _, d2ef, d2wf = fm.message_bwd2_rows(
+        x, ef, wf, g, cx, cef, cwf, meta[2], meta[3], ok, irreps, nb, sd)
+    sums = []
+    for side, rows, n_cols, w1, off2 in (("src", rows_x, hp + dp, h, hp),
+                                         ("dst", rows_g, sdp + dp, sd, sdp)):
+        scratch = torch.zeros(int(plan[f"{side}_ptr"][-1]), rows.shape[1])
+        scratch[plan[f"{side}_pos"].long()[ok]] = rows[ok]
+        ptr = plan[f"{side}_ptr"].long()
+        out = torch.zeros(p["n"], n_cols)
+        for r in range(p["n"]):
+            seg = scratch[ptr[r]:ptr[r + 1]].sum(0)
+            out[r, :w1], out[r, off2:off2 + d] = seg[:w1], seg[w1:]
+        sums.append(out)
+    return sums[0], d2ef, d2wf, sums[1]
 
 
 @pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2)])
@@ -474,3 +453,65 @@ def test_fused_message_grad_of_grad_cpu(rng):
                                                 *p["statics"], p["n"]))
     for a, b in zip(got, want):
         _close(a, b, 1e-5)
+
+
+def _rows_sums(p, rows_x, rows_g, meta):
+    """(d2x, d2g) from per-slot rows (zero on slots that add nothing): the
+    sums by source and by destination."""
+    irreps, nb, sd = p["statics"]
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, sd)
+    return (_sum_rows(rows_x, meta[2].long(), p["n"], h, hp, hp + dp),
+            _sum_rows(rows_g, meta[3].long(), p["n"], sd, sdp, sdp + dp))
+
+
+@pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2)])
+@pytest.mark.parametrize("with_cwf", [False, True])
+def test_message_bwd2_rows_match_jax_bwd2_kernel(rng, dims, with_cwf):
+    """The per-slot rows of the second order's bf16 tile pass, in f32:
+    their sums by source and by destination are the closed form's d2x and
+    d2g, and their d2ef / d2wf are those of ``_bwd2_kernel``
+    (``_mega_bwd2_call`` in interpret mode), 1e-5; zero on every slot that
+    adds nothing."""
+    p = _problem(rng, *dims)
+    cots = list(_cotangents(p, rng))
+    if not with_cwf:
+        cots[2] = np.zeros_like(cots[2])
+    j = lambda k: jnp.asarray(p[k])
+    statics = (*dims, p["n"], p["bn"], p["chunk"], p["window"], p["mx"], "float32")
+    with pltpu.force_tpu_interpret_mode():
+        kern = _mega_bwd2_call(j("x"), j("ef"), j("wf"), j("g"),
+                               *(jnp.asarray(c) for c in cots), j("src2"), j("dst2"),
+                               j("cb"), j("nc"), j("ws"), *statics)
+    x, ef, wf, g, meta, valid = _t(p)
+    cx, cef, cwf = (torch.as_tensor(c) for c in cots)
+    cwf = cwf if with_cwf else None
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(*dims)
+    rows_x, rows_g, dfw2, dfwr, d2ef, d2wf = fm.message_bwd2_rows(
+        x, ef, wf, g, cx, cef, cwf, meta[2], meta[3], valid, *dims)
+    t = ef.shape[0]
+    assert rows_x.shape == (t, h + d) and rows_g.shape == (t, dims[2] + d)
+    assert dfw2.shape == dfwr.shape == (t, h) and d2wf.shape == wf.shape
+    for a in (rows_x, rows_g, dfw2, dfwr, d2ef):
+        assert float(a[~valid].abs().max()) == 0.0
+    d2x, d2g = _rows_sums(p, rows_x, rows_g, meta)
+    closed = fm.message_bwd2_closed(x, ef, wf, g, cx, cef, cwf, meta[2], meta[3], valid,
+                                    *dims, p["n"])
+    _close(d2x, closed[0], 1e-5)
+    _close(d2g, closed[3], 1e-5)
+    for a, k in zip((d2x, d2ef, d2wf, d2g), kern):
+        _close(a, k, 1e-5)
+
+
+def test_message_bwd2_rows_bf16_within_band(rng):
+    """bf16: the rows at the TPU kernel's rounding points, summed, against
+    the double VJP of the plain version at XLA's, bench.py's 2e-2 band."""
+    p = _problem(rng)
+    x, ef, wf, g, meta, valid = _t(p)
+    cx, cef, _ = (torch.as_tensor(c) for c in _cotangents(p, rng, live_only=True))
+    rows_x, rows_g, _, _, d2ef, d2wf = fm.message_bwd2_rows(
+        x, ef, wf, g, cx, cef, None, meta[2], meta[3], valid, *p["statics"], torch.bfloat16)
+    d2x, d2g = _rows_sums(p, rows_x, rows_g, meta)
+    want = fm.plain_message_bwd2(x, ef, wf, g, cx, cef, None, meta[2], meta[3], valid,
+                                 *p["statics"], p["n"], torch.bfloat16)
+    for a, b in zip((d2x, d2ef, d2wf, d2g), want):
+        _close(a, b, 2e-2)

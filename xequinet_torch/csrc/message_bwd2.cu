@@ -30,23 +30,62 @@
 // message_fwd.cu (lane_gate, lane_ycol, the lanes of each gate and of each
 // harmonic column).
 //
-// Four launches, none with float atomics, so results repeat bit for bit:
+// Bound on the H100: the function reads x, cx, ef, cef, g and wf once and
+// writes d2x, d2ef, d2g and d2wf once, 289.6 MB at the flagship batch in
+// bf16 (0.087 ms at 3.35 TB/s); its filter contractions are ~27 GFLOP,
+// 0.027 ms on the bf16 tensor cores.  Memory bound.  The first version
+// (10.598 ms per launch in bf16) ran the contractions on the FP32 pipes out
+// of shared memory, and its d2x and d2g walks recomputed fw, r, a, dfo and
+// u of every slot from single-element loads, once per column.
+//
+// The bf16 instance without cwf (force training's) is three passes and the
+// reduction, no float atomics, so results repeat bit for bit:
+//  * message_bwd2_tile_kernel: persistent blocks of 512 threads, one per
+//    SM, walk tiles of XEQ_BT = 16 consecutive slots (tile = block + i *
+//    grid), as message_bwd_tile_kernel does.  Each slot's x and cx rows
+//    (live H + D columns), g row (node_dim + D) and first 32 columns of ef
+//    and cef are staged with cp.async.  One stage only: with wf's live
+//    rows, the bf16 dfw2 / dfwr tiles and the f32 dfo / u gate sums it
+//    takes 226 KB at the flagship widths, so the next tile's copies are
+//    issued once the current tile's rows have been read (before its d2ef
+//    columns are written), and its slot indices a tile earlier.  On the
+//    tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulators):
+//      fw = ef[:, :32] @ wf, r = cef[:, :32] @ wf  (shared B fragments)
+//      d2ef[:, :Kw] = dfw2 @ wf^T                  (K = H in 4 quarters,
+//                                                  summed in a fixed order)
+//      d2wf partial += ef^T @ dfw2 + cef^T @ dfwr   (registers, all of the
+//                                                  block's tiles)
+//    The elementwise steps take one warp per slot (the gate sums dfo and
+//    u; the vector part of the d2x row, the d2g row and the harmonic d2ef
+//    columns as per-lane sums and a butterfly) or follow the mma fragments
+//    (a, fo, dfw2, dfwr and the hidden part of the d2x row).  Each valid
+//    slot writes two bf16 rows: [rnd(dfo r + u fw) | rnd(gms_v a[gate])]
+//    at its position in the CSR list by source (plan["src_pos"]) and
+//    [rnd(a[2ni + c]) | rnd(gv a[gate] + ef[ycol] a[ni + gate] + cxv
+//    fo[gate] + fo[ni + gate] cef[ycol])] at its position in the list by
+//    destination (plan["dst_pos"]).  Both are rounded to bf16 in the TPU
+//    kernel, so the scratch loses nothing.
+//  * message_bwd2_d2x_rows_kernel and message_bwd2_d2g_rows_kernel: one
+//    warp per row sums its slots' scratch rows in list order (xeq_rows_sum
+//    of message_tile.cuh, as message_bwd.cu's dx pass), writing each d2x /
+//    d2g element once; nothing is recomputed.
+//  * xeq_dwf_reduce_kernel (message_common.cuh): the d2wf partials summed
+//    in block order.
+// The f32 instance (FP32 FMAs, no TF32 in this port) and the bf16 instance
+// with cwf (on no model path: tests and chip_smoke.py reach it) keep the
+// first version's four launches, with or without the cwf terms (CWF):
 //  * message_bwd2_dg_kernel: d2g, one thread per (destination row, output
-//    column), walking the CSR list by destination as message_fwd.cu does.
+//    column), walking the CSR list by destination as message_fwd.cu's f32
+//    kernel does.
 //  * message_bwd2_dx_kernel: d2x, one thread per (source row, x column),
-//    walking the CSR list by source as message_bwd_dx_kernel does.  These
-//    two replace the TPU kernel's per-block d2g and window tiles and the
-//    overlap-add of the windows (:864-869).  Each block stages its slots
-//    (indices and the live columns of ef and cef, as f32) in shared memory.
+//    walking the CSR list by source.  Each block stages its slots
+//    (indices and the live columns of ef and cef, as f32).
 //  * message_bwd2_slot_kernel: one block per contiguous slot range, 16
 //    slots per step, 512 threads: d2ef rows (one warp per slot, shuffle
-//    sums in fixed order) and the block's d2wf partial in shared memory,
-//    each element owned by one thread.
-//  * xeq_dwf_reduce_kernel (message_common.cuh): the partials summed in
-//    block order.
-// Nothing per slot is kept between launches: each recomputes fw, fo, dfo,
-// r, a and u for the slots it walks (one [T, H] f32 intermediate would be
-// 427 MB at the flagship batch).
+//    sums in fixed order) and the block's d2wf partial in shared memory.
+//  * xeq_dwf_reduce_kernel.
+// These replace the TPU kernel's per-block d2g and window tiles and the
+// overlap-add of the windows (:864-869).
 //
 // Contracts, as in message_bwd.cu: wf rows >= Kw, ef columns >= Kf and x's
 // padding columns (H..Hp and Hp+D..) are zero.  For the cotangents, cef
@@ -57,18 +96,11 @@
 // covered chunk range are in neither CSR list and get zero d2ef rows
 // (:870-873).
 //
-// Bound on the H100: the function reads x, cx, ef, cef, g and wf once and
-// writes d2x, d2ef, d2g and d2wf once, a few hundred MB at the flagship
-// batch: memory bound.  Like the first-order kernels, this first version
-// recomputes each slot's filter terms once per column that needs them on
-// the FP32 pipes and gathers single elements of x, cx and g through L1/L2;
-// it is bound by latency and issue rate, not by bytes.
-//
 // Rounding in bf16 mode mirrors _bwd2_kernel (:678, :703, :719-720, :724,
 // :744-754): fo, a, the products summed into dfo and u, dfw2, dfwr, the
 // harmonic terms of d2ef and the d2x and d2g rows are rounded to bf16;
 // sums are f32.
-#include "message_common.cuh"
+#include "message_tile.cuh"
 
 // r = c . w + (CWF) e . cw: the cotangent of the radial filter at one
 // hidden column.
@@ -538,6 +570,378 @@ static int launch_bwd2(const void* x, const void* ef, const void* wf,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 instance without cwf: the slot-tile pass on the tensor cores and the
+// row passes by source and by destination
+// ---------------------------------------------------------------------------
+// Sizes and shared-memory offsets (bytes) of the tile pass, from the host.
+struct XeqTile2Dims {
+  int n_slots, ni, h, hp, d, dp, sdp, kw, kf, nd;
+  int hs;      // H rounded up to 16: the N of fw and r, the K of d2ef
+  int ht8;     // H rounded up to 8
+  int dt8;     // D rounded up to 8
+  int sd8;     // node_dim rounded up to 8
+  int rsx;     // d2x scratch row: ht8 + dt8
+  int rsg;     // d2g scratch row: sd8 + dt8
+  int xs_st;   // staged x and cx rows: [h part (ht8) | vector part (dt8)] + 8
+  int gs_st;   // staged g row: [gms_s (sd8) | gms_v (dt8)] + 8
+  int w_st;    // wf_s, dfw2_s, dfwr_s rows: hs rounded up to 64, + 8
+  int dfo_st;  // dfo_s and u_s rows (f32): 2 ni + 8
+  int off_cx, off_g, off_e, off_ce, off_pos, stage;  // the stage (one)
+  int off_dfw2, off_dfwr, off_dfo, off_u, off_tab, smem;  // wf_s at ``stage``
+};
+
+// Issue the cp.async copies of one tile (slots k0 .. k0+XEQ_BT-1, one warp
+// per slot, its indices in ``ix``): each slot's x and cx rows (H and D
+// columns), g row (node_dim and D columns), and first 32 columns of ef and
+// cef, zero-filled for slots that add nothing; and its scratch rows by
+// source and by destination (-1 for slots that add nothing).
+__device__ __forceinline__ void xeq_tile2_load(unsigned char* st, int k0, XeqSlotIdx ix,
+                                               const XeqTile2Dims& p,
+                                               const xeq_bf16* __restrict__ x,
+                                               const xeq_bf16* __restrict__ cx,
+                                               const xeq_bf16* __restrict__ g,
+                                               const xeq_bf16* __restrict__ ef,
+                                               const xeq_bf16* __restrict__ cef) {
+  const int t = threadIdx.x >> 5;
+  const bool ok = ix.dst >= 0;
+  const int64_t xr = (int64_t)(ok ? ix.src : 0) * (p.hp + p.dp);
+  const int64_t er = (int64_t)(ok ? k0 + t : 0) * XEQ_FPACK;
+  const XeqSeg sg[5] = {
+      {(xeq_bf16*)st + t * p.xs_st, x + xr, p.ht8, p.hp, p.rsx >> 3},
+      {(xeq_bf16*)(st + p.off_cx) + t * p.xs_st, cx + xr, p.ht8, p.hp, p.rsx >> 3},
+      {(xeq_bf16*)(st + p.off_g) + t * p.gs_st, g + (int64_t)(ok ? ix.dst : 0) * (p.sdp + p.dp),
+       p.sd8, p.sdp, p.rsg >> 3},
+      {(xeq_bf16*)(st + p.off_e) + t * XEQ_BT_EST, ef + er, XEQ_BT_KE, 0, XEQ_BT_KE / 8},
+      {(xeq_bf16*)(st + p.off_ce) + t * XEQ_BT_EST, cef + er, XEQ_BT_KE, 0, XEQ_BT_KE / 8}};
+  xeq_stage_segs(sg, ok);
+  if ((threadIdx.x & 31) == 0) {
+    int* pos = (int*)(st + p.off_pos);
+    pos[t] = ok ? ix.pos : -1;
+    pos[XEQ_BT + t] = ok ? ix.pos2 : -1;
+  }
+}
+
+__global__ void __launch_bounds__(XEQ_BT_THREADS, 1)
+message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restrict__ ef,
+                         const xeq_bf16* __restrict__ wf, const xeq_bf16* __restrict__ g,
+                         const xeq_bf16* __restrict__ cx, const xeq_bf16* __restrict__ cef,
+                         const int* __restrict__ slot_src, const int* __restrict__ slot_dst,
+                         const int* __restrict__ src_pos, const int* __restrict__ dst_pos,
+                         const int* __restrict__ lane_gate, const int* __restrict__ lane_ycol,
+                         const int* __restrict__ gate_lane0, const int* __restrict__ gate_dim,
+                         xeq_bf16* __restrict__ rows_x, xeq_bf16* __restrict__ rows_g,
+                         float* __restrict__ d2ef, float* __restrict__ dwf_part,
+                         const XeqTile2Dims p) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  xeq_bf16* x_s = (xeq_bf16*)tile_smem;                // [BT][xs_st] gs|gv; fo at the gates
+  xeq_bf16* cx_s = (xeq_bf16*)(tile_smem + p.off_cx);  // [BT][xs_st] cxh|cxv; a in cxh
+  const xeq_bf16* g_s = (const xeq_bf16*)(tile_smem + p.off_g);  // [BT][gs_st] gms_s|gms_v
+  const xeq_bf16* e_s = (const xeq_bf16*)(tile_smem + p.off_e);  // [BT][EST]
+  const xeq_bf16* ce_s = (const xeq_bf16*)(tile_smem + p.off_ce);
+  const int* pos_s = (const int*)(tile_smem + p.off_pos);  // [BT] by source, [BT] by destination
+  xeq_bf16* wf_s = (xeq_bf16*)(tile_smem + p.stage);         // [32][w_st] live rows of wf
+  xeq_bf16* dfw2_s = (xeq_bf16*)(tile_smem + p.off_dfw2);    // [BT][w_st]
+  xeq_bf16* dfwr_s = (xeq_bf16*)(tile_smem + p.off_dfwr);    // [BT][w_st]
+  float* dfo_s = (float*)(tile_smem + p.off_dfo);  // [BT][dfo_st]; then the d2ef quarters
+  float* u_s = (float*)(tile_smem + p.off_u);      // [BT][dfo_st]
+  int* lane_tab = (int*)(tile_smem + p.off_tab);   // [dt8]: gate | harmonic col << 16
+  int* gate_tab = lane_tab + p.dt8;                // [ni]: first lane | lanes << 16
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, cq = lane & 3;  // mma fragment: row group, column pair
+  const int ni2 = 2 * p.ni, n8 = p.hs >> 3, n_y = p.kf - p.kw;
+  const int n_tiles = (p.n_slots + XEQ_BT - 1) / XEQ_BT;
+
+  xeq_load_wf(wf_s, p.w_st, wf, p.kw, p.h, p.hp, p.hs, XEQ_BT_THREADS);
+  for (int j = tid; j < p.dt8; j += XEQ_BT_THREADS)
+    lane_tab[j] = j < p.d ? __ldg(lane_gate + j) | ((__ldg(lane_ycol + j) - p.kw) << 16) : 0;
+  for (int u = tid; u < p.ni; u += XEQ_BT_THREADS)
+    gate_tab[u] = __ldg(gate_lane0 + u) | (__ldg(gate_dim + u) << 16);
+  float acc[XEQ_BT_NTW][2][4];
+#pragma unroll
+  for (int i = 0; i < XEQ_BT_NTW; ++i)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][m][q] = 0.f;
+
+  // one stage: the next tile's copies are issued once this tile's rows
+  // have been read (before phase E); its slot indices a tile earlier
+  const int grid = gridDim.x;
+  if ((int)blockIdx.x < n_tiles)
+    xeq_tile2_load(tile_smem, blockIdx.x * XEQ_BT,
+                   xeq_slot_idx(blockIdx.x, n_tiles, p.n_slots, slot_src, slot_dst, src_pos,
+                                dst_pos),
+                   p, x, cx, g, ef, cef);
+  xeq_cp_commit();
+  XeqSlotIdx ahead = xeq_slot_idx(blockIdx.x + grid, n_tiles, p.n_slots, slot_src, slot_dst,
+                                  src_pos, dst_pos);
+  for (int tl = blockIdx.x; tl < n_tiles; tl += grid) {
+    xeq_cp_wait_all();
+    __syncthreads();  // this tile has landed
+    const int k_w = tl * XEQ_BT + warp;  // the slot of this warp in phases A, C, E
+
+    // A: the gate sums of dfo and u, one warp per slot, a lane per irrep
+    {
+      const xeq_bf16* xv = x_s + warp * p.xs_st + p.ht8;
+      const xeq_bf16* cv = cx_s + warp * p.xs_st + p.ht8;
+      const xeq_bf16* gv = g_s + warp * p.gs_st + p.sd8;
+      const xeq_bf16* er = e_s + warp * XEQ_BT_EST + p.kw;
+      const xeq_bf16* cr = ce_s + warp * XEQ_BT_EST + p.kw;
+      float* dr = dfo_s + warp * p.dfo_st;
+      float* ur = u_s + warp * p.dfo_st;
+      for (int u = lane; u < p.ni; u += 32) {
+        const int tab = gate_tab[u], l0 = tab & 0xffff, m1 = tab >> 16;
+        float sv = 0.f, sr = 0.f, tv = 0.f, tr = 0.f;
+#pragma unroll
+        for (int m = 0; m < XEQ_MAXM; ++m) {
+          if (m < m1) {
+            const int j = l0 + m, y = lane_tab[j] >> 16;
+            const float gm = xeq_f(gv[j]);
+            sv += xeq_rnd<true>(xeq_f(xv[j]) * gm);
+            sr += xeq_rnd<true>(xeq_f(er[y]) * gm);
+            tv += xeq_rnd<true>(xeq_f(cv[j]) * gm);
+            tr += xeq_rnd<true>(xeq_f(cr[y]) * gm);
+          }
+        }
+        dr[u] = sv;
+        dr[p.ni + u] = sr;
+        ur[u] = tv;
+        ur[p.ni + u] = tr;
+      }
+    }
+    __syncthreads();
+
+    // B: fw = ef @ wf and r = cef @ wf on the tensor cores (shared B
+    // fragments), one n8 column tile per warp at a time; per element a
+    // (in place of cxh), fo at the gate columns (in place of gs), dfw2 and
+    // dfwr (to shared memory) and the hidden part of the d2x row
+    {
+      uint32_t ae[2][4], ac[2][4];
+      xeq_frag_a(ae, e_s, XEQ_BT_EST);
+      xeq_frag_a(ac, ce_s, XEQ_BT_EST);
+      for (int nt = warp; nt < n8; nt += XEQ_BT_WARPS) {
+        const int n = nt * 8 + gq;
+        float cf[4] = {0.f, 0.f, 0.f, 0.f}, cr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const xeq_bf16* w0 = wf_s + (ks * 16 + 2 * cq) * p.w_st + n;
+          const uint32_t b0 = xeq_pack(w0[0], w0[p.w_st]);
+          const uint32_t b1 = xeq_pack(w0[8 * p.w_st], w0[9 * p.w_st]);
+          xeq_mma(cf, ae[ks], b0, b1);
+          xeq_mma(cr, ac[ks], b0, b1);
+        }
+        const int h0 = nt * 8 + 2 * cq;  // even, as 2 ni is: a pair lies on
+                                         // one side of the gate columns
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = gq + 8 * half;
+          float2 w2 = make_float2(0.f, 0.f), wr = w2, dx = w2;
+          if (h0 < p.h) {
+            xeq_bf16* xr = x_s + t * p.xs_st + h0;
+            xeq_bf16* cxr = cx_s + t * p.xs_st + h0;
+            const float2 fw = make_float2(cf[2 * half], cf[2 * half + 1]);
+            const float2 r = make_float2(cr[2 * half], cr[2 * half + 1]);
+            const float2 gs = xeq_f2(xr), cxh = xeq_f2(cxr);
+            float2 dfo, uu = make_float2(0.f, 0.f);
+            if (h0 < ni2) {
+              dfo = *reinterpret_cast<const float2*>(dfo_s + t * p.dfo_st + h0);
+              uu = *reinterpret_cast<const float2*>(u_s + t * p.dfo_st + h0);
+            } else {
+              dfo = xeq_f2(g_s + t * p.gs_st + h0 - ni2);
+            }
+            float2 a = make_float2(cxh.x * fw.x + r.x * gs.x, cxh.y * fw.y + r.y * gs.y);
+            w2 = make_float2(dfo.x * cxh.x + uu.x * gs.x, dfo.y * cxh.y + uu.y * gs.y);
+            wr = make_float2(dfo.x * gs.x, dfo.y * gs.y);
+            dx = make_float2(dfo.x * r.x + uu.x * fw.x, dfo.y * r.y + uu.y * fw.y);
+            if (h0 + 1 >= p.h) a.y = w2.y = wr.y = dx.y = 0.f;  // odd H: column H is padding
+            xeq_st2(cxr, a.x, a.y);
+            if (h0 < ni2) xeq_st2(xr, gs.x * fw.x, gs.y * fw.y);
+          }
+          xeq_st2(dfw2_s + t * p.w_st + h0, w2.x, w2.y);
+          xeq_st2(dfwr_s + t * p.w_st + h0, wr.x, wr.y);
+          const int pos = pos_s[t];
+          if (pos >= 0 && h0 < p.ht8) xeq_st2(rows_x + (int64_t)pos * p.rsx + h0, dx.x, dx.y);
+        }
+      }
+    }
+    __syncthreads();
+
+    // C: one warp per slot, lane pairs: the vector part of the d2x row, the
+    // d2g row, and the harmonic d2ef columns (per lane in lane order, then
+    // a butterfly over the warp)
+    {
+      const xeq_bf16* xr = x_s + warp * p.xs_st;   // fo at the gates | gv
+      const xeq_bf16* cr = cx_s + warp * p.xs_st;  // a | cxv
+      const xeq_bf16* gm_r = g_s + warp * p.gs_st + p.sd8;
+      const xeq_bf16* er = e_s + warp * XEQ_BT_EST + p.kw;
+      const xeq_bf16* cer = ce_s + warp * XEQ_BT_EST + p.kw;
+      const int px = pos_s[warp], pg = pos_s[XEQ_BT + warp];
+      float hy[XEQ_MAXY];
+#pragma unroll
+      for (int y = 0; y < XEQ_MAXY; ++y) hy[y] = 0.f;
+      for (int j0 = 2 * lane; j0 < p.dt8; j0 += 64) {
+        float vx[2] = {0.f, 0.f}, vg[2] = {0.f, 0.f};
+        const float2 gm = xeq_f2(gm_r + j0), gv = xeq_f2(xr + p.ht8 + j0);
+        const float2 cv = xeq_f2(cr + p.ht8 + j0);
+        const int2 tab = *reinterpret_cast<const int2*>(lane_tab + j0);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (j0 + q < p.d) {
+            const int tq = q ? tab.y : tab.x, u = tq & 0xffff, y = tq >> 16;
+            const float gmq = q ? gm.y : gm.x, gvq = q ? gv.y : gv.x, cvq = q ? cv.y : cv.x;
+            const float au = xeq_f(cr[u]), anu = xeq_f(cr[p.ni + u]);
+            const float fu = xeq_f(xr[u]), fnu = xeq_f(xr[p.ni + u]);
+            vx[q] = gmq * au;
+            vg[q] = gvq * au + xeq_f(er[y]) * anu + cvq * fu + fnu * xeq_f(cer[y]);
+            const float hr = xeq_rnd<true>(gmq * anu);
+#pragma unroll
+            for (int yy = 0; yy < XEQ_MAXY; ++yy) hy[yy] += yy == y ? hr : 0.f;
+          }
+        }
+        if (px >= 0) xeq_st2(rows_x + (int64_t)px * p.rsx + p.ht8 + j0, vx[0], vx[1]);
+        if (pg >= 0) xeq_st2(rows_g + (int64_t)pg * p.rsg + p.sd8 + j0, vg[0], vg[1]);
+      }
+      if (pg >= 0) {
+        for (int c0 = 2 * lane; c0 < p.sd8; c0 += 64) {
+          float2 v = make_float2(0.f, 0.f);
+          if (c0 < p.nd) v = xeq_f2(cr + ni2 + c0);
+          if (c0 + 1 >= p.nd) v.y = 0.f;
+          xeq_st2(rows_g + (int64_t)pg * p.rsg + c0, v.x, v.y);
+        }
+      }
+      const float mine = xeq_harmonic_sums(hy);
+      if (k_w < p.n_slots && lane < n_y) d2ef[(int64_t)k_w * XEQ_FPACK + p.kw + lane] = mine;
+    }
+
+    // D1: d2ef[:, f < 32] = dfw2 @ wf^T on the tensor cores; warp w takes
+    // column tile w % 4 and K quarter w / 4, its partial to shared memory
+    xeq_def_quarters(dfw2_s, wf_s, p.w_st, p.hs, dfo_s);
+    // D2: the block's d2wf partial += ef^T @ dfw2 + cef^T @ dfwr on the
+    // tensor cores, in the warp's own column tiles (rows f of two m16 tiles)
+    {
+      uint32_t ae[2][4], ac[2][4];
+      xeq_frag_at(ae, e_s, XEQ_BT_EST);
+      xeq_frag_at(ac, ce_s, XEQ_BT_EST);
+#pragma unroll
+      for (int i = 0; i < XEQ_BT_NTW; ++i) {
+        const int nt = warp + i * XEQ_BT_WARPS;
+        if (nt < n8) {
+          const xeq_bf16* d0 = dfw2_s + 2 * cq * p.w_st + nt * 8 + gq;
+          const xeq_bf16* d1 = dfwr_s + 2 * cq * p.w_st + nt * 8 + gq;
+          uint32_t b0 = xeq_pack(d0[0], d0[p.w_st]);
+          uint32_t b1 = xeq_pack(d0[8 * p.w_st], d0[9 * p.w_st]);
+          xeq_mma(acc[i][0], ae[0], b0, b1);
+          xeq_mma(acc[i][1], ae[1], b0, b1);
+          b0 = xeq_pack(d1[0], d1[p.w_st]);
+          b1 = xeq_pack(d1[8 * p.w_st], d1[9 * p.w_st]);
+          xeq_mma(acc[i][0], ac[0], b0, b1);
+          xeq_mma(acc[i][1], ac[1], b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // the stage is read: the next tile's copies may land
+
+    if (tl + grid < n_tiles)
+      xeq_tile2_load(tile_smem, (tl + grid) * XEQ_BT, ahead, p, x, cx, g, ef, cef);
+    xeq_cp_commit();
+    ahead = xeq_slot_idx(tl + 2 * grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos,
+                         dst_pos);
+
+    // E: the filter columns of the warp's d2ef row (the four quarters in
+    // order) and zeros past Kf; dfo_s is rewritten only after the next
+    // tile's first barrier
+    if (k_w < p.n_slots)
+      xeq_def_row(dfo_s, warp, d2ef + (int64_t)k_w * XEQ_FPACK, p.kw, p.kf);
+  }
+
+  xeq_dwf_part_write(acc, dwf_part + (int64_t)blockIdx.x * p.kf * p.h, p.kf, p.h, n8);
+}
+
+// d2x [n_rows, Hp+Dp] f32: the d2x scratch rows summed by source.
+__global__ void __launch_bounds__(256)
+message_bwd2_d2x_rows_kernel(const xeq_bf16* __restrict__ rows, const int* __restrict__ src_ptr,
+                             float* __restrict__ d2x, int n_rows, int ht8, int dt8, int hp,
+                             int xw) {
+  xeq_rows_sum(rows, src_ptr, d2x, n_rows, ht8, dt8, hp, xw);
+}
+
+// d2g [n_out, SDp+Dp] f32: the d2g scratch rows summed by destination.
+__global__ void __launch_bounds__(256)
+message_bwd2_d2g_rows_kernel(const xeq_bf16* __restrict__ rows, const int* __restrict__ dst_ptr,
+                             float* __restrict__ d2g, int n_out, int sd8, int dt8, int sdp,
+                             int gw) {
+  xeq_rows_sum(rows, dst_ptr, d2g, n_out, sd8, dt8, sdp, gw);
+}
+
+static int launch_bwd2_tiles(const void* x, const void* ef, const void* wf, const void* g,
+                             const void* cx, const void* cef, const void* dst_ptr,
+                             const void* src_ptr, const void* slot_src, const void* slot_dst,
+                             const void* src_pos, const void* dst_pos, const void* lane_gate,
+                             const void* lane_ycol, const void* gate_lane0,
+                             const void* gate_dim, void* rows_x, void* rows_g, void* d2x,
+                             void* d2ef, void* dwf_part, void* d2wf, void* d2g, int n_out,
+                             int n_rows, int n_slots, int n_part, int ni, int nd, int h_dim,
+                             int hp, int d, int dp, int sdp, int kw, int kf, cudaStream_t s) {
+  XeqTile2Dims p;
+  p.n_slots = n_slots; p.ni = ni; p.h = h_dim; p.hp = hp; p.d = d; p.dp = dp;
+  p.sdp = sdp; p.kw = kw; p.kf = kf; p.nd = nd;
+  p.hs = xeq_round_up(h_dim, 16);
+  p.ht8 = xeq_round_up(h_dim, 8);
+  p.dt8 = xeq_round_up(d, 8);
+  p.sd8 = xeq_round_up(nd, 8);
+  p.rsx = p.ht8 + p.dt8;
+  p.rsg = p.sd8 + p.dt8;
+  p.xs_st = p.rsx + 8;
+  p.gs_st = p.rsg + 8;
+  p.w_st = xeq_round_up(p.hs, 64) + 8;
+  p.dfo_st = 2 * ni + 8;
+  p.off_cx = XEQ_BT * p.xs_st * 2;
+  p.off_g = p.off_cx + XEQ_BT * p.xs_st * 2;
+  p.off_e = p.off_g + XEQ_BT * p.gs_st * 2;
+  p.off_ce = p.off_e + XEQ_BT * XEQ_BT_EST * 2;
+  p.off_pos = p.off_ce + XEQ_BT * XEQ_BT_EST * 2;
+  p.stage = xeq_round_up(p.off_pos + 2 * XEQ_BT * 4, 16);
+  p.off_dfw2 = p.stage + XEQ_BT_KE * p.w_st * 2;
+  p.off_dfwr = p.off_dfw2 + XEQ_BT * p.w_st * 2;
+  p.off_dfo = p.off_dfwr + XEQ_BT * p.w_st * 2;
+  p.off_u = p.off_dfo + XEQ_BT * p.dfo_st * 4;
+  const int dfo_bytes = 2 * XEQ_BT * p.dfo_st * 4, red_bytes = 4 * XEQ_BT * 32 * 4;
+  p.off_tab = p.off_dfo + (dfo_bytes > red_bytes ? dfo_bytes : red_bytes);
+  p.smem = p.off_tab + xeq_round_up((p.dt8 + ni) * 4, 16);
+  if (kf - kw > XEQ_MAXY || d >= 65536 || kf > XEQ_BT_KE || p.hs > 16 * 8 * XEQ_BT_NTW ||
+      p.ht8 > hp || p.dt8 > dp || p.sd8 > sdp || p.smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      message_bwd2_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  message_bwd2_tile_kernel<<<n_part, XEQ_BT_THREADS, p.smem, s>>>(
+      (const xeq_bf16*)x, (const xeq_bf16*)ef, (const xeq_bf16*)wf, (const xeq_bf16*)g,
+      (const xeq_bf16*)cx, (const xeq_bf16*)cef, (const int*)slot_src, (const int*)slot_dst,
+      (const int*)src_pos, (const int*)dst_pos, (const int*)lane_gate, (const int*)lane_ycol,
+      (const int*)gate_lane0, (const int*)gate_dim, (xeq_bf16*)rows_x, (xeq_bf16*)rows_g,
+      (float*)d2ef, (float*)dwf_part, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (n_rows > 0) {
+    message_bwd2_d2x_rows_kernel<<<(n_rows + 7) / 8, 256, 0, s>>>(
+        (const xeq_bf16*)rows_x, (const int*)src_ptr, (float*)d2x, n_rows, p.ht8, p.dt8, hp,
+        hp + dp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n_out > 0) {
+    message_bwd2_d2g_rows_kernel<<<(n_out + 7) / 8, 256, 0, s>>>(
+        (const xeq_bf16*)rows_g, (const int*)dst_ptr, (float*)d2g, n_out, p.sd8, p.dt8, sdp,
+        sdp + dp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
+      (const float*)dwf_part, (float*)d2wf, n_part, kf, h_dim, hp);
+  return (int)cudaGetLastError();
+}
+
 #define XEQ_BWD2_ARGS                                                          \
   x, ef, wf, g, cx, cef, cwf, dst_ptr, dst_slots, src_ptr, src_slots,          \
       slot_src, slot_dst, lane_gate, lane_ycol, gate_lane0, gate_dim,          \
@@ -548,9 +952,10 @@ extern "C" int xeq_message_bwd2(
     const void* x, const void* ef, const void* wf, const void* g,
     const void* cx, const void* cef, const void* cwf, const void* dst_ptr,
     const void* dst_slots, const void* src_ptr, const void* src_slots,
-    const void* slot_src, const void* slot_dst, const void* lane_gate,
-    const void* lane_ycol, const void* gate_lane0, const void* gate_dim,
-    const void* ylane_ptr, const void* ylane_idx, void* d2x, void* d2ef,
+    const void* slot_src, const void* slot_dst, const void* src_pos,
+    const void* dst_pos, const void* lane_gate, const void* lane_ycol,
+    const void* gate_lane0, const void* gate_dim, const void* ylane_ptr,
+    const void* ylane_idx, void* rows_x, void* rows_g, void* d2x, void* d2ef,
     void* dwf_part, void* d2wf, void* d2g, int n_out, int n_rows, int n_slots,
     int n_part, int ni, int nd, int h_dim, int hp, int d, int dp, int sdp,
     int kw, int kf, int bf16, int has_cwf, void* stream) {
@@ -561,7 +966,10 @@ extern "C" int xeq_message_bwd2(
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     if (has_cwf) return launch_bwd2<__nv_bfloat16, true, true>(XEQ_BWD2_ARGS);
-    return launch_bwd2<__nv_bfloat16, true, false>(XEQ_BWD2_ARGS);
+    return launch_bwd2_tiles(x, ef, wf, g, cx, cef, dst_ptr, src_ptr, slot_src, slot_dst,
+                             src_pos, dst_pos, lane_gate, lane_ycol, gate_lane0, gate_dim,
+                             rows_x, rows_g, d2x, d2ef, dwf_part, d2wf, d2g, n_out, n_rows,
+                             n_slots, n_part, ni, nd, h_dim, hp, d, dp, sdp, kw, kf, s);
   }
   if (has_cwf) return launch_bwd2<float, false, true>(XEQ_BWD2_ARGS);
   return launch_bwd2<float, false, false>(XEQ_BWD2_ARGS);

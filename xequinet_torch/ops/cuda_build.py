@@ -26,14 +26,15 @@ BUILD_DIR = _PKG / "_build"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_MESSAGE_HEADERS = ("message_common.cuh", "message_tile.cuh")
 # name -> (source, headers it includes, C entry point, argtypes)
 _KERNELS = {
-    "message_fwd": ("message_fwd.cu", ("message_common.cuh",), "xeq_message_fwd",
+    "message_fwd": ("message_fwd.cu", _MESSAGE_HEADERS, "xeq_message_fwd",
                     [_P] * 10 + [_I] * 10 + [_P]),
-    "message_bwd": ("message_bwd.cu", ("message_common.cuh",), "xeq_message_bwd",
+    "message_bwd": ("message_bwd.cu", _MESSAGE_HEADERS, "xeq_message_bwd",
                     [_P] * 20 + [_I] * 12 + [_P]),
-    "message_bwd2": ("message_bwd2.cu", ("message_common.cuh",), "xeq_message_bwd2",
-                     [_P] * 24 + [_I] * 15 + [_P]),
+    "message_bwd2": ("message_bwd2.cu", _MESSAGE_HEADERS, "xeq_message_bwd2",
+                     [_P] * 28 + [_I] * 15 + [_P]),
     "gather_scatter_v2": ("gather_scatter_v2.cu", (), "xeq_gather_scatter_v2",
                           [_P] * 6 + [_I] * 3 + [_P]),
     "gather_scatter": ("gather_scatter.cu", (), "xeq_gather_scatter",

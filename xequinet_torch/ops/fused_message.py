@@ -350,6 +350,69 @@ def message_bwd2_closed(
     return d2x, d2ef, d2wf, d2g
 
 
+def message_bwd2_rows(
+    x_cat, edge_feat, wf_aug, g, cx, cef, cwf, src_g, dst_g, edge_mask,
+    irreps_str, num_basis, node_dim, compute_dtype=torch.float32,
+):
+    """The second order per slot, as the bf16 tile pass of
+    ``csrc/message_bwd2.cu`` computes it: the index maps (each lane's gate
+    and harmonic column) in place of E1 / E2 / MS / BY, with fw = ef@W,
+    r = cef@W + ef@cwf, fo = gs*fw, a = cxh*fw + r*gs and the gate sums
+    dfo[u] = sum_j gv*gms_v, dfo[ni+u] = sum_j ef[ycol]*gms_v,
+    dfo[2ni+c] = gms_s[c], u[u] = sum_j cxv*gms_v, u[ni+u] = sum_j
+    cef[ycol]*gms_v (j over the lanes of irrep u):
+
+        rows_x = [dfo*r + u*fw | gms_v*a[gate]]                        [T, H + D]
+        rows_g = [a[2ni:] | gv*a[gate] + ef[ycol]*a[ni+gate]
+                            + cxv*fo[gate] + fo[ni+gate]*cef[ycol]]     [T, node_dim + D]
+        dfw2 = dfo*cxh + u*gs,  dfwr = dfo*gs                          [T, H]
+        d2ef = dfw2@W' + dfwr@cwf' + (the lanes' gms_v*a[ni+gate] summed
+               into their harmonic columns)                            [T, 128]
+        d2wf = ef'@dfw2 + cef'@dfwr                                    [128, Hp]
+
+    Zero on slots that add nothing (``edge_mask`` False); ``None``
+    cotangents are zero.  ``d2x`` is the sum of rows_x by source (columns
+    ``[:H]`` and ``[Hp:Hp+D]``) and ``d2g`` that of rows_g by destination
+    (``[:node_dim]`` and ``[SDp:SDp+D]``): the kernel's row passes.  In
+    bf16 ``compute_dtype`` it rounds where the TPU kernel rounds (the
+    operands, fo, a, the gate-sum products, the rows, dfw2, dfwr and the
+    harmonic terms); sums are f32."""
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = structure_matrices(irreps_str, num_basis, node_dim)
+    ni = Irreps(irreps_str).num_irreps
+    dev = x_cat.device
+    maps = index_maps(irreps_str, num_basis)
+    lg = torch.as_tensor(maps["lane_gate"], device=dev).long()
+    ly = torch.as_tensor(maps["lane_ycol"], device=dev).long()
+    rnd = lambda t: t.to(compute_dtype).float()
+    zero_or = lambda t, like: torch.zeros_like(like) if t is None else t
+    cx, cef, cwf = zero_or(cx, x_cat), zero_or(cef, edge_feat), zero_or(cwf, wf_aug)
+    x, ef, wf, gq, cx, cef, cwf = map(rnd, (x_cat, edge_feat, wf_aug, g, cx, cef, cwf))
+    valid = edge_mask[:, None]
+    src, dst = src_g.long(), dst_g.long()
+    mask = lambda t: torch.where(valid, t, torch.zeros((), device=dev))
+    gm = mask(gq[dst])
+    gms_s, gms_v = gm[:, :node_dim], gm[:, sdp:sdp + d]
+    xs, cxs = x[src], cx[src]
+    gs, gv, cxh, cxv = xs[:, :h], xs[:, hp:hp + d], cxs[:, :h], cxs[:, hp:hp + d]
+    w, cw = wf[:, :h], cwf[:, :h]
+    fw, r = ef @ w, cef @ w + ef @ cw
+    fo, a = rnd(gs * fw), rnd(cxh * fw + r * gs)
+    ey, cy = ef[:, ly], cef[:, ly]
+    lanes = lambda v: torch.zeros(v.shape[0], ni, device=dev).index_add(1, lg, v)
+    none = torch.zeros(gm.shape[0], node_dim, device=dev)
+    dfo = torch.cat([lanes(rnd(gv * gms_v)), lanes(rnd(ey * gms_v)), gms_s], 1)
+    u = torch.cat([lanes(rnd(cxv * gms_v)), lanes(rnd(cy * gms_v)), none], 1)
+    dfw2, dfwr = mask(rnd(dfo * cxh + u * gs)), mask(rnd(dfo * gs))
+    rows_x = torch.cat([rnd(dfo * r + u * fw), rnd(gms_v * a[:, lg])], 1)
+    rows_g = torch.cat([a[:, 2 * ni:], rnd(gv * a[:, lg] + ey * a[:, ni + lg]
+                                          + cxv * fo[:, lg] + fo[:, ni + lg] * cy)], 1)
+    d2ef = dfw2 @ w.t() + dfwr @ cw.t()
+    d2ef = d2ef.index_add(1, ly, rnd(gms_v * a[:, ni + lg]))
+    d2wf = torch.zeros_like(wf)
+    d2wf[:, :h] = ef.t() @ dfw2 + cef.t() @ dfwr
+    return mask(rows_x), mask(rows_g), dfw2, dfwr, mask(d2ef), d2wf
+
+
 # ---------------------------------------------------------------------------
 # Slot plan: the CSR lists by destination and by source the kernels walk
 # ---------------------------------------------------------------------------
@@ -377,9 +440,9 @@ def build_slot_plan(slot_meta, n_out: int, n_rows: int, block_nodes: int,
     per slot its global source / destination row (-1 destination on
     padding slots, dst2 == BN, and on slots past the covered chunk range),
     stable CSR orderings of the valid slots by destination and by source,
-    and per slot its position in the list by source (``src_pos``, -1 on
-    slots that add nothing: the scratch row of the backward's bf16 tile
-    pass).  Index glue in plain tensor ops, on the slots' device."""
+    and per slot its position in each list (``src_pos``, ``dst_pos``; -1 on
+    slots that add nothing): the scratch rows of the backward kernels' bf16
+    tile passes.  Index glue in plain tensor ops, on the slots' device."""
     src2, dst2, _, _, cb, nc, ws = slot_meta[:7]
     dev = src2.device
     src_row, dst_row, valid = slot_rows(src2, dst2, cb, nc, ws, n_out, n_rows,
@@ -393,18 +456,20 @@ def build_slot_plan(slot_meta, n_out: int, n_rows: int, block_nodes: int,
         ptr[1:] = torch.cumsum(counts, 0)
         return ptr.int().contiguous(), order.int().contiguous()
 
+    n_valid = valid.sum()
+
+    def positions(slots):  # the valid slots come first in the stable sort
+        pos = torch.arange(slots.numel(), device=dev, dtype=torch.int32)
+        return torch.full_like(slots, -1).index_copy_(
+            0, slots.long(), torch.where(pos < n_valid, pos, -1))
+
     dst_ptr, dst_slots = csr(dst_row, n_out)
     src_ptr, src_slots = csr(src_row, n_rows)
-    # the valid slots come first in the stable sort, in list order
-    src_pos = torch.full_like(src_slots, -1)
-    n_valid = valid.sum()
-    pos = torch.arange(src_slots.numel(), device=dev, dtype=torch.int32)
-    src_pos.index_copy_(0, src_slots.long(), torch.where(pos < n_valid, pos, -1))
     return {
         "slot_src": torch.where(valid, src_row, 0).int().contiguous(),
         "slot_dst": torch.where(valid, dst_row, -1).int().contiguous(),
-        "dst_ptr": dst_ptr, "dst_slots": dst_slots,
-        "src_ptr": src_ptr, "src_slots": src_slots, "src_pos": src_pos,
+        "dst_ptr": dst_ptr, "dst_slots": dst_slots, "dst_pos": positions(dst_slots),
+        "src_ptr": src_ptr, "src_slots": src_slots, "src_pos": positions(src_slots),
     }
 
 
@@ -449,6 +514,9 @@ def message_fwd_cuda(
         raise ValueError("message_fwd_cuda takes CUDA tensors")
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
     mm = _mm_dtype(mm_dtype)
+    if mm == torch.bfloat16 and (kf > 32 or sdp + dp > 1280):
+        raise ValueError("the bf16 message forward takes num_basis + 1 + nY <= 32 "
+                         "edge-feature columns and SDp + Dp <= 1280 output columns")
     if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
         raise ValueError("fused message: operand shapes do not match the irreps")
     xk = x_cat.to(mm).contiguous()
@@ -458,6 +526,8 @@ def message_fwd_cuda(
     maps = _device_maps(irreps_str, num_basis, x_cat.device)
     out = torch.empty((n_out, sdp + dp), dtype=torch.float32, device=x_cat.device)
     _check_cuda(xk, efk, wfk, plan["dst_ptr"], out)
+    if any(t.data_ptr() % 16 for t in (xk, efk)):
+        raise ValueError("fused message: operands must be 16-byte aligned")
     launch(
         "message_fwd",
         xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), plan["dst_ptr"].data_ptr(),
@@ -530,13 +600,24 @@ def bwd_scratch_shape(t_slots: int, h: int, d: int) -> Tuple[int, int]:
     return t_slots, _round8(h) + _round8(d)
 
 
+def bwd2_scratch_shapes(t_slots: int, h: int, node_dim: int,
+                        d: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The bf16 second order's scratch without cwf: one d2x row ``[H | D]``
+    and one d2g row ``[node_dim | D]`` per slot, each part rounded up to 8
+    columns (16-byte rows)."""
+    return bwd_scratch_shape(t_slots, h, d), (t_slots, _round8(node_dim) + _round8(d))
+
+
 def message_bwd2_cuda(
     x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta,
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(d2x_cat, d2_edge_feat, d2_wf_aug, d2g), f32, by
     ``csrc/message_bwd2.cu``: the VJP of :func:`message_bwd_cuda` for the
-    cotangents (cx, cef, cwf).
+    cotangents (cx, cef, cwf).  In bf16 without cwf the tile pass writes
+    each valid slot's d2x and d2g rows to the bf16 scratch of
+    :func:`bwd2_scratch_shapes` (at its positions in the lists by source
+    and by destination), which the row passes sum.
 
     A ``None`` cx or cef is materialized as zeros; a ``None`` cwf (force
     training: ``wf_aug`` is not on the path to the positions) selects the
@@ -549,6 +630,10 @@ def message_bwd2_cuda(
         raise ValueError("message_bwd2_cuda takes CUDA tensors")
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
     mm = _mm_dtype(mm_dtype)
+    tiles = mm == torch.bfloat16 and cwf is None
+    if tiles and (kf > 32 or h > 768):
+        raise ValueError("the bf16 message second order takes num_basis + 1 + nY <= 32 "
+                         "edge-feature columns and a filter width H <= 768")
     dev = x_cat.device
     n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
     if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
@@ -572,8 +657,13 @@ def message_bwd2_cuda(
     d2wf_part = torch.empty((n_part, kf, h), **f32)
     d2wf = torch.empty((F_PACK, hp), **f32)
     d2g = torch.empty((n_out, sdp + dp), **f32)
-    _check_cuda(xk, efk, wfk, gk, cxk, cefk, plan["dst_ptr"], plan["src_ptr"], d2x,
+    shape_x, shape_g = bwd2_scratch_shapes(t_slots, h, node_dim, d) if tiles else ((0,), (0,))
+    rows_x = torch.empty(shape_x, dtype=torch.bfloat16, device=dev)
+    rows_g = torch.empty(shape_g, dtype=torch.bfloat16, device=dev)
+    _check_cuda(xk, efk, wfk, gk, cxk, cefk, plan["dst_ptr"], plan["src_ptr"], d2x, rows_x,
                 *(() if cwfk is None else (cwfk,)))
+    if any(t.data_ptr() % 16 for t in (xk, efk, gk, cxk, cefk)):
+        raise ValueError("fused message: operands must be 16-byte aligned")
     launch(
         "message_bwd2",
         xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), gk.data_ptr(),
@@ -581,9 +671,11 @@ def message_bwd2_cuda(
         plan["dst_ptr"].data_ptr(), plan["dst_slots"].data_ptr(),
         plan["src_ptr"].data_ptr(), plan["src_slots"].data_ptr(),
         plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(),
+        plan["src_pos"].data_ptr(), plan["dst_pos"].data_ptr(),
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
         maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(),
+        rows_x.data_ptr(), rows_g.data_ptr(),
         d2x.data_ptr(), d2ef.data_ptr(), d2wf_part.data_ptr(), d2wf.data_ptr(),
         d2g.data_ptr(),
         n_out, n_rows, t_slots, n_part, ni, node_dim, h, hp, d, dp, sdp, kw, kf,
