@@ -18,6 +18,10 @@ Phases (any failed check exits non-zero):
      version, the backward kernel against the plain VJP on dx, d_ef, d_wf,
      the second-order kernel against the plain double VJP on d2x, d2ef,
      d2wf, d2g, with no cotangent on d_wf (force training) and a random one;
+     the same at three wider shapes on the same slots (Kf = 33, num_basis
+     23; Kf = 128, num_basis 118; H = 1152, node_dim 256 and
+     256x0e+128x1o+64x2e), each also bit for bit on a second call, with the
+     route (tile pass or walk kernels) each takes;
      the v2 gather-scale-scatter at the model's call on the same slots (x
      [24576, 480] f32, w2 on every slot in f32 and in bf16); the v1 one at
      bench_kernels.py run's shape (n 16384, e 163840, d 480, bn 256) with
@@ -29,26 +33,33 @@ Phases (any failed check exits non-zero):
      3 + 0 + 0 energy only; on the v2 route (use_pallas_scatter=True) 3 v2
      launches either way; finite outputs, agreement with the plain route on
      the card (bf16: energies and mean |F|; f32: also every force
-     component), and in f32 the plain route on the CPU as a second reference.
+     component), and in f32 the plain route on the CPU as a second reference;
+     a batch whose largest molecule (40 atoms) exceeds pad_nodes 32, served
+     through the kernels (the engine fits the slot layout to the batch)
+     against the plain route; the wide model (num_basis 23, node_dim 256,
+     256x0e+128x1o+64x2e) at full width against the plain route.
   5. training: flagship XPaiNN at full width and depth trains on the same
      batch (bench.py's recipe: {energy: 1, forces: 10} l2, AdamW, cosine
      schedule with warmup, grad clip 5.0, EMA 0.999): on the mega route 3 +
      6 + 3 launches per step and a falling loss over 20 steps, on the v2
-     route 3 v2 launches per step and a falling loss over 10; finite loss
-     and gradients; one f32 step on each kernel route against one on the
-     plain route from the same weights; then run_train from an overrides
-     dict on an XDB dataset of bench-recipe molecules it writes to a
-     temporary directory, 2 epochs on the mega kernels, its last checkpoint
-     served by InferenceEngine.
+     route 3 v2 launches per step and a falling loss over 10, the wide
+     model on the mega route 3 + 6 + 3 launches and a falling loss over 10;
+     finite loss and gradients; one f32 step on each flagship kernel route
+     against one on the plain route from the same weights; then run_train
+     from an overrides dict on an XDB dataset of bench-recipe molecules it
+     writes to a temporary directory, 2 epochs on the mega kernels, its last
+     checkpoint served by InferenceEngine.
   6. times on the card (CUDA events): each kernel and its plain version,
      the bound (bytes and operations the function needs on these inputs),
      the library yardstick where one PyTorch call computes the same
      function (torch.sparse.mm for the v1 op at an [E, 1] weight, timed in
      turns with the kernel), the backward's and the second order's split
-     per launch (tile pass, row passes, reduction; torch.profiler) and
-     their scratch bytes, each
-     route's device forward+forces, the mega predict wall time and
-     edges/s, each route's train step ms, edges/s and peak memory.
+     per launch (tile pass, row passes, d_wf pass, reduction;
+     torch.profiler) and their scratch bytes, the message kernels' f32
+     instances at flagship widths and the wide shapes in bf16 beside their
+     bounds, each route's device forward+forces (the wide model's too), the
+     mega predict wall time and edges/s, each route's train step ms,
+     edges/s and peak memory (the wide model's too).
 Then one JSON line with the kernels, the card line, and last the device
 JSON line.  It imports nothing of JAX or of the JAX package.
 """
@@ -145,14 +156,15 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def message_problem(batch, device, seed=7, bn=BN, chunk=CHUNK):
-    """Flagship-width operands of one message op on the batch's slots."""
+def message_problem(batch, device, seed=7, bn=BN, chunk=CHUNK, widths=None):
+    """Operands of one message op on the batch's slots, at the flagship's
+    widths or at ``widths`` = (irreps, num_basis, node_dim)."""
     from xequinet_torch import keys
     from xequinet_torch.ops import fused_message as fm
     from xequinet_torch.ops.irreps import Irreps
 
-    irreps = FLAGSHIP_KW["node_irreps"]
-    nb, nd = FLAGSHIP_KW["num_basis"], FLAGSHIP_KW["node_dim"]
+    irreps, nb, nd = widths or (FLAGSHIP_KW["node_irreps"], FLAGSHIP_KW["num_basis"],
+                                FLAGSHIP_KW["node_dim"])
     _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, nd)
     rng = np.random.default_rng(seed)
     n = batch[keys.POSITIONS].shape[0]
@@ -193,8 +205,8 @@ def plain_fwd(p, mm):
     from xequinet_torch.ops import fused_message as fm
 
     sm = p["slot_meta"]
-    return fm.plain_message(p["x_cat"], p["ef"], p["wf"], sm[2], sm[3], p["edge_mask"],
-                            *p["statics"], p["n_out"], getattr(torch, mm))
+    return (fm.plain_message(p["x_cat"], p["ef"], p["wf"], sm[2], sm[3], p["edge_mask"],
+                             *p["statics"], p["n_out"], getattr(torch, mm)),)
 
 
 def plain_bwd(p, mm):
@@ -209,8 +221,8 @@ def plain_bwd(p, mm):
 def kernel_fwd(p, mm):
     from xequinet_torch.ops import fused_message as fm
 
-    return fm.message_fwd_cuda(p["x_cat"], p["ef"], p["wf"], p["slot_meta"], *p["statics"],
-                               p["n_out"], BN, CHUNK, mm)
+    return (fm.message_fwd_cuda(p["x_cat"], p["ef"], p["wf"], p["slot_meta"], *p["statics"],
+                                p["n_out"], BN, CHUNK, mm),)
 
 
 def kernel_bwd(p, mm):
@@ -237,45 +249,84 @@ def kernel_bwd2(p, mm, cwf=None):
                                 mm)
 
 
+# the message kernels' outputs, by name, as each wrapper returns them
+OUT_NAMES = {"message_fwd": ("agg",), "message_bwd": ("dx", "d_ef", "d_wf"),
+             "message_bwd2": ("d2x", "d2ef", "d2wf", "d2g")}
+
+
+def check_message_kernels(p, tag="", repeat=False):
+    """Each message kernel against its plain version on the problem ``p``,
+    f32 and bf16, the second order with no cotangent on d_wf (force
+    training) and a random one; with ``repeat``, also the same bits on a
+    second call.  Fails on any disagreement; returns bf16 max |kernel -
+    plain| per kernel (the second order without cwf)."""
+    abs_err = {}
+    cases = [("message_fwd", "", lambda mm: (kernel_fwd(p, mm), plain_fwd(p, mm)),
+              lambda mm: kernel_fwd(p, mm)),
+             ("message_bwd", "", lambda mm: (kernel_bwd(p, mm), plain_bwd(p, mm)),
+              lambda mm: kernel_bwd(p, mm))]
+    for cwf_tag, cwf in (("cwf=None", None), ("random cwf", p["cwf"])):
+        cases.append(("message_bwd2", cwf_tag,
+                      lambda mm, c=cwf: (kernel_bwd2(p, mm, c), plain_bwd2(p, mm, c)),
+                      lambda mm, c=cwf: kernel_bwd2(p, mm, c)))
+    for mm in ("float32", "bfloat16"):
+        tol = TOL[mm]
+        for name, cwf_tag, both, again in cases:
+            got, want = both(mm)
+            torch.cuda.synchronize()
+            label = " ".join(t for t in (name, tag, mm, cwf_tag) if t)
+            for out, a, b in zip(OUT_NAMES[name], got, want):
+                e = rel_err(a, b)
+                print(f"[kernels] {label} {out}: max|err|/max|ref| = {e:.3e} (limit {tol:g})")
+                if not (e <= tol and torch.isfinite(a).all()):
+                    fail(f"{label} {out} disagrees with plain")
+            if name != "message_fwd" and float(got[1][~p["edge_mask"]].abs().max()) != 0.0:
+                fail(f"{label}: padding / tail slots got non-zero d_ef rows")
+            if mm == "bfloat16" and cwf_tag != "random cwf":
+                abs_err[name] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            if repeat:
+                if not all(torch.equal(a, b) for a, b in zip(got, again(mm))):
+                    fail(f"{label}: a second call gave other bits")
+                print(f"[kernels] {label}: the same bits on a second call")
+            del got, want
+    return abs_err
+
+
 def phase_kernels(batch, device):
     """Phase 3: each kernel against its plain version, f32 and bf16."""
     p = message_problem(batch, device)
-    abs_err = {}  # bf16 (the flagship dtype): max |kernel - plain|
-    for mm in ("float32", "bfloat16"):
-        tol = TOL[mm]
-        out_k, out_p = kernel_fwd(p, mm), plain_fwd(p, mm)
-        torch.cuda.synchronize()
-        e = rel_err(out_k, out_p)
-        print(f"[kernels] message_fwd {mm}: max|err|/max|ref| = {e:.3e} (limit {tol:g})")
-        if not (e <= tol and torch.isfinite(out_k).all()):
-            fail(f"message_fwd {mm} disagrees with plain")
-        abs_err["message_fwd"] = float((out_k - out_p).abs().max())
-        got, want = kernel_bwd(p, mm), plain_bwd(p, mm)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("dx", "d_ef", "d_wf"), got, want):
-            e = rel_err(a, b)
-            print(f"[kernels] message_bwd {mm} {name}: max|err|/max|ref| = {e:.3e} "
-                  f"(limit {tol:g})")
-            if not (e <= tol and torch.isfinite(a).all()):
-                fail(f"message_bwd {mm} {name} disagrees with plain")
-        abs_err["message_bwd"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        # second order: no cotangent on d_wf (force training) and a random one
-        for cwf_tag, cwf in (("cwf=None", None), ("random cwf", p["cwf"])):
-            got, want = kernel_bwd2(p, mm, cwf), plain_bwd2(p, mm, cwf)
-            torch.cuda.synchronize()
-            for name, a, b in zip(("d2x", "d2ef", "d2wf", "d2g"), got, want):
-                e = rel_err(a, b)
-                print(f"[kernels] message_bwd2 {mm} {cwf_tag} {name}: max|err|/max|ref| = "
-                      f"{e:.3e} (limit {tol:g})")
-                if not (e <= tol and torch.isfinite(a).all()):
-                    fail(f"message_bwd2 {mm} {cwf_tag} {name} disagrees with plain")
-            if float(got[1][~p["edge_mask"]].abs().max()) != 0.0:
-                fail("message_bwd2: padding / tail slots got non-zero d2ef rows")
-            if cwf is None:
-                abs_err["message_bwd2"] = max(float((a - b).abs().max())
-                                              for a, b in zip(got, want))
-            del got, want
-    return p, abs_err
+    return p, check_message_kernels(p)
+
+
+# the message kernels' widths past the first tile passes' limits: Kf = 33
+# (num_basis 23), Kf = 128 (num_basis 118, the JAX kernels' maximum), H =
+# 1152 (node_dim 256, 256x0e+128x1o+64x2e)
+WIDE_SHAPES = {"Kf=33": ("128x0e+64x1o+32x2e", 23, 128),
+               "Kf=128": ("128x0e+64x1o+32x2e", 118, 128),
+               "H=1152": ("256x0e+128x1o+64x2e", 23, 256)}
+
+
+def phase_wide_kernels(batch, device):
+    """Phase 3, continued: the three wide shapes on the same slots, each
+    kernel against its plain version in f32 and bf16, repeating bit for
+    bit; prints which route (tile pass or walk kernels) each takes.
+    Returns {shape: its bf16 operands} for phase 6."""
+    from xequinet_torch.ops import fused_message as fm
+
+    wide = {}
+    for tag, widths in WIDE_SHAPES.items():
+        p = message_problem(batch, device, widths=widths)
+        routes = {k: "tile pass" if fm.tile_route(k, "bfloat16", *widths) else "walk kernels"
+                  for k in OUT_NAMES}
+        print(f"[kernels] wide shape {tag} {widths}: bf16 routes {routes}")
+        check_message_kernels(p, tag, repeat=True)
+        wide[tag] = dict(p, **{k: p[k].to(torch.bfloat16)
+                               for k in ("x_cat", "ef", "wf", "g", "cx", "cef")})
+        del p
+        torch.cuda.empty_cache()
+    print(f"[kernels] wide shapes: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return wide
 
 
 def v2_problem(batch, device, seed=11):
@@ -586,6 +637,77 @@ def phase_slice(dps, device):
     return eng, launch_counts, refs
 
 
+# the wide model: FLAGSHIP_KW at num_basis 23 (Kf = 33), node_dim 256 and
+# 256x0e+128x1o+64x2e (H = 1152), past the widths of the first tile passes
+WIDE = dict(num_basis=23, node_dim=256, node_irreps="256x0e+128x1o+64x2e")
+
+
+def phase_wide_slice(dps, device):
+    """Phase 4, continued: the wide model on the mega route at full width,
+    served by InferenceEngine.predict through the kernels (3 + 3 launches
+    per predict with forces), against the plain route with the same
+    weights: bf16 energies and mean |F|, and in f32 every force component.
+    Returns its engine and collated batch."""
+    from xequinet_torch import keys
+    from xequinet_torch.ops import fused_message as fm
+
+    eng = make_engine(device, **WIDE)
+    fm.reset_launch_counts()
+    res = eng.predict(dps, compute_forces=True)
+    torch.cuda.synchronize()
+    expect_launches("wide mega predict with forces", message_fwd=3, message_bwd=3)
+    e = np.array([float(r[keys.TOTAL_ENERGY]) for r in res])
+    f = np.concatenate([r[keys.FORCES] for r in res])
+    if len(res) != len(dps) or not (np.isfinite(e).all() and np.isfinite(f).all()):
+        fail("wide model: wrong shapes or non-finite energies or forces")
+    n_g, n_at = len(dps), sum(d.num_atoms for d in dps)
+    state = eng.module.state_dict()
+    plain = make_engine(device, use_pallas_scatter=False, **WIDE)
+    plain.module.load_state_dict(state)
+    mega_b, plain_b = eng.collate(dps), plain.collate(dps)
+    compare_outputs("bf16 wide mega vs plain route", eng.forward_batch(mega_b),
+                    plain.forward_batch(plain_b), n_g, n_at, TOL["bfloat16"])
+    k32 = make_engine(device, **WIDE, **F32)
+    p32 = make_engine(device, use_pallas_scatter=False, **WIDE, **F32)
+    for x in (k32, p32):
+        x.module.load_state_dict(state)
+    compare_outputs("f32 wide mega vs plain route on the card", k32.forward_batch(mega_b),
+                    p32.forward_batch(plain_b), n_g, n_at, 1e-4, F32_FORCE_TOL)
+    del k32, p32, plain
+    torch.cuda.empty_cache()
+    return eng, mega_b
+
+
+def phase_big_molecule(device, state):
+    """Phase 4, continued: a batch whose largest molecule (40 atoms) is
+    larger than the flagship's pad_nodes (32).  The engine fits the slot
+    layout to the batch, so the flagship serves it through the kernels (3
+    + 3 launches), matching the plain route with the same weights (bf16
+    energies and mean |F|; f32 every force component)."""
+    from xequinet_torch.ops import fused_message as fm
+
+    dps = build_molecules(63, seed=5) + build_molecules(1, seed=6, atoms_lo=40, atoms_hi=40)
+    n_g, n_at = len(dps), sum(d.num_atoms for d in dps)
+    engines = {}
+    for tag, over in (("mega", {}), ("plain", {"use_pallas_scatter": False})):
+        for dt, extra in (("bf16", {}), ("f32", F32)):
+            engines[tag, dt] = make_engine(device, **over, **extra)
+            engines[tag, dt].module.load_state_dict(state)
+    fm.reset_launch_counts()
+    engines["mega", "bf16"].predict(dps)
+    torch.cuda.synchronize()
+    expect_launches(f"predict of {n_g} molecules, the largest of 40 atoms (pad_nodes "
+                    f"{PAD_NODES})", message_fwd=3, message_bwd=3)
+    for dt, tol, f_tol in (("bf16", TOL["bfloat16"], None), ("f32", 1e-4, F32_FORCE_TOL)):
+        mb = engines["mega", dt].collate(dps)
+        pb = engines["plain", dt].collate(dps)
+        compare_outputs(f"{dt} 40-atom batch, mega vs plain route",
+                        engines["mega", dt].forward_batch(mb),
+                        engines["plain", dt].forward_batch(pb), n_g, n_at, tol, f_tol)
+    del engines
+    torch.cuda.empty_cache()
+
+
 TRAIN_WEIGHTS = {"energy": 1.0, "forces": 10.0}
 # per-parameter f32 gradient limit of the kernel route against the plain
 # route: GRAD_TOL + GRAD_ULP_FACTOR x the plain route's own change when the
@@ -688,8 +810,8 @@ def phase_training(tag, over, n_steps, want, b, ref, device, card):
     """Phase 5: flagship bf16 training on the kernel route ``over`` on the
     card: launches per step ``want``, finite loss, parameters and
     gradients, a falling loss over ``n_steps`` steps, and the f32 step
-    check.  Returns (launches per train step, the step function and its
-    EMA for phase 6)."""
+    check (none without ``ref``).  Returns (launches per train step, the
+    step function and its EMA for phase 6)."""
     from xequinet_torch.ops import cuda_build
 
     module, forward, step, ema = train_model(device, **over)
@@ -697,7 +819,7 @@ def phase_training(tag, over, n_steps, want, b, ref, device, card):
     cuda_build.reset_launch_counts()
     loss, _ = step(b, 0, 1.0, ema)
     torch.cuda.synchronize()
-    counts = expect_launches(f"flagship bf16 {tag} train step", **want)
+    counts = expect_launches(f"bf16 {tag} train step", **want)
     if not (np.isfinite(float(loss)) and all(torch.isfinite(p).all()
                                               for p in module.parameters())):
         fail(f"{tag}: non-finite loss or parameters after a train step")
@@ -712,7 +834,8 @@ def phase_training(tag, over, n_steps, want, b, ref, device, card):
           f"{n_steps} steps")
     if not loss_n < loss0:
         fail(f"{tag}: the training loss did not fall over {n_steps} steps")
-    f32_step_check(tag, over, b, ref, device, card)
+    if ref is not None:
+        f32_step_check(tag, over, b, ref, device, card)
     return counts, step, ema
 
 
@@ -829,10 +952,12 @@ def kernel_costs(p, mm):
 PASSES = {
     "message_bwd": (("tile pass", "message_bwd_tile_kernel"),
                     ("dx pass", "message_bwd_dx_rows_kernel"),
+                    ("d_wf pass", "xeq_dwf_pass_kernel"),
                     ("d_wf reduction", "xeq_dwf_reduce_kernel")),
     "message_bwd2": (("tile pass", "message_bwd2_tile_kernel"),
                      ("d2x pass", "message_bwd2_d2x_rows_kernel"),
                      ("d2g pass", "message_bwd2_d2g_rows_kernel"),
+                     ("d2wf pass", "xeq_dwf_pass_kernel"),
                      ("d2wf reduction", "xeq_dwf_reduce_kernel")),
 }
 
@@ -840,8 +965,10 @@ PASSES = {
 def pass_split(name, fn, p_mm, mm, card, calls=10):
     """A wrapper's device time per launch by pass (torch.profiler over
     ``calls`` calls of ``fn`` after a warm-up) and its bf16 scratch bytes.
-    Returns ({pass: ms per call}, scratch bytes); passes the profiler did
-    not see are None."""
+    Returns ({pass: ms per call} of the passes the profiler saw, scratch
+    bytes)."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     from xequinet_torch.ops import fused_message as fm
@@ -855,17 +982,17 @@ def pass_split(name, fn, p_mm, mm, card, calls=10):
     dev = lambda e: getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0.0)
     split = {}
-    for tag, kname in PASSES[name]:
-        us = sum(dev(e) for e in prof.key_averages() if e.key.startswith(kname))
-        split[tag] = us / 1e3 / calls if us else None
+    for tag, kname in PASSES[name]:  # kernel names, templated or not
+        us = sum(dev(e) for e in prof.key_averages() if re.search(rf"\b{kname}\b", e.key))
+        if us:
+            split[tag] = us / 1e3 / calls
     irreps, nb, nd = p_mm["statics"]
     _, _, _, _, (h, _, d, _, _, _) = fm.structure_matrices(irreps, nb, nd)
     t = p_mm["ef"].shape[0]
     shapes = ([fm.bwd_scratch_shape(t, h, d)] if name == "message_bwd"
               else list(fm.bwd2_scratch_shapes(t, h, nd, d)))
     scratch = sum(r * w * 2 for r, w in shapes)
-    shown = ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f} ms")
-                      for k, v in split.items())
+    shown = ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()) or "not measured"
     print(f"[time] {name} ({mm}) per launch by pass (torch.profiler, {calls} calls): "
           f"{shown}; scratch " + " + ".join(f"{r} x {w}" for r, w in shapes)
           + f" bf16 = {scratch / 1e6:.1f} MB written once, read once — {card}")
@@ -893,7 +1020,7 @@ def time_train_step(tag, step, b, ema, i0, n_real, card):
     step(b, i0 + 7, 1.0, ema)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    print(f"[time] flagship train step (bf16, {tag}), median of 7: "
+    print(f"[time] train step (bf16, {tag}), median of 7: "
           f"{step_ms:.3f} ms (min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}), "
           f"{n_real / (step_ms / 1e3):.1f} edges/s; peak device memory "
           f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
@@ -986,13 +1113,16 @@ def main():
           f"{batch[keys.EDGE_MASK].shape[0]} slots, {batch[keys.POSITIONS].shape[0]} "
           f"node rows ({time.perf_counter() - t0:.1f} s on the host)")
     p, abs_err = phase_kernels(batch, device)
+    wide = phase_wide_kernels(batch, device)
     pv2, pv1, scatter_err = phase_scatter_kernels(batch, device)
     v1_launches = phase_v1_op(pv1)
 
     # phase 4: inference, the mega route and the v2 route
     eng, launches, refs = phase_slice(dps, device)
     eng_v2, launches_v2 = phase_v2_slice(dps, device, refs)
+    phase_big_molecule(device, refs["state"])
     del refs
+    eng_w, wide_b = phase_wide_slice(dps, device)
 
     # phase 5: training.  Mega: per block the forward, the backward that
     # makes the forces, the second order of the parameter-gradient pass,
@@ -1009,6 +1139,9 @@ def main():
     per_step_v2, step_v2, ema_v2 = phase_training(
         "v2", V2, 10, dict(gather_scatter_v2=3), b, ref, device, card)
     del ref
+    _, step_w, ema_w = phase_training(
+        "wide mega", WIDE, 10, dict(message_fwd=3, message_bwd=6, message_bwd2=3), b, None,
+        device, card)
     torch.cuda.empty_cache()
     phase_entry_point(device, card)
 
@@ -1046,6 +1179,29 @@ def main():
         if name in PASSES:
             rows[-1]["split_ms"], rows[-1]["scratch_bytes"] = pass_split(
                 name, lambda: kfn(p_mm, mm), p_mm, mm, card)
+    # the f32 instances at the flagship widths (f32_finetune_epochs runs
+    # them): the walk kernels
+    for row, (name, _, _, kfn, _), (nbytes, flops) in zip(rows, timed,
+                                                         kernel_costs(p, "float32")):
+        k_ms = time_ms(lambda: kfn(p, "float32"), iters=5, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        print(f"[time] {name} (float32, walk kernels): kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) — {card}")
+        row["float32"] = {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by}
+    # the wide shapes in bf16, on the same slots
+    for tag, pw in wide.items():
+        for row, (name, _, _, kfn, _), (nbytes, flops) in zip(rows, timed, kernel_costs(pw, mm)):
+            route = "tile pass" if fm.tile_route(name, mm, *pw["statics"]) else "walk kernels"
+            k_ms = time_ms(lambda: kfn(pw, mm), iters=5, warmup=1)
+            b_ms, b_by = bound_ms(nbytes, flops, mm)
+            print(f"[time] {name} ({mm}) at {tag} {pw['statics']}, {route}: kernel {k_ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP) — {card}")
+            row.setdefault("wide_bfloat16", {})[tag] = {
+                "ms": k_ms, "bound_ms": b_ms, "bound_by": b_by, "route": route}
+            if name in PASSES:
+                pass_split(name, lambda: kfn(pw, mm), pw, mm, card)
+    del wide
     # why the second order has a specialisation without the cwf terms:
     # against the general kernel on a materialised zero cwf, interleaved
     # so that the two repeats of each show the noise
@@ -1117,7 +1273,7 @@ def main():
 
     mega_b = eng.collate(dps)
     v2_b = eng_v2.collate(dps)
-    for tag, e, bb in (("mega", eng, mega_b), ("v2", eng_v2, v2_b)):
+    for tag, e, bb in (("mega", eng, mega_b), ("v2", eng_v2, v2_b), ("wide mega", eng_w, wide_b)):
         dev_ms = time_ms(lambda: e.forward_batch(bb), iters=5, warmup=1)
         print(f"[time] {tag} device forward+forces on the collated batch: {dev_ms:.3f} ms, "
               f"{n_real / (dev_ms / 1e3):.1f} edges/s — {card}")
@@ -1137,6 +1293,7 @@ def main():
     i0 = 20
     time_train_step("mega, 3 + 6 + 3 message kernels", step, b, ema, i0, n_real, card)
     time_train_step("v2, 3 v2 kernels", step_v2, b, ema_v2, i0, n_real, card)
+    time_train_step("wide mega, 3 + 6 + 3 message kernels", step_w, b, ema_w, 10, n_real, card)
 
     if args.profile:
         profile_call("forward_forces", lambda: eng.forward_batch(mega_b), args.profile, card)
@@ -1166,9 +1323,18 @@ def rehearsal():
     batch = collate(dps, kernel_layout=layout(bn, chunk))
     p = message_problem(batch, "cpu", bn=bn, chunk=chunk)
     for mm in ("float32", "bfloat16"):
-        out = plain_fwd(p, mm)
+        out, = plain_fwd(p, mm)
         grads = plain_bwd(p, mm) + plain_bwd2(p, mm) + plain_bwd2(p, mm, p["cwf"])
         assert torch.isfinite(out).all() and all(torch.isfinite(t).all() for t in grads)
+    for tag, widths in WIDE_SHAPES.items():  # the wide shapes' plain versions
+        pw = message_problem(batch, "cpu", bn=bn, chunk=chunk, widths=widths)
+        for t in plain_fwd(pw, "bfloat16") + plain_bwd(pw, "float32"):
+            assert torch.isfinite(t).all(), tag
+    # a molecule larger than pad_nodes through the mega route's plain op
+    big = build_molecules(3) + build_molecules(1, seed=6, atoms_lo=40, atoms_hi=40)
+    eng = make_engine("cpu", action_blocks=1, pallas_layout=lay, **WIDE)
+    bb = eng.collate([eng.transform(d) for d in big])
+    assert keys.K_SRC2 in bb and np.isfinite(eng.predict(big)[-1][keys.FORCES]).all()
     pv2 = v2_problem(batch, "cpu")
     pv2["args"] = pv2["args"][:6] + (bn, chunk) + pv2["args"][8:]
     q = v1_problem("cpu", n=256, e=2048, d=32, bn=32)

@@ -16,9 +16,10 @@ import torch
 from tests.test_torch_model import _jax_forward, _jax_params, _kw, _molecules
 from xequinet_tpu import keys
 from xequinet_tpu.data.batching import collate
+from xequinet_tpu.data.datapoint import Datapoint as JDatapoint
+from xequinet_tpu.ops.radius_graph import radius_graph_np
 from xequinet_tpu.training.trainer import save_checkpoint
 from xequinet_torch import convert
-from xequinet_torch.data.datapoint import Datapoint
 from xequinet_torch.models.model import init_params, resolve_model
 from xequinet_torch.run.inference import InferenceEngine
 
@@ -97,26 +98,43 @@ def test_jax_checkpoint_served_by_port_without_msgpack(rng, tmp_path, monkeypatc
 
 
 def test_engine_kernel_layout_fallback_only_on_cpu(rng):
-    """A structure larger than the kernel window: the CPU engine collates
-    it without the slot layout (as the JAX engine does) and agrees with
-    the plain route; for the card the engine refuses the batch."""
-    dps = _molecules(rng, 2) + [Datapoint(rng.integers(1, 9, 30).astype(np.int32),
-                                          rng.normal(size=(30, 3)) * 2.0)]
+    """A structure larger than the model's kernel window (pad_nodes 4, a
+    30-atom molecule): the engine fits the slot layout to the batch, on the
+    CPU as for the card, so the batch takes the mega route's op; its
+    energies and forces agree with the plain route and with the JAX
+    package's XPaiNN on the same weights and a plain collate."""
+    pos = rng.normal(size=(30, 3)) * 2.0
+    dps = _molecules(rng, 2) + [JDatapoint(rng.integers(1, 9, 30).astype(np.int32), pos,
+                                           edge_index=radius_graph_np(pos, 5.0)[0])]
     kw = dict(_kw(False), use_pallas_scatter="mega", pallas_layout=(8, 8, 4, 16))
+    jb = collate(dps)
+    params = _jax_params(_kw(False), jb)
     module, extra, cutoff = resolve_model("xpainn", **kw)
-    init_params(module, seed=0)
+    convert.load_flax_params(module, jax.tree_util.tree_map(np.asarray, params))
     mega = InferenceEngine(module=module, model_kwargs=kw, extra=extra, cutoff=cutoff,
                            device="cpu")
     plain = InferenceEngine(module=module, model_kwargs=_kw(False), extra=extra,
                             cutoff=cutoff, device="cpu")
+    tdps = [mega.transform(d) for d in dps]
+    batch = mega.collate(tdps)
+    assert keys.K_SRC2 in batch  # the mega route, not the plain fallback
     got, want = mega.predict(dps), plain.predict(dps)
     f_got = np.concatenate([r[keys.FORCES] for r in got])
     f_want = np.concatenate([r[keys.FORCES] for r in want])
     # the same ops on the same batch; CPU reductions may sum in another order
     assert np.abs(f_got - f_want).max() <= 1e-5 * np.abs(f_want).max()
-    mega.device = torch.device("cuda")  # collate alone: no tensor goes there
-    with pytest.raises(ValueError, match="slot layout"):
-        mega.collate([mega.transform(d) for d in dps])
+    want_jax = _jax_forward(_kw(False), params, jb)
+    e_got = np.array([float(r[keys.TOTAL_ENERGY]) for r in got])
+    e_jax = np.asarray(want_jax[keys.TOTAL_ENERGY])[: len(dps)]
+    f_jax = np.asarray(want_jax[keys.FORCES])[: len(f_got)]
+    assert np.abs(e_got - e_jax).max() <= 1e-4 * np.abs(e_jax).max()
+    assert np.abs(f_got - f_jax).max() <= 1e-4 * np.abs(f_jax).max()
+    # for the card the engine collates the same batch (no tensor goes there)
+    mega.device = torch.device("cuda")
+    on_card = mega.collate(tdps)
+    assert sorted(on_card) == sorted(batch)
+    for k in batch:
+        np.testing.assert_array_equal(on_card[k], batch[k])
 
 
 def test_engine_defaults_to_the_card(monkeypatch):

@@ -137,6 +137,37 @@ def test_layout_helpers_match():
         assert tb.bucket_capacity(n) == jb.bucket_capacity(n)
 
 
+@pytest.mark.parametrize("big", [30, 40])
+def test_fit_kernel_layout_takes_large_molecules(rng, big):
+    """A molecule larger than the model's window (pallas_layout (8, 8, 4,
+    16)): the model's own layout refuses the batch, the fitted one keeps BN
+    and chunk, raises pad_nodes to the molecule rounded up to 8, drops the
+    max_chunks cap, and collates the batch bit for bit as the JAX package's
+    collate does with that layout."""
+    dps_t, dps_j = [], []
+    # no labels: the JAX collate leaves a forces label un-padded when the
+    # layout re-pads the nodes (ROADMAP section 3)
+    for z, pos, _, _ in _molecule_arrays(rng, 2, 5, 9) + _molecule_arrays(rng, 1, big, big):
+        ei, _ = jrg.radius_graph_np(pos, 5.0)
+        dps_t.append(Datapoint(z, pos, edge_index=ei))
+        dps_j.append(JDatapoint(z, pos, edge_index=ei))
+    model = tb.kernel_layout_from_model_kwargs(
+        {"use_pallas_scatter": "mega", "pallas_layout": (8, 8, 4, 16)})
+    n_cap = tb.bucket_capacity(sum(d.num_atoms for d in dps_t))
+    e_cap = tb.bucket_capacity(sum(d.num_edges for d in dps_t))
+    args = (n_cap, e_cap, len(dps_t) + 1)
+    own = dict(model, slot_cap=tb.kernel_slot_cap(n_cap, e_cap, model))
+    with pytest.raises(ValueError, match="window"):
+        tb.collate(dps_t, *args, kernel_layout=own)
+    fitted = tb.fit_kernel_layout(model, big, n_cap, e_cap)
+    pad = (big + 7) // 8 * 8
+    assert fitted == {"block_nodes": 8, "chunk": 8, "pad_nodes": pad, "max_chunks": 0,
+                      "slot_cap": tb.kernel_slot_cap(n_cap, e_cap, dict(model, pad_nodes=pad))}
+    got = tb.collate(dps_t, *args, kernel_layout=fitted)
+    _assert_same_batch(got, jb.collate(dps_j, *args, kernel_layout=fitted))
+    assert int(got["edge_mask"].sum()) == sum(d.num_edges for d in dps_t)
+
+
 def test_prepare_v2_matches(rng):
     from tests.test_pallas_v2 import molecule_edges
 

@@ -31,6 +31,11 @@ from xequinet_torch.training.trainer import make_step_core
 
 CASES = [("16x0e+8x1o+4x2e", 8, 16), ("120x0e+24x1o", 8, 16),
          ("128x0e+64x1o+32x2e", 20, 128)]
+# the widths past the first tile passes' limits: Kf = 33 (num_basis 23), Kf =
+# 128 (num_basis 118, the JAX kernels' maximum) and H = 1152 (node_dim 256)
+WIDE = [("128x0e+64x1o+32x2e", 23, 128), ("128x0e+64x1o+32x2e", 118, 128),
+        ("256x0e+128x1o+64x2e", 23, 256)]
+WIDE_IDS = ("kf33", "kf128", "h1152")
 
 
 @pytest.fixture
@@ -43,9 +48,11 @@ def cuda_device():
 
 
 def _problem(device, irreps, nb, sd, seed=0, bn=16, chunk=16, slot_tail=2, n_mols=10,
-             odd_tail=0):
+             odd_tail=0, dense=0):
     """A molecule batch in the slot layout with a slot_cap tail (``odd_tail``
-    more slots make the slot count no multiple of 16) and seeded operands."""
+    more slots make the slot count no multiple of 16) and seeded operands;
+    ``dense`` > 0 adds a molecule of that many atoms all within the cutoff
+    of each other (rows of dense - 1 slots)."""
     rng = np.random.default_rng(seed)
     dps = []
     for _ in range(n_mols):
@@ -53,7 +60,12 @@ def _problem(device, irreps, nb, sd, seed=0, bn=16, chunk=16, slot_tail=2, n_mol
         pos = rng.normal(size=(n, 3)) * 1.5
         ei, _ = radius_graph_np(pos, 5.0)
         dps.append(Datapoint(rng.integers(1, 9, n), pos, edge_index=ei))
-    layout = {"block_nodes": bn, "chunk": chunk, "pad_nodes": 16, "max_chunks": 64}
+    if dense:
+        pos = rng.uniform(-1.0, 1.0, size=(dense, 3))
+        dps.append(Datapoint(rng.integers(1, 9, dense), pos,
+                             edge_index=radius_graph_np(pos, 5.0)[0]))
+    layout = {"block_nodes": bn, "chunk": chunk, "pad_nodes": max(16, dense),
+              "max_chunks": 0}
     n_edges = sum(d.num_edges for d in dps)
     n_blocks = sum(d.num_atoms for d in dps) // bn + 2  # each block pads its run
     layout["slot_cap"] = ((n_edges + chunk - 1) // chunk + n_blocks + 16) * chunk + odd_tail
@@ -175,9 +187,13 @@ def test_cuda_message_bwd_many_tiles_per_block(cuda_device, mm, rel):
 
 @pytest.mark.gpu
 def test_cuda_engine_refuses_batch_outside_kernel_layout(cuda_device):
-    """A mega model on the card serves through the kernels or raises: a
-    40-atom molecule exceeds the window of pad_nodes 8, and a batch
-    collated without the slot layout does not take the plain route."""
+    """A mega model on the card serves a batch that holds a molecule larger
+    than its window (40 atoms, pad_nodes 8) through the kernels, the engine
+    fitting the slot layout to the batch: one forward and one backward
+    launch per predict, and the plain route's energies (1e-4) and forces
+    (3e-3 of max |F|, chip_smoke.py's element-wise f32 gate) with the same
+    weights.  A batch collated without any slot layout still raises rather
+    than take the plain route."""
     kw = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
               num_basis=8, action_blocks=1, output_modes=["energy"],
               use_pallas_scatter="mega", pallas_layout=(16, 16, 8, 64))
@@ -185,14 +201,24 @@ def test_cuda_engine_refuses_batch_outside_kernel_layout(cuda_device):
     init_params(module, seed=0)
     eng = InferenceEngine(module=module, model_kwargs=kw, extra=extra, cutoff=cutoff,
                           device=cuda_device)
+    kw_plain = dict(kw, use_pallas_scatter=False)
+    plain_module = resolve_model("xpainn", **kw_plain)[0]
+    plain_module.load_state_dict(module.state_dict())
+    plain = InferenceEngine(module=plain_module, model_kwargs=kw_plain, extra=extra,
+                            cutoff=cutoff, device=cuda_device)
     rng = np.random.default_rng(0)
     small = Datapoint(rng.integers(1, 9, 6), rng.normal(size=(6, 3)) * 1.5)
     big = Datapoint(rng.integers(1, 9, 40), rng.normal(size=(40, 3)) * 2.0)
-    fm.reset_launch_counts()
-    eng.predict([small])
-    assert fm.LAUNCHES == _counts(message_fwd=1, message_bwd=1)
-    with pytest.raises(ValueError, match="slot layout"):
-        eng.predict([small, big])
+    for dps in ([small], [small, big]):
+        fm.reset_launch_counts()
+        res = eng.predict(dps)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES == _counts(message_fwd=1, message_bwd=1)
+        want = plain.predict(dps)
+        energy = lambda rs: torch.tensor([float(r[keys.TOTAL_ENERGY]) for r in rs])
+        forces = lambda rs: torch.as_tensor(np.concatenate([r[keys.FORCES] for r in rs]))
+        _close(energy(res), energy(want), 1e-4)
+        _close(forces(res), forces(want), 3e-3)
     with pytest.raises(ValueError, match="mega message route"):
         eng.forward_batch(collate([eng.transform(small), eng.transform(big)]))
 
@@ -401,6 +427,70 @@ def test_cuda_train_step_launches_all_three_kernels(cuda_device):
     assert counts == _counts(message_fwd=3, message_bwd=6, message_bwd2=3)
 
 
+def _wide_checks(p, mm, rel, repeat=True):
+    """The three message kernels at the problem's widths against their plain
+    versions (the second order without and with cwf), zero d_ef / d2ef rows
+    on every slot that adds nothing, and the same bits on a second call."""
+    m, mask, cd = p["meta"], p["mask"], getattr(torch, mm)
+    args = (*p["statics"], p["n"], p["bn"], p["chunk"], mm)
+    plain_args = (m[2], m[3], mask, *p["statics"], p["n"], cd)
+    runs = [
+        (lambda: (fm.message_fwd_cuda(p["x"], p["ef"], p["wf"], m, *args),),
+         lambda: (fm.plain_message(p["x"], p["ef"], p["wf"], *plain_args),)),
+        (lambda: fm.message_bwd_cuda(p["x"], p["ef"], p["wf"], p["g"], m, *args),
+         lambda: fm.plain_message_bwd(p["x"], p["ef"], p["wf"], p["g"], *plain_args)),
+    ]
+    for with_cwf in (False, True):
+        cots = _cotangents(p, with_cwf=with_cwf)
+        runs.append((
+            lambda c=cots: fm.message_bwd2_cuda(p["x"], p["ef"], p["wf"], p["g"], *c, m, *args),
+            lambda c=cots: fm.plain_message_bwd2(p["x"], p["ef"], p["wf"], p["g"], *c,
+                                                 *plain_args)))
+    for kernel, plain in runs:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all()
+            _close(a, b, rel)
+        if len(got) > 1:
+            assert float(got[1][~mask].abs().max()) == 0.0
+        if repeat:
+            for a, b in zip(got, kernel()):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WIDE + [("256x0e+128x1o+64x2e", 118, 256)],
+                         ids=WIDE_IDS + ("kf128-h1152",))
+@pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_cuda_message_kernels_wide_shapes(cuda_device, case, mm, rel):
+    """Kf = 33, Kf = 128, H = 1152 and both at once (where the bf16 second
+    order takes its walk kernels, in column chunks) on a slot count that is
+    no multiple of the tile, with padding slots and a slot_cap tail: every
+    kernel against its plain version in f32 and bf16, repeating bit for
+    bit."""
+    p = _problem(cuda_device, *case, odd_tail=5)
+    assert p["mask"].shape[0] % 16 == 5 and not bool(p["mask"][-5:].any())
+    _wide_checks(p, mm, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WIDE, ids=WIDE_IDS)
+def test_cuda_message_kernels_wide_many_tiles_per_block(cuda_device, case):
+    """The wide shapes in bf16 on more slot tiles than the card has SMs, so
+    each persistent block of a tile pass walks several tiles (at H = 1152
+    the backward's one stage with wf read from L2 and the second order's
+    lean layout), its dfw rows go to the d_wf pass: against the plain
+    versions, and repeating bit for bit."""
+    p = _problem(cuda_device, *case, n_mols=240)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert p["mask"].shape[0] > 3 * 16 * n_sm
+    routes = [fm.tile_route(k, "bfloat16", *p["statics"])
+              for k in ("message_fwd", "message_bwd", "message_bwd2")]
+    assert all(routes)
+    _wide_checks(p, "bfloat16", 2e-2)
+
+
 # ---------------------------------------------------------------------------
 # the v2 and v1 gather-scale-scatter kernels and the v2 route
 # ---------------------------------------------------------------------------
@@ -501,6 +591,37 @@ def test_cuda_gather_scatter_block_runs_and_empty_rows(cuda_device, w_cols):
     torch.cuda.synchronize()
     assert got.shape == (500, 480) and float(got[130:150].abs().max()) == 0.0
     _close(got.cpu(), want, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [3, 480, 481])
+@pytest.mark.parametrize("wdt,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_cuda_gather_scatter_v2_rows_and_widths(cuda_device, d, wdt, rel):
+    """The v2 kernel's float4 columns (D % 4 == 0; four bf16 of w2 per
+    8-byte load) and scalar columns (D = 3, 481) on a plan with rows of no
+    slot and rows of more than 32 slots (a 40-atom molecule within the
+    cutoff): against the plain version, one launch per call, the same bits
+    on a second call."""
+    p = _problem(cuda_device, *CASES[0], dense=40)
+    rng = np.random.default_rng(5)
+    t = p["meta"][0].shape[0]
+    x = torch.as_tensor(rng.normal(size=(p["n"], d)).astype(np.float32), device=cuda_device)
+    w2 = torch.as_tensor(rng.normal(size=(t, d)).astype(np.float32),
+                         device=cuda_device).to(getattr(torch, wdt))
+    m = p["meta"]
+    plan = gs2.v2_slot_plan(m[0], m[1], m[4], m[5], m[6], p["n"], p["n"], p["bn"], p["chunk"])
+    runs = plan["dst_ptr"][1:] - plan["dst_ptr"][:-1]
+    assert int(runs.max()) > 32 and int(runs.min()) == 0
+    fm.reset_launch_counts()
+    got = gs2.gather_scale_scatter_v2_cuda(x, w2, plan, p["n"])
+    assert fm.LAUNCHES == _counts(gather_scatter_v2=1)
+    want = gs2.gather_scale_scatter_v2_plain(x.cpu(), w2.cpu(), m[0].cpu(), m[1].cpu(),
+                                             m[4].cpu(), m[5].cpu(), m[6].cpu(), p["n"],
+                                             p["bn"], p["chunk"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and float(got[runs == 0].abs().max()) == 0.0
+    _close(got.cpu(), want, rel)
+    assert torch.equal(got, gs2.gather_scale_scatter_v2_cuda(x, w2, plan, p["n"]))
 
 
 @pytest.mark.gpu

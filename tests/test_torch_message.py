@@ -34,6 +34,10 @@ from xequinet_torch.ops.irreps import Irreps
 
 IRREPS, NB, SD = "16x0e+8x1o+4x2e", 8, 16
 IR2, NB2, SD2 = "120x0e+24x1o", 8, 16  # Hp=384 != Dp=256 != SDp=128
+# past the first tile passes' widths: Kf = 33 (num_basis 23), Kf = 128
+# (num_basis 118, the JAX kernels' maximum), H = 1152 (node_dim 256)
+KF33 = (IRREPS, 23, SD)
+WIDE = [KF33, (IRREPS, 118, SD), ("256x0e+128x1o+64x2e", 23, 256)]
 
 
 @pytest.fixture(autouse=True)
@@ -213,7 +217,7 @@ def _sum_rows(rows, idx, n, w1, off2, width):
     return out
 
 
-@pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2)])
+@pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2), KF33])
 def test_message_bwd_rows_match_jax_bwd_kernel(rng, dims):
     """The per-slot rows of the bf16 tile pass, in f32: their sum by
     source is the plain VJP's dx, and their d_ef / d_wf are those of
@@ -464,7 +468,7 @@ def _rows_sums(p, rows_x, rows_g, meta):
             _sum_rows(rows_g, meta[3].long(), p["n"], sd, sdp, sdp + dp))
 
 
-@pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2)])
+@pytest.mark.parametrize("dims", [(IRREPS, NB, SD), (IR2, NB2, SD2), KF33])
 @pytest.mark.parametrize("with_cwf", [False, True])
 def test_message_bwd2_rows_match_jax_bwd2_kernel(rng, dims, with_cwf):
     """The per-slot rows of the second order's bf16 tile pass, in f32:
@@ -515,3 +519,64 @@ def test_message_bwd2_rows_bf16_within_band(rng):
                                  *p["statics"], p["n"], torch.bfloat16)
     for a, b in zip((d2x, d2ef, d2wf, d2g), want):
         _close(a, b, 2e-2)
+
+
+@pytest.mark.parametrize("dims", WIDE, ids=("kf33", "kf128", "h1152"))
+@pytest.mark.parametrize("cd,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_plain_message_wide_shapes_match_xla_reference(rng, dims, cd, rel):
+    """The widths past the first tile passes' limits: the plain forward,
+    backward and second order (no cotangent on d_wf, and a random one)
+    against ``xla_reference``, its ``jax.vjp`` and the double VJP, on
+    seeded inputs in blocks of 8 nodes."""
+    p = _problem(rng, *dims)
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(*dims)
+    assert dims[1] + 1 + n_y in (33, 128) or h == 1152
+    want, (wdx, wdef, wdwf) = _jax_ref(p, getattr(jnp, cd))
+    x, ef, wf, g, meta, valid = _t(p)
+    tcd = getattr(torch, cd)
+    _close(fm.plain_message(x, ef, wf, meta[2], meta[3], valid, *dims, p["n"], tcd), want, rel)
+    got = fm.plain_message_bwd(x, ef, wf, g, meta[2], meta[3], valid, *dims, p["n"], tcd)
+    for a, b in zip(got, (wdx, wdef, wdwf)):
+        _close(a, b, rel)
+    j = lambda k: jnp.asarray(p[k])
+
+    def xla_bwd(xx, e, w, gg):
+        fwd = lambda a, b, c: xla_reference(a, b, c, j("src_g"), j("dst_g"), j("valid"), *dims,
+                                            p["n"], compute_dtype=getattr(jnp, cd))
+        return jax.vjp(fwd, xx, e, w)[1](gg)
+
+    cx, cef, cwf = _cotangents(p, rng, live_only=True)
+    _, vjp2 = jax.vjp(xla_bwd, j("x"), j("ef"), j("wf"), j("g"))
+    for c3 in (None, cwf):
+        want2 = vjp2((jnp.asarray(cx), jnp.asarray(cef),
+                      jnp.zeros_like(j("wf")) if c3 is None else jnp.asarray(c3)))
+        got2 = fm.plain_message_bwd2(x, ef, wf, g, torch.as_tensor(cx), torch.as_tensor(cef),
+                                     None if c3 is None else torch.as_tensor(c3), meta[2],
+                                     meta[3], valid, *dims, p["n"], tcd)
+        for a, b in zip(got2, want2):
+            _close(a, b, rel)
+
+
+def test_kernel_routes_by_shape():
+    """The wrappers' choice, by shape alone, between a kernel's bf16 tile
+    pass and its walk kernels, and the walk kernels' column chunks: tile
+    passes at the flagship and at the wide widths (the second order at H =
+    1152 in its lean layout), walk kernels for f32, for a cotangent on wf,
+    and for the bf16 second order at H = 1152 with 128 edge-feature
+    columns; one chunk at the flagship widths, chunks of 128 columns past
+    them."""
+    flag = ("128x0e+64x1o+32x2e", 20, 128)
+    kernels = ("message_fwd", "message_bwd", "message_bwd2")
+    for dims in [flag, *WIDE, ("128x0e+64x1o+32x2e", 23, 128),
+                 ("128x0e+64x1o+32x2e", 118, 128)]:
+        assert all(fm.tile_route(k, "bfloat16", *dims) for k in kernels), dims
+        assert not any(fm.tile_route(k, "float32", *dims) for k in kernels), dims
+        assert not fm.tile_route("message_bwd2", "bfloat16", *dims, has_cwf=True)
+    big = ("256x0e+128x1o+64x2e", 118, 256)
+    assert [fm.tile_route(k, "bfloat16", *big) for k in kernels] == [True, True, False]
+    assert fm._dwf_regs("message_bwd", 224, 128, 480, 21, 30)  # the flagship's
+    assert not fm._dwf_regs("message_bwd2", 448, 256, 960, 24, 33)  # lean, H = 1152
+    for kernel in kernels[1:]:
+        assert fm.walk_chunks(kernel, 224, 576, 21, 30) == 1
+        assert fm.walk_chunks(kernel, 224, 576, 119, 128) == 5
+        assert fm.walk_chunks(kernel, 448, 1152, 24, 33) == 9

@@ -31,7 +31,7 @@
 //    SM, walk tiles of XEQ_BT = 16 consecutive slots (tile = block + i *
 //    grid, so all SMs work on neighbouring slots and the x / g rows they
 //    gather stay in L2).  The next tile's x rows (live H + D columns), g
-//    rows and edge-feature columns (Kf <= 32) are staged with cp.async
+//    rows and edge-feature columns (Kf rounded up to 32) are staged with cp.async
 //    (16-byte chunks, zero-filled for padding slots) while the current
 //    one is computed: two stages, 198 KB of shared memory with the live
 //    rows of wf and the index maps at the flagship widths; the slot
@@ -63,11 +63,24 @@
 //    recomputed.
 //  * xeq_dwf_reduce_kernel (message_common.cuh): the per-block d_wf
 //    partials summed in block order.
-// The f32 instance keeps the first version's FP32 kernels (no TF32 in
-// this port): message_bwd_dx_kernel, one thread per (source row, x
-// column) walking the CSR list by source and recomputing each slot's
-// contribution, and message_bwd_slot_kernel, one block per contiguous slot
-// range with the d_ef rows and a d_wf partial in shared memory.
+// Wider shapes (instance WIDE: Kf > 32 or H > 768): fw runs over 32-row
+// K slices of wf and d_ef's filter columns over 32-column tiles; the Kf x
+// H d_wf partial no longer fits a block's registers (147k floats at Kf =
+// 128, H = 1152), so each slot's bf16 dfw row (rounded to bf16 in the TPU
+// kernel too) goes to a scratch and xeq_dwf_pass (message_tile.cuh) forms
+// the per-block partials on the tensor cores.  Where two stages and wf's
+// live rows do not fit (Kf = 128: wf takes 149 KB; H = 1152: a stage is
+// 109 KB), wf's fragments are read from L2, and at H = 1152 one stage is
+// staged while the tile's rows are read (as message_bwd2.cu does).
+// The walk kernels, the first version's FP32 kernels (no TF32 in this
+// port), take the f32 operands and any bf16 shape the tile pass cannot
+// hold: message_bwd_dx_kernel, one thread per (source row, x column)
+// walking the CSR list by source and recomputing each slot's contribution
+// (the filter's first 32 rows in registers, the rest in 32-row slices),
+// and message_bwd_slot_kernel, one block per (contiguous slot range,
+// column chunk) with the d_ef rows' partials and a d_wf partial in shared
+// memory (the whole width in one chunk at the flagship's; chunks of 128
+// columns, summed by xeq_def_reduce_kernel, where it does not fit).
 //
 // No float atomics anywhere, so results repeat bit for bit.  Padding slots
 // (dst2 == BN) and slots past the covered chunk range (slot_dst < 0 in
@@ -135,7 +148,7 @@ message_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ ef,
           const float* e = ef_s + q * kf;
           const T* xr = x + (int64_t)src_s[q] * xs;
           const T* gr = g + (int64_t)dst_s[q] * gs;
-          const float fw = xeq_filter(e, w, kw);
+          const float fw = xeq_filter_full(e, w, wf, hp, wcol, kw);
           if (h_col >= 0) {
             const float dfo = dfo_at<T, BF16>(h_col, e, gr, xr, gate_lane0,
                                               gate_dim, lane_ycol, ni, hp, sdp);
@@ -169,6 +182,13 @@ message_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ ef,
 #define XEQ_TS 16
 #define XEQ_SLOT_THREADS 512
 
+// One block per (contiguous slot range, column chunk of hc filter columns;
+// hc = H in one chunk when the shared memory fits, see xeq_walk_chunks):
+// per 16 slots the chunk's dfw columns, the d_wf partial of the chunk, and
+// the d_ef rows' partial sums over the chunk.  With one chunk the d_ef rows
+// are written whole; with several, each chunk writes its partial row
+// (f < kf) to def_part [n_hc, n_slots, kf] and xeq_def_reduce_kernel sums
+// them in chunk order.  The harmonic terms of d_ef come with chunk 0.
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(XEQ_SLOT_THREADS)
 message_bwd_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
@@ -181,15 +201,16 @@ message_bwd_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
                         const int* __restrict__ gate_dim,
                         const int* __restrict__ ylane_ptr,
                         const int* __restrict__ ylane_idx,
-                        float* __restrict__ d_ef, float* __restrict__ dwf_part,
+                        float* __restrict__ d_ef, float* __restrict__ def_part,
+                        float* __restrict__ dwf_part,
                         int n_slots, int slots_per_block, int ni, int h_dim,
-                        int hp, int dp, int sdp, int kw, int kf) {
+                        int hp, int dp, int sdp, int kw, int kf, int hc) {
   extern __shared__ float smem[];
   float* fo_s = smem;                      // [TS][ni]   edge-gate filter_out
-  float* dfw_s = fo_s + XEQ_TS * ni;       // [TS][H]
-  float* ef_s = dfw_s + XEQ_TS * h_dim;    // [TS][Kf]
-  float* dwf_s = ef_s + XEQ_TS * kf;       // [Kf][H]   this block's partial
-  float* wf_s = dwf_s + kf * h_dim;        // [Kw][H]   live rows of wf
+  float* dfw_s = fo_s + XEQ_TS * ni;       // [TS][hc]
+  float* ef_s = dfw_s + XEQ_TS * hc;       // [TS][Kf]
+  float* dwf_s = ef_s + XEQ_TS * kf;       // [Kf][hc]  this block's partial
+  float* wf_s = dwf_s + kf * hc;           // [Kw][hc]  live rows of wf
   __shared__ int src_s[XEQ_TS], dst_s[XEQ_TS];
 
   const int xs = hp + dp;
@@ -199,11 +220,13 @@ message_bwd_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n_y = kf - kw;
+  const int c0 = blockIdx.y * hc, hn = min(hc, h_dim - c0);  // the chunk's columns
+  const bool first = blockIdx.y == 0, chunked = gridDim.y > 1;
 
-  for (int i = tid; i < kf * h_dim; i += nthr) dwf_s[i] = 0.f;
-  for (int i = tid; i < kw * h_dim; i += nthr) {
-    const int f = i / h_dim, h = i - f * h_dim;
-    wf_s[i] = xeq_ld(wf, (int64_t)f * hp + h);
+  for (int i = tid; i < kf * hn; i += nthr) dwf_s[i] = 0.f;
+  for (int i = tid; i < kw * hn; i += nthr) {
+    const int f = i / hn, hh = i - f * hn;
+    wf_s[f * hn + hh] = xeq_ld(wf, (int64_t)f * hp + c0 + hh);
   }
 
   const int k0 = blockIdx.x * slots_per_block;
@@ -222,9 +245,9 @@ message_bwd_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
                               : 0.f;
     }
     __syncthreads();
-    // A1: edge-gate filter_out fo[ni + u] of each slot of the step,
-    // XEQ_ILP items per thread at a time so their loads overlap
-    for (int i0 = tid; i0 < XEQ_TS * ni; i0 += XEQ_ILP * nthr) {
+    // A1 (chunk 0): edge-gate filter_out fo[ni + u] of each slot of the
+    // step, XEQ_ILP items per thread at a time so their loads overlap
+    for (int i0 = tid; first && i0 < XEQ_TS * ni; i0 += XEQ_ILP * nthr) {
       float v[XEQ_ILP];
 #pragma unroll
       for (int c = 0; c < XEQ_ILP; ++c) {
@@ -235,7 +258,7 @@ message_bwd_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
         if (dst_s[t] >= 0) {
           const int h = ni + u;
           float fw = 0.f;
-          for (int f = 0; f < kw; ++f) fw += ef_s[t * kf + f] * wf_s[f * h_dim + h];
+          for (int f = 0; f < kw; ++f) fw += ef_s[t * kf + f] * xeq_ld(wf, (int64_t)f * hp + h);
           v[c] = xeq_rnd<BF16>(xeq_ld(x, (int64_t)src_s[t] * xs + h) * fw);
         }
       }
@@ -245,16 +268,16 @@ message_bwd_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
         if (i < XEQ_TS * ni) fo_s[i] = v[c];
       }
     }
-    // A2: dfw = rnd(dfo * x) for every hidden column, XEQ_ILP items per
-    // thread at a time
-    for (int i0 = tid; i0 < XEQ_TS * h_dim; i0 += XEQ_ILP * nthr) {
+    // A2: dfw = rnd(dfo * x) at the chunk's hidden columns, XEQ_ILP items
+    // per thread at a time
+    for (int i0 = tid; i0 < XEQ_TS * hn; i0 += XEQ_ILP * nthr) {
       float v[XEQ_ILP];
 #pragma unroll
       for (int c = 0; c < XEQ_ILP; ++c) {
         const int i = i0 + c * nthr;
         v[c] = 0.f;
-        if (i >= XEQ_TS * h_dim) continue;
-        const int t = i / h_dim, h = i - t * h_dim;
+        if (i >= XEQ_TS * hn) continue;
+        const int t = i / hn, h = c0 + i - t * hn;
         if (dst_s[t] >= 0) {
           const T* gr = g + (int64_t)dst_s[t] * gs;
           const T* xr = x + (int64_t)src_s[t] * xs;
@@ -266,50 +289,61 @@ message_bwd_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
 #pragma unroll
       for (int c = 0; c < XEQ_ILP; ++c) {
         const int i = i0 + c * nthr;
-        if (i < XEQ_TS * h_dim) dfw_s[i] = v[c];
+        if (i < XEQ_TS * hn) dfw_s[i] = v[c];
       }
     }
     __syncthreads();
     // A3: d_wf partial, element (f, h) owned by one thread, slots in order
-    for (int i = tid; i < kf * h_dim; i += nthr) {
-      const int f = i / h_dim, h = i - f * h_dim;
+    for (int i = tid; i < kf * hn; i += nthr) {
+      const int f = i / hn, hh = i - f * hn;
       float acc = dwf_s[i];
 #pragma unroll
-      for (int t = 0; t < XEQ_TS; ++t) acc += ef_s[t * kf + f] * dfw_s[t * h_dim + h];
+      for (int t = 0; t < XEQ_TS; ++t) acc += ef_s[t * kf + f] * dfw_s[t * hn + hh];
       dwf_s[i] = acc;
     }
-    // B: d_ef rows, one warp per slot
+    // B: d_ef rows (or their chunk partials), one warp per slot
     for (int t = warp; t < XEQ_TS; t += nthr / 32) {
       const int k = base + t;
       if (k >= k1) continue;
-      float* row = d_ef + (int64_t)k * XEQ_FPACK;
+      float* row = chunked ? def_part + ((int64_t)blockIdx.y * n_slots + k) * kf
+                           : d_ef + (int64_t)k * XEQ_FPACK;
+      const int width = chunked ? kf : XEQ_FPACK;
       if (dst_s[t] < 0) {
-        for (int f = lane; f < XEQ_FPACK; f += 32) row[f] = 0.f;
+        for (int f = lane; f < width; f += 32) row[f] = 0.f;
         continue;
       }
       for (int f = 0; f < kw; ++f) {
         float acc = 0.f;
-        for (int h = lane; h < h_dim; h += 32)
-          acc += dfw_s[t * h_dim + h] * wf_s[f * h_dim + h];
+        for (int hh = lane; hh < hn; hh += 32)
+          acc += dfw_s[t * hn + hh] * wf_s[f * hn + hh];
         for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
         if (lane == 0) row[f] = acc;
       }
       const T* gr = g + (int64_t)dst_s[t] * gs;
       for (int y = 0; y < n_y; ++y) {
         float acc = 0.f;
-        for (int q = ylane_ptr[y] + lane; q < ylane_ptr[y + 1]; q += 32) {
+        for (int q = ylane_ptr[y] + lane; first && q < ylane_ptr[y + 1]; q += 32) {
           const int j = ylane_idx[q];
           acc += xeq_rnd<BF16>(fo_s[t * ni + lane_gate[j]] * xeq_ld(gr, sdp + j));
         }
         for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
         if (lane == 0) row[kw + y] = acc;
       }
-      for (int f = kf + lane; f < XEQ_FPACK; f += 32) row[f] = 0.f;
+      for (int f = kf + lane; f < width; f += 32) row[f] = 0.f;
     }
     __syncthreads();
   }
   float* part = dwf_part + (int64_t)blockIdx.x * kf * h_dim;
-  for (int i = tid; i < kf * h_dim; i += nthr) part[i] = dwf_s[i];
+  for (int i = tid; i < kf * hn; i += nthr) {
+    const int f = i / hn, hh = i - f * hn;
+    part[(int64_t)f * h_dim + c0 + hh] = dwf_s[i];
+  }
+}
+
+// Shared memory of the walk kernels' slot pass at column chunk hc.
+static size_t bwd_slot_smem(int ni, int hc, int kw, int kf) {
+  return sizeof(float) * ((size_t)XEQ_TS * ni + (size_t)XEQ_TS * hc + (size_t)XEQ_TS * kf +
+                          (size_t)kf * hc + (size_t)kw * hc);
 }
 
 template <typename T, bool BF16>
@@ -319,10 +353,14 @@ static int launch_bwd(const void* x, const void* ef, const void* wf,
                       const void* slot_dst, const void* lane_gate,
                       const void* lane_ycol, const void* gate_lane0,
                       const void* gate_dim, const void* ylane_ptr,
-                      const void* ylane_idx, void* dx, void* d_ef,
+                      const void* ylane_idx, void* def_part, void* dx, void* d_ef,
                       void* dwf_part, void* dwf, int n_rows, int n_slots,
                       int n_part, int ni, int h_dim, int hp, int d, int dp,
-                      int sdp, int kw, int kf, cudaStream_t s) {
+                      int sdp, int kw, int kf, int n_hc, cudaStream_t s) {
+  if (n_hc != xeq_walk_chunks(bwd_slot_smem(ni, h_dim, kw, kf), h_dim) ||
+      (n_hc > 1 && def_part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int hc = n_hc == 1 ? h_dim : XEQ_WALK_HC;
   const int rows_per_block = 8;
   if (n_rows > 0) {
     dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, (hp + dp) / 128);
@@ -335,23 +373,27 @@ static int launch_bwd(const void* x, const void* ef, const void* wf,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t smem =
-      sizeof(float) * ((size_t)XEQ_TS * ni + (size_t)XEQ_TS * h_dim +
-                       (size_t)XEQ_TS * kf + (size_t)kf * h_dim +
-                       (size_t)kw * h_dim);
+  const size_t smem = bwd_slot_smem(ni, hc, kw, kf);
   cudaError_t err = cudaFuncSetAttribute(
       message_bwd_slot_kernel<T, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int per = ((n_slots + n_part - 1) / n_part + XEQ_TS - 1) / XEQ_TS * XEQ_TS;
-  message_bwd_slot_kernel<T, BF16><<<n_part, XEQ_SLOT_THREADS, smem, s>>>(
+  message_bwd_slot_kernel<T, BF16><<<dim3(n_part, n_hc), XEQ_SLOT_THREADS, smem, s>>>(
       (const T*)x, (const T*)ef, (const T*)wf, (const T*)g,
       (const int*)slot_src, (const int*)slot_dst, (const int*)lane_gate,
       (const int*)lane_ycol, (const int*)gate_lane0, (const int*)gate_dim,
-      (const int*)ylane_ptr, (const int*)ylane_idx, (float*)d_ef,
-      (float*)dwf_part, n_slots, per, ni, h_dim, hp, dp, sdp, kw, kf);
+      (const int*)ylane_ptr, (const int*)ylane_idx, (float*)d_ef, (float*)def_part,
+      (float*)dwf_part, n_slots, per, ni, h_dim, hp, dp, sdp, kw, kf, hc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (n_hc > 1 && n_slots > 0) {
+    const int64_t n = (int64_t)n_slots * XEQ_FPACK;
+    xeq_def_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        (const float*)def_part, (float*)d_ef, n_hc, n_slots, kf);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
       (const float*)dwf_part, (float*)dwf, n_part, kf, h_dim, hp);
   return (int)cudaGetLastError();
@@ -372,17 +414,24 @@ struct XeqTileDims {
   int gs_st;   // staged g row: [gms_s (sd8) | gms_v (dt8)] + 8
   int w_st;    // wf_s / dfw_s row: hs rounded up to 64, + 8
   int dfo_st;  // dfo_s row (f32): 2 ni + 8
+  int ke;      // edge-feature columns staged: Kf rounded up to 32
+  int est;     // their row stride (bf16): ke + 8, conflict-free fragments
+  int kwp;     // rows of wf in the K slices of fw and the columns of d_ef: Kw to 32
+  int wf_smem;   // wf's live rows copied to shared memory, else read from L2
+  int nst;       // stages: 2 (the next tile's copies behind this one's compute) or 1
+  int dwf_regs;  // the d_wf partial in registers (Kf <= 32, H <= 768), else
+                 // dfw rows to a scratch and xeq_dwf_pass
   int off_g, off_e, off_pos, stage;  // within a stage; stage size
   int off_wf, off_dfw, off_dfo, off_tab, smem;
 };
 
 // Issue the cp.async copies of one tile (slots k0 .. k0+XEQ_BT-1, one warp
 // per slot, its indices in ``ix``) into a stage: each slot's x row (gs and
-// gv columns), g row (gms_s and gms_v columns) and first 32 edge-feature
+// gv columns), g row (gms_s and gms_v columns) and its edge-feature
 // columns, zero-filled for padding slots, slots past the covered range and
 // slots past n_slots; and its scratch row (position in the CSR list by
 // source, -1 for slots that add nothing).
-__device__ __forceinline__ void xeq_tile_load(unsigned char* st, int k0, XeqSlotIdx ix,
+__device__ __forceinline__ void xeq_tile_load(unsigned char* st, int est, int k0, XeqSlotIdx ix,
                                               const XeqTileDims& p,
                                               const xeq_bf16* __restrict__ x,
                                               const xeq_bf16* __restrict__ g,
@@ -394,12 +443,18 @@ __device__ __forceinline__ void xeq_tile_load(unsigned char* st, int k0, XeqSlot
        p.hp, p.rs >> 3},
       {(xeq_bf16*)(st + p.off_g) + t * p.gs_st, g + (int64_t)(ok ? ix.dst : 0) * (p.sdp + p.dp),
        p.sd8, p.sdp, (p.sd8 + p.dt8) >> 3},
-      {(xeq_bf16*)(st + p.off_e) + t * XEQ_BT_EST, ef + (int64_t)(ok ? k0 + t : 0) * XEQ_FPACK,
-       XEQ_BT_KE, 0, XEQ_BT_KE / 8}};
+      {(xeq_bf16*)(st + p.off_e) + t * est, ef + (int64_t)(ok ? k0 + t : 0) * XEQ_FPACK,
+       est - 8, 0, (est - 8) / 8}};
   xeq_stage_segs(sg, ok);
   if ((threadIdx.x & 31) == 0) ((int*)(st + p.off_pos))[t] = ok ? ix.pos : -1;
 }
 
+// WF_SMEM: wf's live rows copied to shared memory (their fragment loads are
+// then shared-memory loads); else read from L2.  WIDE: Kf > 32 or H > 768,
+// so fw runs over 32-row K slices and each slot's dfw row goes to the d_wf
+// pass instead of a partial in registers (compiled only where needed: the
+// other instance keeps the flagship's registers).
+template <bool WF_SMEM, bool WIDE>
 __global__ void __launch_bounds__(XEQ_BT_THREADS, 1)
 message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restrict__ ef,
                         const xeq_bf16* __restrict__ wf, const xeq_bf16* __restrict__ g,
@@ -408,10 +463,10 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
                         const int* __restrict__ lane_ycol,
                         const int* __restrict__ gate_lane0,
                         const int* __restrict__ gate_dim, xeq_bf16* __restrict__ rows,
-                        float* __restrict__ d_ef, float* __restrict__ dwf_part,
-                        const XeqTileDims p) {
+                        xeq_bf16* __restrict__ dfw_rows, float* __restrict__ d_ef,
+                        float* __restrict__ dwf_part, const XeqTileDims p) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
-  xeq_bf16* wf_s = (xeq_bf16*)(tile_smem + p.off_wf);    // [32][w_st] live rows of wf
+  xeq_bf16* wf_s = (xeq_bf16*)(tile_smem + p.off_wf);    // [kwp][w_st] live rows of wf
   xeq_bf16* dfw_s = (xeq_bf16*)(tile_smem + p.off_dfw);  // [BT][w_st]
   float* dfo_s = (float*)(tile_smem + p.off_dfo);        // [BT][dfo_st]; then d_ef quarters
   int* lane_tab = (int*)(tile_smem + p.off_tab);         // [dt8]: gate | harmonic col << 16
@@ -419,27 +474,33 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, cq = lane & 3;  // mma fragment: row group, column pair
   const int ni2 = 2 * p.ni, n8 = p.hs >> 3, n_y = p.kf - p.kw;
+  // not WIDE (Kf <= 32): the staged edge-feature stride and K width as
+  // constants
+  const int est = WIDE ? p.est : XEQ_BT_KE + 8, kwp = WIDE ? p.kwp : XEQ_BT_KE;
   const int n_tiles = (p.n_slots + XEQ_BT - 1) / XEQ_BT;
 
-  xeq_load_wf(wf_s, p.w_st, wf, p.kw, p.h, p.hp, p.hs, XEQ_BT_THREADS);
+  if (WF_SMEM) xeq_load_wf(wf_s, p.w_st, wf, p.kw, p.h, p.hp, p.hs, kwp, XEQ_BT_THREADS);
+  const xeq_bf16* wfp = WF_SMEM ? wf_s : wf;
+  const int wst = WF_SMEM ? p.w_st : p.hp;
   for (int j = tid; j < p.dt8; j += XEQ_BT_THREADS)
     lane_tab[j] = j < p.d ? __ldg(lane_gate + j) | ((__ldg(lane_ycol + j) - p.kw) << 16) : 0;
   for (int u = tid; u < p.ni; u += XEQ_BT_THREADS)
     gate_tab[u] = __ldg(gate_lane0 + u) | (__ldg(gate_dim + u) << 16);
-  float acc[XEQ_BT_NTW][2][4];
+  float acc[WIDE ? 1 : XEQ_BT_NTW][2][4];
 #pragma unroll
-  for (int i = 0; i < XEQ_BT_NTW; ++i)
+  for (int i = 0; i < (WIDE ? 1 : XEQ_BT_NTW); ++i)
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][m][q] = 0.f;
 
   // the slot indices go one tile ahead of the copies, so that issuing a
-  // tile's copies never waits on a load
+  // tile's copies never waits on a load; with two stages the next tile's
+  // copies are issued as this tile starts, with one once its rows are read
   const int grid = gridDim.x;
   if ((int)blockIdx.x < n_tiles)
     xeq_tile_load(
-        tile_smem, blockIdx.x * XEQ_BT,
+        tile_smem, est, blockIdx.x * XEQ_BT,
         xeq_slot_idx(blockIdx.x, n_tiles, p.n_slots, slot_src, slot_dst, src_pos, nullptr), p,
         x, g, ef);
   xeq_cp_commit();
@@ -448,15 +509,17 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
   for (int it = 0;; ++it) {
     const int tl = blockIdx.x + it * grid;
     if (tl >= n_tiles) break;
-    unsigned char* st = tile_smem + (it & 1) * p.stage;
+    unsigned char* st = tile_smem + (it & (p.nst - 1)) * p.stage;
     xeq_cp_wait_all();
     __syncthreads();  // this tile has landed; the other stage is free
-    if (tl + grid < n_tiles)
-      xeq_tile_load(tile_smem + ((it + 1) & 1) * p.stage, (tl + grid) * XEQ_BT, ahead, p, x, g,
-                    ef);
-    xeq_cp_commit();
-    ahead =
-        xeq_slot_idx(tl + 2 * grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos, nullptr);
+    if (p.nst == 2) {
+      if (tl + grid < n_tiles)
+        xeq_tile_load(tile_smem + ((it + 1) & 1) * p.stage, est, (tl + grid) * XEQ_BT, ahead, p, x, g,
+                      ef);
+      xeq_cp_commit();
+      ahead =
+          xeq_slot_idx(tl + 2 * grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos, nullptr);
+    }
     xeq_bf16* x_s = (xeq_bf16*)st;
     const xeq_bf16* g_s = (const xeq_bf16*)(st + p.off_g);
     const xeq_bf16* e_s = (const xeq_bf16*)(st + p.off_e);
@@ -467,7 +530,7 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
     {
       const xeq_bf16* xv = x_s + warp * p.xs_st + p.ht8;
       const xeq_bf16* gv = g_s + warp * p.gs_st + p.sd8;
-      const xeq_bf16* er = e_s + warp * XEQ_BT_EST + p.kw;
+      const xeq_bf16* er = e_s + warp * est + p.kw;
       float* dr = dfo_s + warp * p.dfo_st;
       for (int u = lane; u < p.ni; u += 32) {
         const int tab = gate_tab[u], l0 = tab & 0xffff, m1 = tab >> 16;
@@ -487,20 +550,32 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
     }
     __syncthreads();
 
-    // B: fw on the tensor cores, one n8 column tile per warp at a time;
-    // per element dfw (to dfw_s), dgs (to the scratch row) and, in the gate
+    // B: fw on the tensor cores, one n8 column tile per warp at a time (K
+    // in 32-row slices of wf, the first slice's A fragments held); per
+    // element dfw (to dfw_s), dgs (to the scratch row) and, in the gate
     // columns, fo (in place of gs, which nothing reads after this)
     {
       uint32_t a[2][4];
-      xeq_frag_a(a, e_s, XEQ_BT_EST);
+      xeq_frag_a(a, e_s, est);
       for (int nt = warp; nt < n8; nt += XEQ_BT_WARPS) {
         const int n = nt * 8 + gq;
         float c[4] = {0.f, 0.f, 0.f, 0.f};
+        uint32_t b0, b1;
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
-          const xeq_bf16* w0 = wf_s + (ks * 16 + 2 * cq) * p.w_st + n;
-          xeq_mma(c, a[ks], xeq_pack(w0[0], w0[p.w_st]),
-                  xeq_pack(w0[8 * p.w_st], w0[9 * p.w_st]));
+          xeq_wf_b(b0, b1, wfp, wst, ks * 16, n);
+          xeq_mma(c, a[ks], b0, b1);
+        }
+        if constexpr (WIDE) {
+          for (int k0 = XEQ_BT_KE; k0 < kwp; k0 += XEQ_BT_KE) {
+            uint32_t a2[2][4];
+            xeq_frag_a(a2, e_s + k0, est);
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              xeq_wf_b(b0, b1, wfp, wst, k0 + ks * 16, n);
+              xeq_mma(c, a2[ks], b0, b1);
+            }
+          }
         }
         const int h0 = nt * 8 + 2 * cq;  // even, as 2 ni is: a pair lies on
                                          // one side of the gate columns
@@ -557,16 +632,21 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       }
       const float mine = xeq_harmonic_sums(hy);
       if (k_w < p.n_slots && lane < n_y) d_ef[(int64_t)k_w * XEQ_FPACK + p.kw + lane] = mine;
+      // the slot's dfw row, for the d_wf pass (every slot of the tile: zero
+      // where it adds nothing)
+      if constexpr (WIDE)
+        xeq_copy_row(dfw_rows + (int64_t)k_w * p.hs, dfw_s + warp * p.w_st, p.hs >> 3);
     }
 
-    // D1: d_ef[:, f < 32] = dfw @ wf^T on the tensor cores; warp w takes
-    // column tile w % 4 and K quarter w / 4, its partial to shared memory
-    xeq_def_quarters(dfw_s, wf_s, p.w_st, p.hs, dfo_s);
+    // D1: d_ef[:, f < kwp] = dfw @ wf^T on the tensor cores; warp w takes
+    // the column tiles w % 4 (+ 4 j) and K quarter w / 4, its partials to
+    // shared memory
+    xeq_def_quarters(dfw_s, p.w_st, wfp, wst, p.hs, kwp, dfo_s);
     // D2: the block's d_wf partial += ef^T @ dfw on the tensor cores, in
     // the warp's own column tiles (rows f of two m16 tiles)
-    {
+    if constexpr (!WIDE) {
       uint32_t a[2][4];
-      xeq_frag_at(a, e_s, XEQ_BT_EST);
+      xeq_frag_at(a, e_s, est);
 #pragma unroll
       for (int i = 0; i < XEQ_BT_NTW; ++i) {
         const int nt = warp + i * XEQ_BT_WARPS;
@@ -580,15 +660,22 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       }
     }
     __syncthreads();
+    if (p.nst == 1) {  // the stage is read: the next tile's copies may land
+      if (tl + grid < n_tiles) xeq_tile_load(tile_smem, est, (tl + grid) * XEQ_BT, ahead, p, x, g, ef);
+      xeq_cp_commit();
+      ahead =
+          xeq_slot_idx(tl + 2 * grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos, nullptr);
+    }
 
     // E: the filter columns of the warp's d_ef row (the four quarters in
     // order) and zeros past Kf; dfo_s is free once the next tile's first
     // barrier has passed
     if (k_w < p.n_slots)
-      xeq_def_row(dfo_s, warp, d_ef + (int64_t)k_w * XEQ_FPACK, p.kw, p.kf);
+      xeq_def_row(dfo_s, warp, d_ef + (int64_t)k_w * XEQ_FPACK, p.kw, p.kf, kwp);
   }
 
-  xeq_dwf_part_write(acc, dwf_part + (int64_t)blockIdx.x * p.kf * p.h, p.kf, p.h, n8);
+  if constexpr (!WIDE)
+    xeq_dwf_part_write(acc, dwf_part + (int64_t)blockIdx.x * p.kf * p.h, p.kf, p.h, n8);
 }
 
 // dx [n_rows, Hp+Dp] f32: the scratch rows summed by source (scratch
@@ -600,16 +687,12 @@ message_bwd_dx_rows_kernel(const xeq_bf16* __restrict__ rows, const int* __restr
   xeq_rows_sum(rows, src_ptr, dx, n_rows, ht8, dt8, hp, xw);
 }
 
-static int launch_bwd_tiles(const void* x, const void* ef, const void* wf, const void* g,
-                            const void* src_ptr, const void* slot_src, const void* slot_dst,
-                            const void* src_pos, const void* lane_gate,
-                            const void* lane_ycol, const void* gate_lane0,
-                            const void* gate_dim, const void* ylane_ptr,
-                            const void* ylane_idx, void* rows, void* dx, void* d_ef,
-                            void* dwf_part, void* dwf, int n_rows, int n_slots, int n_part,
-                            int ni, int h_dim, int hp, int d, int dp, int sdp, int kw,
-                            int kf, cudaStream_t s) {
-  XeqTileDims p;
+// The tile pass's shared-memory layout: two stages and wf's live rows in
+// shared memory where they fit, else wf from L2, else one stage; false
+// when no layout fits (ops/fused_message.py::_tile_layouts states the
+// most compact one).
+static bool bwd_tile_dims(XeqTileDims& p, int n_slots, int ni, int h_dim, int hp, int d,
+                          int dp, int sdp, int kw, int kf) {
   p.n_slots = n_slots; p.ni = ni; p.h = h_dim; p.hp = hp; p.d = d; p.dp = dp;
   p.sdp = sdp; p.kw = kw; p.kf = kf;
   p.hs = xeq_round_up(h_dim, 16);
@@ -621,27 +704,64 @@ static int launch_bwd_tiles(const void* x, const void* ef, const void* wf, const
   p.gs_st = p.sd8 + p.dt8 + 8;
   p.w_st = xeq_round_up(p.hs, 64) + 8;
   p.dfo_st = 2 * ni + 8;
+  p.ke = xeq_round_up(kf, XEQ_BT_KE);
+  p.est = p.ke + 8;
+  p.kwp = xeq_round_up(kw, XEQ_BT_KE);
+  p.dwf_regs = kf <= XEQ_BT_KE && p.hs <= 16 * 8 * XEQ_BT_NTW;
   p.off_g = XEQ_BT * p.xs_st * 2;
   p.off_e = p.off_g + XEQ_BT * p.gs_st * 2;
-  p.off_pos = p.off_e + XEQ_BT * XEQ_BT_EST * 2;
+  p.off_pos = p.off_e + XEQ_BT * p.est * 2;
   p.stage = xeq_round_up(p.off_pos + XEQ_BT * 4, 16);
-  p.off_wf = 2 * p.stage;
-  p.off_dfw = p.off_wf + XEQ_BT_KE * p.w_st * 2;
+  const int dfo_bytes = XEQ_BT * p.dfo_st * 4, red_bytes = 4 * XEQ_BT * p.kwp * 4;
+  const int rest = XEQ_BT * p.w_st * 2 + (dfo_bytes > red_bytes ? dfo_bytes : red_bytes) +
+                   xeq_round_up((p.dt8 + ni) * 4, 16);
+  const int wf_bytes = p.kwp * p.w_st * 2;
+  const int layouts[3][2] = {{2, 1}, {2, 0}, {1, 0}};  // (stages, wf in shared memory)
+  p.smem = XEQ_SMEM_MAX + 1;
+  p.nst = 1;
+  p.wf_smem = 0;
+  for (const auto& l : layouts) {
+    const int smem = l[0] * p.stage + l[1] * wf_bytes + rest;
+    if (smem <= XEQ_SMEM_MAX) {
+      p.nst = l[0];
+      p.wf_smem = l[1];
+      p.smem = smem;
+      break;
+    }
+  }
+  p.off_wf = p.nst * p.stage;
+  p.off_dfw = p.off_wf + (p.wf_smem ? wf_bytes : 0);
   p.off_dfo = p.off_dfw + XEQ_BT * p.w_st * 2;
-  const int dfo_bytes = XEQ_BT * p.dfo_st * 4;
-  p.off_tab = p.off_dfo + (dfo_bytes > 4 * XEQ_BT * 32 * 4 ? dfo_bytes : 4 * XEQ_BT * 32 * 4);
-  p.smem = p.off_tab + xeq_round_up((p.dt8 + ni) * 4, 16);
-  if (kf - kw > XEQ_MAXY || d >= 65536 || kf > XEQ_BT_KE || p.hs > 16 * 8 * XEQ_BT_NTW || p.sd8 > p.ht8 || p.ht8 > hp ||
-      p.dt8 > dp || p.smem > 232448)
+  p.off_tab = p.off_dfo + (dfo_bytes > red_bytes ? dfo_bytes : red_bytes);
+  return kf - kw <= XEQ_MAXY && d < 65536 && p.sd8 <= p.ht8 && p.ht8 <= hp && p.dt8 <= dp &&
+         p.smem <= XEQ_SMEM_MAX;
+}
+
+static int launch_bwd_tiles(const void* x, const void* ef, const void* wf, const void* g,
+                            const void* src_ptr, const void* slot_src, const void* slot_dst,
+                            const void* src_pos, const void* lane_gate,
+                            const void* lane_ycol, const void* gate_lane0,
+                            const void* gate_dim, void* rows, void* dfw_rows, void* dx,
+                            void* d_ef, void* dwf_part, void* dwf, int n_rows, int n_slots,
+                            int n_part, int ni, int h_dim, int hp, int d, int dp, int sdp,
+                            int kw, int kf, cudaStream_t s) {
+  XeqTileDims p;
+  if (!bwd_tile_dims(p, n_slots, ni, h_dim, hp, d, dp, sdp, kw, kf) ||
+      (!p.dwf_regs && dfw_rows == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      message_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  auto kernel = p.wf_smem ? (p.dwf_regs ? message_bwd_tile_kernel<true, false>
+                                        : message_bwd_tile_kernel<true, true>)
+                          : (p.dwf_regs ? message_bwd_tile_kernel<false, false>
+                                        : message_bwd_tile_kernel<false, true>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
-  message_bwd_tile_kernel<<<n_part, XEQ_BT_THREADS, p.smem, s>>>(
+  kernel<<<n_part, XEQ_BT_THREADS, p.smem, s>>>(
       (const xeq_bf16*)x, (const xeq_bf16*)ef, (const xeq_bf16*)wf, (const xeq_bf16*)g,
       (const int*)slot_src, (const int*)slot_dst, (const int*)src_pos,
       (const int*)lane_gate, (const int*)lane_ycol, (const int*)gate_lane0,
-      (const int*)gate_dim, (xeq_bf16*)rows, (float*)d_ef, (float*)dwf_part, p);
+      (const int*)gate_dim, (xeq_bf16*)rows, (xeq_bf16*)dfw_rows, (float*)d_ef,
+      (float*)dwf_part, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_rows > 0) {
@@ -651,11 +771,24 @@ static int launch_bwd_tiles(const void* x, const void* ef, const void* wf, const
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (!p.dwf_regs)
+    return xeq_dwf_pass((const xeq_bf16*)ef, (const xeq_bf16*)dfw_rows, nullptr, nullptr,
+                        (float*)dwf_part, (float*)dwf, n_slots, n_part,
+                        p.hs, kf, h_dim, hp, s);
   xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
       (const float*)dwf_part, (float*)dwf, n_part, kf, h_dim, hp);
   return (int)cudaGetLastError();
 }
 
+#define XEQ_BWD_WALK_ARGS                                                                    \
+  x, ef, wf, g, src_ptr, src_slots, slot_src, slot_dst, lane_gate, lane_ycol, gate_lane0,    \
+      gate_dim, ylane_ptr, ylane_idx, def_part, dx, d_ef, dwf_part, dwf, n_rows, n_slots,    \
+      n_part, ni, h_dim, hp, d, dp, sdp, kw, kf, n_hc, s
+
+// tiles (bf16 only): the tile pass, which the wrapper chooses by shape when
+// a layout of it fits (dfw_rows: its scratch when d_wf leaves the
+// registers); else the walk kernels in the operands' dtype, over n_hc
+// column chunks (def_part: their d_ef partials when n_hc > 1).
 extern "C" int xeq_message_bwd(const void* x, const void* ef, const void* wf,
                                const void* g, const void* src_ptr,
                                const void* src_slots, const void* slot_src,
@@ -663,21 +796,18 @@ extern "C" int xeq_message_bwd(const void* x, const void* ef, const void* wf,
                                const void* lane_gate, const void* lane_ycol,
                                const void* gate_lane0, const void* gate_dim,
                                const void* ylane_ptr, const void* ylane_idx,
-                               void* rows, void* dx, void* d_ef, void* dwf_part,
-                               void* dwf, int n_rows, int n_slots, int n_part, int ni,
-                               int h_dim, int hp, int d, int dp, int sdp, int kw, int kf,
-                               int bf16, void* stream) {
-  if (kw > XEQ_MAXK || kf > XEQ_FPACK || (hp + dp) % 128 != 0 || n_part < 1)
+                               void* rows, void* dfw_rows, void* def_part, void* dx,
+                               void* d_ef, void* dwf_part, void* dwf, int n_rows, int n_slots,
+                               int n_part, int ni, int h_dim, int hp, int d, int dp, int sdp,
+                               int kw, int kf, int bf16, int tiles, int n_hc, void* stream) {
+  if (kw > kf || kf > XEQ_FPACK || (hp + dp) % 128 != 0 || n_part < 1 || (tiles && !bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
+  if (tiles)
     return launch_bwd_tiles(x, ef, wf, g, src_ptr, slot_src, slot_dst, src_pos, lane_gate,
-                            lane_ycol, gate_lane0, gate_dim, ylane_ptr, ylane_idx, rows, dx,
-                            d_ef, dwf_part, dwf, n_rows, n_slots, n_part, ni, h_dim, hp, d,
-                            dp, sdp, kw, kf, s);
-  return launch_bwd<float, false>(
-      x, ef, wf, g, src_ptr, src_slots, slot_src, slot_dst, lane_gate,
-      lane_ycol, gate_lane0, gate_dim, ylane_ptr, ylane_idx, dx, d_ef,
-      dwf_part, dwf, n_rows, n_slots, n_part, ni, h_dim, hp, d, dp, sdp, kw,
-      kf, s);
+                            lane_ycol, gate_lane0, gate_dim, rows, dfw_rows, dx, d_ef,
+                            dwf_part, dwf, n_rows, n_slots, n_part, ni, h_dim, hp, d, dp, sdp,
+                            kw, kf, s);
+  if (bf16) return launch_bwd<__nv_bfloat16, true>(XEQ_BWD_WALK_ARGS);
+  return launch_bwd<float, false>(XEQ_BWD_WALK_ARGS);
 }

@@ -43,8 +43,8 @@
 //  * message_bwd2_tile_kernel: persistent blocks of 512 threads, one per
 //    SM, walk tiles of XEQ_BT = 16 consecutive slots (tile = block + i *
 //    grid), as message_bwd_tile_kernel does.  Each slot's x and cx rows
-//    (live H + D columns), g row (node_dim + D) and first 32 columns of ef
-//    and cef are staged with cp.async.  One stage only: with wf's live
+//    (live H + D columns), g row (node_dim + D) and the first Kf (rounded
+//    up to 32) columns of ef and cef are staged with cp.async.  One stage only: with wf's live
 //    rows, the bf16 dfw2 / dfwr tiles and the f32 dfo / u gate sums it
 //    takes 226 KB at the flagship widths, so the next tile's copies are
 //    issued once the current tile's rows have been read (before its d2ef
@@ -71,18 +71,30 @@
 //    d2g element once; nothing is recomputed.
 //  * xeq_dwf_reduce_kernel (message_common.cuh): the d2wf partials summed
 //    in block order.
-// The f32 instance (FP32 FMAs, no TF32 in this port) and the bf16 instance
-// with cwf (on no model path: tests and chip_smoke.py reach it) keep the
-// first version's four launches, with or without the cwf terms (CWF):
+// Wider shapes, as message_bwd.cu: instance WIDE (Kf > 32 or H > 768)
+// runs fw and r over 32-row K slices and sends each slot's bf16 dfw2 and
+// dfwr rows to xeq_dwf_pass for the d2wf partials; wf's fragments come
+// from L2 where its live rows do not fit beside the stage (Kf = 128).  At
+// H = 1152 the stage alone is 175 KB and the f32 dfo / u tiles 113 KB, so
+// instance LEAN keeps neither dfo / u nor dfwr tiles: phase B forms each
+// gate column's sums from the staged rows itself (the same products in the
+// same order, so the same bits) and writes dfwr straight to its scratch
+// (230 KB at H = 1152, Kf = 33; walk kernels at H = 1152, Kf = 128).
+// The walk kernels take the f32 operands, the bf16 operands with cwf (on
+// no model path: tests and chip_smoke.py reach it) and any bf16 shape the
+// tile pass cannot hold, the first version's four launches with or
+// without the cwf terms (CWF); the filter's rows past 32 and the slot
+// pass's column chunks as in message_bwd.cu:
 //  * message_bwd2_dg_kernel: d2g, one thread per (destination row, output
 //    column), walking the CSR list by destination as message_fwd.cu's f32
 //    kernel does.
 //  * message_bwd2_dx_kernel: d2x, one thread per (source row, x column),
 //    walking the CSR list by source.  Each block stages its slots
 //    (indices and the live columns of ef and cef, as f32).
-//  * message_bwd2_slot_kernel: one block per contiguous slot range, 16
-//    slots per step, 512 threads: d2ef rows (one warp per slot, shuffle
-//    sums in fixed order) and the block's d2wf partial in shared memory.
+//  * message_bwd2_slot_kernel: one block per (contiguous slot range,
+//    column chunk), 16 slots per step, 512 threads: d2ef rows or their
+//    chunk partials (one warp per slot, shuffle sums in fixed order) and
+//    the block's d2wf partial in shared memory.
 //  * xeq_dwf_reduce_kernel.
 // These replace the TPU kernel's per-block d2g and window tiles and the
 // overlap-add of the windows (:864-869).
@@ -102,15 +114,18 @@
 // sums are f32.
 #include "message_tile.cuh"
 
-// r = c . w + (CWF) e . cw: the cotangent of the radial filter at one
-// hidden column.
-template <bool CWF>
+// r = c . w + (CWF) e . cw: the cotangent of the radial filter at hidden
+// column col (the first rows from the registers w / cw, the rest from wf /
+// cwf in 32-row slices, as xeq_filter_full).
+template <typename T, bool CWF>
 __device__ __forceinline__ float xeq_filter_cot(const float* e, const float* c,
                                                 const float (&w)[XEQ_MAXK],
                                                 const float (&cw)[XEQ_MAXK],
+                                                const T* __restrict__ wf,
+                                                const T* __restrict__ cwf, int hp, int col,
                                                 int kw, int kf) {
-  float r = xeq_filter(c, w, kw);
-  if (CWF) r += xeq_filter(e, cw, kf);
+  float r = xeq_filter_full(c, w, wf, hp, col, kw);
+  if (CWF) r += xeq_filter_full(e, cw, cwf, hp, col, kf);
   return r;
 }
 
@@ -193,16 +208,18 @@ message_bwd2_dg_kernel(const T* __restrict__ x, const T* __restrict__ ef,
           const T* xr = x + (int64_t)src_s[q] * xs;
           const T* cr = cx + (int64_t)src_s[q] * xs;
           const float gs1 = xeq_ld(xr, h1);
-          const float fw1 = xeq_filter(e, w1, kw);
-          const float a1 = xeq_rnd<BF16>(xeq_ld(cr, h1) * fw1 +
-                                         xeq_filter_cot<CWF>(e, c, w1, c1, kw, kf) * gs1);
+          const float fw1 = xeq_filter_full(e, w1, wf, hp, h1, kw);
+          const float a1 = xeq_rnd<BF16>(
+              xeq_ld(cr, h1) * fw1 +
+              xeq_filter_cot<T, CWF>(e, c, w1, c1, wf, cwf, hp, h1, kw, kf) * gs1);
           if (h2 < 0) {
             v[u] = a1;
           } else {
             const float gs2 = xeq_ld(xr, h2);
-            const float fw2 = xeq_filter(e, w2, kw);
-            const float a2 = xeq_rnd<BF16>(xeq_ld(cr, h2) * fw2 +
-                                           xeq_filter_cot<CWF>(e, c, w2, c2, kw, kf) * gs2);
+            const float fw2 = xeq_filter_full(e, w2, wf, hp, h2, kw);
+            const float a2 = xeq_rnd<BF16>(
+                xeq_ld(cr, h2) * fw2 +
+                xeq_filter_cot<T, CWF>(e, c, w2, c2, wf, cwf, hp, h2, kw, kf) * gs2);
             const float g1 = xeq_rnd<BF16>(gs1 * fw1);
             const float g2 = xeq_rnd<BF16>(gs2 * fw2);
             v[u] = xeq_rnd<BF16>(xeq_ld(xr, vx) * a1 + e[yc] * a2 +
@@ -289,8 +306,8 @@ message_bwd2_dx_kernel(const T* __restrict__ x, const T* __restrict__ ef,
           const T* xr = x + (int64_t)src_s[q] * xs;
           const T* cr = cx + (int64_t)src_s[q] * xs;
           const T* gr = g + (int64_t)dst_s[q] * gs;
-          const float fw = xeq_filter(e, w, kw);
-          const float r = xeq_filter_cot<CWF>(e, c, w, cw, kw, kf);
+          const float fw = xeq_filter_full(e, w, wf, hp, wcol, kw);
+          const float r = xeq_filter_cot<T, CWF>(e, c, w, cw, wf, cwf, hp, wcol, kw, kf);
           if (h_col >= 0) {
             const float dfo = dfo_at<T, BF16>(h_col, e, gr, xr, gate_lane0,
                                               gate_dim, lane_ycol, ni, hp, sdp);
@@ -330,6 +347,12 @@ message_bwd2_dx_kernel(const T* __restrict__ x, const T* __restrict__ ef,
 #define XEQ_TS2 16
 #define XEQ_SLOT2_THREADS 512
 
+// One block per (contiguous slot range, column chunk of hc filter columns),
+// as message_bwd.cu's slot pass: per 16 slots the chunk's dfw2 and dfwr
+// columns, the chunk's d2wf partial, and the d2ef rows' partial sums over
+// the chunk (whole rows with one chunk; else per-chunk partial rows f < kf
+// in def_part, summed by xeq_def_reduce_kernel).  The lane sums of the
+// harmonic d2ef columns come with chunk 0.
 template <typename T, bool BF16, bool CWF>
 __global__ void __launch_bounds__(XEQ_SLOT2_THREADS)
 message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
@@ -344,17 +367,18 @@ message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
                          const int* __restrict__ gate_dim,
                          const int* __restrict__ ylane_ptr,
                          const int* __restrict__ ylane_idx,
-                         float* __restrict__ d2ef, float* __restrict__ dwf_part,
+                         float* __restrict__ d2ef, float* __restrict__ def_part,
+                         float* __restrict__ dwf_part,
                          int n_slots, int slots_per_block, int ni, int h_dim,
-                         int hp, int dp, int sdp, int kw, int kf) {
+                         int hp, int dp, int sdp, int kw, int kf, int hc) {
   extern __shared__ float smem[];
   float* a2_s = smem;                        // [TS][ni]  a at the edge gates
-  float* dfw2_s = a2_s + XEQ_TS2 * ni;       // [TS][H]
-  float* dfwr_s = dfw2_s + XEQ_TS2 * h_dim;  // [TS][H]
-  float* ef_s = dfwr_s + XEQ_TS2 * h_dim;    // [TS][Kf]
+  float* dfw2_s = a2_s + XEQ_TS2 * ni;       // [TS][hc]
+  float* dfwr_s = dfw2_s + XEQ_TS2 * hc;     // [TS][hc]
+  float* ef_s = dfwr_s + XEQ_TS2 * hc;       // [TS][Kf]
   float* cef_s = ef_s + XEQ_TS2 * kf;        // [TS][Kf]
-  float* dwf_s = cef_s + XEQ_TS2 * kf;       // [Kf][H]  this block's partial
-  float* wf_s = dwf_s + kf * h_dim;          // [Kw][H]  live rows of wf
+  float* dwf_s = cef_s + XEQ_TS2 * kf;       // [Kf][hc]  this block's partial
+  float* wf_s = dwf_s + kf * hc;             // [Kw][hc]  live rows of wf
   __shared__ int src_s[XEQ_TS2], dst_s[XEQ_TS2];
 
   const int xs = hp + dp;
@@ -364,11 +388,13 @@ message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n_y = kf - kw;
+  const int c0 = blockIdx.y * hc, hn = min(hc, h_dim - c0);  // the chunk's columns
+  const bool first = blockIdx.y == 0, chunked = gridDim.y > 1;
 
-  for (int i = tid; i < kf * h_dim; i += nthr) dwf_s[i] = 0.f;
-  for (int i = tid; i < kw * h_dim; i += nthr) {
-    const int f = i / h_dim, h = i - f * h_dim;
-    wf_s[i] = xeq_ld(wf, (int64_t)f * hp + h);
+  for (int i = tid; i < kf * hn; i += nthr) dwf_s[i] = 0.f;
+  for (int i = tid; i < kw * hn; i += nthr) {
+    const int f = i / hn, hh = i - f * hn;
+    wf_s[i] = xeq_ld(wf, (int64_t)f * hp + c0 + hh);
   }
 
   const int k0 = blockIdx.x * slots_per_block;
@@ -389,9 +415,9 @@ message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
       cef_s[i] = ok ? xeq_ld(cef, at) : 0.f;
     }
     __syncthreads();
-    // A1: a at the edge gates h = ni + u of each slot of the step,
-    // XEQ_ILP items per thread at a time so their loads overlap
-    for (int i0 = tid; i0 < XEQ_TS2 * ni; i0 += XEQ_ILP * nthr) {
+    // A1 (chunk 0): a at the edge gates h = ni + u of each slot of the
+    // step, XEQ_ILP items per thread at a time so their loads overlap
+    for (int i0 = tid; first && i0 < XEQ_TS2 * ni; i0 += XEQ_ILP * nthr) {
       float v[XEQ_ILP];
 #pragma unroll
       for (int c = 0; c < XEQ_ILP; ++c) {
@@ -405,8 +431,9 @@ message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
           const float* cr = cef_s + t * kf;
           float fw = 0.f, r = 0.f;
           for (int f = 0; f < kw; ++f) {
-            fw += e[f] * wf_s[f * h_dim + h];
-            r += cr[f] * wf_s[f * h_dim + h];
+            const float w = xeq_ld(wf, (int64_t)f * hp + h);
+            fw += e[f] * w;
+            r += cr[f] * w;
           }
           if (CWF) {
             for (int f = 0; f < kf; ++f) r += e[f] * xeq_ld(cwf, (int64_t)f * hp + h);
@@ -421,17 +448,17 @@ message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
         if (i < XEQ_TS2 * ni) a2_s[i] = v[c];
       }
     }
-    // A2: dfw2 = rnd(dfo cxh + u gs) and dfwr = rnd(dfo gs) at every hidden
-    // column, XEQ_ILP items per thread at a time
-    for (int i0 = tid; i0 < XEQ_TS2 * h_dim; i0 += XEQ_ILP * nthr) {
+    // A2: dfw2 = rnd(dfo cxh + u gs) and dfwr = rnd(dfo gs) at the chunk's
+    // hidden columns, XEQ_ILP items per thread at a time
+    for (int i0 = tid; i0 < XEQ_TS2 * hn; i0 += XEQ_ILP * nthr) {
       float v2[XEQ_ILP], vr[XEQ_ILP];
 #pragma unroll
       for (int c = 0; c < XEQ_ILP; ++c) {
         const int i = i0 + c * nthr;
         v2[c] = 0.f;
         vr[c] = 0.f;
-        if (i >= XEQ_TS2 * h_dim) continue;
-        const int t = i / h_dim, h = i - t * h_dim;
+        if (i >= XEQ_TS2 * hn) continue;
+        const int t = i / hn, h = c0 + i - t * hn;
         if (dst_s[t] >= 0) {
           const T* gr = g + (int64_t)dst_s[t] * gs;
           const T* xr = x + (int64_t)src_s[t] * xs;
@@ -452,7 +479,7 @@ message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
 #pragma unroll
       for (int c = 0; c < XEQ_ILP; ++c) {
         const int i = i0 + c * nthr;
-        if (i < XEQ_TS2 * h_dim) {
+        if (i < XEQ_TS2 * hn) {
           dfw2_s[i] = v2[c];
           dfwr_s[i] = vr[c];
         }
@@ -460,31 +487,33 @@ message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
     }
     __syncthreads();
     // A3: d2wf partial, element (f, h) owned by one thread, slots in order
-    for (int i = tid; i < kf * h_dim; i += nthr) {
-      const int f = i / h_dim, h = i - f * h_dim;
+    for (int i = tid; i < kf * hn; i += nthr) {
+      const int f = i / hn, hh = i - f * hn;
       float acc = dwf_s[i];
 #pragma unroll
       for (int t = 0; t < XEQ_TS2; ++t)
-        acc += ef_s[t * kf + f] * dfw2_s[t * h_dim + h] +
-               cef_s[t * kf + f] * dfwr_s[t * h_dim + h];
+        acc += ef_s[t * kf + f] * dfw2_s[t * hn + hh] +
+               cef_s[t * kf + f] * dfwr_s[t * hn + hh];
       dwf_s[i] = acc;
     }
-    // B: d2ef rows, one warp per slot
+    // B: d2ef rows (or their chunk partials), one warp per slot
     for (int t = warp; t < XEQ_TS2; t += nthr / 32) {
       const int k = base + t;
       if (k >= k1) continue;
-      float* row = d2ef + (int64_t)k * XEQ_FPACK;
+      float* row = chunked ? def_part + ((int64_t)blockIdx.y * n_slots + k) * kf
+                           : d2ef + (int64_t)k * XEQ_FPACK;
+      const int width = chunked ? kf : XEQ_FPACK;
       if (dst_s[t] < 0) {
-        for (int f = lane; f < XEQ_FPACK; f += 32) row[f] = 0.f;
+        for (int f = lane; f < width; f += 32) row[f] = 0.f;
         continue;
       }
-      const float* p2 = dfw2_s + t * h_dim;
-      const float* pr = dfwr_s + t * h_dim;
+      const float* p2 = dfw2_s + t * hn;
+      const float* pr = dfwr_s + t * hn;
       for (int f = 0; f < kw; ++f) {
         float acc = 0.f;
-        for (int h = lane; h < h_dim; h += 32) {
-          acc += p2[h] * wf_s[f * h_dim + h];
-          if (CWF) acc += pr[h] * xeq_ld(cwf, (int64_t)f * hp + h);
+        for (int hh = lane; hh < hn; hh += 32) {
+          acc += p2[hh] * wf_s[f * hn + hh];
+          if (CWF) acc += pr[hh] * xeq_ld(cwf, (int64_t)f * hp + c0 + hh);
         }
         for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
         if (lane == 0) row[f] = acc;
@@ -492,23 +521,32 @@ message_bwd2_slot_kernel(const T* __restrict__ x, const T* __restrict__ ef,
       const T* gr = g + (int64_t)dst_s[t] * gs;
       for (int y = 0; y < n_y; ++y) {
         float acc = 0.f;
-        for (int q = ylane_ptr[y] + lane; q < ylane_ptr[y + 1]; q += 32) {
+        for (int q = ylane_ptr[y] + lane; first && q < ylane_ptr[y + 1]; q += 32) {
           const int j = ylane_idx[q];
           acc += xeq_rnd<BF16>(xeq_ld(gr, sdp + j) * a2_s[t * ni + lane_gate[j]]);
         }
         if (CWF) {
-          for (int h = lane; h < h_dim; h += 32)
-            acc += pr[h] * xeq_ld(cwf, (int64_t)(kw + y) * hp + h);
+          for (int hh = lane; hh < hn; hh += 32)
+            acc += pr[hh] * xeq_ld(cwf, (int64_t)(kw + y) * hp + c0 + hh);
         }
         for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
         if (lane == 0) row[kw + y] = acc;
       }
-      for (int f = kf + lane; f < XEQ_FPACK; f += 32) row[f] = 0.f;
+      for (int f = kf + lane; f < width; f += 32) row[f] = 0.f;
     }
     __syncthreads();
   }
   float* part = dwf_part + (int64_t)blockIdx.x * kf * h_dim;
-  for (int i = tid; i < kf * h_dim; i += nthr) part[i] = dwf_s[i];
+  for (int i = tid; i < kf * hn; i += nthr) {
+    const int f = i / hn, hh = i - f * hn;
+    part[(int64_t)f * h_dim + c0 + hh] = dwf_s[i];
+  }
+}
+
+// Shared memory of the walk kernels' slot pass at column chunk hc.
+static size_t bwd2_slot_smem(int ni, int hc, int kw, int kf) {
+  return sizeof(float) * ((size_t)XEQ_TS2 * ni + 2 * (size_t)XEQ_TS2 * hc +
+                          2 * (size_t)XEQ_TS2 * kf + (size_t)kf * hc + (size_t)kw * hc);
 }
 
 template <typename T, bool BF16, bool CWF>
@@ -520,11 +558,15 @@ static int launch_bwd2(const void* x, const void* ef, const void* wf,
                        const void* slot_dst, const void* lane_gate,
                        const void* lane_ycol, const void* gate_lane0,
                        const void* gate_dim, const void* ylane_ptr,
-                       const void* ylane_idx, void* d2x, void* d2ef,
+                       const void* ylane_idx, void* def_part, void* d2x, void* d2ef,
                        void* dwf_part, void* d2wf, void* d2g, int n_out,
                        int n_rows, int n_slots, int n_part, int ni, int nd,
                        int h_dim, int hp, int d, int dp, int sdp, int kw, int kf,
-                       cudaStream_t s) {
+                       int n_hc, cudaStream_t s) {
+  if (n_hc != xeq_walk_chunks(bwd2_slot_smem(ni, h_dim, kw, kf), h_dim) ||
+      (n_hc > 1 && def_part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int hc = n_hc == 1 ? h_dim : XEQ_WALK_HC;
   const int rows_per_block = 8;
   if (n_out > 0) {
     dim3 grid((n_out + rows_per_block - 1) / rows_per_block, (sdp + dp) / 128);
@@ -548,23 +590,28 @@ static int launch_bwd2(const void* x, const void* ef, const void* wf,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t smem =
-      sizeof(float) * ((size_t)XEQ_TS2 * ni + 2 * (size_t)XEQ_TS2 * h_dim +
-                       2 * (size_t)XEQ_TS2 * kf + (size_t)kf * h_dim +
-                       (size_t)kw * h_dim);
+  const size_t smem = bwd2_slot_smem(ni, hc, kw, kf);
   cudaError_t err = cudaFuncSetAttribute(
       message_bwd2_slot_kernel<T, BF16, CWF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int per = ((n_slots + n_part - 1) / n_part + XEQ_TS2 - 1) / XEQ_TS2 * XEQ_TS2;
-  message_bwd2_slot_kernel<T, BF16, CWF><<<n_part, XEQ_SLOT2_THREADS, smem, s>>>(
+  message_bwd2_slot_kernel<T, BF16, CWF><<<dim3(n_part, n_hc), XEQ_SLOT2_THREADS, smem, s>>>(
       (const T*)x, (const T*)ef, (const T*)wf, (const T*)g, (const T*)cx,
       (const T*)cef, (const T*)cwf, (const int*)slot_src, (const int*)slot_dst,
       (const int*)lane_gate, (const int*)lane_ycol, (const int*)gate_lane0,
       (const int*)gate_dim, (const int*)ylane_ptr, (const int*)ylane_idx,
-      (float*)d2ef, (float*)dwf_part, n_slots, per, ni, h_dim, hp, dp, sdp, kw, kf);
+      (float*)d2ef, (float*)def_part, (float*)dwf_part, n_slots, per, ni, h_dim, hp, dp,
+      sdp, kw, kf, hc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (n_hc > 1 && n_slots > 0) {
+    const int64_t n = (int64_t)n_slots * XEQ_FPACK;
+    xeq_def_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        (const float*)def_part, (float*)d2ef, n_hc, n_slots, kf);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
       (const float*)dwf_part, (float*)d2wf, n_part, kf, h_dim, hp);
   return (int)cudaGetLastError();
@@ -591,12 +638,25 @@ struct XeqTile2Dims {
   int off_dfw2, off_dfwr, off_dfo, off_u, off_tab, smem;  // wf_s at ``stage``
 };
 
+// The launcher's view: the layout choices, which select the kernel's
+// instance and so need not reach it.  (A kernel parameter block 24 bytes
+// larger made the flagship instance's tile loop reload shared-memory
+// offsets from the constant bank, 4-5% slower on the H100.)
+struct XeqTile2Layout : XeqTile2Dims {
+  int est;       // staged edge-feature row stride (bf16): Kf rounded up to 32, + 8
+  int kwp;       // rows of wf in the K slices of fw and r, columns of d2ef
+  int wf_smem;   // wf's live rows copied to shared memory, else read from L2
+  int lean;      // no dfo / u / dfwr tiles (the kernel's LEAN instance)
+  int dwf_regs;  // the d2wf partial in registers (Kf <= 32, H <= 768, not lean),
+                 // else dfw2 / dfwr rows to scratch and xeq_dwf_pass
+};
+
 // Issue the cp.async copies of one tile (slots k0 .. k0+XEQ_BT-1, one warp
 // per slot, its indices in ``ix``): each slot's x and cx rows (H and D
-// columns), g row (node_dim and D columns), and first 32 columns of ef and
+// columns), g row (node_dim and D columns), and the staged columns of ef and
 // cef, zero-filled for slots that add nothing; and its scratch rows by
 // source and by destination (-1 for slots that add nothing).
-__device__ __forceinline__ void xeq_tile2_load(unsigned char* st, int k0, XeqSlotIdx ix,
+__device__ __forceinline__ void xeq_tile2_load(unsigned char* st, int est, int k0, XeqSlotIdx ix,
                                                const XeqTile2Dims& p,
                                                const xeq_bf16* __restrict__ x,
                                                const xeq_bf16* __restrict__ cx,
@@ -612,8 +672,8 @@ __device__ __forceinline__ void xeq_tile2_load(unsigned char* st, int k0, XeqSlo
       {(xeq_bf16*)(st + p.off_cx) + t * p.xs_st, cx + xr, p.ht8, p.hp, p.rsx >> 3},
       {(xeq_bf16*)(st + p.off_g) + t * p.gs_st, g + (int64_t)(ok ? ix.dst : 0) * (p.sdp + p.dp),
        p.sd8, p.sdp, p.rsg >> 3},
-      {(xeq_bf16*)(st + p.off_e) + t * XEQ_BT_EST, ef + er, XEQ_BT_KE, 0, XEQ_BT_KE / 8},
-      {(xeq_bf16*)(st + p.off_ce) + t * XEQ_BT_EST, cef + er, XEQ_BT_KE, 0, XEQ_BT_KE / 8}};
+      {(xeq_bf16*)(st + p.off_e) + t * est, ef + er, est - 8, 0, (est - 8) / 8},
+      {(xeq_bf16*)(st + p.off_ce) + t * est, cef + er, est - 8, 0, (est - 8) / 8}};
   xeq_stage_segs(sg, ok);
   if ((threadIdx.x & 31) == 0) {
     int* pos = (int*)(st + p.off_pos);
@@ -622,6 +682,44 @@ __device__ __forceinline__ void xeq_tile2_load(unsigned char* st, int k0, XeqSlo
   }
 }
 
+// The lean tile pass's gate sums of dfo and u at hidden column h < 2 ni of
+// one slot, as phase A forms them: the products of the irrep's lanes (xv,
+// cv: the staged gv and cxv rows; state gate) or of their harmonic columns
+// (er, cr: the staged ef and cef rows from column Kw; harmonic gate) with
+// gv (the staged gms_v row), in lane order.
+__device__ __forceinline__ void xeq_gate_sums2(float& sd, float& su, int h, const xeq_bf16* xv,
+                                               const xeq_bf16* cv, const xeq_bf16* gv,
+                                               const xeq_bf16* er, const xeq_bf16* cr,
+                                               const int* gate_tab, const int* lane_tab, int ni) {
+  const bool state = h < ni;
+  const int tab = gate_tab[state ? h : h - ni], l0 = tab & 0xffff, m1 = tab >> 16;
+  sd = su = 0.f;
+#pragma unroll
+  for (int m = 0; m < XEQ_MAXM; ++m) {
+    if (m < m1) {
+      const int j = l0 + m;
+      const float gm = xeq_f(gv[j]);
+      if (state) {
+        sd += xeq_rnd<true>(xeq_f(xv[j]) * gm);
+        su += xeq_rnd<true>(xeq_f(cv[j]) * gm);
+      } else {
+        const int y = lane_tab[j] >> 16;
+        sd += xeq_rnd<true>(xeq_f(er[y]) * gm);
+        su += xeq_rnd<true>(xeq_f(cr[y]) * gm);
+      }
+    }
+  }
+}
+
+// WF_SMEM: wf's live rows copied to shared memory, else read from L2.
+// WIDE: Kf > 32 or H > 768 (or LEAN), so fw and r run over 32-row K slices
+// and each slot's dfw2 and dfwr rows go to the d2wf pass instead of a
+// partial in registers (compiled only where needed: the other instance
+// keeps the flagship's registers).  LEAN (widths whose dfo / u tiles do not
+// fit beside the stage, H = 1152): no phase A; phase B forms each gate
+// column's sums itself from the staged rows, in the same order, and writes
+// dfwr straight to its scratch.
+template <bool WF_SMEM, bool WIDE, bool LEAN>
 __global__ void __launch_bounds__(XEQ_BT_THREADS, 1)
 message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restrict__ ef,
                          const xeq_bf16* __restrict__ wf, const xeq_bf16* __restrict__ g,
@@ -631,6 +729,7 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
                          const int* __restrict__ lane_gate, const int* __restrict__ lane_ycol,
                          const int* __restrict__ gate_lane0, const int* __restrict__ gate_dim,
                          xeq_bf16* __restrict__ rows_x, xeq_bf16* __restrict__ rows_g,
+                         xeq_bf16* __restrict__ dfw2_rows, xeq_bf16* __restrict__ dfwr_rows,
                          float* __restrict__ d2ef, float* __restrict__ dwf_part,
                          const XeqTile2Dims p) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
@@ -640,7 +739,7 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
   const xeq_bf16* e_s = (const xeq_bf16*)(tile_smem + p.off_e);  // [BT][EST]
   const xeq_bf16* ce_s = (const xeq_bf16*)(tile_smem + p.off_ce);
   const int* pos_s = (const int*)(tile_smem + p.off_pos);  // [BT] by source, [BT] by destination
-  xeq_bf16* wf_s = (xeq_bf16*)(tile_smem + p.stage);         // [32][w_st] live rows of wf
+  xeq_bf16* wf_s = (xeq_bf16*)(tile_smem + p.stage);         // [kwp][w_st] live rows of wf
   xeq_bf16* dfw2_s = (xeq_bf16*)(tile_smem + p.off_dfw2);    // [BT][w_st]
   xeq_bf16* dfwr_s = (xeq_bf16*)(tile_smem + p.off_dfwr);    // [BT][w_st]
   float* dfo_s = (float*)(tile_smem + p.off_dfo);  // [BT][dfo_st]; then the d2ef quarters
@@ -650,16 +749,22 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, cq = lane & 3;  // mma fragment: row group, column pair
   const int ni2 = 2 * p.ni, n8 = p.hs >> 3, n_y = p.kf - p.kw;
+  // not WIDE (Kf <= 32): the staged edge-feature stride and K width as
+  // constants
+  const int est = WIDE ? xeq_round_up(p.kf, XEQ_BT_KE) + 8 : XEQ_BT_KE + 8;
+  const int kwp = WIDE ? xeq_round_up(p.kw, XEQ_BT_KE) : XEQ_BT_KE;
   const int n_tiles = (p.n_slots + XEQ_BT - 1) / XEQ_BT;
 
-  xeq_load_wf(wf_s, p.w_st, wf, p.kw, p.h, p.hp, p.hs, XEQ_BT_THREADS);
+  if (WF_SMEM) xeq_load_wf(wf_s, p.w_st, wf, p.kw, p.h, p.hp, p.hs, kwp, XEQ_BT_THREADS);
+  const xeq_bf16* wfp = WF_SMEM ? wf_s : wf;
+  const int wst = WF_SMEM ? p.w_st : p.hp;
   for (int j = tid; j < p.dt8; j += XEQ_BT_THREADS)
     lane_tab[j] = j < p.d ? __ldg(lane_gate + j) | ((__ldg(lane_ycol + j) - p.kw) << 16) : 0;
   for (int u = tid; u < p.ni; u += XEQ_BT_THREADS)
     gate_tab[u] = __ldg(gate_lane0 + u) | (__ldg(gate_dim + u) << 16);
-  float acc[XEQ_BT_NTW][2][4];
+  float acc[WIDE ? 1 : XEQ_BT_NTW][2][4];
 #pragma unroll
-  for (int i = 0; i < XEQ_BT_NTW; ++i)
+  for (int i = 0; i < (WIDE ? 1 : XEQ_BT_NTW); ++i)
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -669,7 +774,7 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
   // have been read (before phase E); its slot indices a tile earlier
   const int grid = gridDim.x;
   if ((int)blockIdx.x < n_tiles)
-    xeq_tile2_load(tile_smem, blockIdx.x * XEQ_BT,
+    xeq_tile2_load(tile_smem, est, blockIdx.x * XEQ_BT,
                    xeq_slot_idx(blockIdx.x, n_tiles, p.n_slots, slot_src, slot_dst, src_pos,
                                 dst_pos),
                    p, x, cx, g, ef, cef);
@@ -682,12 +787,12 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
     const int k_w = tl * XEQ_BT + warp;  // the slot of this warp in phases A, C, E
 
     // A: the gate sums of dfo and u, one warp per slot, a lane per irrep
-    {
+    if constexpr (!LEAN) {
       const xeq_bf16* xv = x_s + warp * p.xs_st + p.ht8;
       const xeq_bf16* cv = cx_s + warp * p.xs_st + p.ht8;
       const xeq_bf16* gv = g_s + warp * p.gs_st + p.sd8;
-      const xeq_bf16* er = e_s + warp * XEQ_BT_EST + p.kw;
-      const xeq_bf16* cr = ce_s + warp * XEQ_BT_EST + p.kw;
+      const xeq_bf16* er = e_s + warp * est + p.kw;
+      const xeq_bf16* cr = ce_s + warp * est + p.kw;
       float* dr = dfo_s + warp * p.dfo_st;
       float* ur = u_s + warp * p.dfo_st;
       for (int u = lane; u < p.ni; u += 32) {
@@ -713,23 +818,36 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
     __syncthreads();
 
     // B: fw = ef @ wf and r = cef @ wf on the tensor cores (shared B
-    // fragments), one n8 column tile per warp at a time; per element a
-    // (in place of cxh), fo at the gate columns (in place of gs), dfw2 and
-    // dfwr (to shared memory) and the hidden part of the d2x row
+    // fragments; K in 32-row slices of wf, the first slice's A fragments
+    // held), one n8 column tile per warp at a time; per element a (in place
+    // of cxh), fo at the gate columns (in place of gs), dfw2 and dfwr (to
+    // shared memory) and the hidden part of the d2x row
     {
       uint32_t ae[2][4], ac[2][4];
-      xeq_frag_a(ae, e_s, XEQ_BT_EST);
-      xeq_frag_a(ac, ce_s, XEQ_BT_EST);
+      xeq_frag_a(ae, e_s, est);
+      xeq_frag_a(ac, ce_s, est);
       for (int nt = warp; nt < n8; nt += XEQ_BT_WARPS) {
         const int n = nt * 8 + gq;
         float cf[4] = {0.f, 0.f, 0.f, 0.f}, cr[4] = {0.f, 0.f, 0.f, 0.f};
+        uint32_t b0, b1;
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
-          const xeq_bf16* w0 = wf_s + (ks * 16 + 2 * cq) * p.w_st + n;
-          const uint32_t b0 = xeq_pack(w0[0], w0[p.w_st]);
-          const uint32_t b1 = xeq_pack(w0[8 * p.w_st], w0[9 * p.w_st]);
+          xeq_wf_b(b0, b1, wfp, wst, ks * 16, n);
           xeq_mma(cf, ae[ks], b0, b1);
           xeq_mma(cr, ac[ks], b0, b1);
+        }
+        if constexpr (WIDE) {
+          for (int k0 = XEQ_BT_KE; k0 < kwp; k0 += XEQ_BT_KE) {
+            uint32_t a2e[2][4], a2c[2][4];
+            xeq_frag_a(a2e, e_s + k0, est);
+            xeq_frag_a(a2c, ce_s + k0, est);
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              xeq_wf_b(b0, b1, wfp, wst, k0 + ks * 16, n);
+              xeq_mma(cf, a2e[ks], b0, b1);
+              xeq_mma(cr, a2c[ks], b0, b1);
+            }
+          }
         }
         const int h0 = nt * 8 + 2 * cq;  // even, as 2 ni is: a pair lies on
                                          // one side of the gate columns
@@ -744,11 +862,26 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
             const float2 r = make_float2(cr[2 * half], cr[2 * half + 1]);
             const float2 gs = xeq_f2(xr), cxh = xeq_f2(cxr);
             float2 dfo, uu = make_float2(0.f, 0.f);
-            if (h0 < ni2) {
-              dfo = *reinterpret_cast<const float2*>(dfo_s + t * p.dfo_st + h0);
-              uu = *reinterpret_cast<const float2*>(u_s + t * p.dfo_st + h0);
+            if constexpr (LEAN) {  // h0 even, 2 ni even: h0 + 1 < 2 ni
+              if (h0 < ni2) {
+                xeq_gate_sums2(dfo.x, uu.x, h0, x_s + t * p.xs_st + p.ht8,
+                               cx_s + t * p.xs_st + p.ht8, g_s + t * p.gs_st + p.sd8,
+                               e_s + t * est + p.kw, ce_s + t * est + p.kw, gate_tab,
+                               lane_tab, p.ni);
+                xeq_gate_sums2(dfo.y, uu.y, h0 + 1, x_s + t * p.xs_st + p.ht8,
+                               cx_s + t * p.xs_st + p.ht8, g_s + t * p.gs_st + p.sd8,
+                               e_s + t * est + p.kw, ce_s + t * est + p.kw, gate_tab,
+                               lane_tab, p.ni);
+              } else {
+                dfo = xeq_f2(g_s + t * p.gs_st + h0 - ni2);
+              }
             } else {
-              dfo = xeq_f2(g_s + t * p.gs_st + h0 - ni2);
+              if (h0 < ni2) {
+                dfo = *reinterpret_cast<const float2*>(dfo_s + t * p.dfo_st + h0);
+                uu = *reinterpret_cast<const float2*>(u_s + t * p.dfo_st + h0);
+              } else {
+                dfo = xeq_f2(g_s + t * p.gs_st + h0 - ni2);
+              }
             }
             float2 a = make_float2(cxh.x * fw.x + r.x * gs.x, cxh.y * fw.y + r.y * gs.y);
             w2 = make_float2(dfo.x * cxh.x + uu.x * gs.x, dfo.y * cxh.y + uu.y * gs.y);
@@ -759,7 +892,10 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
             if (h0 < ni2) xeq_st2(xr, gs.x * fw.x, gs.y * fw.y);
           }
           xeq_st2(dfw2_s + t * p.w_st + h0, w2.x, w2.y);
-          xeq_st2(dfwr_s + t * p.w_st + h0, wr.x, wr.y);
+          if constexpr (LEAN)
+            xeq_st2(dfwr_rows + (int64_t)(tl * XEQ_BT + t) * p.hs + h0, wr.x, wr.y);
+          else
+            xeq_st2(dfwr_s + t * p.w_st + h0, wr.x, wr.y);
           const int pos = pos_s[t];
           if (pos >= 0 && h0 < p.ht8) xeq_st2(rows_x + (int64_t)pos * p.rsx + h0, dx.x, dx.y);
         }
@@ -774,8 +910,8 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
       const xeq_bf16* xr = x_s + warp * p.xs_st;   // fo at the gates | gv
       const xeq_bf16* cr = cx_s + warp * p.xs_st;  // a | cxv
       const xeq_bf16* gm_r = g_s + warp * p.gs_st + p.sd8;
-      const xeq_bf16* er = e_s + warp * XEQ_BT_EST + p.kw;
-      const xeq_bf16* cer = ce_s + warp * XEQ_BT_EST + p.kw;
+      const xeq_bf16* er = e_s + warp * est + p.kw;
+      const xeq_bf16* cer = ce_s + warp * est + p.kw;
       const int px = pos_s[warp], pg = pos_s[XEQ_BT + warp];
       float hy[XEQ_MAXY];
 #pragma unroll
@@ -812,17 +948,25 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
       }
       const float mine = xeq_harmonic_sums(hy);
       if (k_w < p.n_slots && lane < n_y) d2ef[(int64_t)k_w * XEQ_FPACK + p.kw + lane] = mine;
+      // the slot's dfw2 and dfwr rows, for the d2wf pass (every slot of the
+      // tile: zero where it adds nothing)
+      if constexpr (WIDE) {
+        xeq_copy_row(dfw2_rows + (int64_t)k_w * p.hs, dfw2_s + warp * p.w_st, p.hs >> 3);
+        if constexpr (!LEAN)
+          xeq_copy_row(dfwr_rows + (int64_t)k_w * p.hs, dfwr_s + warp * p.w_st, p.hs >> 3);
+      }
     }
 
-    // D1: d2ef[:, f < 32] = dfw2 @ wf^T on the tensor cores; warp w takes
-    // column tile w % 4 and K quarter w / 4, its partial to shared memory
-    xeq_def_quarters(dfw2_s, wf_s, p.w_st, p.hs, dfo_s);
+    // D1: d2ef[:, f < kwp] = dfw2 @ wf^T on the tensor cores; warp w takes
+    // the column tiles w % 4 (+ 4 j) and K quarter w / 4, its partials to
+    // shared memory
+    xeq_def_quarters(dfw2_s, p.w_st, wfp, wst, p.hs, kwp, dfo_s);
     // D2: the block's d2wf partial += ef^T @ dfw2 + cef^T @ dfwr on the
     // tensor cores, in the warp's own column tiles (rows f of two m16 tiles)
-    {
+    if constexpr (!WIDE) {
       uint32_t ae[2][4], ac[2][4];
-      xeq_frag_at(ae, e_s, XEQ_BT_EST);
-      xeq_frag_at(ac, ce_s, XEQ_BT_EST);
+      xeq_frag_at(ae, e_s, est);
+      xeq_frag_at(ac, ce_s, est);
 #pragma unroll
       for (int i = 0; i < XEQ_BT_NTW; ++i) {
         const int nt = warp + i * XEQ_BT_WARPS;
@@ -843,7 +987,7 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
     __syncthreads();  // the stage is read: the next tile's copies may land
 
     if (tl + grid < n_tiles)
-      xeq_tile2_load(tile_smem, (tl + grid) * XEQ_BT, ahead, p, x, cx, g, ef, cef);
+      xeq_tile2_load(tile_smem, est, (tl + grid) * XEQ_BT, ahead, p, x, cx, g, ef, cef);
     xeq_cp_commit();
     ahead = xeq_slot_idx(tl + 2 * grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos,
                          dst_pos);
@@ -852,10 +996,11 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
     // order) and zeros past Kf; dfo_s is rewritten only after the next
     // tile's first barrier
     if (k_w < p.n_slots)
-      xeq_def_row(dfo_s, warp, d2ef + (int64_t)k_w * XEQ_FPACK, p.kw, p.kf);
+      xeq_def_row(dfo_s, warp, d2ef + (int64_t)k_w * XEQ_FPACK, p.kw, p.kf, kwp);
   }
 
-  xeq_dwf_part_write(acc, dwf_part + (int64_t)blockIdx.x * p.kf * p.h, p.kf, p.h, n8);
+  if constexpr (!WIDE)
+    xeq_dwf_part_write(acc, dwf_part + (int64_t)blockIdx.x * p.kf * p.h, p.kf, p.h, n8);
 }
 
 // d2x [n_rows, Hp+Dp] f32: the d2x scratch rows summed by source.
@@ -874,16 +1019,12 @@ message_bwd2_d2g_rows_kernel(const xeq_bf16* __restrict__ rows, const int* __res
   xeq_rows_sum(rows, dst_ptr, d2g, n_out, sd8, dt8, sdp, gw);
 }
 
-static int launch_bwd2_tiles(const void* x, const void* ef, const void* wf, const void* g,
-                             const void* cx, const void* cef, const void* dst_ptr,
-                             const void* src_ptr, const void* slot_src, const void* slot_dst,
-                             const void* src_pos, const void* dst_pos, const void* lane_gate,
-                             const void* lane_ycol, const void* gate_lane0,
-                             const void* gate_dim, void* rows_x, void* rows_g, void* d2x,
-                             void* d2ef, void* dwf_part, void* d2wf, void* d2g, int n_out,
-                             int n_rows, int n_slots, int n_part, int ni, int nd, int h_dim,
-                             int hp, int d, int dp, int sdp, int kw, int kf, cudaStream_t s) {
-  XeqTile2Dims p;
+// The tile pass's shared-memory layout (one stage): wf's live rows in
+// shared memory where they fit beside it, else wf from L2, else the lean
+// layout (no dfo / u / dfwr tiles); false when none fits
+// (ops/fused_message.py::_tile_layouts states the most compact).
+static bool bwd2_tile_dims(XeqTile2Layout& p, int n_slots, int ni, int nd, int h_dim, int hp,
+                           int d, int dp, int sdp, int kw, int kf) {
   p.n_slots = n_slots; p.ni = ni; p.h = h_dim; p.hp = hp; p.d = d; p.dp = dp;
   p.sdp = sdp; p.kw = kw; p.kf = kf; p.nd = nd;
   p.hs = xeq_round_up(h_dim, 16);
@@ -896,31 +1037,60 @@ static int launch_bwd2_tiles(const void* x, const void* ef, const void* wf, cons
   p.gs_st = p.rsg + 8;
   p.w_st = xeq_round_up(p.hs, 64) + 8;
   p.dfo_st = 2 * ni + 8;
+  p.est = xeq_round_up(kf, XEQ_BT_KE) + 8;
+  p.kwp = xeq_round_up(kw, XEQ_BT_KE);
   p.off_cx = XEQ_BT * p.xs_st * 2;
   p.off_g = p.off_cx + XEQ_BT * p.xs_st * 2;
   p.off_e = p.off_g + XEQ_BT * p.gs_st * 2;
-  p.off_ce = p.off_e + XEQ_BT * XEQ_BT_EST * 2;
-  p.off_pos = p.off_ce + XEQ_BT * XEQ_BT_EST * 2;
+  p.off_ce = p.off_e + XEQ_BT * p.est * 2;
+  p.off_pos = p.off_ce + XEQ_BT * p.est * 2;
   p.stage = xeq_round_up(p.off_pos + 2 * XEQ_BT * 4, 16);
-  p.off_dfw2 = p.stage + XEQ_BT_KE * p.w_st * 2;
-  p.off_dfwr = p.off_dfw2 + XEQ_BT * p.w_st * 2;
-  p.off_dfo = p.off_dfwr + XEQ_BT * p.w_st * 2;
+  const int wf_bytes = p.kwp * p.w_st * 2, tile_bytes = XEQ_BT * p.w_st * 2;
+  const int dfo_bytes = 2 * XEQ_BT * p.dfo_st * 4, red_bytes = 4 * XEQ_BT * p.kwp * 4;
+  const int tabs = xeq_round_up((p.dt8 + ni) * 4, 16);
+  const int full = 2 * tile_bytes + (dfo_bytes > red_bytes ? dfo_bytes : red_bytes) + tabs;
+  p.wf_smem = p.stage + wf_bytes + full <= XEQ_SMEM_MAX;
+  p.lean = !p.wf_smem && p.stage + full > XEQ_SMEM_MAX;
+  p.dwf_regs = !p.lean && kf <= XEQ_BT_KE && p.hs <= 16 * 8 * XEQ_BT_NTW;
+  p.off_dfw2 = p.stage + (p.wf_smem ? wf_bytes : 0);
+  p.off_dfwr = p.off_dfw2 + tile_bytes;
+  p.off_dfo = p.off_dfwr + (p.lean ? 0 : tile_bytes);
   p.off_u = p.off_dfo + XEQ_BT * p.dfo_st * 4;
-  const int dfo_bytes = 2 * XEQ_BT * p.dfo_st * 4, red_bytes = 4 * XEQ_BT * 32 * 4;
-  p.off_tab = p.off_dfo + (dfo_bytes > red_bytes ? dfo_bytes : red_bytes);
-  p.smem = p.off_tab + xeq_round_up((p.dt8 + ni) * 4, 16);
-  if (kf - kw > XEQ_MAXY || d >= 65536 || kf > XEQ_BT_KE || p.hs > 16 * 8 * XEQ_BT_NTW ||
-      p.ht8 > hp || p.dt8 > dp || p.sd8 > sdp || p.smem > 232448)
+  p.off_tab = p.off_dfo + (p.lean ? red_bytes : (dfo_bytes > red_bytes ? dfo_bytes : red_bytes));
+  p.smem = p.off_tab + tabs;
+  return kf - kw <= XEQ_MAXY && d < 65536 && p.ht8 <= hp && p.dt8 <= dp && p.sd8 <= sdp &&
+         p.smem <= XEQ_SMEM_MAX;
+}
+
+static int launch_bwd2_tiles(const void* x, const void* ef, const void* wf, const void* g,
+                             const void* cx, const void* cef, const void* dst_ptr,
+                             const void* src_ptr, const void* slot_src, const void* slot_dst,
+                             const void* src_pos, const void* dst_pos, const void* lane_gate,
+                             const void* lane_ycol, const void* gate_lane0,
+                             const void* gate_dim, void* rows_x, void* rows_g, void* dfw2_rows,
+                             void* dfwr_rows, void* d2x, void* d2ef, void* dwf_part, void* d2wf,
+                             void* d2g, int n_out, int n_rows, int n_slots, int n_part, int ni,
+                             int nd, int h_dim, int hp, int d, int dp, int sdp, int kw, int kf,
+                             cudaStream_t s) {
+  XeqTile2Layout p;
+  if (!bwd2_tile_dims(p, n_slots, ni, nd, h_dim, hp, d, dp, sdp, kw, kf) ||
+      (!p.dwf_regs && (dfw2_rows == nullptr || dfwr_rows == nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      message_bwd2_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  auto kernel = p.lean       ? message_bwd2_tile_kernel<false, true, true>
+                : p.wf_smem  ? (p.dwf_regs ? message_bwd2_tile_kernel<true, false, false>
+                                           : message_bwd2_tile_kernel<true, true, false>)
+                : p.dwf_regs ? message_bwd2_tile_kernel<false, false, false>
+                             : message_bwd2_tile_kernel<false, true, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
-  message_bwd2_tile_kernel<<<n_part, XEQ_BT_THREADS, p.smem, s>>>(
+  kernel<<<n_part, XEQ_BT_THREADS, p.smem, s>>>(
       (const xeq_bf16*)x, (const xeq_bf16*)ef, (const xeq_bf16*)wf, (const xeq_bf16*)g,
       (const xeq_bf16*)cx, (const xeq_bf16*)cef, (const int*)slot_src, (const int*)slot_dst,
       (const int*)src_pos, (const int*)dst_pos, (const int*)lane_gate, (const int*)lane_ycol,
       (const int*)gate_lane0, (const int*)gate_dim, (xeq_bf16*)rows_x, (xeq_bf16*)rows_g,
-      (float*)d2ef, (float*)dwf_part, p);
+      (xeq_bf16*)dfw2_rows, (xeq_bf16*)dfwr_rows, (float*)d2ef, (float*)dwf_part,
+      static_cast<const XeqTile2Dims&>(p));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_rows > 0) {
@@ -937,6 +1107,10 @@ static int launch_bwd2_tiles(const void* x, const void* ef, const void* wf, cons
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (!p.dwf_regs)
+    return xeq_dwf_pass((const xeq_bf16*)ef, (const xeq_bf16*)dfw2_rows, (const xeq_bf16*)cef,
+                        (const xeq_bf16*)dfwr_rows, (float*)dwf_part, (float*)d2wf,
+                        n_slots, n_part, p.hs, kf, h_dim, hp, s);
   xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
       (const float*)dwf_part, (float*)d2wf, n_part, kf, h_dim, hp);
   return (int)cudaGetLastError();
@@ -945,9 +1119,14 @@ static int launch_bwd2_tiles(const void* x, const void* ef, const void* wf, cons
 #define XEQ_BWD2_ARGS                                                          \
   x, ef, wf, g, cx, cef, cwf, dst_ptr, dst_slots, src_ptr, src_slots,          \
       slot_src, slot_dst, lane_gate, lane_ycol, gate_lane0, gate_dim,          \
-      ylane_ptr, ylane_idx, d2x, d2ef, dwf_part, d2wf, d2g, n_out, n_rows,     \
-      n_slots, n_part, ni, nd, h_dim, hp, d, dp, sdp, kw, kf, s
+      ylane_ptr, ylane_idx, def_part, d2x, d2ef, dwf_part, d2wf, d2g, n_out,   \
+      n_rows, n_slots, n_part, ni, nd, h_dim, hp, d, dp, sdp, kw, kf, n_hc, s
 
+// tiles (bf16 without cwf only): the tile pass, which the wrapper chooses by
+// shape when a layout of it fits (dfw2_rows / dfwr_rows: its scratch when
+// d2wf leaves the registers); else the walk kernels in the operands' dtype,
+// with or without the cwf terms, over n_hc column chunks (def_part: their
+// d2ef partials when n_hc > 1).
 extern "C" int xeq_message_bwd2(
     const void* x, const void* ef, const void* wf, const void* g,
     const void* cx, const void* cef, const void* cwf, const void* dst_ptr,
@@ -955,21 +1134,23 @@ extern "C" int xeq_message_bwd2(
     const void* slot_src, const void* slot_dst, const void* src_pos,
     const void* dst_pos, const void* lane_gate, const void* lane_ycol,
     const void* gate_lane0, const void* gate_dim, const void* ylane_ptr,
-    const void* ylane_idx, void* rows_x, void* rows_g, void* d2x, void* d2ef,
-    void* dwf_part, void* d2wf, void* d2g, int n_out, int n_rows, int n_slots,
-    int n_part, int ni, int nd, int h_dim, int hp, int d, int dp, int sdp,
-    int kw, int kf, int bf16, int has_cwf, void* stream) {
-  if (kw > XEQ_MAXK || kf > XEQ_FPACK || (has_cwf && kf > XEQ_MAXK) ||
-      (hp + dp) % 128 != 0 || (sdp + dp) % 128 != 0 || n_part < 1 ||
-      (has_cwf && cwf == nullptr))
+    const void* ylane_idx, void* rows_x, void* rows_g, void* dfw2_rows, void* dfwr_rows,
+    void* def_part, void* d2x, void* d2ef, void* dwf_part, void* d2wf, void* d2g, int n_out,
+    int n_rows, int n_slots, int n_part, int ni, int nd, int h_dim, int hp, int d, int dp,
+    int sdp, int kw, int kf, int bf16, int has_cwf, int tiles, int n_hc, void* stream) {
+  if (kw > kf || kf > XEQ_FPACK || (hp + dp) % 128 != 0 || (sdp + dp) % 128 != 0 ||
+      n_part < 1 || (has_cwf && cwf == nullptr) || (tiles && (!bf16 || has_cwf)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    if (has_cwf) return launch_bwd2<__nv_bfloat16, true, true>(XEQ_BWD2_ARGS);
+  if (tiles)
     return launch_bwd2_tiles(x, ef, wf, g, cx, cef, dst_ptr, src_ptr, slot_src, slot_dst,
                              src_pos, dst_pos, lane_gate, lane_ycol, gate_lane0, gate_dim,
-                             rows_x, rows_g, d2x, d2ef, dwf_part, d2wf, d2g, n_out, n_rows,
-                             n_slots, n_part, ni, nd, h_dim, hp, d, dp, sdp, kw, kf, s);
+                             rows_x, rows_g, dfw2_rows, dfwr_rows, d2x, d2ef, dwf_part, d2wf,
+                             d2g, n_out, n_rows, n_slots, n_part, ni, nd, h_dim, hp, d, dp,
+                             sdp, kw, kf, s);
+  if (bf16) {
+    if (has_cwf) return launch_bwd2<__nv_bfloat16, true, true>(XEQ_BWD2_ARGS);
+    return launch_bwd2<__nv_bfloat16, true, false>(XEQ_BWD2_ARGS);
   }
   if (has_cwf) return launch_bwd2<float, false, true>(XEQ_BWD2_ARGS);
   return launch_bwd2<float, false, false>(XEQ_BWD2_ARGS);

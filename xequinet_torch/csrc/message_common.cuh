@@ -1,5 +1,7 @@
 // Shared helpers of the fused XPaiNN message kernels (message_fwd.cu,
-// message_bwd.cu, message_bwd2.cu).  Plain C entry points, built by nvcc for sm_90a into
+// message_bwd.cu, message_bwd2.cu) and of their walk kernels, the CSR-walk
+// instances that take the f32 operands and the bf16 shapes a tile pass
+// cannot hold.  Plain C entry points, built by nvcc for sm_90a into
 // shared libraries that xequinet_torch/ops/fused_message.py loads with
 // ctypes.
 #pragma once
@@ -8,8 +10,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Live rows of the filter operand wf_aug (num_basis + 1) a thread keeps in
-// registers; the wrapper refuses larger num_basis.
+// Rows of the filter operand wf_aug a thread keeps in registers at a time:
+// the first slice of its column for the whole walk, later 32-row slices
+// (num_basis + 1 > 32) reloaded per slot (xeq_filter_full).
 #define XEQ_MAXK 32
 // Edge-feature row width (the packed [rbf*fcut | fcut | Y | 0] stream).
 #define XEQ_FPACK 128
@@ -42,6 +45,38 @@ __device__ __forceinline__ float xeq_filter(const float* e,
     if (f < kw) acc += e[f] * w[f];
   }
   return acc;
+}
+
+// The rows f0 <= f < k of a filter sum, continued from acc in row order:
+// 32-row slices of wf's column loaded together into registers.  Not
+// inlined: only num_basis + 1 > 32 reaches it, and its many call sites
+// would otherwise multiply the build time.
+template <typename T>
+__device__ __noinline__ float xeq_filter_tail(float acc, const float* e,
+                                              const T* __restrict__ wf, int hp, int col,
+                                              int f0, int k) {
+  for (; f0 < k; f0 += XEQ_MAXK) {
+    float ws[XEQ_MAXK];
+#pragma unroll
+    for (int f = 0; f < XEQ_MAXK; ++f)
+      ws[f] = f0 + f < k ? xeq_ld(wf, (int64_t)(f0 + f) * hp + col) : 0.f;
+#pragma unroll
+    for (int f = 0; f < XEQ_MAXK; ++f)
+      if (f0 + f < k) acc += e[f0 + f] * ws[f];
+  }
+  return acc;
+}
+
+// The filter of one slot at hidden column col over all k live rows: rows
+// below XEQ_MAXK from the registers w (xeq_load_column), the rest in
+// 32-row slices by xeq_filter_tail.  The sum runs in row order, as one
+// loop over the k rows would.  Zero for col < 0.
+template <typename T>
+__device__ __forceinline__ float xeq_filter_full(const float* e, const float (&w)[XEQ_MAXK],
+                                                 const T* __restrict__ wf, int hp, int col,
+                                                 int k) {
+  const float acc = xeq_filter(e, w, k);
+  return (col < 0 || k <= XEQ_MAXK) ? acc : xeq_filter_tail(acc, e, wf, hp, col, XEQ_MAXK, k);
 }
 
 // Slots a block stages in shared memory per step of a CSR walk, and slots
@@ -147,4 +182,31 @@ static __global__ void xeq_dwf_reduce_kernel(const float* __restrict__ part,
     for (int p = 0; p < n_part; ++p) acc += part[((int64_t)p * kf + f) * h_dim + h];
   }
   dwf[i] = acc;
+}
+
+// Column chunks of the walk kernels' slot pass: the whole filter width H
+// in one chunk when its shared memory fits, else chunks of
+// XEQ_WALK_HC columns; ops/fused_message.py::walk_chunks states the same.
+#define XEQ_WALK_HC 128
+#define XEQ_SMEM_MAX 232448
+
+static inline int xeq_walk_chunks(size_t smem_whole, int h_dim) {
+  return smem_whole <= XEQ_SMEM_MAX ? 1 : (h_dim + XEQ_WALK_HC - 1) / XEQ_WALK_HC;
+}
+
+// The d_ef rows of a chunked slot pass: row k's first kf columns are the
+// sum of the chunks' partials part [n_hc, n_slots, kf] in chunk order, the
+// rest zero.
+static __global__ void xeq_def_reduce_kernel(const float* __restrict__ part,
+                                             float* __restrict__ d_ef, int n_hc, int n_slots,
+                                             int kf) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)n_slots * XEQ_FPACK) return;
+  const int64_t k = i / XEQ_FPACK;
+  const int f = (int)(i - k * XEQ_FPACK);
+  float acc = 0.f;
+  if (f < kf) {
+    for (int c = 0; c < n_hc; ++c) acc += part[((int64_t)c * n_slots + k) * kf + f];
+  }
+  d_ef[i] = acc;
 }

@@ -27,8 +27,8 @@
 // of 320 threads owns 16 consecutive destination rows, so its slots are
 // one contiguous run of the CSR list by destination (dst_ptr /
 // dst_slots), in row order.  It walks that run in tiles of 16 slots:
-//  * the tile's x rows (live H + D columns) and first 32 edge-feature
-//    columns are staged with cp.async (16-byte chunks);
+//  * the tile's x rows (live H + D columns) and its edge-feature columns
+//    (Kf rounded up to 32) are staged with cp.async (16-byte chunks);
 //  * fw = ef[:, :32] @ wf[:32, :H] runs on the tensor cores (mma.sync
 //    m16n8k16, bf16 operands, f32 accumulators; wf's live rows are held in
 //    shared memory, rows >= Kw zero), and fo = rnd(gs * fw) is written in
@@ -42,10 +42,18 @@
 // once: no atomics, and the result repeats from run to run.  73 KB of
 // shared memory a block, three blocks per SM, so one block's copies
 // overlap the others' compute.
-// The f32 instance keeps the first version's kernel, message_fwd_kernel
-// (FP32 FMAs, no TF32 in this port): one thread per (destination row,
+// Wider shapes (the JAX kernel takes up to 128 packed edge-feature columns
+// and any filter width): past Kf = 32 the tile stages Kf rounded up to 32
+// edge-feature columns and fw runs over 32-row K slices of wf (instance
+// KS); wf's live rows stay in shared memory where they fit (at Kf = 128,
+// 149 KB: one block per SM), else its fragments are read from L2.  H =
+// 1152 with SDp + Dp = 1280 output columns fits as it is (141 KB).
+// The walk kernel, message_fwd_kernel (the first version; FP32 FMAs, no
+// TF32 in this port), takes the f32 operands and any bf16 shape the tile
+// kernel cannot hold (SDp + Dp > 1280): one thread per (destination row,
 // output column), a block of 8 rows and a 128-column tile, slots staged
-// XEQ_STAGE at a time, the filter recomputed per column in registers.
+// XEQ_STAGE at a time, the filter recomputed per column, its first 32 rows
+// in registers and the rest in 32-row slices (xeq_filter_full).
 //
 #include "message_tile.cuh"
 
@@ -106,12 +114,13 @@ message_fwd_kernel(const T* __restrict__ x, const T* __restrict__ ef,
         if (q < n && h1 >= 0) {
           const float* e = ef_s + q * kf;
           const T* xr = x + (int64_t)src_s[q] * xs;
-          const float fo1 = xeq_rnd<BF16>(xeq_ld(xr, h1) * xeq_filter(e, w1, kw));
+          const float fo1 = xeq_rnd<BF16>(xeq_ld(xr, h1) * xeq_filter_full(e, w1, wf, hp, h1, kw));
           float msg;
           if (h2 < 0) {
             msg = fo1;
           } else {
-            const float fo2 = xeq_rnd<BF16>(xeq_ld(xr, h2) * xeq_filter(e, w2, kw));
+            const float fo2 =
+                xeq_rnd<BF16>(xeq_ld(xr, h2) * xeq_filter_full(e, w2, wf, hp, h2, kw));
             msg = xeq_ld(xr, vx) * fo1 + e[yc] * fo2;
           }
           c[u] = xeq_rnd<BF16>(msg);
@@ -153,9 +162,19 @@ struct XeqFwdDims {
   int dt8;    // D rounded up to 8: its gv part
   int xs_st;  // staged x row: [gs (ht8) | gv (dt8)] + 8
   int w_st;   // wf_s row: hs rounded up to 64, + 8
+  int ke;     // edge-feature columns staged: Kf rounded up to 32
+  int est;    // their row stride (bf16): ke + 8, conflict-free fragments
+  int kwp;    // rows of wf in the K slices of fw: Kw rounded up to 32
+  int wf_smem;  // wf's live rows copied to shared memory, else read from L2
   int off_e, off_dst, off_wf, smem;
 };
 
+// WF_SMEM: wf's live rows copied to shared memory (their fragment loads are
+// then shared-memory loads); else read from L2.  KS: Kf > 32, so the staged
+// edge features span several 32-column slices and fw runs over the K
+// slices of wf (compiled only where needed: the one-slice instance keeps
+// the flagship's constants and registers).
+template <bool WF_SMEM, bool KS>
 __global__ void __launch_bounds__(XEQ_FT_THREADS, 3)
 message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restrict__ ef,
                         const xeq_bf16* __restrict__ wf, const int* __restrict__ dst_ptr,
@@ -167,12 +186,18 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
   xeq_bf16* x_s = (xeq_bf16*)fwd_smem;                     // [BT][xs_st]; fo in place of gs
   const xeq_bf16* e_s = (const xeq_bf16*)(fwd_smem + p.off_e);  // [BT][EST]
   int* dst_s = (int*)(fwd_smem + p.off_dst);               // [BT]
-  xeq_bf16* wf_s = (xeq_bf16*)(fwd_smem + p.off_wf);       // [32][w_st] live rows of wf
+  xeq_bf16* wf_s = (xeq_bf16*)(fwd_smem + p.off_wf);       // [kwp][w_st] live rows of wf
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, cq = lane & 3;  // mma fragment: row group, column pair
   const int ni2 = 2 * p.ni, n8 = p.hs >> 3, ocols = p.sdp + p.dp, xw = p.hp + p.dp;
+  // one K slice (Kf <= 32): the staged edge-feature width and stride as
+  // constants
+  const int ke = KS ? p.ke : XEQ_BT_KE, est = KS ? p.est : XEQ_BT_KE + 8;
+  const int kwp = KS ? p.kwp : XEQ_BT_KE;
 
-  xeq_load_wf(wf_s, p.w_st, wf, p.kw, p.h, p.hp, p.hs, XEQ_FT_THREADS);
+  if (WF_SMEM) xeq_load_wf(wf_s, p.w_st, wf, p.kw, p.h, p.hp, p.hs, kwp, XEQ_FT_THREADS);
+  const xeq_bf16* wfp = WF_SMEM ? wf_s : wf;
+  const int wst = WF_SMEM ? p.w_st : p.hp;
   // this thread's output column pairs c, c+1: a scalar message (fo column
   // 2ni + c, kind 1), two vector lanes (their gates and harmonic columns,
   // kind 2) or padding (kind 0)
@@ -224,8 +249,7 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       }
       const XeqSeg sg[2] = {
           {x_s + t * p.xs_st, x + (int64_t)src * xw, p.ht8, p.hp, (p.ht8 + p.dt8) >> 3},
-          {(xeq_bf16*)e_s + t * XEQ_BT_EST, ef + (int64_t)k * XEQ_FPACK, XEQ_BT_KE, 0,
-           XEQ_BT_KE / 8}};
+          {(xeq_bf16*)e_s + t * est, ef + (int64_t)k * XEQ_FPACK, ke, 0, ke / 8}};
       xeq_stage_segs(sg, ok);
       if (lane == 0) dst_s[t] = dst;
     }
@@ -233,19 +257,31 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
     xeq_cp_wait_all();
     __syncthreads();
 
-    // fw on the tensor cores, one n8 column tile per warp at a time, and
-    // fo = rnd(gs * fw) in place of gs
+    // fw on the tensor cores, one n8 column tile per warp at a time (K in
+    // 32-row slices of wf, the first slice's A fragments held), and fo =
+    // rnd(gs * fw) in place of gs
     {
       uint32_t a[2][4];
-      xeq_frag_a(a, e_s, XEQ_BT_EST);
+      xeq_frag_a(a, e_s, est);
       for (int nt = warp; nt < n8; nt += XEQ_FT_WARPS) {
         const int n = nt * 8 + gq;
         float c[4] = {0.f, 0.f, 0.f, 0.f};
+        uint32_t b0, b1;
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
-          const xeq_bf16* w0 = wf_s + (ks * 16 + 2 * cq) * p.w_st + n;
-          xeq_mma(c, a[ks], xeq_pack(w0[0], w0[p.w_st]),
-                  xeq_pack(w0[8 * p.w_st], w0[9 * p.w_st]));
+          xeq_wf_b(b0, b1, wfp, wst, ks * 16, n);
+          xeq_mma(c, a[ks], b0, b1);
+        }
+        if constexpr (KS) {
+          for (int k0 = XEQ_BT_KE; k0 < kwp; k0 += XEQ_BT_KE) {
+            uint32_t a2[2][4];
+            xeq_frag_a(a2, e_s + k0, est);
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              xeq_wf_b(b0, b1, wfp, wst, k0 + ks * 16, n);
+              xeq_mma(c, a2[ks], b0, b1);
+            }
+          }
         }
         const int h0 = nt * 8 + 2 * cq;
         if (h0 >= p.h) continue;
@@ -271,7 +307,7 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
         cur = i;
       }
       const xeq_bf16* xr = x_s + q * p.xs_st;
-      const xeq_bf16* er = e_s + q * XEQ_BT_EST + p.kw;
+      const xeq_bf16* er = e_s + q * est + p.kw;
 #pragma unroll
       for (int ip = 0; ip < XEQ_FT_NP; ++ip) {
         if (kind[ip] == 1) {
@@ -297,12 +333,10 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
   for (int r = cur + 1; r < r1; ++r) put(r);
 }
 
-static int launch_fwd_tiles(const void* x, const void* ef, const void* wf, const void* dst_ptr,
-                            const void* dst_slots, const void* slot_src, const void* slot_dst,
-                            const void* lane_gate, const void* lane_ycol, void* out, int n_out,
-                            int ni, int nd, int hp, int d, int dp, int sdp, int kw, int kf,
-                            cudaStream_t s) {
-  XeqFwdDims p;
+// The tile kernel's shared-memory layout; false when no layout fits
+// (ops/fused_message.py::_tile_layouts states the same sizes).
+static bool fwd_tile_dims(XeqFwdDims& p, int n_out, int ni, int nd, int hp, int d, int dp,
+                          int sdp, int kw, int kf) {
   p.n_out = n_out; p.ni = ni; p.h = nd + 2 * ni; p.hp = hp; p.d = d; p.dp = dp; p.sdp = sdp;
   p.nd = nd; p.kw = kw;
   p.hs = xeq_round_up(p.h, 16);
@@ -310,43 +344,74 @@ static int launch_fwd_tiles(const void* x, const void* ef, const void* wf, const
   p.dt8 = xeq_round_up(d, 8);
   p.xs_st = p.ht8 + p.dt8 + 8;
   p.w_st = xeq_round_up(p.hs, 64) + 8;
+  p.ke = xeq_round_up(kf, XEQ_BT_KE);
+  p.est = p.ke + 8;
+  p.kwp = xeq_round_up(kw, XEQ_BT_KE);
   p.off_e = XEQ_BT * p.xs_st * 2;
-  p.off_dst = p.off_e + XEQ_BT * XEQ_BT_EST * 2;
+  p.off_dst = p.off_e + XEQ_BT * p.est * 2;
   p.off_wf = xeq_round_up(p.off_dst + XEQ_BT * 4, 16);
-  p.smem = p.off_wf + XEQ_BT_KE * p.w_st * 2;
-  if (kf > XEQ_BT_KE || kf - kw > XEQ_MAXY || p.ht8 > hp || p.dt8 > dp || nd > sdp ||
-      sdp + dp > 4 * XEQ_FT_THREADS || p.smem > 232448)
+  p.wf_smem = p.off_wf + p.kwp * p.w_st * 2 <= XEQ_SMEM_MAX;
+  p.smem = p.off_wf + (p.wf_smem ? p.kwp * p.w_st * 2 : 0);
+  return kf <= XEQ_FPACK && kf - kw <= XEQ_MAXY && p.ht8 <= hp && p.dt8 <= dp && nd <= sdp &&
+         sdp + dp <= 4 * XEQ_FT_THREADS && p.smem <= XEQ_SMEM_MAX;
+}
+
+static int launch_fwd_tiles(const void* x, const void* ef, const void* wf, const void* dst_ptr,
+                            const void* dst_slots, const void* slot_src, const void* slot_dst,
+                            const void* lane_gate, const void* lane_ycol, void* out, int n_out,
+                            int ni, int nd, int hp, int d, int dp, int sdp, int kw, int kf,
+                            cudaStream_t s) {
+  XeqFwdDims p;
+  if (!fwd_tile_dims(p, n_out, ni, nd, hp, d, dp, sdp, kw, kf))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      message_fwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  const bool ks = kf > XEQ_BT_KE;
+  auto kernel = p.wf_smem ? (ks ? message_fwd_tile_kernel<true, true>
+                                : message_fwd_tile_kernel<true, false>)
+                          : (ks ? message_fwd_tile_kernel<false, true>
+                                : message_fwd_tile_kernel<false, false>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
-  message_fwd_tile_kernel<<<(n_out + XEQ_FT_ROWS - 1) / XEQ_FT_ROWS, XEQ_FT_THREADS, p.smem,
-                            s>>>(
+  kernel<<<(n_out + XEQ_FT_ROWS - 1) / XEQ_FT_ROWS, XEQ_FT_THREADS, p.smem, s>>>(
       (const xeq_bf16*)x, (const xeq_bf16*)ef, (const xeq_bf16*)wf, (const int*)dst_ptr,
       (const int*)dst_slots, (const int*)slot_src, (const int*)slot_dst, (const int*)lane_gate,
       (const int*)lane_ycol, (float*)out, p);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool BF16>
+static int launch_fwd_walk(const void* x, const void* ef, const void* wf, const void* dst_ptr,
+                           const void* dst_slots, const void* slot_src, const void* slot_dst,
+                           const void* lane_gate, const void* lane_ycol, void* out, int n_out,
+                           int ni, int nd, int hp, int d, int dp, int sdp, int kw, int kf,
+                           cudaStream_t s) {
+  const int rows_per_block = 8;
+  dim3 grid((n_out + rows_per_block - 1) / rows_per_block, (sdp + dp) / 128);
+  message_fwd_kernel<T, BF16><<<grid, 128, 0, s>>>(
+      (const T*)x, (const T*)ef, (const T*)wf, (const int*)dst_ptr, (const int*)dst_slots,
+      (const int*)slot_src, (const int*)slot_dst, (const int*)lane_gate, (const int*)lane_ycol,
+      (float*)out, n_out, rows_per_block, ni, nd, hp, d, dp, sdp, kw, kf);
+  return (int)cudaGetLastError();
+}
+
+#define XEQ_FWD_ARGS                                                                     \
+  x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, lane_gate, lane_ycol, out, n_out, ni, \
+      nd, hp, d, dp, sdp, kw, kf, s
+
+// tiles (bf16 only): the tile kernel, which the wrapper chooses by shape
+// when its shared memory fits; else the walk kernel in the operands' dtype.
 extern "C" int xeq_message_fwd(const void* x, const void* ef, const void* wf,
                                const void* dst_ptr, const void* dst_slots,
                                const void* slot_src, const void* slot_dst,
                                const void* lane_gate, const void* lane_ycol,
                                void* out, int n_out, int ni, int nd, int hp,
                                int d, int dp, int sdp, int kw, int kf,
-                               int bf16, void* stream) {
-  if (kw > XEQ_MAXK || kf > XEQ_FPACK || (sdp + dp) % 128 != 0)
+                               int bf16, int tiles, void* stream) {
+  if (kw > kf || kf > XEQ_FPACK || (sdp + dp) % 128 != 0 || (tiles && !bf16))
     return (int)cudaErrorInvalidValue;
   if (n_out == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch_fwd_tiles(x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, lane_gate,
-                            lane_ycol, out, n_out, ni, nd, hp, d, dp, sdp, kw, kf, s);
-  const int rows_per_block = 8;
-  dim3 grid((n_out + rows_per_block - 1) / rows_per_block, (sdp + dp) / 128);
-  message_fwd_kernel<float, false><<<grid, 128, 0, s>>>(
-      (const float*)x, (const float*)ef, (const float*)wf, (const int*)dst_ptr,
-      (const int*)dst_slots, (const int*)slot_src, (const int*)slot_dst, (const int*)lane_gate,
-      (const int*)lane_ycol, (float*)out, n_out, rows_per_block, ni, nd, hp, d, dp, sdp, kw, kf);
-  return (int)cudaGetLastError();
+  if (tiles) return launch_fwd_tiles(XEQ_FWD_ARGS);
+  if (bf16) return launch_fwd_walk<__nv_bfloat16, true>(XEQ_FWD_ARGS);
+  return launch_fwd_walk<float, false>(XEQ_FWD_ARGS);
 }

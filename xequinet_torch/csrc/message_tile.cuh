@@ -1,8 +1,9 @@
 // Shared pieces of the bf16 slot-tile kernels (message_fwd.cu,
 // message_bwd.cu, message_bwd2.cu): cp.async staging of slot rows,
-// mma.sync m16n8k16 products with bf16 operands and f32 accumulators, the
-// slot indices of a tile, and the pass that sums per-slot scratch rows
-// along a CSR list.
+// mma.sync m16n8k16 products with bf16 operands and f32 accumulators over
+// 32-column K slices of the packed edge features, the slot indices of a
+// tile, the pass that sums per-slot scratch rows along a CSR list, and the
+// filter-weight gradient pass over per-slot rows.
 #pragma once
 
 #include "message_common.cuh"
@@ -12,14 +13,14 @@ typedef __nv_bfloat16 xeq_bf16;
 #define XEQ_BT 16            // slots per tile (the M of the mma tiles)
 #define XEQ_BT_THREADS 512   // the backward passes: one warp per slot of a tile
 #define XEQ_BT_WARPS 16
-#define XEQ_BT_KE 32         // edge-feature columns staged: Kf <= 32
-#define XEQ_BT_EST 40        // their row stride (bf16): conflict-free fragments
-#define XEQ_BT_NTW 6         // filter-weight n8 tiles a warp keeps: H <= 16 * 8 * 6
+#define XEQ_BT_KE 32         // edge-feature columns per K slice
+#define XEQ_BT_NTW 6         // filter-weight n8 tiles a warp keeps in registers:
+                             // d_wf in registers for H <= 16 * 8 * 6, Kf <= 32
 #define XEQ_DX_CPL 5         // 16-byte chunks a lane sums per column group
 #define XEQ_MAXY 9           // harmonic columns: 2l + 1 for l <= 2
 static_assert(XEQ_BT == XEQ_BT_WARPS, "one warp per slot of a tile");
 
-static inline int xeq_round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ inline int xeq_round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 __device__ __forceinline__ void xeq_cp16(void* to, const void* from, bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(to);
@@ -106,16 +107,29 @@ __device__ __forceinline__ XeqSlotIdx xeq_slot_idx(int tile, int n_tiles, int n_
           dst_pos ? __ldg(dst_pos + k) : -1};
 }
 
-// wf_s [32][w_st] (bf16) = the live rows of wf [128, hp]: rows f < kw and
-// columns h < h, zero elsewhere up to hs columns; by the block's nthr
-// threads.
+// wf_s [kwp][w_st] (bf16) = the live rows of wf [128, hp]: rows f < kw and
+// columns h < h, zero elsewhere up to kwp rows and hs columns; by the
+// block's nthr threads.
 __device__ __forceinline__ void xeq_load_wf(xeq_bf16* wf_s, int w_st,
                                             const xeq_bf16* __restrict__ wf, int kw, int h,
-                                            int hp, int hs, int nthr) {
-  for (int i = threadIdx.x; i < XEQ_BT_KE * hs; i += nthr) {
+                                            int hp, int hs, int kwp, int nthr) {
+  for (int i = threadIdx.x; i < kwp * hs; i += nthr) {
     const int f = i / hs, c = i - f * hs;
     wf_s[f * w_st + c] = (f < kw && c < h) ? wf[(int64_t)f * hp + c] : xeq_b(0.f);
   }
+}
+
+// The B fragments (k16 step at row k, n8 column n = tile column + gq) of
+// the filter weight wf, row-major with row stride wst: the block's copy of
+// its live rows in shared memory (xeq_load_wf), or wf itself in global
+// memory (rows >= Kw zero by the packing contract) when the copy does not
+// fit beside the stages.
+__device__ __forceinline__ void xeq_wf_b(uint32_t& b0, uint32_t& b1, const xeq_bf16* wfp,
+                                         int wst, int k, int n) {
+  const int cq = threadIdx.x & 3;
+  const xeq_bf16* w0 = wfp + (k + 2 * cq) * wst + n;  // < 128 * hp: 32-bit offsets
+  b0 = xeq_pack(w0[0], w0[wst]);
+  b1 = xeq_pack(w0[8 * wst], w0[9 * wst]);
 }
 
 // The block's filter-weight partial part [kf, h] (f32) from the
@@ -138,43 +152,55 @@ __device__ __forceinline__ void xeq_dwf_part_write(const float (&acc)[XEQ_BT_NTW
   }
 }
 
-// d_ef[:, f < 32] = dfw @ wf^T for the 16 slots of a tile on the tensor
-// cores (dfw_s [16][w_st] and wf_s [32][w_st] bf16, K = hs): warp w of
-// the 16 takes column tile w % 4 and K quarter w / 4, and writes its
-// partial to red [4][16][32] (f32), summed by xeq_def_row in a fixed order.
-__device__ __forceinline__ void xeq_def_quarters(const xeq_bf16* dfw_s, const xeq_bf16* wf_s,
-                                                 int w_st, int hs, float* red) {
+// d_ef[:, f < kwp] = dfw @ wf^T for the 16 slots of a tile on the tensor
+// cores (dfw_s [16][w_st] bf16, K = hs; wf at wfp, row stride wst, rows f
+// < kwp): warp w of the 16 takes the column tiles (w % 4) + 4 j, j < kwp /
+// 32, and K quarter w / 4, and writes its partials to red [4][16][kwp]
+// (f32), summed by xeq_def_row in a fixed order.
+__device__ __forceinline__ void xeq_def_quarters(const xeq_bf16* dfw_s, int w_st,
+                                                 const xeq_bf16* wfp, int wst, int hs, int kwp,
+                                                 float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, cq = lane & 3;
-  const int f0 = (warp & 3) * 8, kq = warp >> 2, ksn = hs >> 4;
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int ks = kq * ksn / 4; ks < (kq + 1) * ksn / 4; ++ks) {
-    const xeq_bf16* d0 = dfw_s + gq * w_st + ks * 16 + 2 * cq;
-    const uint32_t a[4] = {xeq_ld2(d0), xeq_ld2(d0 + 8 * w_st), xeq_ld2(d0 + 8),
-                           xeq_ld2(d0 + 8 * w_st + 8)};
-    const xeq_bf16* w0 = wf_s + (f0 + gq) * w_st + ks * 16 + 2 * cq;
-    xeq_mma(c, a, xeq_ld2(w0), xeq_ld2(w0 + 8));
+  const int kq = warp >> 2, ksn = hs >> 4;
+  red += kq * XEQ_BT * kwp;
+  for (int f0 = (warp & 3) * 8; f0 < kwp; f0 += 32) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = kq * ksn / 4; ks < (kq + 1) * ksn / 4; ++ks) {
+      const xeq_bf16* d0 = dfw_s + gq * w_st + ks * 16 + 2 * cq;
+      const uint32_t a[4] = {xeq_ld2(d0), xeq_ld2(d0 + 8 * w_st), xeq_ld2(d0 + 8),
+                             xeq_ld2(d0 + 8 * w_st + 8)};
+      const xeq_bf16* w0 = wfp + (f0 + gq) * wst + ks * 16 + 2 * cq;
+      xeq_mma(c, a, xeq_ld2(w0), xeq_ld2(w0 + 8));
+    }
+    red[gq * kwp + f0 + 2 * cq] = c[0];
+    red[gq * kwp + f0 + 2 * cq + 1] = c[1];
+    red[(gq + 8) * kwp + f0 + 2 * cq] = c[2];
+    red[(gq + 8) * kwp + f0 + 2 * cq + 1] = c[3];
   }
-  red += kq * XEQ_BT * 32;
-  red[gq * 32 + f0 + 2 * cq] = c[0];
-  red[gq * 32 + f0 + 2 * cq + 1] = c[1];
-  red[(gq + 8) * 32 + f0 + 2 * cq] = c[2];
-  red[(gq + 8) * 32 + f0 + 2 * cq + 1] = c[3];
 }
 
 // The d_ef row of slot t of the tile by its warp: the filter columns f <
 // kw (the four quarters of red in order) and zeros past kf; the harmonic
 // columns kw <= f < kf are written by the pass that sums them.
 __device__ __forceinline__ void xeq_def_row(const float* red, int t, float* row, int kw,
-                                            int kf) {
+                                            int kf, int kwp) {
   for (int f = threadIdx.x & 31; f < XEQ_FPACK; f += 32) {
     if (f >= kw && f < kf) continue;
     float v = 0.f;
     if (f < kw) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) v += red[(q * XEQ_BT + t) * 32 + f];
+      for (int q = 0; q < 4; ++q) v += red[(q * XEQ_BT + t) * kwp + f];
     }
     row[f] = v;
   }
+}
+
+// Copy n16 16-byte chunks from shared to global memory by the lanes of one
+// warp (a slot's bf16 row to a scratch row).
+__device__ __forceinline__ void xeq_copy_row(xeq_bf16* __restrict__ to, const xeq_bf16* from,
+                                             int n16) {
+  for (int c = threadIdx.x & 31; c < n16; c += 32)
+    reinterpret_cast<uint4*>(to)[c] = reinterpret_cast<const uint4*>(from)[c];
 }
 
 // The sum over a warp of each of the XEQ_MAXY per-lane harmonic sums hy:
@@ -279,4 +305,122 @@ __device__ __forceinline__ void xeq_rows_sum(const xeq_bf16* __restrict__ rows,
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int c = w1 + 4 * lane; c < off2; c += 128) *reinterpret_cast<float4*>(o_row + c) = z;
   for (int c = off2 + w2 + 4 * lane; c < ow; c += 128) *reinterpret_cast<float4*>(o_row + c) = z;
+}
+
+// The filter-weight gradient of a tile pass whose Kf x H partial does not
+// fit a block's registers (Kf > 32 or H > 16 * 8 * XEQ_BT_NTW): the tile
+// pass writes each slot's bf16 dfw row (and, in the second order, its dfwr
+// row) to a scratch of ast columns per slot, and this pass sums, on the
+// tensor cores, part[p] = sum over the slots k of range p of
+// ef[k, :ke]^T (x) a[k] (+ ce[k, :ke]^T (x) b[k] when ce is given): a block
+// takes one slot range of per slots (a multiple of 16) and 128 columns, all
+// ke <= 128 rows in 32-row groups, 16 slots at a time, the next 16 slots'
+// rows loaded into registers while the current ones are multiplied.
+// part [n_part, kf, h] f32; summed by xeq_dwf_reduce_kernel in block order,
+// so the result repeats bit for bit.
+#define XEQ_DP_THREADS 256
+#define XEQ_DP_COLS 128
+#define XEQ_DP_EST 136  // shared row strides (bf16): ke columns + 8
+#define XEQ_DP_RST 136  // XEQ_DP_COLS + 8
+
+__global__ void __launch_bounds__(XEQ_DP_THREADS)
+xeq_dwf_pass_kernel(const xeq_bf16* __restrict__ ef, const xeq_bf16* __restrict__ a,
+                    const xeq_bf16* __restrict__ ce, const xeq_bf16* __restrict__ b,
+                    float* __restrict__ part, int n_rows, int per, int ast, int ke, int kf,
+                    int h) {
+  __shared__ __align__(16) xeq_bf16 e_s[2][XEQ_BT * XEQ_DP_EST];
+  __shared__ __align__(16) xeq_bf16 r_s[2][XEQ_BT * XEQ_DP_RST];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, cq = lane & 3;
+  const int n_src = ce ? 2 : 1, c0 = blockIdx.y * XEQ_DP_COLS, ng = ke >> 5;
+  const int k_lo = blockIdx.x * per, k_hi = min(k_lo + per, n_rows);
+  // this thread's chunks of a 16-slot step: ef chunk (t, j) for tid < 16 *
+  // ke / 8, row chunk (t, j) of the 16 x 16 chunks of the column tile
+  const int et = tid / (ke >> 3), ej = tid - et * (ke >> 3);
+  const int rt = tid >> 4, rj = tid & 15;
+  const bool e_mine = tid < XEQ_BT * (ke >> 3);
+  const xeq_bf16* es[2] = {ef, ce};
+  const xeq_bf16* rs[2] = {a, b};
+  uint4 ve[2], vr[2];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      ve[s] = vr[s] = z;
+      if (s >= n_src) continue;
+      if (e_mine && k0 + et < k_hi)
+        ve[s] = __ldg(reinterpret_cast<const uint4*>(es[s] + (int64_t)(k0 + et) * XEQ_FPACK) + ej);
+      const int col = c0 + rj * 8;
+      if (k0 + rt < k_hi && col < ast)
+        vr[s] = __ldcs(reinterpret_cast<const uint4*>(rs[s] + (int64_t)(k0 + rt) * ast + col));
+    }
+  };
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][m][q] = 0.f;
+  if (k_lo < k_hi) fetch(k_lo);
+  for (int k0 = k_lo; k0 < k_hi; k0 += XEQ_BT) {
+    __syncthreads();  // the previous step's fragments are read
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (s >= n_src) continue;
+      if (e_mine) reinterpret_cast<uint4*>(e_s[s] + et * XEQ_DP_EST)[ej] = ve[s];
+      reinterpret_cast<uint4*>(r_s[s] + rt * XEQ_DP_RST)[rj] = vr[s];
+    }
+    __syncthreads();
+    if (k0 + XEQ_BT < k_hi) fetch(k0 + XEQ_BT);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (s >= n_src) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int nt = warp + 8 * i;  // the n8 tile of the column tile
+        const xeq_bf16* d0 = r_s[s] + 2 * cq * XEQ_DP_RST + nt * 8 + gq;
+        const uint32_t b0 = xeq_pack(d0[0], d0[XEQ_DP_RST]);
+        const uint32_t b1 = xeq_pack(d0[8 * XEQ_DP_RST], d0[9 * XEQ_DP_RST]);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          if (g >= ng) continue;
+          uint32_t fa[2][4];
+          xeq_frag_at(fa, e_s[s] + 32 * g, XEQ_DP_EST);
+          xeq_mma(acc[i][2 * g], fa[0], b0, b1);
+          xeq_mma(acc[i][2 * g + 1], fa[1], b0, b1);
+        }
+      }
+    }
+  }
+  float* out = part + (int64_t)blockIdx.x * kf * h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int f = 16 * m + gq + 8 * (q >> 1);
+        const int c = c0 + (warp + 8 * i) * 8 + 2 * cq + (q & 1);
+        if (f < kf && c < h) out[(int64_t)f * h + c] = acc[i][m][q];
+      }
+}
+
+// Launch the d_wf pass and the reduction of its partials into dwf [128,
+// hp] over n_part slot ranges of the first n_rows scratch rows (the
+// slots; the scratch's rows past them, up to a whole tile, are zero and
+// ef has none).
+static int xeq_dwf_pass(const xeq_bf16* ef, const xeq_bf16* a, const xeq_bf16* ce,
+                        const xeq_bf16* b, float* part, float* dwf, int n_rows, int n_part,
+                        int ast, int kf, int h, int hp, cudaStream_t s) {
+  const int ke = xeq_round_up(kf, XEQ_BT_KE);
+  const int per = xeq_round_up((n_rows + n_part - 1) / n_part, XEQ_BT);
+  // every block writes its partial, zero when its range is empty
+  dim3 grid(n_part, (h + XEQ_DP_COLS - 1) / XEQ_DP_COLS);
+  xeq_dwf_pass_kernel<<<grid, XEQ_DP_THREADS, 0, s>>>(ef, a, ce, b, part, n_rows, per, ast, ke,
+                                                      kf, h);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(part, dwf, n_part, kf, h,
+                                                                     hp);
+  return (int)cudaGetLastError();
 }

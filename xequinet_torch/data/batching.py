@@ -285,6 +285,25 @@ def kernel_slot_cap(n_nodes_cap: int, n_edges_cap: int, layout: Dict[str, int]) 
     return ((n_edges_cap + chunk - 1) // chunk) * chunk + n_blocks * chunk
 
 
+def fit_kernel_layout(layout: Dict[str, int], largest_molecule: int, n_nodes_cap: int,
+                      n_edges_cap: int) -> Dict[str, int]:
+    """The model's slot layout fitted to one batch: ``block_nodes`` and
+    ``chunk`` (the only numbers the port's kernels and slot plan read) as
+    the model has them, ``pad_nodes`` raised to the batch's largest
+    molecule rounded up to 8 so that every source lies in its block's
+    window, no ``max_chunks`` cap (it sizes the TPU grid only), and
+    ``slot_cap`` recomputed for the fitted window by :func:`kernel_slot_cap`.
+    Such a batch serves through the kernels where the model's own layout
+    would refuse it."""
+    fitted = {
+        "block_nodes": layout["block_nodes"], "chunk": layout["chunk"],
+        "pad_nodes": max(layout["pad_nodes"], (largest_molecule + 7) // 8 * 8),
+        "max_chunks": 0,
+    }
+    fitted["slot_cap"] = kernel_slot_cap(n_nodes_cap, n_edges_cap, fitted)
+    return fitted
+
+
 def _apply_kernel_layout(
     batch: Dict[str, np.ndarray], layout: Dict[str, int]
 ) -> Dict[str, np.ndarray]:

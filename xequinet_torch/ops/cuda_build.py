@@ -30,11 +30,11 @@ _MESSAGE_HEADERS = ("message_common.cuh", "message_tile.cuh")
 # name -> (source, headers it includes, C entry point, argtypes)
 _KERNELS = {
     "message_fwd": ("message_fwd.cu", _MESSAGE_HEADERS, "xeq_message_fwd",
-                    [_P] * 10 + [_I] * 10 + [_P]),
+                    [_P] * 10 + [_I] * 11 + [_P]),
     "message_bwd": ("message_bwd.cu", _MESSAGE_HEADERS, "xeq_message_bwd",
-                    [_P] * 20 + [_I] * 12 + [_P]),
+                    [_P] * 22 + [_I] * 14 + [_P]),
     "message_bwd2": ("message_bwd2.cu", _MESSAGE_HEADERS, "xeq_message_bwd2",
-                     [_P] * 28 + [_I] * 15 + [_P]),
+                     [_P] * 31 + [_I] * 17 + [_P]),
     "gather_scatter_v2": ("gather_scatter_v2.cu", (), "xeq_gather_scatter_v2",
                           [_P] * 6 + [_I] * 3 + [_P]),
     "gather_scatter": ("gather_scatter.cu", (), "xeq_gather_scatter",

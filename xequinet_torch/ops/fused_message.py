@@ -505,6 +505,71 @@ def _mm_dtype(mm_dtype) -> torch.dtype:
     return torch.bfloat16 if str(mm_dtype) in ("bfloat16", "torch.bfloat16") else torch.float32
 
 
+SMEM_MAX = 232448  # shared memory a block may take on the H100
+_ru = lambda v, m: (v + m - 1) // m * m
+
+
+def _tile_layouts(kernel: str, ni: int, node_dim: int, d: int, kw: int,
+                  kf: int) -> Tuple[int, int]:
+    """Shared memory (bytes) of a kernel's bf16 tile pass in its most
+    compact regular layout (wf's live rows read from L2, one stage in the
+    backward) and in its lean one (the second order without dfo / u / dfwr
+    tiles; the regular one for the others).  The launchers
+    (``*_tile_dims`` in ``csrc/``) compute the same sizes and take a
+    roomier layout where one fits."""
+    h = node_dim + 2 * ni
+    hs, ht8, dt8, sd8 = _ru(h, 16), _ru(h, 8), _ru(d, 8), _ru(node_dim, 8)
+    w_st, est, kwp = _ru(hs, 64) + 8, _ru(kf, 32) + 8, _ru(kw, 32)
+    tabs, tile, red = _ru((dt8 + ni) * 4, 16), 16 * w_st * 2, 4 * 16 * kwp * 4
+    x_row, g_row = 16 * (ht8 + dt8 + 8) * 2, 16 * (sd8 + dt8 + 8) * 2
+    if kernel == "message_fwd":
+        smem = _ru(x_row + 16 * est * 2 + 64, 16)
+        return smem, smem
+    if kernel == "message_bwd":
+        stage = _ru(x_row + g_row + 16 * est * 2 + 64, 16)
+        smem = stage + tile + max(16 * (2 * ni + 8) * 4, red) + tabs
+        return smem, smem
+    if kernel == "message_bwd2":
+        stage = _ru(2 * x_row + g_row + 2 * 16 * est * 2 + 128, 16)
+        return (stage + 2 * tile + max(2 * 16 * (2 * ni + 8) * 4, red) + tabs,
+                stage + tile + red + tabs)
+    raise ValueError(f"no tile pass for {kernel}")
+
+
+def tile_route(kernel: str, mm_dtype, irreps_str: str, num_basis: int, node_dim: int,
+               has_cwf: bool = False) -> bool:
+    """Whether the kernel runs its bf16 tile pass (tensor cores) at these
+    widths, else its walk kernels: the tile passes take bf16 operands (the
+    second order without cwf) at every width whose most compact layout fits
+    a block's shared memory (the forward: also SDp + Dp <= 1280 output
+    columns, four per thread).  The choice is made by shape alone."""
+    if _mm_dtype(mm_dtype) != torch.bfloat16 or (kernel == "message_bwd2" and has_cwf):
+        return False
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    if kernel == "message_fwd" and sdp + dp > 1280:
+        return False
+    return min(_tile_layouts(kernel, ni, node_dim, d, kw, kf)) <= SMEM_MAX
+
+
+def walk_chunks(kernel: str, ni: int, h: int, kw: int, kf: int) -> int:
+    """Column chunks of the walk kernels' slot pass (``XEQ_WALK_HC`` in
+    ``message_common.cuh``): 1 when the whole filter width's d_wf partial,
+    wf rows and dfw tiles fit a block's shared memory, else chunks of 128
+    columns whose d_ef partials a reduction sums."""
+    rows = 16 if kernel == "message_bwd" else 32
+    whole = 4 * (16 * ni + rows * h + rows * kf + kf * h + kw * h)
+    return 1 if whole <= SMEM_MAX else -(-h // 128)
+
+
+def _dwf_regs(kernel: str, ni: int, node_dim: int, d: int, kw: int, kf: int) -> bool:
+    """Whether a tile pass keeps its d_wf partial in registers (Kf <= 32, H
+    <= 768 and not the lean layout), else it writes dfw rows for
+    ``xeq_dwf_pass``."""
+    h = node_dim + 2 * ni
+    lean = _tile_layouts(kernel, ni, node_dim, d, kw, kf)[0] > SMEM_MAX
+    return kf <= 32 and _ru(h, 16) <= 16 * 8 * 6 and not lean
+
+
 def message_fwd_cuda(
     x_cat, edge_feat, wf_aug, slot_meta,
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
@@ -514,9 +579,7 @@ def message_fwd_cuda(
         raise ValueError("message_fwd_cuda takes CUDA tensors")
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
     mm = _mm_dtype(mm_dtype)
-    if mm == torch.bfloat16 and (kf > 32 or sdp + dp > 1280):
-        raise ValueError("the bf16 message forward takes num_basis + 1 + nY <= 32 "
-                         "edge-feature columns and SDp + Dp <= 1280 output columns")
+    tiles = tile_route("message_fwd", mm, irreps_str, num_basis, node_dim)
     if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
         raise ValueError("fused message: operand shapes do not match the irreps")
     xk = x_cat.to(mm).contiguous()
@@ -534,7 +597,7 @@ def message_fwd_cuda(
         plan["dst_slots"].data_ptr(), plan["slot_src"].data_ptr(),
         plan["slot_dst"].data_ptr(), maps["lane_gate"].data_ptr(),
         maps["lane_ycol"].data_ptr(), out.data_ptr(),
-        n_out, ni, node_dim, hp, d, dp, sdp, kw, kf, int(mm == torch.bfloat16),
+        n_out, ni, node_dim, hp, d, dp, sdp, kw, kf, int(mm == torch.bfloat16), int(tiles),
         torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
     return out
@@ -545,17 +608,19 @@ def message_bwd_cuda(
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx_cat, d_edge_feat, d_wf_aug), f32, by ``csrc/message_bwd.cu``.
-    In bf16 the tile pass writes each valid slot's ``[dgs | dgv]`` row to a
-    bf16 scratch of :func:`bwd_scratch_shape` (at the slot's position in
-    the list by source), which the dx pass sums by source."""
+    On the tile route (:func:`tile_route`) the tile pass writes each valid
+    slot's ``[dgs | dgv]`` row to a bf16 scratch of
+    :func:`bwd_scratch_shape` (at the slot's position in the list by
+    source), which the dx pass sums by source, and past Kf = 32 or H = 768
+    each slot's dfw row to a second scratch that the d_wf pass reads; on
+    the walk route the slot pass may run in column chunks
+    (:func:`walk_chunks`) whose d_ef partials a reduction sums."""
     if not x_cat.is_cuda:
         raise ValueError("message_bwd_cuda takes CUDA tensors")
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
     mm = _mm_dtype(mm_dtype)
     bf16 = mm == torch.bfloat16
-    if bf16 and (kf > 32 or h > 768):
-        raise ValueError("the bf16 message backward takes num_basis + 1 + nY <= 32 "
-                         "edge-feature columns and a filter width H <= 768")
+    tiles = tile_route("message_bwd", mm, irreps_str, num_basis, node_dim)
     dev = x_cat.device
     n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
     xk = x_cat.to(mm).contiguous()
@@ -569,8 +634,12 @@ def message_bwd_cuda(
     d_ef = torch.empty((t_slots, F_PACK), dtype=torch.float32, device=dev)
     dwf_part = torch.empty((n_part, kf, h), dtype=torch.float32, device=dev)
     d_wf = torch.empty((F_PACK, hp), dtype=torch.float32, device=dev)
-    rows = torch.empty(bwd_scratch_shape(t_slots, h, d) if bf16 else (0,),
+    rows = torch.empty(bwd_scratch_shape(t_slots, h, d) if tiles else (0,),
                        dtype=torch.bfloat16, device=dev)
+    dfw_rows = _dfw_scratch(tiles, "message_bwd", t_slots, ni, node_dim, d, kw, kf, dev)
+    n_hc = 1 if tiles else walk_chunks("message_bwd", ni, h, kw, kf)
+    def_part = torch.empty((n_hc, t_slots, kf) if n_hc > 1 else (0,), dtype=torch.float32,
+                           device=dev)
     _check_cuda(xk, efk, wfk, gk, plan["src_ptr"], dx, rows)
     if any(t.data_ptr() % 16 for t in (xk, efk, gk)):
         raise ValueError("fused message: operands must be 16-byte aligned")
@@ -583,15 +652,31 @@ def message_bwd_cuda(
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
         maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), rows.data_ptr(),
+        _ptr(dfw_rows), _ptr(def_part),
         dx.data_ptr(), d_ef.data_ptr(), dwf_part.data_ptr(), d_wf.data_ptr(),
         n_rows, t_slots, n_part, ni, h, hp, d, dp, sdp, kw, kf,
-        int(bf16), torch.cuda.current_stream(dev).cuda_stream,
+        int(bf16), int(tiles), n_hc, torch.cuda.current_stream(dev).cuda_stream,
     )
     return dx, d_ef, d_wf
 
 
 def _round8(n: int) -> int:
     return (n + 7) // 8 * 8
+
+
+def _ptr(t: torch.Tensor):
+    """A scratch's pointer, None (NULL) when it was not needed."""
+    return t.data_ptr() if t.numel() else None
+
+
+def _dfw_scratch(tiles: bool, kernel: str, t_slots: int, ni: int, node_dim: int, d: int,
+                 kw: int, kf: int, dev) -> torch.Tensor:
+    """A tile pass's dfw rows (bf16, one per slot of its 16-slot tiles, H
+    rounded up to 16 columns) when its d_wf partial leaves the registers."""
+    if not tiles or _dwf_regs(kernel, ni, node_dim, d, kw, kf):
+        return torch.empty((0,), dtype=torch.bfloat16, device=dev)
+    return torch.empty((_ru(t_slots, 16), _ru(node_dim + 2 * ni, 16)), dtype=torch.bfloat16,
+                       device=dev)
 
 
 def bwd_scratch_shape(t_slots: int, h: int, d: int) -> Tuple[int, int]:
@@ -614,10 +699,13 @@ def message_bwd2_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(d2x_cat, d2_edge_feat, d2_wf_aug, d2g), f32, by
     ``csrc/message_bwd2.cu``: the VJP of :func:`message_bwd_cuda` for the
-    cotangents (cx, cef, cwf).  In bf16 without cwf the tile pass writes
-    each valid slot's d2x and d2g rows to the bf16 scratch of
-    :func:`bwd2_scratch_shapes` (at its positions in the lists by source
-    and by destination), which the row passes sum.
+    cotangents (cx, cef, cwf).  On the tile route (bf16 without cwf,
+    :func:`tile_route`) the tile pass writes each valid slot's d2x and d2g
+    rows to the bf16 scratch of :func:`bwd2_scratch_shapes` (at its
+    positions in the lists by source and by destination), which the row
+    passes sum, and past Kf = 32 or H = 768 its dfw2 and dfwr rows to the
+    scratch of the d2wf pass; the walk route runs in column chunks where
+    the whole width does not fit (:func:`walk_chunks`).
 
     A ``None`` cx or cef is materialized as zeros; a ``None`` cwf (force
     training: ``wf_aug`` is not on the path to the positions) selects the
@@ -630,10 +718,7 @@ def message_bwd2_cuda(
         raise ValueError("message_bwd2_cuda takes CUDA tensors")
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
     mm = _mm_dtype(mm_dtype)
-    tiles = mm == torch.bfloat16 and cwf is None
-    if tiles and (kf > 32 or h > 768):
-        raise ValueError("the bf16 message second order takes num_basis + 1 + nY <= 32 "
-                         "edge-feature columns and a filter width H <= 768")
+    tiles = tile_route("message_bwd2", mm, irreps_str, num_basis, node_dim, cwf is not None)
     dev = x_cat.device
     n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
     if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
@@ -660,6 +745,10 @@ def message_bwd2_cuda(
     shape_x, shape_g = bwd2_scratch_shapes(t_slots, h, node_dim, d) if tiles else ((0,), (0,))
     rows_x = torch.empty(shape_x, dtype=torch.bfloat16, device=dev)
     rows_g = torch.empty(shape_g, dtype=torch.bfloat16, device=dev)
+    dfw2_rows, dfwr_rows = (_dfw_scratch(tiles, "message_bwd2", t_slots, ni, node_dim, d, kw,
+                                         kf, dev) for _ in range(2))
+    n_hc = 1 if tiles else walk_chunks("message_bwd2", ni, h, kw, kf)
+    def_part = torch.empty((n_hc, t_slots, kf) if n_hc > 1 else (0,), **f32)
     _check_cuda(xk, efk, wfk, gk, cxk, cefk, plan["dst_ptr"], plan["src_ptr"], d2x, rows_x,
                 *(() if cwfk is None else (cwfk,)))
     if any(t.data_ptr() % 16 for t in (xk, efk, gk, cxk, cefk)):
@@ -675,11 +764,11 @@ def message_bwd2_cuda(
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
         maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(),
-        rows_x.data_ptr(), rows_g.data_ptr(),
-        d2x.data_ptr(), d2ef.data_ptr(), d2wf_part.data_ptr(), d2wf.data_ptr(),
-        d2g.data_ptr(),
+        rows_x.data_ptr(), rows_g.data_ptr(), _ptr(dfw2_rows), _ptr(dfwr_rows),
+        _ptr(def_part), d2x.data_ptr(), d2ef.data_ptr(), d2wf_part.data_ptr(),
+        d2wf.data_ptr(), d2g.data_ptr(),
         n_out, n_rows, t_slots, n_part, ni, node_dim, h, hp, d, dp, sdp, kw, kf,
-        int(mm == torch.bfloat16), int(cwfk is not None),
+        int(mm == torch.bfloat16), int(cwfk is not None), int(tiles), n_hc,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return d2x, d2ef, d2wf, d2g

@@ -18,8 +18,8 @@ from ..convert import load_checkpoint, load_params
 from ..data.batching import (
     bucket_capacity,
     collate,
+    fit_kernel_layout,
     kernel_layout_from_model_kwargs,
-    kernel_slot_cap,
 )
 from ..data.datapoint import Datapoint
 from ..data.transforms import NeighborTransform
@@ -82,25 +82,18 @@ class InferenceEngine:
     def collate(self, dps: List[Datapoint]) -> Dict[str, np.ndarray]:
         """Host-side batch of already-transformed datapoints.
 
-        A structure that exceeds the kernel window cannot take the slot
-        layout.  On the CPU the batch then goes without it, as in the JAX
-        engine (the message op is the plain version there anyway); on the
-        card that would run the plain message route, so it raises."""
+        A model on a kernel route gets the slot layout fitted to the batch
+        (``fit_kernel_layout``: its ``pad_nodes`` raised to the largest
+        molecule, no ``max_chunks`` cap), so a molecule larger than the
+        model's window still serves through the kernels, on the card and
+        on the CPU alike (where the JAX engine collates such a batch
+        without the layout)."""
         if self._kernel_layout is not None:
             n_cap = bucket_capacity(sum(d.num_atoms for d in dps))
             e_cap = bucket_capacity(max(sum(d.num_edges for d in dps), 1))
-            layout = dict(self._kernel_layout)
-            layout["slot_cap"] = kernel_slot_cap(n_cap, e_cap, layout)
-            try:
-                return collate(dps, n_cap, e_cap, len(dps) + 1, kernel_layout=layout)
-            except ValueError as e:
-                if self.device.type != "cpu":
-                    raise ValueError(
-                        f"batch does not fit the message kernels' slot layout "
-                        f"{self._kernel_layout} ({e}); serve it with a model built "
-                        f"with a larger pallas_layout pad_nodes, or with "
-                        f"use_pallas_scatter=False"
-                    ) from e
+            layout = fit_kernel_layout(self._kernel_layout, max(d.num_atoms for d in dps),
+                                       n_cap, e_cap)
+            return collate(dps, n_cap, e_cap, len(dps) + 1, kernel_layout=layout)
         return collate(dps)
 
     def forward_batch(self, batch: Dict[str, np.ndarray], compute_forces: bool = True,
