@@ -5,7 +5,7 @@
                                            # train step of each route with
                                            # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
-                                           # with the plain versions
+                                           # and 7 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -60,8 +60,25 @@ Phases (any failed check exits non-zero):
      bounds, each route's device forward+forces (the wide model's too), the
      mega predict wall time and edges/s, each route's train step ms,
      edges/s and peak memory (the wide model's too).
-Then one JSON line with the kernels, the card line, and last the device
-JSON line.  It imports nothing of JAX or of the JAX package.
+  7. MD: (a) bench.py's MD hot loop (md_hotloop_pbc_metric: its
+     10,000-atom periodic box, cell diag(1500, 16, 16) A, its rng and
+     drift) through Calculator(pallas="mega", skin=0.5, max_atoms=10240,
+     max_edges 1.55 x the edges) on a flagship-width checkpoint written
+     by the port's trainer: the mega route and 3 + 3 message launches on
+     every call, the best of 3 medians of 15 calls and edges/s, rebuilds
+     and asynchronous swaps, peak memory, the plain route's ms per call,
+     the hot loop's split (message kernels, other device ops, idle share;
+     torch.profiler) and one rebuild's host build; mega against plain
+     with a bf16 and an f32 checkpoint of the same weights (md_agreement:
+     energy, mean |F|, mean |virial|, f32 forces element-wise); (b) the
+     same agreement on a 4,000-atom unsorted free chain; (c) run_md from
+     an extxyz file it writes, system (b), NVE 100 steps of 0.25 fs at
+     f32, skin 0.5, on the mega route (3 + 3 launches per force call) and
+     the plain route: the mega route's energy drift per atom within 2x
+     the plain route's + 1e-4 eV, ms per step.
+Then one JSON line with the kernels (each with its launches per MD call
+too), the card line, and last the device JSON line.  It imports nothing
+of JAX or of the JAX package.
 """
 
 import argparse
@@ -1065,6 +1082,483 @@ def profile_call(tag, fn, out_dir, card, calls=3):
               f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: MD
+# ---------------------------------------------------------------------------
+# bench.py md_hotloop_pbc_metric's model: FLAGSHIP_KW without the kernel
+# route (the Calculator picks it) and remat, cutoff 5.0
+MD_KW = dict({k: v for k, v in FLAGSHIP_KW.items() if k not in ("use_pallas_scatter", "remat")},
+             cutoff=5.0)
+# phase 7's sizes on the card: bench.py's 10,000-atom periodic box, the
+# 4,000-atom free chain, and the run_md stage
+MD_SIZES = dict(n_box=10000, max_box=10240, n_free=4000, max_free=4096, md_steps=100,
+                iters=15, kw={})
+# and in the CPU rehearsal: a small model, systems of a few hundred atoms
+# (the mega route's least capacities: 1024 atoms, 4096 edges).  Its model
+# is f32 in both slots: at 16 channels the bf16 virial moves by ~3% with
+# the rounding points alone (either route against f32), past the bf16 band
+MD_REHEARSAL = dict(n_box=600, max_box=1024, n_free=700, max_free=1024, md_steps=10, iters=2,
+                    kw=dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", num_basis=8,
+                            action_blocks=2, compute_dtype="float32",
+                            update_compute_dtype="float32"))
+
+
+# f32 virial of the periodic box, mega against plain route: the JAX
+# package's f32 band (tests/test_pbc_mega.py, 1e-3).  The strain virial
+# sums positions of up to 1500 A times forces whose f32 rounding moves
+# with summation order (the element-wise force gate above), so it cancels
+# far more than energy and forces do
+MD_F32_VIRIAL_TOL = 1e-3
+# and element-wise, max |dV| / max |V| on the 2^-10 A grid: the JAX
+# package's 1e-3 was set for an 800 A chain; the box spans 1500 A, and the
+# strain virial's f32 cancellation grows with the span (6.9e-4 measured,
+# PERF.md section 6).  A layout or ghost-shift fault shows at the wrap-edge
+# fraction, far above 1% (tests/test_pbc_mega.py)
+MD_F32_VIRIAL_ELEM_TOL = 2e-3
+# a grid of 2^-10 A: coordinates below 8192 A on it, and their sums and
+# differences with the cell's (multiples of 2^-4 A), are exact in f32
+MD_GRID = 2.0 ** -10
+# phase 7 (c)'s NVE step, fs
+MD_DT = 0.05
+
+
+def md_checkpoint(path, **over):
+    """Seeded XPaiNN (MD_KW with ``over``, torch.Generator seed 0) written
+    by the port's trainer checkpoint writer."""
+    from xequinet_torch.models.model import init_params, resolve_model
+    from xequinet_torch.training.trainer import save_checkpoint
+
+    kw = dict(MD_KW, **over)
+    module, _, _ = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    save_checkpoint(path, module, {"model_name": "xpainn", "model_kwargs": kw,
+                                   "default_units": {}})
+    return path
+
+
+def md_box(n):
+    """bench.py md_hotloop_pbc_metric's periodic box (its rng,
+    default_rng(3), after the draws of its checkpoint molecule): x spacing
+    0.15 A with 0.5 A noise, a 16 x 16 A cross-section, all axes periodic.
+    Returns (z, pos, cell, pbc, rng); the rng goes on to draw the drift."""
+    rng = np.random.default_rng(3)
+    rng.integers(1, 5, 6), rng.normal(size=(6, 3))
+    lx = n * 0.15
+    cell = np.diag([lx, 16.0, 16.0])
+    x = (np.arange(n) * 0.15 + rng.normal(size=n) * 0.5) % lx
+    pos = np.column_stack([x, rng.uniform(0, 16.0, size=(n, 2))])
+    z = rng.integers(1, 9, size=n).astype(np.int32)
+    return z, pos, cell, np.array([True, True, True]), rng
+
+
+def md_free_chain(n, seed=11):
+    """tests/test_mega_production.py's quasi-1D chain, not sorted along
+    its axis."""
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.uniform(0.9, 1.5, size=n))
+    pos = np.column_stack([x, rng.normal(size=(n, 2)) * 1.0])
+    pos = pos[rng.permutation(n)]
+    return rng.integers(1, 5, size=n).astype(np.int32), pos
+
+
+def md_edge_cap(n_edges):
+    """bench.py's MD capacity: 1.55 x the cutoff list, in whole chunks."""
+    return ((int(n_edges * 1.55) + 1023) // 1024) * 1024
+
+
+def md_force_err(got, want):
+    """(max |dF| / max |F| over every component, 99th percentile of the
+    per-atom |dF| / max |F|)."""
+    scale = np.abs(want).max()
+    atom = np.linalg.norm(got - want, axis=-1) / scale
+    return float(np.abs(got - want).max() / scale), float(np.quantile(atom, 0.99))
+
+
+def md_compare(tag, got, want, tol, f_tol=None, v_tol=None, v_elem=False):
+    """Energy and mean |F| within ``tol`` relative, mean |virial| within
+    ``v_tol`` when given (with ``v_elem`` the virial element-wise instead:
+    max |dV| / max |V|); with ``f_tol`` = (max, p99) the forces
+    element-wise."""
+    from xequinet_torch import keys
+
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    fg, fw = got[keys.FORCES], want[keys.FORCES]
+    errs = {"energy": rel(got[keys.TOTAL_ENERGY], want[keys.TOTAL_ENERGY]),
+            "mean|F|": rel(np.abs(fg).mean(), np.abs(fw).mean())}
+    limits = {"energy": tol, "mean|F|": tol}
+    if v_tol is not None:
+        vg, vw = got[keys.VIRIAL], want[keys.VIRIAL]
+        if v_elem:
+            k = int(np.abs(vg - vw).argmax()) % 9
+            name = f"virial max|dV|/max|V| (element {'xyz'[k // 3]}{'xyz'[k % 3]})"
+            errs[name] = float(np.abs(vg - vw).max() / np.abs(vw).max())
+        else:
+            name = "mean|virial|"
+            errs[name] = rel(np.abs(vg).mean(), np.abs(vw).mean())
+        limits[name] = v_tol
+    f_max, q99 = md_force_err(fg, fw)
+    lim = ("none", "none") if f_tol is None else tuple(f"{x:.3g}" for x in f_tol)
+    print(f"[md] {tag}: " + ", ".join(f"{k} rel diff {v:.3e} (limit {limits[k]:g})"
+                                      for k, v in errs.items())
+          + f"; force max|dF|/max|F| {f_max:.3e} (limit {lim[0]}), 99th "
+          f"percentile per atom {q99:.3e} (limit {lim[1]})")
+    if not (np.isfinite(fg).all() and all(v <= limits[k] for k, v in errs.items())):
+        fail(f"{tag}: energy, mean |F| or the virial disagree")
+    if f_tol is not None and not (f_max <= f_tol[0] and q99 <= f_tol[1]):
+        fail(f"{tag}: forces disagree element-wise")
+
+
+def md_launches(tag, card_run):
+    """Message launches since the last reset: 3 forward + 3 backward per
+    Calculator call on the mega route, nothing else (the CPU runs the
+    plain versions and counts nothing)."""
+    if card_run:
+        expect_launches(tag, message_fwd=3, message_bwd=3)
+    from xequinet_torch.ops import cuda_build
+
+    return dict(cuda_build.LAUNCHES)
+
+
+def md_pair(ckpt, caps, device, **kw):
+    """(mega, plain) Calculators of one checkpoint."""
+    from xequinet_torch.interface.calculator import Calculator
+
+    return (Calculator(ckpt, pallas="mega", device=device, **caps, **kw),
+            Calculator(ckpt, device=device, **caps, **kw))
+
+
+def md_agreement(tag, z, pos, calcs, card_run, **sys_kw):
+    """Mega against plain route on one geometry, with 3 + 3 launches per
+    mega call; ``calcs`` maps "bf16" and "f32" to a (mega, plain) pair of
+    Calculators of the bf16 and the f32 checkpoint.
+    bf16: energy and mean |F| within 2e-2 (bench.py's band); the mean
+    |virial| no further from the f32 plain route's than 2e-2 plus twice
+    the bf16 plain route's own largest distance over 3 calls (at flagship
+    width bf16 rounding alone moves it by several per cent, and the plain
+    route's atomic sums move it from call to call; PERF.md, section 6).
+    f32 on the MD geometry: energy and mean |F| within 1e-4, mean |virial|
+    within MD_F32_VIRIAL_TOL.  f32 on the geometry rounded to MD_GRID,
+    where both routes form the same edge vectors exactly and only the
+    order of the sums differs: energy and mean |F| as before, the forces
+    element-wise within F32_FORCE_TOL and the virial element-wise within
+    MD_F32_VIRIAL_ELEM_TOL.  (On the raw geometry the ghost rows' derived
+    positions, owner + shift @ cell, round apart from the plain route's
+    differences at 1500 A, so the element-wise bounds hold on the grid.)"""
+    from xequinet_torch import keys
+    from xequinet_torch.ops import cuda_build
+
+    virial = "cell" in sys_kw
+    pos_q = np.round(pos / MD_GRID) * MD_GRID
+    res = {}
+
+    def mega_call(calc, p, what):
+        cuda_build.reset_launch_counts()
+        out = calc.calculate(z, p, **sys_kw)
+        md_launches(f"{tag} {what} mega call", card_run)
+        if calc.last_route != "mega":
+            fail(f"{tag}: the mega Calculator took the {calc.last_route} route")
+        return out
+
+    for label in ("bf16", "f32"):
+        mega, plain = calcs[label]
+        res[label] = (mega_call(mega, pos, label), plain.calculate(z, pos, **sys_kw))
+        if label == "bf16" and virial:  # the plain route sums with atomics: it varies
+            res["bf16 repeats"] = [plain.calculate(z, pos, **sys_kw) for _ in range(2)]
+        if label == "f32":
+            res["grid"] = (mega_call(mega, pos_q, "f32 grid"), plain.calculate(z, pos_q, **sys_kw))
+    (m16, p16), (m32, p32) = res["bf16"], res["f32"]
+    md_compare(f"{tag} bf16 checkpoint mega vs plain route", m16, p16, TOL["bfloat16"])
+    if virial:
+        mean_v = lambda r: float(np.abs(r[keys.VIRIAL]).mean())
+        dist = lambda r: abs(mean_v(r) - mean_v(p32)) / mean_v(p32)
+        d_m, d_p = dist(m16), [dist(r) for r in [p16] + res["bf16 repeats"]]
+        limit = TOL["bfloat16"] + 2 * max(d_p)
+        print(f"[md] {tag} bf16 mean |virial| against the f32 plain route's: mega route "
+              f"{d_m:.3e}, plain route " + ", ".join(f"{d:.3e}" for d in d_p)
+              + f" (3 calls; limit for mega: 2e-2 + 2 x the largest = {limit:.3e})")
+        if d_m > limit:
+            fail(f"{tag}: the mega route's bf16 virial is further from f32 than the band")
+    md_compare(f"{tag} f32 checkpoint mega vs plain route", m32, p32, 1e-4,
+               v_tol=MD_F32_VIRIAL_TOL if virial else None)
+    md_compare(f"{tag} f32 checkpoint mega vs plain route, positions on the {MD_GRID:g} A "
+               f"grid", *res["grid"], 1e-4, F32_FORCE_TOL,
+               MD_F32_VIRIAL_ELEM_TOL if virial else None, v_elem=True)
+
+
+def md_split(calc, z, pos_fn, sys_kw, card, calls=5):
+    """The hot loop's steady-state time by part: torch.profiler over
+    ``calls`` calls (wall per call; the message kernels' device time; the
+    rest of the device time, the plain PyTorch ops; idle share = 1 - busy
+    / wall), and the host build of one rebuild (the C++ list and the
+    numpy layout), which the skin's worker thread takes off the call."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
+
+    dev = lambda e: getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0.0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            calc.calculate(z, pos_fn(), **sys_kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith(
+        "CUDA")]
+    ours = re.compile(r"\b(message_\w+_kernel|xeq_\w+_kernel)\b")
+    k_ms = sum(dev(e) for e in kernels if ours.search(e.key)) / 1e3 / calls
+    busy = sum(dev(e) for e in kernels) / 1e3 / calls
+    pos = pos_fn()
+    t0 = time.perf_counter()
+    ei, offs = radius_graph_pbc_np(pos, sys_kw["cell"], sys_kw["pbc"],
+                                   calc.cutoff + calc.skin)
+    t1 = time.perf_counter()
+    n_cap, e_cap = calc._capacities(len(z))
+    built = calc._mega_host_build(z, pos, ei, len(z), n_cap, e_cap, None, None,
+                                  cell=sys_kw["cell"], pbc=sys_kw["pbc"], offs=offs)
+    t2 = time.perf_counter()
+    if built is None:
+        fail("the MD host build refused the box")
+    print(f"[md] hot-loop split (torch.profiler, {calls} steady calls): wall {wall:.3f} ms/call; "
+          f"message kernels {k_ms:.3f} ms, other device ops {busy - k_ms:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}; one rebuild's host build: neighbour list (C++) "
+          f"{(t1 - t0) * 1e3:.1f} ms + spatial layout and slots {(t2 - t1) * 1e3:.1f} ms "
+          f"(worker thread) — {card}")
+
+
+def md_energies(lines):
+    import re
+
+    out = [tuple(map(float, m.groups())) for m in
+           (re.search(r"Epot=(\S+)eV Ekin=(\S+)eV", ln) for ln in lines) if m]
+    return np.array(out)
+
+
+class _Lines:
+    """A logger that keeps run_md's lines."""
+
+    def __init__(self):
+        self.lines = []
+
+    def info(self, msg):
+        self.lines.append(msg)
+
+
+def phase_md(device, card, tmp, sizes, profile_dir=None):
+    """Phase 7: the MD entry point.  (a) bench.py's periodic MD hot loop
+    through Calculator(pallas="mega", skin=0.5); (b) a free chain; (c)
+    run_md from an extxyz file on (b), NVE, on the mega and the plain
+    route.  Returns the mega route's launches per Calculator call."""
+    import os
+
+    from xequinet_torch import keys
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.data.fmt_conversion import read_xyz, write_xyz
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.ops.radius_graph import radius_graph_np, radius_graph_pbc_np
+    from xequinet_torch.run.dynamics import run_md
+    from xequinet_torch.utils.config import load_md_config
+    from xequinet_torch.utils.qc import ATOM_MASS
+
+    card_run = device.type == "cuda"
+    sync = torch.cuda.synchronize if card_run else (lambda: None)
+    ck16 = md_checkpoint(os.path.join(tmp, "md_bf16.ckpt"), **sizes["kw"])
+    ck32 = md_checkpoint(os.path.join(tmp, "md_f32.ckpt"), **dict(sizes["kw"], **F32))
+
+    # (a) the periodic hot loop
+    z, pos, cell, pbc, rng = md_box(sizes["n_box"])
+    box = dict(cell=cell, pbc=pbc)
+    t0 = time.perf_counter()
+    ei, _ = radius_graph_pbc_np(pos, cell, pbc, 5.0)
+    n_edges = ei.shape[1]
+    caps = dict(max_atoms=sizes["max_box"], max_edges=md_edge_cap(n_edges))
+    print(f"[md] (a) periodic box: {len(z)} atoms, cell diag {np.diag(cell).tolist()}, "
+          f"{n_edges} edges at the cutoff (C++ list {1e3 * (time.perf_counter() - t0):.1f} ms), "
+          f"max_edges {caps['max_edges']}")
+    hot = Calculator(ck16, pallas="mega", skin=0.5, device=device, **caps)
+    trail = []  # every geometry the hot Calculator is given, in order
+
+    def step():
+        """The next geometry of the hot loop: 0.01 A of drift per call."""
+        nonlocal pos
+        pos = pos + rng.normal(size=pos.shape) * 0.01
+        trail.append(pos)
+        return pos
+
+    cuda_build.reset_launch_counts()
+    trail.append(pos)
+    t0 = time.perf_counter()
+    res = hot.calculate(z, pos, **box)
+    sync()
+    first = time.perf_counter() - t0
+    launches = md_launches("(a) first call (host build + upload + slot plan + model)", card_run)
+    st = hot._skin_state
+    bn, chunk, pad, _ = hot._mega["layout"]
+    if hot.last_route != "mega" or not np.isfinite(res[keys.FORCES]).all() or \
+            res[keys.FORCES].shape != (len(z), 3):
+        fail(f"(a): route {hot.last_route}, or non-finite / misshapen forces")
+    print(f"[md] (a) first call {first * 1e3:.1f} ms: route {hot.last_route}, "
+          f"{st['n_ext'] - len(z)} ghost rows, {st['rows']} node rows, pad_nodes {pad}, "
+          f"block_nodes {bn}, chunk {chunk}, slots {st['dev_static'][keys.EDGE_MASK].shape[0]}")
+    cuda_build.reset_launch_counts()
+    hot.calculate(z, step(), **box)
+    sync()
+    launches = md_launches("(a) steady call (positions only)", card_run)
+    if card_run:
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if card_run else 0
+    medians = []
+    for _ in range(3):  # bench.py's metric: best of 3 medians of 3 x iters calls
+        times = []
+        for _ in range(sizes["iters"]):
+            p = step()
+            t0 = time.perf_counter()
+            res = hot.calculate(z, p, **box)
+            times.append(time.perf_counter() - t0)
+            if hot.last_route != "mega":
+                fail("(a): a hot-loop call left the mega route")
+        medians.append(float(np.median(times)))
+    dt = min(medians)
+    peak = torch.cuda.max_memory_allocated() if card_run else 0
+    mm = dict(MD_KW, **sizes["kw"])["compute_dtype"]
+    print(f"[md] (a) hot loop ({mm}, skin 0.5, drift 0.01 A per call): best of 3 medians of "
+          f"{sizes['iters']} calls {dt * 1e3:.3f} ms/call (medians "
+          + ", ".join(f"{m * 1e3:.3f}" for m in medians)
+          + f"), {n_edges / dt:.1f} edges/s; n_rebuilds {hot.n_rebuilds}, n_async_swaps "
+          f"{hot.n_async_swaps}; peak device memory {peak / 2**30:.3f} GiB "
+          f"({held / 2**30:.3f} GiB held before) — {card}")
+    plain16 = Calculator(ck16, skin=0.5, device=device, **caps)
+    pp = pos
+    plain16.calculate(z, pp, **box)
+    times = []
+    for _ in range(5):
+        pp = pp + rng.normal(size=pos.shape) * 0.01
+        t0 = time.perf_counter()
+        plain16.calculate(z, pp, **box)
+        times.append(time.perf_counter() - t0)
+    p_dt = float(np.median(times))
+    print(f"[md] (a) plain route, same loop: median of 5 calls {p_dt * 1e3:.3f} ms/call, "
+          f"{n_edges / p_dt:.1f} edges/s — {card}")
+    if card_run:
+        md_split(hot, z, step, box, card)
+        if profile_dir:
+            profile_call("md_hot_loop", lambda: hot.calculate(z, step(), **box), profile_dir,
+                         card)
+    # the hot loop's own Calculator against the plain route, at its last
+    # geometry (inside the skin: served from the list the worker built),
+    # beside an f32 twin driven through the same geometries.  The loop ran
+    # without the virial, as bench.py's; a Calculator reads compute_virial
+    # at each call, so turning it on keeps the list
+    hot.compute_virial = plain16.compute_virial = True
+    hot32 = Calculator(ck32, pallas="mega", skin=0.5, compute_virial=True, device=device,
+                       **caps)
+    for p in trail:
+        hot32.calculate(z, p, **box)
+        if hot32.last_route != "mega":
+            fail("(a): the f32 twin left the mega route")
+    swaps = f"n_rebuilds / n_async_swaps: bf16 {hot.n_rebuilds} / {hot.n_async_swaps}, " \
+        f"f32 twin {hot32.n_rebuilds} / {hot32.n_async_swaps}"
+    print(f"[md] (a) the f32 twin took the hot loop's {len(trail)} geometries; {swaps}")
+    if card_run and min(hot.n_async_swaps, hot32.n_async_swaps) < 1:
+        fail(f"(a): no list built by the skin's worker thread was swapped in ({swaps})")
+    plain32 = Calculator(ck32, skin=0.5, compute_virial=True, device=device, **caps)
+    synced = [c.n_rebuilds - c.n_async_swaps for c in (hot, hot32)]
+    md_agreement("(a) periodic box, the hot loop's Calculators (skin 0.5)", z, pos,
+                 {"bf16": (hot, plain16), "f32": (hot32, plain32)}, card_run, **box)
+    if [c.n_rebuilds - c.n_async_swaps for c in (hot, hot32)] != synced:
+        fail("(a): a compared call rebuilt its list: the skin's list was not what served it")
+    for c in (hot, hot32, plain16, plain32):
+        c.close()
+    del hot, hot32, plain16, plain32
+
+    # (b) a free system
+    zf, posf = md_free_chain(sizes["n_free"])
+    eif, _ = radius_graph_np(posf, 5.0)
+    caps_f = dict(max_atoms=sizes["max_free"], max_edges=md_edge_cap(eif.shape[1]))
+    print(f"[md] (b) free chain: {len(zf)} atoms, {eif.shape[1]} edges, max_edges "
+          f"{caps_f['max_edges']}")
+    md_agreement("(b) free chain", zf, posf, {"bf16": md_pair(ck16, caps_f, device),
+                                               "f32": md_pair(ck32, caps_f, device)}, card_run)
+
+    # (c) run_md from an extxyz file, NVE at f32, mega and plain.  At
+    # random weights the forces on this chain are large for its light
+    # atoms: at 0.25 fs both routes drift ~0.2 eV per atom in 100 steps,
+    # and no drift check could fail there.  At MD_DT (PERF.md, section 6)
+    # the check has a negative control: the mega route with forces 1% too
+    # large must drift past the limit.  The routes' trajectories part
+    # chaotically, so the mega run's logged energies are held against the
+    # plain route at the frames it wrote
+    import xequinet_torch.run.dynamics as dynamics
+
+    class Scaled(Calculator):
+        """Forces 1% too large (the drift check's negative control)."""
+
+        def calculate(self, *args, **kw):
+            out = super().calculate(*args, **kw)
+            return dict(out, **{keys.FORCES: out[keys.FORCES] * 1.01})
+
+    xyz = os.path.join(tmp, "chain.xyz")
+    write_xyz(xyz, [Datapoint(zf, posf)])
+    drifts = {}
+    for tag, route, cls in (("mega", "mega", Calculator), ("plain", None, Calculator),
+                            ("control", "mega", Scaled)):
+        traj = os.path.join(tmp, f"traj_{tag}.xyz")
+        over = dict(input_file=xyz, model_file=ck32, pallas=route, skin=0.5, seed=0,
+                    init_temperature=300.0, device=str(device), xyz_traj=traj,
+                    ensembles=[{"name": "nve", "timestep": MD_DT, "steps": sizes["md_steps"],
+                                "log_interval": 5}])
+        log = _Lines()
+        cuda_build.reset_launch_counts()
+        dynamics.Calculator = cls
+        try:
+            t0 = time.perf_counter()
+            state = run_md(load_md_config(overrides=over), logger=log)
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            dynamics.Calculator = Calculator
+        e = md_energies(log.lines)
+        tot = e.sum(axis=1)
+        drifts[tag] = float(np.abs(tot - tot[0]).max() / len(zf))
+        if tag == "control":
+            print(f"[md] (c) negative control, the mega route with forces x 1.01: drift "
+                  f"{drifts[tag]:.3e} eV per atom")
+            break
+        n_calls = 1 + sizes["md_steps"] + len(e)  # first forces, one per step, one per log
+        counts = dict(cuda_build.LAUNCHES)
+        print(f"[md] (c) run_md NVE on the {tag} route: {sizes['md_steps']} steps of {MD_DT} fs, "
+              f"{wall / sizes['md_steps'] * 1e3:.2f} ms per step (wall, with {len(e)} logged "
+              f"energy calls), total-energy drift {drifts[tag]:.3e} eV per atom over the logged "
+              f"steps, launches {counts} — {card}")
+        if state.step != sizes["md_steps"] or not np.isfinite(state.pos).all() or len(e) == 0:
+            fail(f"(c) run_md on the {tag} route did not finish")
+        if card_run:
+            want = 3 * n_calls if route else 0
+            if counts["message_fwd"] != want or counts["message_bwd"] != want or \
+                    sum(counts.values()) != 2 * want:
+                fail(f"(c) {tag}: expected {want} + {want} message launches, got {counts}")
+        if route:  # the mega run's energies at its own frames, on the plain route
+            frames = read_xyz(traj)
+            ref = Calculator(ck32, device=device, **caps_f)
+            outs = [ref.calculate(zf, f.pos) for f in frames]
+            errs = [abs(o[keys.TOTAL_ENERGY] - ep) / abs(ep) for o, ep in zip(outs, e[:, 0])]
+            acc = np.linalg.norm(outs[0][keys.FORCES], axis=-1) / ATOM_MASS[zf]
+            print(f"[md] (c) the mega run's logged Epot at its {len(frames)} frames against the "
+                  f"plain route there: max rel diff {max(errs):.3e} (limit 1e-4); max |F| / m at "
+                  f"the first frame {acc.max():.1f} eV/A/amu")
+            if len(frames) != len(e) or max(errs) > 1e-4:
+                fail("(c) the mega run's energies disagree with the plain route at its frames")
+    limit = 2 * drifts["plain"] + 1e-4
+    if not drifts["mega"] <= limit < drifts["control"]:
+        fail(f"(c) NVE drift: mega route {drifts['mega']:.3e} eV/atom, negative control "
+             f"{drifts['control']:.3e}; the limit 2 x the plain route's + 1e-4 = {limit:.3e} "
+             f"must lie between them")
+    return {"launches": launches}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -1303,6 +1797,16 @@ def main():
         profile_call("v2_train_step", lambda: step_v2(b, i0 + 8, 1.0, ema_v2), args.profile,
                      card)
 
+    # phase 7: MD.  The message kernels' launches per Calculator call of the
+    # MD hot loop stand beside each row's
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        md = phase_md(device, card, tmp, MD_SIZES, profile_dir=args.profile)
+    for row in rows:
+        row["launches_md_call"] = md["launches"].get(row["name"], 0)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1372,6 +1876,11 @@ def rehearsal():
           f"at this size")
     print(f"[rehearsal] {len(dps)} structures on the CPU: plain message and scatter ops, mega "
           f"and v2 predict and train steps ran (not a device result)")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_md(torch.device("cpu"), "CPU rehearsal, not a device result", tmp, MD_REHEARSAL)
+    print("[rehearsal] phase 7 (MD) ran at a tiny size on the CPU (not a device result)")
 
 
 if __name__ == "__main__":

@@ -15,14 +15,16 @@ import pytest
 import torch
 
 from xequinet_torch import keys
-from xequinet_torch.data.batching import collate
+from xequinet_torch.data.batching import (_apply_kernel_layout, bucket_capacity, collate,
+                                          kernel_slot_cap)
 from xequinet_torch.data.datapoint import Datapoint
 from xequinet_torch.models.model import init_params, resolve_model
 from xequinet_torch.ops import fused_message as fm
 from xequinet_torch.ops import gather_scatter as gs1
 from xequinet_torch.ops import gather_scatter_v2 as gs2
 from xequinet_torch.ops.irreps import Irreps
-from xequinet_torch.ops.radius_graph import radius_graph_np
+from xequinet_torch.ops.radius_graph import radius_graph_np, radius_graph_pbc_np
+from xequinet_torch.ops.spatial_sort import ghost_layout_pbc
 from xequinet_torch.models.properties import make_forward
 from xequinet_torch.run.inference import InferenceEngine, batch_to_device
 from xequinet_torch.training.loss import ErrorMetric, WeightedLoss
@@ -70,6 +72,11 @@ def _problem(device, irreps, nb, sd, seed=0, bn=16, chunk=16, slot_tail=2, n_mol
     n_blocks = sum(d.num_atoms for d in dps) // bn + 2  # each block pads its run
     layout["slot_cap"] = ((n_edges + chunk - 1) // chunk + n_blocks + 16) * chunk + odd_tail
     batch = collate(dps, kernel_layout=layout)
+    return _operands(device, batch, irreps, nb, sd, rng, bn, chunk)
+
+
+def _operands(device, batch, irreps, nb, sd, rng, bn, chunk):
+    """Seeded operands of one message op on a batch in the slot layout."""
     _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, sd)
     n, t = batch[keys.POSITIONS].shape[0], batch[keys.EDGE_MASK].shape[0]
     x = rng.normal(size=(n, hp + dp)).astype(np.float32)
@@ -183,6 +190,74 @@ def test_cuda_message_bwd_many_tiles_per_block(cuda_device, mm, rel):
         _close(a, b, rel)
         assert torch.equal(a, c)
     assert float(got[1][~p["mask"]].abs().max()) == 0.0
+
+
+def _ghost_problem(device, bn, seed=0, n=3000):
+    """bench.py's periodic MD box at 3000 atoms (x spacing 0.15 A, a
+    16 x 16 A cross-section, all axes periodic) in the MD host build's
+    layout: ghost rows from ``ghost_layout_pbc``, chunk 1024,
+    ``block_nodes`` ``bn``, pad_nodes the sorted reach x 1.25, slot_cap
+    from ``kernel_slot_cap``; flagship widths."""
+    rng = np.random.default_rng(seed)
+    lx = n * 0.15
+    cell = np.diag([lx, 16.0, 16.0])
+    pos = np.column_stack([(np.arange(n) * 0.15 + rng.normal(size=n) * 0.5) % lx,
+                           rng.uniform(0, 16.0, size=(n, 2))])
+    pbc = np.array([True] * 3)
+    ei, offs = radius_graph_pbc_np(pos, cell, pbc, 5.0)
+    plan = ghost_layout_pbc(pos, cell, pbc, ei, offs)
+    n_ext = n + plan["n_ghosts"]
+    node_cap = bucket_capacity(n_ext)
+    ne = ei.shape[1]
+    e_cap = (ne + 1023) // 1024 * 1024 + 1024
+    order = np.argsort(plan["dst_ext"], kind="stable")
+    edge_index = np.full((2, e_cap), node_cap - 1, dtype=np.int32)
+    edge_index[0, :ne] = plan["dst_ext"][order]
+    edge_index[1, :ne] = plan["src_ext"][order]
+    real = np.arange(node_cap) < n_ext
+    real[:n_ext] = ~plan["is_ghost"]
+    batch = {
+        keys.ATOMIC_NUMBERS: np.ones(node_cap, dtype=np.int32),
+        keys.POSITIONS: np.zeros((node_cap, 3), dtype=np.float32),
+        keys.BATCH: np.where(real, 0, 1).astype(np.int32), keys.NODE_MASK: real,
+        keys.GRAPH_MASK: np.array([True, False]), keys.EDGE_INDEX: edge_index,
+        keys.EDGE_MASK: np.arange(e_cap) < ne,
+    }
+    pad = ((int(plan["reach"] * 1.25) + 15) // 8) * 8
+    layout = {"block_nodes": bn, "chunk": 1024, "pad_nodes": pad, "max_chunks": 0}
+    layout["slot_cap"] = kernel_slot_cap(node_cap, e_cap, layout)
+    batch = _apply_kernel_layout(batch, layout)
+    return _operands(device, batch, "128x0e+64x1o+32x2e", 20, 128, rng, bn, 1024), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [256, 512])
+@pytest.mark.parametrize("mm,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_cuda_message_kernels_periodic_ghost_layout(cuda_device, bn, mm, rel):
+    """The forward and first-order backward kernels on the MD hot loop's
+    layout: a periodic ghost layout, chunk 1024, 256- and 512-row blocks,
+    a window far wider than the training batches' (pad_nodes from the
+    sorted reach), against their plain versions; zero d_ef on every slot
+    that adds nothing, the slot_cap tail past the covered chunks included."""
+    p, plan = _ghost_problem(cuda_device, bn)
+    assert plan["n_ghosts"] > 0 and p["chunk"] == 1024 and p["bn"] == bn
+    cd = getattr(torch, mm)
+    m = p["meta"]
+    out = fm.message_fwd_cuda(p["x"], p["ef"], p["wf"], m, *p["statics"], p["n"], bn, 1024, mm)
+    want = fm.plain_message(p["x"], p["ef"], p["wf"], m[2], m[3], p["mask"], *p["statics"],
+                            p["n"], cd)
+    torch.cuda.synchronize()
+    _close(out, want, rel)
+    got = fm.message_bwd_cuda(p["x"], p["ef"], p["wf"], p["g"], m, *p["statics"], p["n"], bn,
+                              1024, mm)
+    want = fm.plain_message_bwd(p["x"], p["ef"], p["wf"], p["g"], m[2], m[3], p["mask"],
+                                *p["statics"], p["n"], cd)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        _close(a, b, rel)
+    covered = 1024 * int(m[4][-1] + m[5][-1])
+    assert covered < p["mask"].shape[0] and float(got[1][~p["mask"]].abs().max()) == 0.0
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
 """Shared building blocks: activations, dense layers, MLPs, embeddings.
 
-Port of ``xequinet_tpu/models/basic.py:18-116``.  ``Dense`` and
+Port of ``xequinet_tpu/models/basic.py:18-110``.  ``Dense`` and
 ``LayerNorm`` reproduce flax's ``nn.Dense`` / ``nn.LayerNorm`` numerics
 (including flax's bf16 rounding points when ``compute_dtype`` is bf16),
 so one parameter tree gives the same outputs in both packages.  Every
@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -116,22 +117,29 @@ class ScalarMLP(nn.Module):
 
 
 class AtomEmbedding(nn.Module):
-    """Trainable embedding over 100 elements; row 0 is the padding element
-    and reads as zero whatever the stored value."""
+    """Atomic-number embedding: a trainable table over 100 elements whose
+    row 0 (the padding element) reads as zero whatever the stored value,
+    or, with ``embed_table`` ([n_elements + 1, n_aux], e.g. the xTB-basis
+    projections of utils/qc.get_embedding_table), that fixed table
+    followed by ``Dense_0`` (zero bias at init), as flax names it."""
 
     def __init__(self, node_dim: int, embed_table: Optional[object] = None):
         super().__init__()
-        if embed_table is not None:
-            raise NotImplementedError(
-                "fixed embedding tables (utils/qc.py) are not ported yet; "
-                "use embed_basis='one-hot'"
-            )
-        self.embedding = nn.Parameter(torch.zeros(100, node_dim))
+        if embed_table is None:
+            self.embedding = nn.Parameter(torch.zeros(100, node_dim))
+            self.Dense_0 = None
+        else:
+            table = torch.as_tensor(np.asarray(embed_table, dtype=np.float32))
+            self.register_buffer("fixed", table, persistent=False)
+            self.Dense_0 = Dense(table.shape[1], node_dim)
 
     def _init(self, gen: torch.Generator) -> None:
-        _normal_(self.embedding, gen, 1.0)
+        if self.Dense_0 is None:
+            _normal_(self.embedding, gen, 1.0)
 
     def forward(self, atomic_numbers: torch.Tensor) -> torch.Tensor:
+        if self.Dense_0 is not None:
+            return self.Dense_0(self.fixed[atomic_numbers.long()])
         table = self.embedding.clone()
         table[0] = 0.0
         return table[atomic_numbers.long()]

@@ -1,6 +1,7 @@
 """Edge-data preprocessing and autodiff properties (forces / virial).
 
-Port of ``xequinet_tpu/models/properties.py:25-166``.  The model forward
+Port of ``xequinet_tpu/models/properties.py:25-166``, periodic ghost
+rows included.  The model forward
 is a function of (positions, strain); forces and virial are minus the
 gradients of the masked total energy, taken with ``torch.autograd.grad``,
 including the strain trick (a symmetrized per-graph strain applied to
@@ -22,8 +23,6 @@ DataDict = Dict[str, torch.Tensor]
 def compute_edge_data(data: DataDict, strain: Optional[torch.Tensor] = None) -> DataDict:
     """Edge vectors / lengths (+ the strain) from positions."""
     data = dict(data)
-    if keys.GHOST_MAP in data:
-        raise NotImplementedError("periodic ghost rows are not ported yet")
     pos = data[keys.POSITIONS]
     center_idx = data[keys.EDGE_INDEX][keys.CENTER_IDX].long()
     neighbor_idx = data[keys.EDGE_INDEX][keys.NEIGHBOR_IDX].long()
@@ -32,9 +31,23 @@ def compute_edge_data(data: DataDict, strain: Optional[torch.Tensor] = None) -> 
     has_cell = keys.CELL in data
     cell = data.get(keys.CELL)
 
+    # periodic ghost rows (ops/spatial_sort.ghost_layout_pbc): their
+    # positions are derived, pos[owner] + shift @ cell, so the force and
+    # virial gradients reach the owning atom and the input values of ghost
+    # position rows are ignored.  Derived before the strain: pos . eps
+    # then strains the shift term by exactly cell . eps, which keeps the
+    # strain-trick virial exact.  Ghosts take their owner's graph.
+    node_graph = batch
+    if keys.GHOST_MAP in data:
+        gm = data[keys.GHOST_MAP].long()
+        node_graph = batch.index_select(0, gm)
+        shift = data[keys.GHOST_SHIFT].to(pos.dtype)
+        pos = pos.index_select(0, gm) + torch.einsum(
+            "ni,nij->nj", shift, cell.index_select(0, node_graph))
+
     if strain is not None:
         symm_strain = 0.5 * (strain + strain.transpose(-1, -2))  # [G,3,3]
-        pos = pos + torch.einsum("ni,nij->nj", pos, symm_strain.index_select(0, batch))
+        pos = pos + torch.einsum("ni,nij->nj", pos, symm_strain.index_select(0, node_graph))
         if has_cell:
             cell = cell + torch.einsum("gij,gjk->gik", cell, symm_strain)
         data[keys.STRAIN] = strain
@@ -48,7 +61,7 @@ def compute_edge_data(data: DataDict, strain: Optional[torch.Tensor] = None) -> 
     vectors = pos.index_select(0, center_idx) - pos.index_select(0, neighbor_idx)
     if has_cell:
         cell_offsets = data[keys.CELL_OFFSETS].to(pos.dtype)
-        cell_per_edge = cell.index_select(0, batch.index_select(0, neighbor_idx))
+        cell_per_edge = cell.index_select(0, node_graph.index_select(0, neighbor_idx))
         vectors = vectors - torch.einsum("ni,nij->nj", cell_offsets, cell_per_edge)
 
     mask = edge_mask[:, None]

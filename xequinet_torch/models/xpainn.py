@@ -45,7 +45,9 @@ def _pad128(n: int) -> int:
 
 
 class XEmbedding(nn.Module):
-    """Node embedding + edge basis: NODE_INVARIANT, RADIAL_BASIS_FUNCTION,
+    """Node embedding (trainable one-hot table, or the fixed per-element
+    table of ``embed_basis`` / ``aux_basis`` followed by a Dense) + edge
+    basis: NODE_INVARIANT, RADIAL_BASIS_FUNCTION,
     ENVELOPE_FUNCTION, SPHERICAL_HARMONICS ([x,y,z] -> [y,z,x]), zero
     NODE_EQUIVARIANT and, for the mega route, the packed K_EDGE_FEAT."""
 
@@ -55,13 +57,13 @@ class XEmbedding(nn.Module):
                  cutoff: float = 5.0, cutoff_fn: str = "cosine",
                  pack_edge_features: bool = False):
         super().__init__()
+        embed_table = None
         if embed_basis != "one-hot":
-            raise NotImplementedError(
-                f"embed_basis {embed_basis!r} needs the element tables of "
-                "utils/qc.py, not ported yet; use 'one-hot'"
-            )
+            from ..utils.qc import get_embedding_table
+
+            embed_table = get_embedding_table(embed_basis, aux_basis)
         self.irreps = Irreps(node_irreps)
-        self.AtomEmbedding_0 = AtomEmbedding(node_dim)
+        self.AtomEmbedding_0 = AtomEmbedding(node_dim, embed_table)
         self.SphericalBesselj0_0 = resolve_rbf(rbf_kernel, num_basis, cutoff)
         self.cutoff_fn = resolve_cutoff(cutoff_fn, cutoff)
         self.pack = pack_edge_features
@@ -127,7 +129,13 @@ class XPainnMessage(nn.Module):
 
     def forward(self, data: DataDict) -> DataDict:
         if keys.GHOST_MAP in data:
-            raise NotImplementedError("periodic ghost rows are not ported yet")
+            # periodic ghost rows: refreshed from the owning atom's state
+            # before any source gather (the update blocks leave them
+            # stale).  The map is the identity on real rows, and the
+            # gather's backward carries the ghosts' gradients to the owners.
+            gm = data[keys.GHOST_MAP].long()
+            data[keys.NODE_INVARIANT] = data[keys.NODE_INVARIANT].index_select(0, gm)
+            data[keys.NODE_EQUIVARIANT] = data[keys.NODE_EQUIVARIANT].index_select(0, gm)
         node_scalar = data[keys.NODE_INVARIANT]
         node_equi = data[keys.NODE_EQUIVARIANT]
         if self.layer_norm:

@@ -87,9 +87,9 @@ def build_kernels(names=None) -> Dict[str, Dict[str, object]]:
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
             "-o", str(tmp), str(CSRC_DIR / _KERNELS[name][0]),
         ]
+        t0 = time.perf_counter()  # before the process starts: its whole wall time
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       time.perf_counter(), tmp, out)
+                                        stderr=subprocess.PIPE, text=True), t0, tmp, out)
 
     def finish(item):  # each nvcc's own wall time, not the wait in turn
         name, (p, t0, tmp, out) = item

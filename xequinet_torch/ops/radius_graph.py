@@ -1,23 +1,35 @@
-"""Host-side (numpy) cutoff radius graphs, with and without PBC.
+"""Cutoff radius graphs, with and without PBC.
 
-Port of the numpy branch of ``xequinet_tpu/ops/radius_graph.py:33-157``
-(the native C++ cell-list builder is a later item).  Convention: edge
-(center i, neighbor j) for every ordered pair with
-0 < |r_i - r_j - offset @ cell| < cutoff, so
+Port of ``xequinet_tpu/ops/radius_graph.py:33-196``: the host searches
+(numpy; the O(N) C++ cell lists of ``ops/native.py`` when ``g++`` builds
+them, O(N^2) numpy otherwise) and the fixed-capacity device search of
+the free Calculator (``radius_graph_fixed``, plain torch on the
+Calculator's device).  Convention: edge (center i, neighbor j) for every
+ordered pair with 0 < |r_i - r_j - offset @ cell| < cutoff, so
 vectors = pos[center] - pos[neighbor] - offsets @ cell.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
-def radius_graph_np(pos: np.ndarray, cutoff: float) -> Tuple[np.ndarray, np.ndarray]:
-    """O(N^2) non-PBC neighbour search.  Returns (edge_index [2, E],
-    cell_offsets [E, 3] zeros), edges sorted center-major."""
+def radius_graph_np(
+    pos: np.ndarray, cutoff: float, use_native: bool = True
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Non-PBC neighbour search on the host: C++ cell lists when the
+    native library builds, O(N^2) numpy otherwise.  Returns (edge_index
+    [2, E], cell_offsets [E, 3] zeros), edges sorted center-major."""
     pos = np.asarray(pos, dtype=np.float64)
+    if use_native:
+        from .native import radius_graph_native
+
+        res = radius_graph_native(pos, cutoff)
+        if res is not None:
+            return res
     diff = pos[:, None, :] - pos[None, :, :]
     dist2 = np.einsum("ijk,ijk->ij", diff, diff)
     n = pos.shape[0]
@@ -50,18 +62,30 @@ def wrap_positions(
 
 
 def radius_graph_pbc_np(
-    pos: np.ndarray, cell: np.ndarray, pbc: np.ndarray, cutoff: float
+    pos: np.ndarray, cell: np.ndarray, pbc: np.ndarray, cutoff: float,
+    use_native: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """PBC neighbour search for one graph.  Returns (edge_index [2, E],
-    cell_offsets [E, 3] ints) for the original (unwrapped) positions."""
+    cell_offsets [E, 3] ints) for the original (unwrapped) positions,
+    center-major."""
     pos = np.asarray(pos, dtype=np.float64)
     cell = np.asarray(cell, dtype=np.float64).reshape(3, 3)
     pbc = np.asarray(pbc).reshape(3).astype(bool)
     if not pbc.any():
-        return radius_graph_np(pos, cutoff)
+        return radius_graph_np(pos, cutoff, use_native)
 
     wrapped, wrap_shifts = wrap_positions(pos, cell, pbc)
     reps = _num_repeats(cell, pbc, cutoff)
+    if use_native:
+        from .native import radius_graph_pbc_native
+
+        res = radius_graph_pbc_native(wrapped, cell, reps, cutoff)
+        if res is not None:
+            ei, cell_offsets = res
+            center, neighbor = ei[0], ei[1]
+            cell_offsets = cell_offsets + wrap_shifts[center] - wrap_shifts[neighbor]
+            order = np.argsort(center, kind="stable")
+            return np.stack([center[order], neighbor[order]]), cell_offsets[order]
     ranges = [np.arange(-r, r + 1) for r in reps]
     offsets = np.stack(np.meshgrid(*ranges, indexing="ij"), axis=-1).reshape(-1, 3)
     img_pos = wrapped[None, :, :] + (offsets @ cell)[:, None, :]
@@ -88,3 +112,35 @@ def radius_graph_pbc_np(
         + wrap_shifts[center] - wrap_shifts[neighbor]
     )
     return np.stack([center, neighbor]), cell_offsets
+
+
+def radius_graph_fixed(
+    pos: torch.Tensor,
+    cutoff: float,
+    max_edges: int,
+    node_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Non-PBC neighbour search on the device with a fixed edge capacity.
+
+    Returns (edge_index [2, min(max_edges, N^2)] int32, edge_mask,
+    n_edges_found []); overflow shows as n_edges_found > max_edges.
+    O(N^2) masked distance matrix, for molecular sizes.  Real edges come
+    in flat (center-major) order; padding edges point at the last node
+    slot, so center indices stay sorted."""
+    n = pos.shape[0]
+    diff = pos[:, None, :] - pos[None, :, :]
+    dist2 = (diff * diff).sum(-1)
+    valid = (dist2 < cutoff * cutoff) & ~torch.eye(n, dtype=torch.bool, device=pos.device)
+    if node_mask is not None:
+        valid = valid & node_mask[:, None] & node_mask[None, :]
+    flat = valid.reshape(-1)
+    n_found = flat.sum(dtype=torch.int32)
+    # stable sort of the negated mask puts the valid pairs first, in order
+    order = torch.argsort((~flat).to(torch.int32), stable=True)[:max_edges]
+    center = order // n
+    neighbor = order % n
+    edge_mask = flat.index_select(0, order)
+    last = torch.full_like(center, n - 1)
+    center = torch.where(edge_mask, center, last)
+    neighbor = torch.where(edge_mask, neighbor, last)
+    return torch.stack([center, neighbor]).to(torch.int32), edge_mask, n_found

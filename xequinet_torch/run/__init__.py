@@ -1,1 +1,1 @@
-"""Drivers of the port (inference)."""
+"""Entry points of the port: inference, training and molecular dynamics."""

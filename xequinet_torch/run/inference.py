@@ -25,6 +25,7 @@ from ..data.datapoint import Datapoint
 from ..data.transforms import NeighborTransform
 from ..models.model import resolve_model
 from ..models.properties import make_forward
+from ..utils.qc import set_default_units
 
 
 def resolve_device(device=None) -> torch.device:
@@ -40,11 +41,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def load_model_from_checkpoint(ckpt_file: str, use_ema: bool = True):
-    """Rebuild the model from the checkpoint's embedded config and load
-    its (EMA) weights, from either package's trainer.  Returns (module,
-    extra, cutoff, blob, config)."""
+    """Rebuild the model from the checkpoint's embedded config (and set
+    its default units) and load its (EMA) weights, from either package's
+    trainer.  Returns (module, extra, cutoff, blob, config)."""
     blob = load_checkpoint(ckpt_file)
     model_config = blob["config"]
+    if model_config.get("default_units"):
+        set_default_units(model_config["default_units"])
     module, extra, cutoff = resolve_model(
         model_config["model_name"], **model_config["model_kwargs"]
     )

@@ -1,12 +1,13 @@
-"""Config schema: {model, trainer, data} dataclasses merged with YAML or a
-plain dict of overrides.
+"""Config schema: {model, trainer, data} dataclasses and the MD config,
+merged with YAML or a plain dict of overrides.
 
-Copy of ``xequinet_tpu/utils/config.py:18-104, 145-170, 186-187``: field
-names stay one to one, so the JAX package's YAML configs load unchanged
-(its TPU-only fields, such as ``compile_cache`` and the halo settings, are
-accepted and read by nothing on the port's single-device path).  The
-port adds ``trainer.device``.  ``yaml`` is imported only when a YAML path
-is given.
+Copy of ``xequinet_tpu/utils/config.py:18-187``: field names stay one to
+one, so the JAX package's YAML configs load unchanged (its TPU-only
+fields, such as ``compile_cache`` and the halo settings, are accepted and
+read by nothing on the port's single-device path).  The port adds
+``trainer.device``; ``MDConfig.device`` ("cuda", "cpu" or None for the
+card) is the JAX field, read by the port's ``run_md``.  ``yaml`` is
+imported only when a YAML path is given.
 """
 
 from __future__ import annotations
@@ -95,6 +96,40 @@ class XequiConfig:
     data: DataConfig = field(default_factory=DataConfig)
 
 
+@dataclass
+class MDConfig:
+    ensembles: List[Any] = field(default_factory=list)
+    input_file: str = "input.xyz"
+    input_format: Optional[str] = None
+    model_file: str = "model.ckpt"
+    delta_method: Optional[str] = None
+    init_temperature: float = 300.0  # Kelvin
+    logfile: str = "md.log"
+    append_logfile: bool = False
+    trajectory: Optional[str] = None
+    append_trajectory: bool = False
+    xyz_traj: Optional[str] = None
+    columns: Optional[List[str]] = None
+    dtype: str = "float32"
+    # "cuda", "cpu" or None (the card; raises without one)
+    device: Optional[str] = None
+    seed: Optional[int] = None
+    # "mega": the fused message kernels on the MD hot loop, for free
+    # systems whose sorted neighbour reach fits a window and for periodic
+    # ones through the ghost layout (ops/spatial_sort); other systems take
+    # the plain route by the JAX Calculator's own size rules
+    pallas: Optional[str] = None
+    # >1: one system halo-decomposed over this many devices (not ported)
+    halo_devices: int = 0
+    # the JAX package's persistent XLA cache; accepted, no effect here
+    compile_cache: Any = True
+    # None = the port's rule (no TF32); see utils/precision.py
+    matmul_precision: Optional[str] = None
+    # Verlet skin (model length units): neighbour lists at cutoff+skin,
+    # reused until an atom drifts skin/2 (interface/calculator.py)
+    skin: float = 0.0
+
+
 def _merge_into(obj: Any, data: Dict[str, Any], path: str = "") -> Any:
     """Recursively merge a dict into a dataclass instance, validating keys."""
     names = {f.name: f for f in dataclasses.fields(obj)}
@@ -111,6 +146,19 @@ def _merge_into(obj: Any, data: Dict[str, Any], path: str = "") -> Any:
 
 def load_config(yaml_file: Optional[str] = None, overrides: Optional[Dict] = None) -> XequiConfig:
     cfg = XequiConfig()
+    if yaml_file is not None:
+        import yaml
+
+        with open(yaml_file) as f:
+            data = yaml.safe_load(f) or {}
+        _merge_into(cfg, data)
+    if overrides:
+        _merge_into(cfg, overrides)
+    return cfg
+
+
+def load_md_config(yaml_file: Optional[str] = None, overrides: Optional[Dict] = None) -> MDConfig:
+    cfg = MDConfig()
     if yaml_file is not None:
         import yaml
 

@@ -1,16 +1,24 @@
-"""Units: a CODATA-2018 atomic-unit algebra.
+"""Units, element data and xTB-basis atom embeddings.
 
-Copy of the unit part of ``xequinet_tpu/utils/qc.py:25-131``: every unit
-is a float in atomic units, and arithmetic unit expressions such as
-"eV/Ang^2" are parsed and evaluated.  The element tables and the xTB
-embeddings of that module come with a later slice.
+Copy of ``xequinet_tpu/utils/qc.py:25-244`` (numpy only): a CODATA-2018
+atomic-unit algebra where every unit is a float in atomic units and
+arithmetic unit expressions such as "eV/Ang^2" are parsed and evaluated;
+the element tables (symbols, ground-state multiplicities, masses); and
+the per-element embedding tables of the fixed-table atom embedding (each
+element's xTB AO basis projected onto an auxiliary basis), read from the
+``.npz`` copies in ``utils/pre_computed``.  Generating a missing table
+needs PySCF (``gen_int2c1e``), which the port does not carry.
 """
 
 from __future__ import annotations
 
 import re
+from functools import lru_cache
 from math import pi
+from pathlib import Path
 from typing import Dict, Optional
+
+import numpy as np
 
 from .. import keys
 
@@ -122,3 +130,70 @@ def set_default_units(unit_dict: Dict[str, str]) -> None:
 
 def get_default_units() -> Dict[str, str]:
     return dict(DEFAULT_UNITS_MAP)
+
+
+THIS_FOLDER = Path(__file__).parent
+PRE_FOLDER = THIS_FOLDER / "pre_computed"
+
+# fmt: off
+ELEMENTS_LIST = ['d',
+  'H',                                                                                                  'He',
+  'Li', 'Be',                                                             'B',  'C',  'N',  'O',  'F',  'Ne',
+  'Na', 'Mg',                                                             'Al', 'Si', 'P',  'S',  'Cl', 'Ar',
+  'K',  'Ca', 'Sc', 'Ti', 'V',  'Cr', 'Mn', 'Fe', 'Co', 'Ni', 'Cu', 'Zn', 'Ga', 'Ge', 'As', 'Se', 'Br', 'Kr',
+  'Rb', 'Sr', 'Y',  'Zr', 'Nb', 'Mo', 'Tc', 'Ru', 'Rh', 'Pd', 'Ag', 'Cd', 'In', 'Sn', 'Sb', 'Te', 'I',  'Xe',
+  'Cs', 'Ba',
+        'La', 'Ce', 'Pr', 'Nd', 'Pm', 'Sm', 'Eu', 'Gd', 'Tb', 'Dy', 'Ho', 'Er', 'Tm', 'Yb', 'Lu',
+        'Hf', 'Ta', 'W',  'Re', 'Os', 'Ir', 'Pt', 'Au', 'Hg', 'Tl', 'Pb', 'Bi', 'Po', 'At', 'Rn',
+]
+ELEMENTS_DICT = {e: i for i, e in enumerate(ELEMENTS_LIST)}
+ATOM_MULT = [-1,
+  2,                                                 1,
+  2, 1,                               2, 3, 4, 3, 2, 1,
+  2, 1,                               2, 3, 4, 3, 2, 1,
+  2, 1, 2, 3, 4, 7, 6, 5, 4, 3, 2, 1, 2, 3, 4, 3, 2, 1,
+  2, 1, 2, 3, 6, 7, 6, 5, 4, 1, 2, 1, 2, 3, 4, 3, 2, 1,
+  2, 1,
+        2, 3, 4, 5, 6, 7, 8, 9, 6, 5, 4, 3, 2, 1, 2,
+        3, 4, 5, 6, 5, 4, 3, 2, 1, 2, 3, 4, 3, 2, 1,
+]
+ATOM_MASS = np.array([0.0,
+    1.008,                                                                                                                 4.003,
+    6.941, 9.012,                                                                       10.81, 12.01, 14.01, 16.00, 19.00, 20.18,
+    22.99, 24.31,                                                                       26.98, 28.09, 30.97, 32.06, 35.45, 39.95,
+    39.10, 40.08, 44.96, 47.87, 50.94, 52.00, 54.94, 55.85, 58.93, 58.69, 63.55, 65.38, 69.72, 72.63, 74.92, 78.96, 79.90, 83.80,
+    85.47, 87.62, 88.91, 91.22, 92.91, 95.96, 98.,   101.1, 102.9, 106.4, 107.9, 112.4, 114.8, 118.7, 121.8, 127.6, 126.9, 131.3,
+    132.9, 137.3,
+                  138.9, 140.1, 140.9, 144.2, 145.,  150.4, 152.0, 157.3, 158.9, 162.5, 164.9, 167.3, 168.9, 173.1, 175.0,
+                  178.5, 180.9, 183.8, 186.2, 190.2, 192.2, 195.1, 197.0, 200.6, 204.4, 207.2, 209.,  210.,  210.,  222.,
+])
+# fmt: on
+
+
+
+def gen_int2c1e(embed_basis: str = "gfn2-xtb", aux_basis: str = "aux56") -> Path:
+    """Generating an embedding table projects each element's AO basis
+    onto the auxiliary basis with PySCF overlap integrals
+    (``xequinet_tpu/utils/qc.py:153``); not ported.  Raises ImportError,
+    as the JAX function does without PySCF."""
+    raise ImportError(
+        f"generating the {embed_basis}_{aux_basis} embedding table needs PySCF and "
+        "the xTB basis files, which the port does not carry"
+    )
+
+
+@lru_cache(maxsize=None)
+def get_embedding_table(embed_basis: str = "gfn2-xtb", aux_basis: str = "aux28") -> tuple:
+    """Per-element embedding table as a tuple of tuples, shape
+    (n_elements + 1, n_aux); row 0 is padding."""
+    f = PRE_FOLDER / f"{embed_basis}_{aux_basis}.npz"
+    if not f.exists():
+        try:
+            gen_int2c1e(embed_basis, aux_basis)
+        except ImportError as exc:
+            raise FileNotFoundError(
+                f"No precomputed embedding table {f} and PySCF is not installed "
+                "to generate it; use embed_basis='one-hot'."
+            ) from exc
+    table = np.load(f)["table"].astype(np.float32)
+    return tuple(tuple(float(v) for v in row) for row in table)
