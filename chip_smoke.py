@@ -4,8 +4,8 @@
     python3 chip_smoke.py --profile DIR    # also trace forward+forces and a
                                            # train step of each route with
                                            # torch.profiler
-    python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
-                                           # and 7 with the plain versions
+    python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5,
+                                           # 7 and 8 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -76,9 +76,28 @@ Phases (any failed check exits non-zero):
      f32, skin 0.5, on the mega route (3 + 3 launches per force call) and
      the plain route: the mega route's energy drift per atom within 2x
      the plain route's + 1e-4 eV, ms per step.
+  8. XPaiNN-Ewald and the conditioned multi-head XPaiNN, each mega route
+     against its plain route on the card: (a) bench.py's pbc_ewald_mega
+     path, FLAGSHIP_KW with one Ewald block (num_k_points (3, 3, 3), K =
+     171, projection_dim 8) on bench.py's crystal batch (rng 1234, 640
+     cells, layout (128, 512, 32, 128)): InferenceEngine.predict with
+     forces and virial (3 + 3 launches), bf16 energies, mean |F| and the
+     mean |virial| band, f32 energies, forces element-wise and the virial
+     mean and element-wise; the device forward+forces+virial, peak memory
+     and the Ewald blocks' share of device time (torch.profiler); 10
+     training steps on bench.py's recipe with a virial term (3 + 6 + 3
+     launches per step, a falling loss) and one f32 step against the
+     plain route's; (b) the free variant (k_cutoff 0.4, delta_k 0.2, 20
+     k-bases, K = 13) on phase 3's molecules; (c) charge and spin
+     embeddings with the energy, charges, dipole, polar and spatial heads
+     on the molecules with random integer charges and spins (every head,
+     and the f32 charges summing to each graph's charge within 1e-4); (d)
+     Calculator(pallas="mega", skin=0.5) of the (a) model on phase 7's
+     periodic box after a worker swap against plain Calculators (phase 7's
+     md_agreement).
 Then one JSON line with the kernels (each with its launches per MD call
-too), the card line, and last the device JSON line.  It imports nothing
-of JAX or of the JAX package.
+and per phase 8 path too), the card line, and last the device JSON line.
+It imports nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -564,15 +583,15 @@ def compare_outputs(tag, got, want, n_graphs, n_atoms, tol, f_tol=None):
         fail(f"{tag}: forces disagree element-wise")
 
 
-def make_engine(device, **over):
-    """InferenceEngine of flagship XPaiNN (FLAGSHIP_KW with ``over``) on
-    seeded weights."""
+def make_engine(device, model="xpainn", **over):
+    """InferenceEngine of flagship XPaiNN (FLAGSHIP_KW with ``over``; or
+    another model family of the same widths) on seeded weights."""
     from xequinet_torch.models.model import init_params, resolve_model
     from xequinet_torch.run.inference import InferenceEngine
 
     kw = dict(FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
     kw.update(over)
-    module, extra, cutoff = resolve_model("xpainn", **kw)
+    module, extra, cutoff = resolve_model(model, **kw)
     init_params(module, seed=0)
     return InferenceEngine(module=module, model_kwargs=kw, extra=extra, cutoff=cutoff,
                            device=device)
@@ -735,72 +754,77 @@ TRAIN_WEIGHTS = {"energy": 1.0, "forces": 10.0}
 # (tests/test_torch_training.py).  A wrong sign or a dropped term moves a
 # gradient by its own size.
 GRAD_TOL, GRAD_ULP_FACTOR = 1e-4, 2.0
+# a training task: (model family, loss weights, whether the virial is a
+# target); the flagship's is bench.py's recipe
+FLAGSHIP_TASK = ("xpainn", TRAIN_WEIGHTS, False)
 
 
-def train_model(device, **over):
-    """Flagship XPaiNN with seeded weights, its forward for training and
-    the step core of bench.py's recipe."""
+def train_model(device, task=FLAGSHIP_TASK, **over):
+    """Flagship XPaiNN (or ``task``'s model family) with seeded weights,
+    its forward for training and the step core of bench.py's recipe."""
     from xequinet_torch.models.model import init_params, resolve_model
     from xequinet_torch.models.properties import make_forward
     from xequinet_torch.training.loss import ErrorMetric, WeightedLoss
     from xequinet_torch.training.lr_schedule import resolve_lr_schedule, resolve_optimizer
     from xequinet_torch.training.trainer import make_step_core
 
+    model, weights, virial = task
     kw = dict(FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
     kw.update(over)
-    module, extra, _ = resolve_model("xpainn", **kw)
+    module, extra, _ = resolve_model(model, **kw)
     init_params(module, seed=0)
     module = module.to(device)
     params = list(module.parameters())
     opt = resolve_optimizer("adamw", params)
     sched = resolve_lr_schedule("cosine_annealing", 5e-4, 10000, warmup_steps=100)
     forward = make_forward(module, extra, create_graph=True)
-    step = make_step_core(forward, WeightedLoss("l2", **TRAIN_WEIGHTS), params, opt, sched,
-                          True, False, 5.0, 0.999, ErrorMetric("energy", "forces"))
+    step = make_step_core(forward, WeightedLoss("l2", **weights), params, opt, sched,
+                          True, virial, 5.0, 0.999, ErrorMetric(*weights))
     return module, forward, step, [p.detach().clone() for p in params]
 
 
-def model_grads(module, forward, batch, pos_scale=1.0):
+def model_grads(module, forward, batch, pos_scale=1.0, task=FLAGSHIP_TASK):
     from xequinet_torch import keys
     from xequinet_torch.training.loss import WeightedLoss
     from xequinet_torch.training.trainer import loss_and_grads
 
+    _, weights, virial = task
     b = dict(batch)
     b[keys.POSITIONS] = b[keys.POSITIONS] * pos_scale
     named = list(module.named_parameters())
-    loss, _, _, grads = loss_and_grads(forward, WeightedLoss("l2", **TRAIN_WEIGHTS),
-                                       [p for _, p in named], b, True, False)
+    loss, _, _, grads = loss_and_grads(forward, WeightedLoss("l2", **weights),
+                                       [p for _, p in named], b, True, virial)
     return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
 
 
 F32 = dict(compute_dtype="float32", update_compute_dtype="float32")
 
 
-def plain_f32_reference(dps, device):
+def plain_f32_reference(dps, device, task=FLAGSHIP_TASK, **over):
     """The f32 plain route's weights, loss and parameter gradients on the
     flagship batch (collated without the slot layout), and its gradients
     again with the positions moved by one f32 ulp (x (1 + 1e-7))."""
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
 
-    mp, fp, _, _ = train_model(device, use_pallas_scatter=False, **F32)
+    mp, fp, _, _ = train_model(device, task, **dict(over, use_pallas_scatter=False, **F32))
     pb = batch_to_device(collate(dps), device)
-    lp, gp = model_grads(mp, fp, pb)
-    _, gp_nudged = model_grads(mp, fp, pb, 1.0 + 1e-7)
+    lp, gp = model_grads(mp, fp, pb, task=task)
+    _, gp_nudged = model_grads(mp, fp, pb, 1.0 + 1e-7, task)
     state = {k: v.clone() for k, v in mp.state_dict().items()}
     del mp, pb
     return state, lp, gp, gp_nudged
 
 
-def f32_step_check(tag, over, b, ref, device, card):
+def f32_step_check(tag, over, b, ref, device, card, task=FLAGSHIP_TASK):
     """One f32 step's loss and parameter gradients on the kernel route
     ``over`` from the plain route's weights, against the plain route's
     (``ref`` from :func:`plain_f32_reference`), under the per-parameter
     limit GRAD_TOL + GRAD_ULP_FACTOR x the plain route's one-ulp change."""
     state, lp, gp, gp_nudged = ref
-    mk, fk, _, _ = train_model(device, **F32, **over)
+    mk, fk, _, _ = train_model(device, task, **dict(over, **F32))
     mk.load_state_dict(state)
-    lk, gk = model_grads(mk, fk, b)
+    lk, gk = model_grads(mk, fk, b, task=task)
     print(f"[train] f32 {tag} and plain route steps: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB — {card}")
     rel = abs(lk - lp) / abs(lp)
@@ -823,7 +847,7 @@ def f32_step_check(tag, over, b, ref, device, card):
     torch.cuda.empty_cache()
 
 
-def phase_training(tag, over, n_steps, want, b, ref, device, card):
+def phase_training(tag, over, n_steps, want, b, ref, device, card, task=FLAGSHIP_TASK):
     """Phase 5: flagship bf16 training on the kernel route ``over`` on the
     card: launches per step ``want``, finite loss, parameters and
     gradients, a falling loss over ``n_steps`` steps, and the f32 step
@@ -831,28 +855,30 @@ def phase_training(tag, over, n_steps, want, b, ref, device, card):
     step function and its EMA for phase 6)."""
     from xequinet_torch.ops import cuda_build
 
-    module, forward, step, ema = train_model(device, **over)
-    loss0, _ = model_grads(module, forward, b)
+    module, forward, step, ema = train_model(device, task, **over)
+    loss0, _ = model_grads(module, forward, b, task=task)
+    card_run = device.type == "cuda"
     cuda_build.reset_launch_counts()
     loss, _ = step(b, 0, 1.0, ema)
-    torch.cuda.synchronize()
-    counts = expect_launches(f"bf16 {tag} train step", **want)
+    if card_run:
+        torch.cuda.synchronize()
+    counts = path_launches(f"{tag} train step", card_run, **want)
     if not (np.isfinite(float(loss)) and all(torch.isfinite(p).all()
                                               for p in module.parameters())):
         fail(f"{tag}: non-finite loss or parameters after a train step")
-    _, grads = model_grads(module, forward, b)
+    _, grads = model_grads(module, forward, b, task=task)
     bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
     if bad or not np.isfinite(loss0):
         fail(f"{tag}: non-finite gradients: {bad[:5]}")
     for i in range(1, n_steps):
         step(b, i, 1.0, ema)
-    loss_n, _ = model_grads(module, forward, b)
+    loss_n, _ = model_grads(module, forward, b, task=task)
     print(f"[train] {tag}: loss on the fixed batch {loss0:.6f} before, {loss_n:.6f} after "
           f"{n_steps} steps")
     if not loss_n < loss0:
         fail(f"{tag}: the training loss did not fall over {n_steps} steps")
     if ref is not None:
-        f32_step_check(tag, over, b, ref, device, card)
+        f32_step_check(tag, over, b, ref, device, card, task)
     return counts, step, ema
 
 
@@ -1122,16 +1148,17 @@ MD_GRID = 2.0 ** -10
 MD_DT = 0.05
 
 
-def md_checkpoint(path, **over):
-    """Seeded XPaiNN (MD_KW with ``over``, torch.Generator seed 0) written
-    by the port's trainer checkpoint writer."""
+def md_checkpoint(path, model="xpainn", **over):
+    """Seeded XPaiNN (MD_KW with ``over``, torch.Generator seed 0; or
+    another model family) written by the port's trainer checkpoint
+    writer."""
     from xequinet_torch.models.model import init_params, resolve_model
     from xequinet_torch.training.trainer import save_checkpoint
 
     kw = dict(MD_KW, **over)
-    module, _, _ = resolve_model("xpainn", **kw)
+    module, _, _ = resolve_model(model, **kw)
     init_params(module, seed=0)
-    save_checkpoint(path, module, {"model_name": "xpainn", "model_kwargs": kw,
+    save_checkpoint(path, module, {"model_name": model, "model_kwargs": kw,
                                    "default_units": {}})
     return path
 
@@ -1559,6 +1586,437 @@ def phase_md(device, card, tmp, sizes, profile_dir=None):
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: XPaiNN-Ewald (periodic and free) and the conditioned multi-head
+# XPaiNN
+# ---------------------------------------------------------------------------
+# bench.py build_crystal_batch's slot layout (CRYSTAL_BN 128, chunk 512,
+# pad_nodes 32, 128 chunks)
+CRYSTAL_LAYOUT = (128, 512, 32, 128)
+# bench.py's pbc_ewald_mega path at FLAGSHIP_KW: one reciprocal-cell Ewald
+# block, num_k_points (3, 3, 3) (K = 171 k-points), projection_dim 8
+EWALD_PBC = dict(use_pbc=True, num_k_points=[3, 3, 3], projection_dim=8, ewald_blocks=1)
+# its free variant (bench.py's ewald path): the k-voxel grid at k_cutoff
+# 0.4, delta_k 0.2 (K = 13 k-points), 20 k-bases
+EWALD_FREE = dict(use_pbc=False, k_cutoff=0.4, delta_k=0.2, num_k_basis=20,
+                  projection_dim=8, ewald_blocks=1)
+# XPaiNN conditioned on charge and spin, with the non-Cartesian heads
+MULTI_HEADS = dict(charge_embed=True, spin_embed=True,
+                   output_modes=["energy", "charges", "dipole", "polar", "spatial"])
+# bench.py's crystal training recipe (_train_step_metric with the virial)
+EWALD_TASK = ("xpainn-ewald", {"energy": 1.0, "forces": 10.0, "virial": 1.0}, True)
+# f32 virial, mega against plain route, on the crystal batch: mean |virial|
+# at the f32 aggregate limit, element-wise max |dV| / max |V| at the JAX
+# package's f32 virial band (tests/test_pbc_mega.py)
+EWALD_F32_VIRIAL_TOL = (1e-4, 1e-3)
+# phase 8's sizes on the card and in the CPU rehearsal
+EWALD_SIZES = dict(n_cells=640, train_steps=10, md=MD_SIZES, kw={},
+                   layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
+EWALD_REHEARSAL = dict(n_cells=8, train_steps=2, md=MD_REHEARSAL, kw=MD_REHEARSAL["kw"],
+                       layout=(32, 32, PAD_NODES, MAX_CHUNKS))
+
+
+def build_crystals(n_cells, seed=1234, cutoff=5.0):
+    """bench.py build_crystal_batch's cells (same rng draws): 8-16 atoms in
+    a skewed cell of 4.5-6.5 A, with energy, force and virial labels."""
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
+
+    rng = np.random.default_rng(seed)
+    dps = []
+    for _ in range(n_cells):
+        n = int(rng.integers(8, 17))
+        cell = np.diag(rng.uniform(4.5, 6.5, size=3)) + rng.normal(size=(3, 3)) * 0.15
+        pos = rng.uniform(0, 1, size=(n, 3)) @ cell
+        pbc = np.array([True, True, True])
+        ei, offs = radius_graph_pbc_np(pos, cell, pbc, cutoff)
+        dps.append(Datapoint(
+            rng.integers(1, 9, size=n).astype(np.int32), pos, cell=cell, pbc=pbc,
+            edge_index=ei, cell_offsets=offs, energy=float(rng.normal()),
+            forces=rng.normal(size=(n, 3)).astype(np.float32),
+            virial=rng.normal(size=(3, 3)).astype(np.float32)))
+    return dps
+
+
+def ewald_k(module):
+    """The number of k-points of a model's Ewald initial block."""
+    from xequinet_torch.models.ewald import EwaldInitialPBC
+
+    init = next(m for m in module.blocks if hasattr(m, "k_index") or hasattr(m, "k_grid"))
+    return (init.k_index if isinstance(init, EwaldInitialPBC) else init.k_grid).shape[0]
+
+
+def path_launches(tag, card_run, **want):
+    """The launch counts since the last reset, held to ``want`` on the card
+    (the CPU runs the plain versions and counts nothing)."""
+    from xequinet_torch.ops import cuda_build
+
+    if card_run:
+        return expect_launches(tag, **want)
+    return dict(cuda_build.LAUNCHES)
+
+
+def twins(device, model, over, state, **variants):
+    """Engines of ``model`` (FLAGSHIP_KW with ``over`` and each variant's
+    overrides), all carrying the weights ``state``."""
+    out = {}
+    for name, extra in variants.items():
+        out[name] = make_engine(device, model, **dict(over, **extra))
+        out[name].module.load_state_dict(state)
+    return out
+
+
+def compare_virial(tag, got, want, n_graphs, mean_tol, elem_tol):
+    """Mean |virial| relative difference and max |dV| / max |V| over every
+    element of the real graphs."""
+    from xequinet_torch import keys
+
+    vg, vw = got[keys.VIRIAL][:n_graphs].cpu(), want[keys.VIRIAL][:n_graphs].cpu()
+    mean = abs(float(vg.abs().mean()) - float(vw.abs().mean())) / float(vw.abs().mean())
+    elem = rel_err(vg, vw)
+    print(f"[ewald] {tag}: mean|virial| rel diff {mean:.3e} (limit {mean_tol:g}), "
+          f"max|dV|/max|V| {elem:.3e} (limit {elem_tol:g})")
+    if not (mean <= mean_tol and elem <= elem_tol):
+        fail(f"{tag}: the virial disagrees")
+
+
+def bf16_virial_band(tag, got16, plain16, want32, n_graphs):
+    """The bf16 mega route's mean |virial| no further from the f32 plain
+    route's than 2e-2 plus twice the bf16 plain route's own largest
+    distance over its calls ``plain16`` (phase 7's band: bf16 rounding
+    alone moves the strain virial by per cents, and the plain route's
+    atomic sums move it from call to call).  The element-wise difference
+    from the bf16 plain route is printed, not held, as bf16 forces are."""
+    from xequinet_torch import keys
+
+    mean_v = lambda o: float(o[keys.VIRIAL][:n_graphs].abs().mean())
+    ref = mean_v(want32)
+    d_m = abs(mean_v(got16) - ref) / ref
+    d_p = [abs(mean_v(o) - ref) / ref for o in plain16]
+    limit = TOL["bfloat16"] + 2 * max(d_p)
+    elem = rel_err(got16[keys.VIRIAL][:n_graphs].cpu(), plain16[0][keys.VIRIAL][:n_graphs].cpu())
+    print(f"[ewald] {tag} bf16 mean |virial| against the f32 plain route's: mega route "
+          f"{d_m:.3e}, plain route " + ", ".join(f"{d:.3e}" for d in d_p)
+          + f" ({len(d_p)} calls; limit for mega: 2e-2 + 2 x the largest = {limit:.3e}); "
+          f"max|dV|/max|V| against the bf16 plain route {elem:.3e} (limit none)")
+    if d_m > limit:
+        fail(f"{tag}: the mega route's bf16 virial is further from f32 than the band")
+
+
+def compare_heads(tag, got, want, n_graphs, n_atoms, tol, elementwise):
+    """The dipole, polarizability and spatial extent per graph (max |err| /
+    max |ref|) within ``tol``; the atomic charges element-wise
+    (``elementwise``) or by their mean |q| (bf16: the routes round at
+    different points, as for forces)."""
+    from xequinet_torch import keys
+
+    errs = {k: rel_err(got[k][:n_graphs].cpu(), want[k][:n_graphs].cpu())
+            for k in (keys.DIPOLE, keys.POLARIZABILITY, keys.SPATIAL_EXTENT)}
+    qg = got[keys.ATOMIC_CHARGES][:n_atoms].cpu()
+    qw = want[keys.ATOMIC_CHARGES][:n_atoms].cpu()
+    if elementwise:
+        errs["charges"] = rel_err(qg, qw)
+    else:
+        errs["mean|q|"] = abs(float(qg.abs().mean()) - float(qw.abs().mean())) / \
+            float(qw.abs().mean())
+    print(f"[heads] {tag}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limit {tol:g})")
+    if not all(np.isfinite(v) and v <= tol for v in errs.values()):
+        fail(f"{tag}: a head disagrees")
+
+
+def device_ms(fn, calls=3):
+    """(wall ms, device-busy ms) per call of ``fn`` under torch.profiler,
+    after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0.0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return wall, sum(dev(e) for e in kernels) / 1e3 / calls
+
+
+def ewald_share(eng, batch, card):
+    """The Ewald blocks' share of the device time of one forward + forces
+    + virial (torch.profiler): the model from its Ewald initial block on
+    (forward, and the backward to the node scalars, positions and cell that
+    forces and virial need), run alone on the inputs the earlier blocks
+    give it, against the whole call."""
+    from xequinet_torch import keys
+    from xequinet_torch.models.ewald import EwaldInitialNonPBC, EwaldInitialPBC
+    from xequinet_torch.models.properties import compute_edge_data
+    from xequinet_torch.run.inference import batch_to_device
+
+    blocks = list(eng.module.blocks)
+    i0 = next(i for i, m in enumerate(blocks)
+              if isinstance(m, (EwaldInitialPBC, EwaldInitialNonPBC)))
+    data = batch_to_device(batch, eng.device)
+    with torch.no_grad():
+        d = compute_edge_data(data)
+        for m in blocks[:i0]:
+            d = m(d)
+    leaves = {k: d[k].detach().requires_grad_(True)
+              for k in (keys.NODE_INVARIANT, keys.POSITIONS, keys.CELL)}
+
+    def part():
+        with torch.enable_grad():
+            x = dict(d, **leaves)
+            for m in blocks[i0:]:
+                x = m(x)
+            torch.autograd.grad(x[keys.TOTAL_ENERGY][data[keys.GRAPH_MASK]].sum(),
+                                list(leaves.values()))
+
+    w_all, b_all = device_ms(lambda: eng.forward_batch(batch, True, True))
+    w_part, b_part = device_ms(part)
+    print(f"[ewald] (a) torch.profiler, forward+forces+virial: whole call {b_all:.3f} ms of "
+          f"device time (wall {w_all:.3f} ms, idle share {max(0.0, 1 - b_all / w_all):.3f}); "
+          f"the Ewald blocks and their head, forward and backward, {b_part:.3f} ms: share "
+          f"{b_part / b_all:.3f} — {card}")
+    return b_part / b_all
+
+
+def phase_ewald_pbc(device, card, sizes):
+    """Phase 8 (a): bench.py's pbc_ewald_mega path at full width.  The
+    periodic XPaiNN-Ewald (FLAGSHIP_KW + EWALD_PBC, seeded weights) on
+    bench.py's crystal batch (rng 1234, 640 cells of 8-16 atoms, layout
+    CRYSTAL_LAYOUT) served by InferenceEngine.predict with forces and
+    virial through the kernels (3 + 3 message launches); against the plain
+    route with the same weights: bf16 energies and mean |F| (2e-2) and the
+    mean |virial| band, f32 energies and mean |F| (1e-4), forces
+    element-wise (F32_FORCE_TOL) and the virial (EWALD_F32_VIRIAL_TOL);
+    then training on bench.py's recipe with the virial term (3 + 6 + 3
+    launches per step, a falling loss) and one f32 step against the plain
+    route's.  Returns the launch counts and the engine and batch for (d)'s
+    weights."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run.inference import batch_to_device
+
+    card_run = device.type == "cuda"
+    dps = build_crystals(sizes["n_cells"])
+    n_g, n_at = len(dps), sum(d.num_atoms for d in dps)
+    over = dict(EWALD_PBC, pallas_layout=CRYSTAL_LAYOUT, **sizes["kw"])
+    eng = make_engine(device, "xpainn-ewald", **over)
+    n_k = ewald_k(eng.module)
+    cuda_build.reset_launch_counts()
+    res = eng.predict(dps, compute_forces=True, compute_virial=True)
+    if card_run:
+        torch.cuda.synchronize()
+    predict = path_launches("(a) pbc ewald mega predict with forces and virial", card_run,
+                            message_fwd=3, message_bwd=3)
+    e = np.array([float(r[keys.TOTAL_ENERGY]) for r in res])
+    f = np.concatenate([r[keys.FORCES] for r in res])
+    v = np.stack([r[keys.VIRIAL] for r in res])
+    if f.shape != (n_at, 3) or v.shape != (n_g, 3, 3) or not (
+            np.isfinite(e).all() and np.isfinite(f).all() and np.isfinite(v).all()):
+        fail("(a): predict returned wrong shapes or non-finite outputs")
+    mega_b = eng.collate(dps)
+    n_real = int(mega_b[keys.EDGE_MASK].sum())
+    n_rows = mega_b[keys.POSITIONS].shape[0]
+    print(f"[ewald] (a) {n_g} cells, {n_at} atoms, {n_real} edges, {n_rows} node rows, K = "
+          f"{n_k} k-points; [N, K, D] f32 would be {n_rows * n_k * 128 * 4 / 2**30:.3f} GiB "
+          f"per tensor; energy mean {e.mean():.6f}, mean|F| {np.abs(f).mean():.6f}, "
+          f"mean|virial| {np.abs(v).mean():.6f}")
+    eng_t = twins(device, "xpainn-ewald", over, eng.module.state_dict(),
+                  plain={"use_pallas_scatter": False}, k32=F32,
+                  p32=dict(F32, use_pallas_scatter=False))
+    plain_b = eng_t["plain"].collate(dps)
+    fb = lambda x, b: x.forward_batch(b, True, True)
+    got16, want16 = fb(eng, mega_b), fb(eng_t["plain"], plain_b)
+    got32, want32 = fb(eng_t["k32"], mega_b), fb(eng_t["p32"], plain_b)
+    compare_outputs("(a) pbc ewald, bf16 mega vs plain route", got16, want16, n_g, n_at,
+                    TOL["bfloat16"])
+    bf16_virial_band("(a) pbc ewald", got16,
+                     [want16] + [fb(eng_t["plain"], plain_b) for _ in range(2)], want32, n_g)
+    compare_outputs("(a) pbc ewald, f32 mega vs plain route", got32, want32, n_g, n_at, 1e-4,
+                    F32_FORCE_TOL)
+    compare_virial("(a) pbc ewald, f32 mega vs plain route", got32, want32, n_g,
+                   *EWALD_F32_VIRIAL_TOL)
+    del eng_t, got16, want16, got32, want32
+    if card_run:
+        torch.cuda.empty_cache()
+        dev_ms = time_ms(lambda: fb(eng, mega_b), iters=5, warmup=1)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fb(eng, mega_b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[time] (a) pbc ewald mega device forward+forces+virial (CUDA events): "
+              f"{dev_ms:.3f} ms, {n_real / (dev_ms / 1e3):.1f} edges/s; peak device memory "
+              f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
+              f"{held / 2**30:.3f} GiB held — {card}")
+        ewald_share(eng, mega_b, card)
+
+    lay = dict(zip(("block_nodes", "chunk", "pad_nodes", "max_chunks"), CRYSTAL_LAYOUT))
+    b = batch_to_device(collate(dps, kernel_layout=lay), device)
+    ref = plain_f32_reference(dps, device, EWALD_TASK, **over)
+    per_step, step, ema = phase_training(
+        "pbc ewald mega", over, sizes["train_steps"],
+        dict(message_fwd=3, message_bwd=6, message_bwd2=3), b, ref, device, card, EWALD_TASK)
+    del ref
+    if card_run:
+        time_train_step("pbc ewald mega, energy + forces + virial, 3 + 6 + 3 message kernels",
+                        step, b, ema, sizes["train_steps"], n_real, card)
+    return predict, per_step
+
+
+def phase_ewald_free(dps, device, card, sizes):
+    """Phase 8 (b): the free XPaiNN-Ewald (FLAGSHIP_KW + EWALD_FREE) on the
+    molecule batch of phase 3, through the kernels (3 + 3 launches per
+    predict with forces), against the plain route: bf16 energies and mean
+    |F|, f32 also every force component."""
+    from xequinet_torch.ops import cuda_build
+
+    card_run = device.type == "cuda"
+    over = dict(EWALD_FREE, pallas_layout=sizes["layout"], **sizes["kw"])
+    eng = make_engine(device, "xpainn-ewald", **over)
+    cuda_build.reset_launch_counts()
+    eng.predict(dps)
+    if card_run:
+        torch.cuda.synchronize()
+    launches = path_launches("(b) free ewald mega predict with forces", card_run,
+                             message_fwd=3, message_bwd=3)
+    n_g, n_at = len(dps), sum(d.num_atoms for d in dps)
+    eng_t = twins(device, "xpainn-ewald", over, eng.module.state_dict(),
+                  plain={"use_pallas_scatter": False}, k32=F32,
+                  p32=dict(F32, use_pallas_scatter=False))
+    mega_b, plain_b = eng.collate(dps), eng_t["plain"].collate(dps)
+    print(f"[ewald] (b) free: K = {ewald_k(eng.module)} k-points")
+    compare_outputs("(b) free ewald, bf16 mega vs plain route", eng.forward_batch(mega_b),
+                    eng_t["plain"].forward_batch(plain_b), n_g, n_at, TOL["bfloat16"])
+    compare_outputs("(b) free ewald, f32 mega vs plain route",
+                    eng_t["k32"].forward_batch(mega_b), eng_t["p32"].forward_batch(plain_b),
+                    n_g, n_at, 1e-4, F32_FORCE_TOL)
+    return launches
+
+
+def phase_multihead(dps, device, card, sizes):
+    """Phase 8 (c): XPaiNN conditioned on charge and spin with the energy,
+    charges, dipole, polar and spatial heads (FLAGSHIP_KW + MULTI_HEADS) on
+    the molecule batch of phase 3 with random integer charges (-2..2) and
+    spins (0..2), served through the kernels (3 + 3 launches per predict);
+    against the plain route: bf16 energies, mean |F|, each per-graph head
+    within 2e-2 and mean |q|; f32 within 1e-4, forces and charges
+    element-wise; the f32 charges sum to each graph's charge within 1e-4."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.ops import cuda_build
+
+    card_run = device.type == "cuda"
+    rng = np.random.default_rng(4321)
+    dpc = [Datapoint(d.atomic_numbers, d.pos, edge_index=d.edge_index,
+                     charge=int(rng.integers(-2, 3)), spin=int(rng.integers(0, 3)))
+           for d in dps]
+    over = dict(MULTI_HEADS, pallas_layout=sizes["layout"], **sizes["kw"])
+    eng = make_engine(device, **over)
+    cuda_build.reset_launch_counts()
+    res = eng.predict(dpc)
+    if card_run:
+        torch.cuda.synchronize()
+    launches = path_launches("(c) multi-head mega predict with forces", card_run,
+                             message_fwd=3, message_bwd=3)
+    want_keys = {keys.TOTAL_ENERGY, keys.FORCES, keys.ATOMIC_ENERGIES, keys.ATOMIC_CHARGES,
+                 keys.DIPOLE, keys.POLARIZABILITY, keys.SPATIAL_EXTENT}
+    if any(set(r) != want_keys or not all(np.isfinite(x).all() for x in r.values())
+           for r in res):
+        fail(f"(c): predict did not return finite {sorted(want_keys)}")
+    n_g, n_at = len(dpc), sum(d.num_atoms for d in dpc)
+    eng_t = twins(device, "xpainn", over, eng.module.state_dict(),
+                  plain={"use_pallas_scatter": False}, k32=F32,
+                  p32=dict(F32, use_pallas_scatter=False))
+    mega_b, plain_b = eng.collate(dpc), eng_t["plain"].collate(dpc)
+    got16, want16 = eng.forward_batch(mega_b), eng_t["plain"].forward_batch(plain_b)
+    got32 = eng_t["k32"].forward_batch(mega_b)
+    want32 = eng_t["p32"].forward_batch(plain_b)
+    compare_outputs("(c) multi-head, bf16 mega vs plain route", got16, want16, n_g, n_at,
+                    TOL["bfloat16"])
+    compare_heads("bf16 mega vs plain route", got16, want16, n_g, n_at, TOL["bfloat16"], False)
+    compare_outputs("(c) multi-head, f32 mega vs plain route", got32, want32, n_g, n_at, 1e-4,
+                    F32_FORCE_TOL)
+    compare_heads("f32 mega vs plain route", got32, want32, n_g, n_at, 1e-4, True)
+    q = got32[keys.ATOMIC_CHARGES].cpu().double().numpy()
+    nm = mega_b[keys.NODE_MASK]
+    totals = np.bincount(mega_b[keys.BATCH][nm], weights=q[nm], minlength=n_g + 1)[:n_g]
+    err = float(np.abs(totals - np.array([d.charge for d in dpc])).max())
+    print(f"[heads] f32 mega route: the atomic charges sum to each graph's charge within "
+          f"{err:.3e} (limit 1e-4)")
+    if err > 1e-4:
+        fail("(c): the atomic charges do not sum to the graphs' charges")
+    return launches
+
+
+def phase_ewald_md(device, card, tmp, sizes):
+    """Phase 8 (d): Calculator(pallas="mega", skin=0.5) serving the (a)
+    model (a bf16 checkpoint and an f32 twin, seed-0 weights as in (a)) on
+    phase 7's 10,000-atom periodic box, driven 0.01 A per call until both
+    have swapped in a list built by the skin's worker (on the card), then
+    one call against plain Calculators on the same positions, as phase 7
+    (a) does (md_agreement: the ghost rows on the mega route, 3 + 3
+    launches per call)."""
+    import os
+
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
+
+    card_run = device.type == "cuda"
+    md = sizes["md"]
+    kw = dict(EWALD_PBC, **md["kw"])
+    ck16 = md_checkpoint(os.path.join(tmp, "ewald_bf16.ckpt"), "xpainn-ewald", **kw)
+    ck32 = md_checkpoint(os.path.join(tmp, "ewald_f32.ckpt"), "xpainn-ewald",
+                         **dict(kw, **F32))
+    z, pos, cell, pbc, rng = md_box(md["n_box"])
+    box = dict(cell=cell, pbc=pbc)
+    ei, _ = radius_graph_pbc_np(pos, cell, pbc, 5.0)
+    caps = dict(max_atoms=md["max_box"], max_edges=md_edge_cap(ei.shape[1]))
+    hot = [Calculator(ck, pallas="mega", skin=0.5, compute_virial=True, device=device, **caps)
+           for ck in (ck16, ck32)]
+    calls = 0
+    while True:
+        for c in hot:
+            c.calculate(z, pos, **box)
+            if c.last_route != "mega":
+                fail("(d): the ewald Calculator left the mega route")
+        calls += 1
+        if min(c.n_async_swaps for c in hot) >= 1 or (not card_run and calls >= 2):
+            break
+        if calls >= 60:
+            fail("(d): no list built by the skin's worker thread was swapped in")
+        pos = pos + rng.normal(size=pos.shape) * 0.01
+    print(f"[ewald] (d) {len(z)}-atom periodic box, Calculator(pallas='mega', skin=0.5) of the "
+          f"(a) model: {calls} calls; n_rebuilds / n_async_swaps: bf16 {hot[0].n_rebuilds} / "
+          f"{hot[0].n_async_swaps}, f32 {hot[1].n_rebuilds} / {hot[1].n_async_swaps}")
+    plain = [Calculator(ck, skin=0.5, compute_virial=True, device=device, **caps)
+             for ck in (ck16, ck32)]
+    synced = [c.n_rebuilds - c.n_async_swaps for c in hot]
+    md_agreement("(d) periodic box, the ewald Calculators after a worker swap", z, pos,
+                 {"bf16": (hot[0], plain[0]), "f32": (hot[1], plain[1])}, card_run, **box)
+    if [c.n_rebuilds - c.n_async_swaps for c in hot] != synced:
+        fail("(d): a compared call rebuilt its list: the skin's list was not what served it")
+    for c in hot + plain:
+        c.close()
+
+
+def phase_ewald(dps, device, card, tmp, sizes):
+    """Phase 8: (a)-(d); returns the message kernels' launches per path."""
+    out = {}
+    out["pbc_ewald_predict"], out["pbc_ewald_train_step"] = phase_ewald_pbc(device, card,
+                                                                            sizes)
+    out["free_ewald_predict"] = phase_ewald_free(dps, device, card, sizes)
+    out["multihead_predict"] = phase_multihead(dps, device, card, sizes)
+    phase_ewald_md(device, card, tmp, sizes)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -1566,8 +2024,8 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 at a tiny size on the CPU with the plain "
-                         "versions (never reports ok)")
+                    help="run phases 3-5, 7 and 8 at a tiny size on the CPU with the "
+                         "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
         return rehearsal()
@@ -1807,6 +2265,14 @@ def main():
     for row in rows:
         row["launches_md_call"] = md["launches"].get(row["name"], 0)
 
+    # phase 8: XPaiNN-Ewald (periodic and free) and the conditioned
+    # multi-head XPaiNN; each path's launches stand beside each row's
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        ewald = phase_ewald(dps, device, card, tmp, EWALD_SIZES)
+    for row in rows:
+        for path, counts in ewald.items():
+            row[f"launches_{path}"] = counts.get(row["name"], 0)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1815,7 +2281,7 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-5 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5, 7 and 8 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
@@ -1881,6 +2347,11 @@ def rehearsal():
     with tempfile.TemporaryDirectory() as tmp:
         phase_md(torch.device("cpu"), "CPU rehearsal, not a device result", tmp, MD_REHEARSAL)
     print("[rehearsal] phase 7 (MD) ran at a tiny size on the CPU (not a device result)")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_ewald(dps, torch.device("cpu"), "CPU rehearsal, not a device result", tmp,
+                    EWALD_REHEARSAL)
+    print("[rehearsal] phase 8 (XPaiNN-Ewald, multi-head) ran at a tiny size on the CPU (not a "
+          "device result)")
 
 
 if __name__ == "__main__":

@@ -266,5 +266,9 @@ def test_unit_transform_pipeline_matches(rng):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert _edge_set(got.edge_index, got.cell_offsets) == _edge_set(want.edge_index,
                                                                    want.cell_offsets)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        ttf.build_transform_pipeline(base_targets=["energy"])
+    # delta learning: the same target as the JAX pipeline gives
+    (a,), (b,) = _labelled_pair(rng, 1, cell_every=1)
+    a.base_energy = b.base_energy = 0.75
+    got = ttf.build_transform_pipeline(base_targets=["energy"])(a)
+    want = jtf.build_transform_pipeline(base_targets=["energy"])(b)
+    assert got.energy == want.energy and got.base_energy is None

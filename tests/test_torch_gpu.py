@@ -298,6 +298,42 @@ def test_cuda_engine_refuses_batch_outside_kernel_layout(cuda_device):
         eng.forward_batch(collate([eng.transform(small), eng.transform(big)]))
 
 
+@pytest.mark.gpu
+def test_cuda_ewald_model_mega_matches_plain(cuda_device):
+    """The periodic XPaiNN-Ewald (chip_smoke.py phase 8 (a)'s model at 16
+    channels, 3 action blocks, k-points (2, 2, 2)) served on the card on
+    the mega route: 3 forward and 3 backward message launches per predict
+    with forces and virial, and the plain route's energies (1e-4), forces
+    (3e-3 of max |F|) and virial (1e-3 of max |V|) with the same weights."""
+    kw = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
+              num_basis=8, action_blocks=3, output_modes=["energy"], use_pbc=True,
+              num_k_points=[2, 2, 2], projection_dim=8, use_pallas_scatter="mega",
+              pallas_layout=(16, 16, 16, 64))
+    engines = {}
+    for route in ("mega", False):
+        k = dict(kw, use_pallas_scatter=route)
+        module, extra, cutoff = resolve_model("xpainn-ewald", **k)
+        init_params(module, seed=0)
+        engines[route] = InferenceEngine(module=module, model_kwargs=k, extra=extra,
+                                         cutoff=cutoff, device=cuda_device)
+    rng = np.random.default_rng(2)
+    dps = []
+    for _ in range(6):
+        n = int(rng.integers(8, 17))
+        cell = np.diag(rng.uniform(4.5, 6.5, size=3)) + rng.normal(size=(3, 3)) * 0.15
+        dps.append(Datapoint(rng.integers(1, 9, n), rng.uniform(0, 1, size=(n, 3)) @ cell,
+                             cell=cell, pbc=np.array([True] * 3)))
+    fm.reset_launch_counts()
+    res = engines["mega"].predict(dps, compute_virial=True)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == _counts(message_fwd=3, message_bwd=3)
+    want = engines[False].predict(dps, compute_virial=True)
+    stack = lambda rs, k: torch.as_tensor(np.concatenate([np.reshape(r[k], (-1,)) for r in rs]))
+    _close(stack(res, keys.TOTAL_ENERGY), stack(want, keys.TOTAL_ENERGY), 1e-4)
+    _close(stack(res, keys.FORCES), stack(want, keys.FORCES), 3e-3)
+    _close(stack(res, keys.VIRIAL), stack(want, keys.VIRIAL), 1e-3)
+
+
 def _cotangents(p, seed=1, with_cwf=True):
     """(cx, cef, cwf) on (dx, d_ef, d_wf), zero outside the entries the
     model's autograd reaches (the kernel's contract: cef columns >= Kf,

@@ -74,27 +74,28 @@ def _crystals(rng, n_cells=2):
     return dps
 
 
-def _jax_params(kw, batch):
+def _jax_params(kw, batch, model="xpainn"):
     """flax parameters of the plain-route model (the mega route shares
     the structure), initialised under jit (eager init is slow)."""
-    m, _, _ = jax_resolve_model("xpainn", **kw)
+    m, _, _ = jax_resolve_model(model, **kw)
     b = {k: jnp.asarray(v) for k, v in batch.items()}
     init = jax.jit(lambda d: m.init(jax.random.PRNGKey(0), compute_edge_data(d)))
     return init(b)["params"]
 
 
-def _jax_forward(kw, params, batch, compute_virial=False, interpret=False):
-    m, e, _ = jax_resolve_model("xpainn", **kw)
+def _jax_forward(kw, params, batch, compute_virial=False, interpret=False, model="xpainn",
+                 compute_forces=True):
+    m, e, _ = jax_resolve_model(model, **kw)
     b = {k: jnp.asarray(v) for k, v in batch.items()}
-    fwd = jax.jit(lambda p, d: make_apply_forward(m, e)(p, d, True, compute_virial))
+    fwd = jax.jit(lambda p, d: make_apply_forward(m, e)(p, d, compute_forces, compute_virial))
     if interpret:
         with pltpu.force_tpu_interpret_mode():
             return fwd(params, b)
     return fwd(params, b)
 
 
-def _port(kw, params):
-    module, extra, _ = resolve_model("xpainn", **kw)
+def _port(kw, params, model="xpainn"):
+    module, extra, _ = resolve_model(model, **kw)
     load_flax_params(module, jax.tree_util.tree_map(np.asarray, params))
     return make_forward(module.requires_grad_(False), extra)
 

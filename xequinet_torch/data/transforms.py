@@ -1,17 +1,16 @@
 """Datapoint transforms: the neighbour build, unit conversion and their
 pipeline.
 
-Port of ``xequinet_tpu/data/transforms.py:24-86, 159-193``.  Transforms act
-on host-side numpy Datapoints before collation.  ``DeltaTransform``
-(delta learning on xTB baselines) and ``SVDFrameTransform`` (the non-PBC
-Ewald frame) come with the slices that port those models (ROADMAP item
-9) and raise until then.
+Port of ``xequinet_tpu/data/transforms.py:24-193``.  Transforms act on
+host-side numpy Datapoints before collation: the neighbour build, unit
+conversion, delta learning (``DeltaTransform``) and the SVD principal
+frame of the free Ewald model (``SVDFrameTransform``).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -86,19 +85,62 @@ class UnitTransform:
 
 
 class DeltaTransform:
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "delta learning (base_targets) is not ported yet: it comes with "
-            "the xTB delta slice (ROADMAP item 9)"
-        )
+    """target -= base target, for delta learning on a baseline; the base
+    field is cleared."""
+
+    BASE_FIELDS = {
+        "base_energy": "energy",
+        "base_forces": "forces",
+        "base_charges": "atomic_charges",
+        "base_dipole": "dipole",
+    }
+
+    def __init__(self, base_targets: Sequence[str]) -> None:
+        self.base_targets = list(base_targets)
+
+    def __call__(self, data: Datapoint) -> Datapoint:
+        for base in self.base_targets:
+            field = base if base in self.BASE_FIELDS else f"base_{base}"
+            target_field = self.BASE_FIELDS[field]
+            base_val = getattr(data, field)
+            tgt_val = getattr(data, target_field)
+            if base_val is None or tgt_val is None:
+                raise ValueError(f"missing {field} or {target_field} for delta")
+            setattr(data, target_field, tgt_val - base_val)
+            setattr(data, field, None)
+        return data
+
+
+def _as_names(targets: Union[str, Iterable[str]]) -> List[str]:
+    return [targets] if isinstance(targets, str) else list(targets)
 
 
 class SVDFrameTransform:
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "the SVD frame transform is not ported yet: it comes with the "
-            "non-PBC Ewald model (ROADMAP item 9)"
-        )
+    """Centre each structure and rotate it into its SVD principal frame,
+    with its vector labels (``vector_targets``, e.g. the dipole) and
+    per-atom vector labels (``atomic_vector_targets``, e.g. forces)."""
+
+    _FIELD_OF = {
+        keys.DIPOLE: "dipole",
+        keys.FORCES: "forces",
+        keys.BASE_DIPOLE: "base_dipole",
+        keys.BASE_FORCES: "base_forces",
+    }
+
+    def __init__(self, vector_targets: Union[str, Iterable[str]] = (),
+                 atomic_vector_targets: Union[str, Iterable[str]] = ()) -> None:
+        self.targets = _as_names(vector_targets) + _as_names(atomic_vector_targets)
+
+    def __call__(self, data: Datapoint) -> Datapoint:
+        pos = data.pos - data.pos.mean(axis=0)
+        _, _, vh = np.linalg.svd(pos, full_matrices=True)
+        data.pos = pos @ vh.T
+        for k in self.targets:
+            field = self._FIELD_OF.get(k, k)
+            val = getattr(data, field)
+            if val is not None:
+                setattr(data, field, val @ vh.T)
+        return data
 
 
 class SequentialTransform:

@@ -116,6 +116,25 @@ class ScalarMLP(nn.Module):
         return self.Dense_1(self.act(self.Dense_0(x)))
 
 
+class ResidualLayer(nn.Module):
+    """``n_layers`` bias-free Dense layers, each followed by the
+    activation, added to the input and scaled by 1/sqrt(2); flax names
+    ``Dense_0`` ... ``Dense_{n_layers - 1}``."""
+
+    def __init__(self, node_dim: int, n_layers: int = 2, activation: str = "silu"):
+        super().__init__()
+        self.act = resolve_activation(activation)
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            setattr(self, f"Dense_{i}", Dense(node_dim, node_dim, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(self.n_layers):
+            h = self.act(getattr(self, f"Dense_{i}")(h))
+        return (x + h) * (1.0 / math.sqrt(2.0))
+
+
 class AtomEmbedding(nn.Module):
     """Atomic-number embedding: a trainable table over 100 elements whose
     row 0 (the padding element) reads as zero whatever the stored value,

@@ -1,8 +1,10 @@
-"""Model assembly: XPaiNN as an ordered block stack.
+"""Model assembly: XPaiNN and XPaiNN-Ewald as ordered block stacks.
 
-Port of ``xequinet_tpu/models/model.py:27-144, 321-340``.  A model is a
-``BlockStack`` whose ``blocks`` thread the data dict in order; the full
-forward with forces / virial is ``models.properties.make_forward``.
+Port of ``xequinet_tpu/models/model.py:27-144, 187-234, 321-340``.  A
+model is a ``BlockStack`` whose ``blocks`` thread the data dict in order;
+the full forward with forces / virial is
+``models.properties.make_forward``.  PaiNN, SO3krates and XMatNet are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import torch
 from torch import nn
 
 from ..ops.irreps import Irreps
+from .electronic import ChargeEmbedding, SpinEmbedding
+from .ewald import EwaldBlock, EwaldInitialNonPBC, EwaldInitialPBC
 from .output import OUTPUT_EXTRA_PROPERTIES, resolve_output
 from .xpainn import XEmbedding, XPainnMessage, XPainnUpdate
 
@@ -40,19 +44,29 @@ def _as_list(modes: Union[None, str, Sequence[str]]) -> List[str]:
     return list(modes)
 
 
+def _heads(modes, kwargs: Dict[str, Any], node_dim: int, node_irreps) -> Tuple[list, list]:
+    """The output heads of ``modes`` and the properties they add."""
+    head_kwargs = dict(kwargs)
+    head_kwargs.setdefault("node_dim", node_dim)
+    head_kwargs.setdefault("node_irreps", node_irreps)
+    blocks, extra = [], []
+    for mode in _as_list(modes):
+        blocks.append(resolve_output(mode, **head_kwargs))
+        extra.extend(OUTPUT_EXTRA_PROPERTIES[mode])
+    return blocks, extra
+
+
 def build_xpainn(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
-    """XEmbedding -> N x (Message, Update) -> output heads, from the JAX
-    package's model_kwargs.  Returns (module, extra_properties, cutoff).
-    ``remat`` only changes memory in the JAX package and is ignored here;
-    charge / spin embeddings come with a later slice."""
+    """XEmbedding -> [Charge / SpinEmbedding] -> N x (Message, Update) ->
+    output heads, from the JAX package's model_kwargs.  Returns (module,
+    extra_properties, cutoff).  ``remat`` only changes memory in the JAX
+    package and is ignored here."""
     node_dim = kwargs.get("node_dim", 128)
     node_irreps = Irreps(kwargs.get("node_irreps", "128x0e + 64x1o + 32x2e"))
     num_basis = kwargs.get("num_basis", 20)
     cutoff = kwargs.get("cutoff", 5.0)
     activation = kwargs.get("activation", "silu")
     layer_norm = kwargs.get("layer_norm", True)
-    if kwargs.get("charge_embed", False) or kwargs.get("spin_embed", False):
-        raise NotImplementedError("charge / spin embeddings are not ported yet")
     use_pallas = kwargs.get("use_pallas_scatter", False)
     pallas_layout = tuple(kwargs.get("pallas_layout", (256, 1024, 32, 8)))
     compute_dtype = kwargs.get("compute_dtype", "float32")
@@ -67,6 +81,10 @@ def build_xpainn(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
             pack_edge_features=use_pallas in ("mega", "mega-xb"),
         )
     ]
+    if kwargs.get("charge_embed", False):
+        blocks.append(ChargeEmbedding(node_dim=node_dim, activation=activation))
+    if kwargs.get("spin_embed", False):
+        blocks.append(SpinEmbedding(node_dim=node_dim, activation=activation))
     for _ in range(kwargs.get("action_blocks", 3)):
         blocks.append(XPainnMessage(
             node_dim=node_dim, node_irreps=node_irreps, num_basis=num_basis,
@@ -78,16 +96,38 @@ def build_xpainn(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
             node_dim=node_dim, node_irreps=node_irreps, activation=activation,
             layer_norm=layer_norm, compute_dtype=update_compute_dtype,
         ))
-    extra: List[str] = []
-    for mode in _as_list(kwargs.get("output_modes", ["energy"])):
-        head_kwargs = dict(kwargs)
-        head_kwargs.setdefault("node_dim", node_dim)
-        blocks.append(resolve_output(mode, **head_kwargs))
-        extra.extend(OUTPUT_EXTRA_PROPERTIES[mode])
-    return BlockStack(blocks), extra, cutoff
+    heads, extra = _heads(kwargs.get("output_modes", ["energy"]), kwargs, node_dim,
+                          node_irreps)
+    return BlockStack(blocks + heads), extra, cutoff
 
 
-MODEL_BUILDERS = {"xpainn": build_xpainn}
+def build_xpainn_ewald(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
+    """XPaiNN with its heads, then the Ewald initial block (periodic:
+    ``use_pbc``, the reciprocal cell's k-grid; free: the k-voxel grid),
+    ``ewald_blocks`` EwaldBlocks and the ``ewald_output_mode`` heads, whose
+    energy adds to the XPaiNN heads' atomic energies."""
+    stack, extra, cutoff = build_xpainn(**kwargs)
+    blocks = list(stack.blocks)
+    node_dim = kwargs.get("node_dim", 128)
+    projection_dim = kwargs.get("projection_dim", 8)
+    if kwargs.get("use_pbc", True):
+        blocks.append(EwaldInitialPBC(num_k_points=tuple(kwargs.get("num_k_points", [3, 3, 3])),
+                                      projection_dim=projection_dim))
+    else:
+        blocks.append(EwaldInitialNonPBC(
+            k_cutoff=kwargs.get("k_cutoff", 0.4), delta_k=kwargs.get("delta_k", 0.2),
+            num_k_basis=kwargs.get("num_k_basis", 20), k_offset=kwargs.get("k_offset", None),
+            projection_dim=projection_dim))
+    for _ in range(kwargs.get("ewald_blocks", 1)):
+        blocks.append(EwaldBlock(node_dim=node_dim, projection_dim=projection_dim,
+                                 activation=kwargs.get("activation", "silu"),
+                                 layer_norm=kwargs.get("layer_norm", True)))
+    heads, ewald_extra = _heads(kwargs.get("ewald_output_mode", ["energy"]), kwargs, node_dim,
+                                kwargs.get("node_irreps", "128x0e + 64x1o + 32x2e"))
+    return BlockStack(blocks + heads), extra + ewald_extra, cutoff
+
+
+MODEL_BUILDERS = {"xpainn": build_xpainn, "xpainn-ewald": build_xpainn_ewald}
 
 
 def resolve_model(model_name: str, **kwargs: Any):

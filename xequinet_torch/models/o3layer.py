@@ -1,7 +1,8 @@
-"""Equivariant layers with parameters: O3Linear and EquivariantLayerNorm.
+"""Equivariant layers with parameters: O3Linear, Gate and
+EquivariantLayerNorm.
 
-Port of ``xequinet_tpu/models/o3layer.py:23-140`` (Gate and the weighted
-tensor product come with the model families that use them).
+Port of ``xequinet_tpu/models/o3layer.py:23-140`` (the weighted tensor
+product comes with the model families that use it).
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ import torch
 from torch import nn
 
 from ..ops.irreps import Irreps
-from ..ops.o3ops import equivariant_layer_norm
-from .basic import _normal_
+from ..ops.o3ops import equivariant_layer_norm, invariant, scalar_gate
+from .basic import Dense, _normal_, resolve_activation
 
 
 def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,6 +93,30 @@ class O3Linear(nn.Module):
         if b_lane is not None:
             y = y + b_lane
         return y
+
+
+class Gate(nn.Module):
+    """Each irrep scaled by act(|x_u|)/|x_u| (the activation divided by
+    x), or with ``refine`` by Dense -> act -> Dense of the invariants
+    (flax ``Dense_0`` / ``Dense_1``, zero biases at init)."""
+
+    def __init__(self, irreps, activation: str = "silu", refine: bool = False):
+        super().__init__()
+        self.irreps = Irreps(irreps).simplify()
+        self.act = resolve_activation(activation, devide_x=True)
+        self.refine = refine
+        if refine:
+            ni = self.irreps.num_irreps
+            self.Dense_0 = Dense(ni, ni)
+            self.Dense_1 = Dense(ni, ni)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_inv = invariant(x, self.irreps)
+        if self.refine:
+            gates = self.Dense_1(self.act(self.Dense_0(x_inv)))
+        else:
+            gates = self.act(x_inv)
+        return scalar_gate(x, gates, self.irreps)
 
 
 class EquivariantLayerNorm(nn.Module):

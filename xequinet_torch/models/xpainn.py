@@ -64,7 +64,9 @@ class XEmbedding(nn.Module):
             embed_table = get_embedding_table(embed_basis, aux_basis)
         self.irreps = Irreps(node_irreps)
         self.AtomEmbedding_0 = AtomEmbedding(node_dim, embed_table)
-        self.SphericalBesselj0_0 = resolve_rbf(rbf_kernel, num_basis, cutoff)
+        rbf = resolve_rbf(rbf_kernel, num_basis, cutoff)
+        self.rbf_name = f"{type(rbf).__name__}_0"  # flax's name of the basis
+        self.add_module(self.rbf_name, rbf)
         self.cutoff_fn = resolve_cutoff(cutoff_fn, cutoff)
         self.pack = pack_edge_features
 
@@ -72,7 +74,7 @@ class XEmbedding(nn.Module):
         node_invariant = self.AtomEmbedding_0(data[keys.ATOMIC_NUMBERS])
         data[keys.NODE_INVARIANT] = node_invariant
         distances = data[keys.EDGE_LENGTH][..., None]
-        rbf = self.SphericalBesselj0_0(distances)
+        rbf = getattr(self, self.rbf_name)(distances)
         fcut = self.cutoff_fn(distances)
         data[keys.RADIAL_BASIS_FUNCTION] = rbf
         data[keys.ENVELOPE_FUNCTION] = fcut

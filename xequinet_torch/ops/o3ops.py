@@ -88,6 +88,11 @@ def invariant(
     return torch.sqrt(sq + eps * eps) - eps
 
 
+def scalar_indices(irreps: Union[str, Irreps]) -> np.ndarray:
+    """Flat indices of the even scalar (0e) lanes."""
+    return structure(Irreps(irreps))[2][1]
+
+
 def equivariant_layer_norm(
     x: torch.Tensor,
     irreps: Union[str, Irreps],

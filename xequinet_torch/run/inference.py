@@ -1,4 +1,4 @@
-"""Batch property prediction: energies and forces (and virial).
+"""Batch property prediction: every head's output, forces and virial.
 
 Port of ``xequinet_tpu/run/inference.py:30-138`` (``InferenceEngine``) and
 ``xequinet_tpu/run/test.py:27-37`` (``load_model_from_checkpoint``).  The
@@ -116,10 +116,11 @@ class InferenceEngine:
         for g, dp in enumerate(dps):
             n = dp.num_atoms
             r: Dict[str, np.ndarray] = {}
-            for prop in (keys.TOTAL_ENERGY, keys.VIRIAL):
+            for prop in (keys.TOTAL_ENERGY, keys.DIPOLE, keys.POLARIZABILITY, keys.VIRIAL,
+                         keys.SCALAR_OUTPUT, keys.SPATIAL_EXTENT):
                 if prop in out:
                     r[prop] = out[prop][g]
-            for prop in (keys.FORCES, keys.ATOMIC_ENERGIES):
+            for prop in (keys.FORCES, keys.ATOMIC_CHARGES, keys.ATOMIC_ENERGIES):
                 if prop in out:
                     r[prop] = out[prop][node_off : node_off + n]
             node_off += n
