@@ -5,7 +5,7 @@
                                            # train step of each route with
                                            # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5,
-                                           # 7 and 8 with the plain versions
+                                           # 7, 8 and 9 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -95,8 +95,29 @@ Phases (any failed check exits non-zero):
      Calculator(pallas="mega", skin=0.5) of the (a) model on phase 7's
      periodic box after a worker swap against plain Calculators (phase 7's
      md_agreement).
+  9. the rest of the model zoo on phase 3's molecules, seeded weights: (a)
+     PaiNN and (b) SO3krates at their builders' defaults (node_dim 128 /
+     120, 3 blocks, gfn2-xtb aux56, f32; SO3krates 32 channels of l <= 3, 4
+     heads), served with forces with no kernel launch, the first 64
+     molecules against the port's CPU run of the same weights and against
+     a random rotation of themselves (energy 1e-4, forces F32_FORCE_TOL);
+     (c) the Cartesian head (order 2, "ij", 32 channels mixed up to l = 4)
+     on the flagship XPaiNN, 3 + 3 launches per predict with forces, and
+     (d) XMatNet on the flagship backbone (hidden 32x0e+32x1o+32x2e, 2
+     matrix layers, def2-SVP's shells H-O: 14 x 14 blocks), 3 launches per
+     forward, each mega route against its plain route (f32 1e-4; bf16
+     energy and mean |F| 2e-2, the tensor and the blocks within 2e-2 plus
+     twice the bf16 plain route's own distance from the f32 plain route)
+     and in f32 T(Rx) = R T R^T, B(Rx) = D B D^T within 1e-4; each cell's
+     device time (CUDA events; torch.profiler's busy time, idle share and
+     the head's share), edges/s and predict wall, and 10 training steps
+     (no launch, PaiNN on the molecules without a pair closer than 0.5 A;
+     3 + 6 + 3 on {energy, forces, cartesian_tensor}; 3 + 3 + 0 on the
+     matrix blocks) with a falling loss, a median of 7 timed steps and the
+     peak memory.
 Then one JSON line with the kernels (each with its launches per MD call
-and per phase 8 path too), the card line, and last the device JSON line.
+and per phase 8 and phase 9 path too), the card line, and last the device
+JSON line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -583,14 +604,24 @@ def compare_outputs(tag, got, want, n_graphs, n_atoms, tol, f_tol=None):
         fail(f"{tag}: forces disagree element-wise")
 
 
+def model_kwargs(model, over):
+    """The model kwargs of ``model``: FLAGSHIP_KW with ``over`` for the
+    XPaiNN families (XPaiNN, XPaiNN-Ewald, XMatNet), the builder's own
+    defaults with ``over`` for PaiNN and SO3krates."""
+    if model in ("painn", "so3krates"):
+        return dict(over)
+    kw = dict(FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
+    kw.update(over)
+    return kw
+
+
 def make_engine(device, model="xpainn", **over):
     """InferenceEngine of flagship XPaiNN (FLAGSHIP_KW with ``over``; or
-    another model family of the same widths) on seeded weights."""
+    another model family, see :func:`model_kwargs`) on seeded weights."""
     from xequinet_torch.models.model import init_params, resolve_model
     from xequinet_torch.run.inference import InferenceEngine
 
-    kw = dict(FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
-    kw.update(over)
+    kw = model_kwargs(model, over)
     module, extra, cutoff = resolve_model(model, **kw)
     init_params(module, seed=0)
     return InferenceEngine(module=module, model_kwargs=kw, extra=extra, cutoff=cutoff,
@@ -747,7 +778,11 @@ def phase_big_molecule(device, state):
 TRAIN_WEIGHTS = {"energy": 1.0, "forces": 10.0}
 # per-parameter f32 gradient limit of the kernel route against the plain
 # route: GRAD_TOL + GRAD_ULP_FACTOR x the plain route's own change when the
-# positions move by one f32 ulp (x (1 + 1e-7)).  At random weights the
+# positions move by one f32 ulp (x (1 + 1e-7)).  The plain route is run
+# under torch.use_deterministic_algorithms for this reference: with its
+# float-atomic sums a second call moves the force loss's gradients by
+# several per cent of their largest entries (plain_f32_reference prints
+# it), and the one-ulp sample then missed that noise.  At random weights the
 # force loss's parameter gradient is that ill-conditioned (the equivariant
 # LayerNorm after the first message block divides by a small RMS); on the
 # CPU the JAX package's step sits at 0.65 of that change from the port's
@@ -769,9 +804,7 @@ def train_model(device, task=FLAGSHIP_TASK, **over):
     from xequinet_torch.training.trainer import make_step_core
 
     model, weights, virial = task
-    kw = dict(FLAGSHIP_KW, pallas_layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
-    kw.update(over)
-    module, extra, _ = resolve_model(model, **kw)
+    module, extra, _ = resolve_model(model, **model_kwargs(model, over))
     init_params(module, seed=0)
     module = module.to(device)
     params = list(module.parameters())
@@ -779,7 +812,7 @@ def train_model(device, task=FLAGSHIP_TASK, **over):
     sched = resolve_lr_schedule("cosine_annealing", 5e-4, 10000, warmup_steps=100)
     forward = make_forward(module, extra, create_graph=True)
     step = make_step_core(forward, WeightedLoss("l2", **weights), params, opt, sched,
-                          True, virial, 5.0, 0.999, ErrorMetric(*weights))
+                          "forces" in weights, virial, 5.0, 0.999, ErrorMetric(*weights))
     return module, forward, step, [p.detach().clone() for p in params]
 
 
@@ -793,7 +826,7 @@ def model_grads(module, forward, batch, pos_scale=1.0, task=FLAGSHIP_TASK):
     b[keys.POSITIONS] = b[keys.POSITIONS] * pos_scale
     named = list(module.named_parameters())
     loss, _, _, grads = loss_and_grads(forward, WeightedLoss("l2", **weights),
-                                       [p for _, p in named], b, True, virial)
+                                       [p for _, p in named], b, "forces" in weights, virial)
     return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
 
 
@@ -802,18 +835,33 @@ F32 = dict(compute_dtype="float32", update_compute_dtype="float32")
 
 def plain_f32_reference(dps, device, task=FLAGSHIP_TASK, **over):
     """The f32 plain route's weights, loss and parameter gradients on the
-    flagship batch (collated without the slot layout), and its gradients
-    again with the positions moved by one f32 ulp (x (1 + 1e-7))."""
+    flagship batch (collated without the slot layout), computed with
+    deterministic sums, and per parameter the change of its gradients when
+    the positions move by one f32 ulp (x (1 + 1e-7)).  Prints how far a
+    call with the default (float-atomic) sums lands from it."""
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
 
     mp, fp, _, _ = train_model(device, task, **dict(over, use_pallas_scatter=False, **F32))
     pb = batch_to_device(collate(dps), device)
-    lp, gp = model_grads(mp, fp, pb, task=task)
-    _, gp_nudged = model_grads(mp, fp, pb, 1.0 + 1e-7, task)
+    torch.use_deterministic_algorithms(True)
+    try:
+        lp, gp = model_grads(mp, fp, pb, task=task)
+        _, gp_nudged = model_grads(mp, fp, pb, 1.0 + 1e-7, task)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    moved = {n: float((gp_nudged[n] - g).abs().max()) for n, g in gp.items()}
+    _, gp_atomic = model_grads(mp, fp, pb, task=task)
+    rel = lambda d: max((float(d[n].abs().max()) / max(float(g.abs().max()), 1e-30), n)
+                        for n, g in gp.items())
+    r_n, n_n = rel({n: gp_nudged[n] - g for n, g in gp.items()})
+    r_a, n_a = rel({n: gp_atomic[n] - g for n, g in gp.items()})
+    print(f"[train] f32 plain route's gradients, the largest change over the parameters (of "
+          f"each one's max): one-ulp move {r_n:.3e} ({n_n}); the default float-atomic sums "
+          f"{r_a:.3e} ({n_a})")
     state = {k: v.clone() for k, v in mp.state_dict().items()}
     del mp, pb
-    return state, lp, gp, gp_nudged
+    return state, lp, gp, moved
 
 
 def f32_step_check(tag, over, b, ref, device, card, task=FLAGSHIP_TASK):
@@ -821,7 +869,7 @@ def f32_step_check(tag, over, b, ref, device, card, task=FLAGSHIP_TASK):
     ``over`` from the plain route's weights, against the plain route's
     (``ref`` from :func:`plain_f32_reference`), under the per-parameter
     limit GRAD_TOL + GRAD_ULP_FACTOR x the plain route's one-ulp change."""
-    state, lp, gp, gp_nudged = ref
+    state, lp, gp, moved = ref
     mk, fk, _, _ = train_model(device, task, **dict(over, **F32))
     mk.load_state_dict(state)
     lk, gk = model_grads(mk, fk, b, task=task)
@@ -831,7 +879,7 @@ def f32_step_check(tag, over, b, ref, device, card, task=FLAGSHIP_TASK):
     worst, worst_ratio = "", 0.0
     for n, g in gp.items():
         scale = max(float(g.abs().max()), 1e-30)
-        limit = GRAD_TOL + GRAD_ULP_FACTOR * float((gp_nudged[n] - g).abs().max()) / scale
+        limit = GRAD_TOL + GRAD_ULP_FACTOR * moved[n] / scale
         err = float((gk[n] - g).abs().max()) / scale
         if err / limit > worst_ratio:
             worst, worst_ratio = n, err / limit
@@ -1048,7 +1096,7 @@ def bound_ms(nbytes, flops, mm):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_train_step(tag, step, b, ema, i0, n_real, card):
+def time_train_step(tag, step, b, ema, i0, n_real, card, dtype="bf16"):
     """Host clock around 7 flagship train steps, each ending in a
     synchronize (median), then one more step's peak device memory."""
     steps = []
@@ -1063,7 +1111,7 @@ def time_train_step(tag, step, b, ema, i0, n_real, card):
     step(b, i0 + 7, 1.0, ema)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    print(f"[time] train step (bf16, {tag}), median of 7: "
+    print(f"[time] train step ({dtype}, {tag}), median of 7: "
           f"{step_ms:.3f} ms (min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}), "
           f"{n_real / (step_ms / 1e3):.1f} edges/s; peak device memory "
           f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
@@ -1138,8 +1186,12 @@ MD_F32_VIRIAL_TOL = 1e-3
 # and element-wise, max |dV| / max |V| on the 2^-10 A grid: the JAX
 # package's 1e-3 was set for an 800 A chain; the box spans 1500 A, and the
 # strain virial's f32 cancellation grows with the span (6.9e-4 measured,
-# PERF.md section 6).  A layout or ghost-shift fault shows at the wrap-edge
-# fraction, far above 1% (tests/test_pbc_mega.py)
+# PERF.md section 6).  Both routes sum forces with float atomics, so each
+# differs from itself from call to call by up to about this much on the same
+# grid geometry (PERF.md, PR 9): the limit is MD_F32_VIRIAL_ELEM_TOL plus
+# twice the larger of the two routes' own spreads, measured in the same
+# run.  A layout or ghost-shift fault shows at the wrap-edge fraction, far
+# above 1% (tests/test_pbc_mega.py)
 MD_F32_VIRIAL_ELEM_TOL = 2e-3
 # a grid of 2^-10 A: coordinates below 8192 A on it, and their sums and
 # differences with the cell's (multiples of 2^-4 A), are exact in f32
@@ -1268,7 +1320,8 @@ def md_agreement(tag, z, pos, calcs, card_run, **sys_kw):
     where both routes form the same edge vectors exactly and only the
     order of the sums differs: energy and mean |F| as before, the forces
     element-wise within F32_FORCE_TOL and the virial element-wise within
-    MD_F32_VIRIAL_ELEM_TOL.  (On the raw geometry the ghost rows' derived
+    MD_F32_VIRIAL_ELEM_TOL plus twice the larger of the routes' own
+    spreads over repeated calls on the grid geometry.  (On the raw geometry the ghost rows' derived
     positions, owner + shift @ cell, round apart from the plain route's
     differences at 1500 A, so the element-wise bounds hold on the grid.)"""
     from xequinet_torch import keys
@@ -1293,6 +1346,9 @@ def md_agreement(tag, z, pos, calcs, card_run, **sys_kw):
             res["bf16 repeats"] = [plain.calculate(z, pos, **sys_kw) for _ in range(2)]
         if label == "f32":
             res["grid"] = (mega_call(mega, pos_q, "f32 grid"), plain.calculate(z, pos_q, **sys_kw))
+            if virial:  # each route's own spread on the grid (its atomic sums vary)
+                res["grid repeats"] = ([mega_call(mega, pos_q, "f32 grid repeat")],
+                                       [plain.calculate(z, pos_q, **sys_kw) for _ in range(2)])
     (m16, p16), (m32, p32) = res["bf16"], res["f32"]
     md_compare(f"{tag} bf16 checkpoint mega vs plain route", m16, p16, TOL["bfloat16"])
     if virial:
@@ -1307,9 +1363,19 @@ def md_agreement(tag, z, pos, calcs, card_run, **sys_kw):
             fail(f"{tag}: the mega route's bf16 virial is further from f32 than the band")
     md_compare(f"{tag} f32 checkpoint mega vs plain route", m32, p32, 1e-4,
                v_tol=MD_F32_VIRIAL_TOL if virial else None)
+    v_elem_tol = None
+    if virial:
+        spread = lambda r, ref: float(np.abs(r[keys.VIRIAL] - ref[keys.VIRIAL]).max()
+                                      / np.abs(ref[keys.VIRIAL]).max())
+        (m_rep, p_rep), (m_q, p_q) = res["grid repeats"], res["grid"]
+        s_m, s_p = [spread(r, m_q) for r in m_rep], [spread(r, p_q) for r in p_rep]
+        v_elem_tol = MD_F32_VIRIAL_ELEM_TOL + 2 * max(s_m + s_p)
+        print(f"[md] {tag} f32 virial on the grid, each route against its own first call: mega "
+              + ", ".join(f"{x:.3e}" for x in s_m) + "; plain "
+              + ", ".join(f"{x:.3e}" for x in s_p) + f" (the limit for mega vs plain: "
+              f"{MD_F32_VIRIAL_ELEM_TOL:g} + 2 x the largest = {v_elem_tol:.3e})")
     md_compare(f"{tag} f32 checkpoint mega vs plain route, positions on the {MD_GRID:g} A "
-               f"grid", *res["grid"], 1e-4, F32_FORCE_TOL,
-               MD_F32_VIRIAL_ELEM_TOL if virial else None, v_elem=True)
+               f"grid", *res["grid"], 1e-4, F32_FORCE_TOL, v_elem_tol, v_elem=True)
 
 
 def md_split(calc, z, pos_fn, sys_kw, card, calls=5):
@@ -2017,6 +2083,397 @@ def phase_ewald(dps, device, card, tmp, sizes):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: PaiNN, SO3krates, the Cartesian tensor head and XMatNet
+# ---------------------------------------------------------------------------
+# (a) PaiNN and (b) SO3krates at their builders' defaults: node_dim 128 /
+# 120, 3 blocks, 20 Bessel bases, cosine cutoff 5.0, the gfn2-xtb aux56
+# embedding, f32; SO3krates with 32 channels of every l up to max_l 3 and
+# 4 heads.  Neither runs a kernel: their messages are plain segment sums,
+# in the JAX package too
+PAINN_KW, SO3_KW = {}, {}
+# (c) the Cartesian head (order 2, "ij") on the flagship XPaiNN
+CART_KW = dict(output_modes=["energy", "cartesian"], order=2, symmetry="ij",
+               hidden_channels=32, hidden_dim=64)
+# (d) XMatNet on the flagship backbone; the target basis is def2-SVP's shell
+# structure, H to O (union basis 3x0e+2x1o+1x2e, D = 14)
+SVP_SHELLS = {"H": [0, 0, 1], "He": [0, 0, 1], "Li": [0, 0, 0, 1, 1], "Be": [0, 0, 0, 1, 1],
+              **{e: [0, 0, 0, 1, 1, 2] for e in ("B", "C", "N", "O")}}
+XMAT_KW = dict(hidden_irreps="32x0e+32x1o+32x2e", n_mat_layers=2, target_basis=SVP_SHELLS,
+               elements=list(SVP_SHELLS))
+ZOO_TASKS = {
+    "painn": ("painn", TRAIN_WEIGHTS, False),
+    "so3krates": ("so3krates", TRAIN_WEIGHTS, False),
+    "cartesian": ("xpainn", {"energy": 1.0, "forces": 10.0, "cartesian_tensor": 1.0}, False),
+    "xmatnet": ("xmatnet", {"node_mat_blocks": 1.0, "edge_mat_blocks": 1.0}, False),
+}
+# PaiNN trains on the molecules whose closest pair is at least 0.5 A apart
+# (shorter than any chemical bond; H2's is 0.74 A).  bench.py's recipe puts
+# atoms at random, and on its 33 molecules with a pair under 0.3 A PaiNN at
+# seed-0 weights reaches energies up to 2.5e17 and forces up to 2.8e19, in
+# both packages alike (no layer norm tames its quadratic update): past
+# f32's range in the force loss.  Serving and its holds keep every molecule
+PAINN_MIN_CONTACT = 0.5
+# phase 9's sizes on the card and in the CPU rehearsal ("kw": each cell's
+# model kwargs on top of its defaults)
+ZOO_SIZES = dict(n_ref=64, train_steps=10, layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS),
+                 kw={"painn": PAINN_KW, "so3krates": SO3_KW, "cartesian": CART_KW,
+                     "xmatnet": XMAT_KW})
+ZOO_REHEARSAL = dict(
+    n_ref=4, train_steps=2, layout=(32, 32, PAD_NODES, MAX_CHUNKS),
+    kw={"painn": dict(node_dim=16, action_blocks=2),
+        "so3krates": dict(node_dim=24, node_channel=4, action_blocks=2),
+        "cartesian": dict(CART_KW, hidden_channels=4, hidden_dim=8, **MD_REHEARSAL["kw"]),
+        "xmatnet": dict(XMAT_KW, hidden_irreps="4x0e+4x1o+4x2e", **MD_REHEARSAL["kw"])})
+
+
+def rotated(dps, rot):
+    """Copies of ``dps`` turned by the geometric rotation ``rot``, on the
+    same edges (so that every row and slot lines up)."""
+    from xequinet_torch.data.datapoint import Datapoint
+
+    return [Datapoint(d.atomic_numbers, d.pos @ rot.T, edge_index=d.edge_index) for d in dps]
+
+
+def random_rotation(seed):
+    q, r = np.linalg.qr(np.random.default_rng(seed).normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    return q if np.linalg.det(q) > 0 else -q
+
+
+def bf16_band(tag, got16, plain16, want32):
+    """max |err| / max of the bf16 mega route's ``got16`` against the f32
+    plain route's ``want32``, held within 2e-2 plus twice the bf16 plain
+    route's own distance from f32 (``plain16``), phase 7's band: the two
+    bf16 routes round at different points, and a quantity quadratic in
+    the node features (the tensor, the blocks) doubles their rounding."""
+    d_m, d_p = rel_err(got16, want32), rel_err(plain16, want32)
+    limit = TOL["bfloat16"] + 2 * d_p
+    print(f"[zoo] {tag} bf16 max|err|/max against the f32 plain route: mega route {d_m:.3e}, "
+          f"plain route {d_p:.3e} (limit for mega: 2e-2 + 2 x plain = {limit:.3e}); mega "
+          f"against the bf16 plain route {rel_err(got16, plain16):.3e} (limit none)")
+    if not d_m <= limit:
+        fail(f"{tag}: the mega route's bf16 output is further from f32 than the band")
+
+
+def held(tag, err, tol):
+    print(f"[zoo] {tag}: {err:.3e} (limit {tol:g})")
+    if not err <= tol:
+        fail(f"{tag}: {err:.3e} past the limit {tol:g}")
+
+
+def zoo_times(tag, eng, dps, batch, forces, card, head=False):
+    """The served call's device time (CUDA events), edges/s and the
+    predict wall time (neighbour lists + collate + device + host copy,
+    median of 3); under torch.profiler its device-busy time and idle
+    share, and with ``head`` the device time of the model's last block
+    (the Cartesian head, XMatNet's MatOut) run alone on the inputs the
+    earlier blocks give it, and its share."""
+    from xequinet_torch import keys
+    from xequinet_torch.models.properties import compute_edge_data
+    from xequinet_torch.run.inference import batch_to_device
+
+    w_all, b_all = device_ms(lambda: eng.forward_batch(batch, forces))
+    line = (f"[time] {tag} torch.profiler, {'forward+forces' if forces else 'forward'}: "
+            f"{b_all:.3f} ms of device time in {w_all:.3f} ms of wall (idle share "
+            f"{max(0.0, 1 - b_all / w_all):.3f})")
+    if head:
+        blocks = list(eng.module.blocks)
+        with torch.no_grad():
+            d = compute_edge_data(batch_to_device(batch, eng.device))
+            for m in blocks[:-1]:
+                d = m(d)
+
+            def last():
+                with torch.no_grad():
+                    blocks[-1](dict(d))
+
+            _, b_head = device_ms(last)
+        line += f"; {type(blocks[-1]).__name__} alone {b_head:.3f} ms, share {b_head / b_all:.3f}"
+    print(line + f" — {card}")
+
+    n_real = int(batch[keys.EDGE_MASK].sum())
+    dev_ms = time_ms(lambda: eng.forward_batch(batch, forces), iters=5, warmup=1)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.predict(dps, compute_forces=forces)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    what = "forward+forces" if forces else "forward"
+    print(f"[time] {tag} device {what} (CUDA events): {dev_ms:.3f} ms, "
+          f"{n_real / (dev_ms / 1e3):.1f} edges/s; predict wall, median of 3: "
+          f"{wall * 1e3:.1f} ms, {n_real / wall:.1f} edges/s — {card}")
+
+
+def zoo_train(tag, cell, b, want, device, card, sizes, dtype):
+    """10 steps of the cell's task on the batch ``b`` (launches per step
+    ``want``, a falling loss), then on the card 7 timed steps and the peak
+    memory.  Returns the launches per step."""
+    over = dict(sizes["kw"][cell])
+    if cell in ("cartesian", "xmatnet"):
+        over["pallas_layout"] = sizes["layout"]
+    per_step, step, ema = phase_training(tag, over, sizes["train_steps"], want, b, None,
+                                         device, card, ZOO_TASKS[cell])
+    if device.type == "cuda":
+        from xequinet_torch import keys
+
+        time_train_step(tag, step, b, ema, sizes["train_steps"],
+                        int(b[keys.EDGE_MASK].sum()), card, dtype)
+    del step, ema
+    return per_step
+
+
+def phase_zoo_f32(cell, dps, device, card, sizes):
+    """Phase 9 (a) / (b): PaiNN or SO3krates (f32, seeded weights) served by
+    InferenceEngine.predict with forces on the card with no kernel launch;
+    the first ``n_ref`` molecules on the card against the port's own CPU
+    run of the same weights (energy 1e-4 relative, forces through
+    F32_FORCE_TOL) and against a random rotation of themselves (the energy
+    unchanged, the forces rotated, within the same limits); then training
+    on bench.py's recipe (no launch, a falling loss; PaiNN on the molecules
+    without a pair closer than PAINN_MIN_CONTACT)."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run.inference import batch_to_device
+
+    tag = "a" if cell == "painn" else "b"
+    card_run = device.type == "cuda"
+    eng = make_engine(device, cell, **sizes["kw"][cell])
+    cuda_build.reset_launch_counts()
+    res = eng.predict(dps)
+    if card_run:
+        torch.cuda.synchronize()
+    predict = path_launches(f"({tag}) {cell} predict with forces", card_run)
+    e = np.array([float(r[keys.TOTAL_ENERGY]) for r in res])
+    f = np.concatenate([r[keys.FORCES] for r in res])
+    if f.shape != (sum(d.num_atoms for d in dps), 3) or not (np.isfinite(e).all()
+                                                             and np.isfinite(f).all()):
+        fail(f"({tag}): predict returned wrong shapes or non-finite outputs")
+    n_params = sum(p.numel() for p in eng.module.parameters())
+    print(f"[zoo] ({tag}) {cell}, {n_params / 1e6:.3f}M parameters: energy mean "
+          f"{e.mean():.6f}, mean|F| {np.abs(f).mean():.6f}")
+    sub = dps[:sizes["n_ref"]]
+    n_g, n_at = len(sub), sum(d.num_atoms for d in sub)
+    b = eng.collate(sub)
+    got = eng.forward_batch(b)
+    cpu = make_engine(torch.device("cpu"), cell, **sizes["kw"][cell])
+    cpu.module.load_state_dict(eng.module.state_dict())
+    compare_outputs(f"({tag}) {cell} f32, card vs the port on the CPU", got,
+                    cpu.forward_batch(b), n_g, n_at, 1e-4, F32_FORCE_TOL)
+    rot = random_rotation(90 + len(cell))
+    got_r = eng.forward_batch(eng.collate(rotated(sub, rot)))
+    turned = dict(got, **{keys.FORCES: got[keys.FORCES] @ torch.as_tensor(
+        rot.T, dtype=got[keys.FORCES].dtype, device=got[keys.FORCES].device)})
+    compare_outputs(f"({tag}) {cell} f32 on the card, rotated molecules vs rotated outputs",
+                    got_r, turned, n_g, n_at, 1e-4, F32_FORCE_TOL)
+    if card_run:
+        zoo_times(f"({tag}) {cell}", eng, dps, eng.collate(dps), True, card)
+    del eng, cpu
+    train_dps = dps
+    if cell == "painn":
+        close = np.array([closest_pair(d) < PAINN_MIN_CONTACT for d in dps])
+        train_dps = [d for d, c in zip(dps, close) if not c]
+        print(f"[zoo] (a) painn trains on the {len(train_dps)} molecules without a pair closer "
+              f"than {PAINN_MIN_CONTACT} A; served, the {int(close.sum())} others reach max|E| "
+              f"{np.abs(e[close]).max(initial=0):.3e} (the rest {np.abs(e[~close]).max():.3e})")
+    b = batch_to_device(collate(train_dps), device)
+    return predict, zoo_train(f"{cell} f32", cell, b, {}, device, card, sizes, "f32")
+
+
+def closest_pair(d):
+    r = np.linalg.norm(d.pos[:, None] - d.pos[None], axis=-1)
+    return float(r[np.triu_indices(d.num_atoms, 1)].min())
+
+
+def cartesian_labels(dps, seed=1235):
+    """Copies of ``dps`` with a random per-graph 3 x 3 Cartesian tensor."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.datapoint import Datapoint
+
+    rng = np.random.default_rng(seed)
+    return [Datapoint(d.atomic_numbers, d.pos, edge_index=d.edge_index, energy=d.energy,
+                      forces=d.forces,
+                      extras={keys.CARTESIAN_TENSOR: rng.normal(size=(3, 3)).astype(np.float32)})
+            for d in dps]
+
+
+def matrix_labels(dps, seed=1236):
+    """Copies of ``dps`` with XMatNet labels: MatToolkit.get_padded_blocks
+    of a random symmetric AO matrix per molecule."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.utils.mat_toolkit import MatToolkit
+
+    rng = np.random.default_rng(seed)
+    tk = MatToolkit(SVP_SHELLS, list(SVP_SHELLS))
+    out = []
+    for d in dps:
+        n_orb = int(sum(tk.atom2mask[int(z)].sum() for z in d.atomic_numbers))
+        m = rng.normal(size=(n_orb, n_orb))
+        nb, eb = tk.get_padded_blocks(d.atomic_numbers, 0.5 * (m + m.T), d.edge_index)
+        out.append(Datapoint(d.atomic_numbers, d.pos, edge_index=d.edge_index, extras={
+            keys.NODE_MAT_BLOCKS: nb.astype(np.float32),
+            keys.EDGE_MAT_BLOCKS: eb.astype(np.float32)}))
+    return out
+
+
+def irreps_wigner_D(irreps, rot):
+    """Block-diagonal Wigner-D (the port's) of a geometric rotation on a
+    flat irreps array."""
+    from xequinet_torch.ops.irreps import Irreps
+    from xequinet_torch.ops.wigner import geometric_rotation_to_irrep_basis, wigner_D
+
+    r = geometric_rotation_to_irrep_basis(rot)
+    blocks = [wigner_D(ir.l, r) for mul, ir in Irreps(irreps) for _ in range(mul)]
+    out = np.zeros((sum(len(x) for x in blocks),) * 2)
+    off = 0
+    for x in blocks:
+        out[off:off + len(x), off:off + len(x)] = x
+        off += len(x)
+    return out
+
+
+def phase_cartesian(dps, device, card, sizes):
+    """Phase 9 (c): the Cartesian head on the flagship XPaiNN (bf16 message
+    and update pipelines, mega route) served by InferenceEngine.predict
+    with forces through the kernels (3 + 3 launches); against the plain
+    route on the card: bf16 energies and mean |F| within 2e-2, the tensor
+    (max |err| / max) in bf16_band; f32 within 1e-4, forces through
+    F32_FORCE_TOL; in
+    f32 on the mega route T(R x) = R T(x) R^T within 1e-4 of the largest
+    entry; training on {energy: 1, forces: 10, cartesian_tensor: 1} (3 +
+    6 + 3 launches, a falling loss)."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run.inference import batch_to_device
+
+    card_run = device.type == "cuda"
+    over = dict(sizes["kw"]["cartesian"], pallas_layout=sizes["layout"])
+    eng = make_engine(device, **over)
+    cuda_build.reset_launch_counts()
+    res = eng.predict(dps)
+    if card_run:
+        torch.cuda.synchronize()
+    predict = path_launches("(c) cartesian head mega predict with forces", card_run,
+                            message_fwd=3, message_bwd=3)
+    t = np.stack([r[keys.CARTESIAN_TENSOR] for r in res])
+    if t.shape != (len(dps), 3, 3) or not np.isfinite(t).all():
+        fail("(c): predict did not return a finite 3 x 3 tensor per molecule")
+    print(f"[zoo] (c) cartesian head: mean|T| {np.abs(t).mean():.6f}")
+    n_g, n_at = len(dps), sum(d.num_atoms for d in dps)
+    eng_t = twins(device, "xpainn", over, eng.module.state_dict(),
+                  plain={"use_pallas_scatter": False}, k32=F32,
+                  p32=dict(F32, use_pallas_scatter=False))
+    mega_b, plain_b = eng.collate(dps), eng_t["plain"].collate(dps)
+    tensor = lambda o: o[keys.CARTESIAN_TENSOR][:n_g].cpu()
+    got16, plain16 = eng.forward_batch(mega_b), eng_t["plain"].forward_batch(plain_b)
+    got32, want32 = eng_t["k32"].forward_batch(mega_b), eng_t["p32"].forward_batch(plain_b)
+    compare_outputs("(c) cartesian head, bf16 mega vs plain route", got16, plain16, n_g, n_at,
+                    TOL["bfloat16"])
+    bf16_band("(c) tensor", tensor(got16), tensor(plain16), tensor(want32))
+    compare_outputs("(c) cartesian head, f32 mega vs plain route", got32, want32, n_g, n_at,
+                    1e-4, F32_FORCE_TOL)
+    held("(c) f32 tensor max|err|/max, mega vs plain route",
+         rel_err(tensor(got32), tensor(want32)), 1e-4)
+    del got16, plain16, got32, want32
+    sub = dps[:sizes["n_ref"]]
+    rot = random_rotation(95)
+    k32 = eng_t["k32"]
+    t0 = tensor(k32.forward_batch(k32.collate(sub), False))[:len(sub)].double().numpy()
+    t_r = tensor(k32.forward_batch(k32.collate(rotated(sub, rot)), False))[:len(sub)]
+    held("(c) f32 mega route, T(R x) against R T(x) R^T, max|err|/max",
+         rel_err(t_r, torch.as_tensor(rot @ t0 @ rot.T)), 1e-4)
+    del eng_t, k32
+    if card_run:
+        zoo_times("(c) cartesian head, mega route", eng, dps, mega_b, True, card, head=True)
+    del eng
+    b = batch_to_device(collate(cartesian_labels(dps), kernel_layout=layout(*sizes["layout"][:2])),
+                        device)
+    return predict, zoo_train("cartesian head mega", "cartesian", b,
+                              dict(message_fwd=3, message_bwd=6, message_bwd2=3), device, card,
+                              sizes, "bf16")
+
+
+def phase_xmatnet(dps, device, card, sizes):
+    """Phase 9 (d): XMatNet on the flagship backbone (mega route), its
+    forward through the kernels (3 launches); against the plain route on
+    the same slot-layout batch: the onsite and offsite blocks (max |err| /
+    max) in bf16_band and within 1e-4 in f32; in f32 on the mega route
+    B(R x) = D(R) B(x) D(R)^T for both kinds of block within 1e-4 of the
+    largest entry; training on {node_mat_blocks: 1, edge_mat_blocks: 1}
+    (3 + 3 + 0 launches, a falling loss)."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run.inference import batch_to_device
+
+    card_run = device.type == "cuda"
+    over = dict(sizes["kw"]["xmatnet"], pallas_layout=sizes["layout"])
+    eng = make_engine(device, "xmatnet", **over)
+    mega_b = eng.collate(dps)
+    cuda_build.reset_launch_counts()
+    out = eng.forward_batch(mega_b, False)
+    if card_run:
+        torch.cuda.synchronize()
+    forward = path_launches("(d) xmatnet mega forward", card_run, message_fwd=3)
+    blocks = (keys.NODE_MAT_BLOCKS, keys.EDGE_MAT_BLOCKS)
+    nb, eb = (out[k] for k in blocks)
+    if nb.shape[1:] != (14, 14) or eb.shape[0] != mega_b[keys.EDGE_MASK].shape[0] or not (
+            torch.isfinite(nb).all() and torch.isfinite(eb).all()):
+        fail(f"(d): blocks of shapes {tuple(nb.shape)}, {tuple(eb.shape)} or non-finite")
+    print(f"[zoo] (d) xmatnet: onsite blocks {tuple(nb.shape)}, offsite blocks "
+          f"{tuple(eb.shape)} ({int(mega_b[keys.EDGE_MASK].sum())} real edges), mean|B| "
+          f"{float(nb.abs().mean()):.6f}, {float(eb.abs().mean()):.6f}")
+    del out, nb, eb
+    eng_t = twins(device, "xmatnet", over, eng.module.state_dict(),
+                  plain={"use_pallas_scatter": False}, k32=F32,
+                  p32=dict(F32, use_pallas_scatter=False))
+    fb = lambda e: {k: v.cpu() for k, v in e.forward_batch(mega_b, False).items()
+                    if k in blocks}
+    got16, plain16, got32, want32 = (fb(e) for e in (eng, eng_t["plain"], eng_t["k32"],
+                                                     eng_t["p32"]))
+    for key in blocks:
+        bf16_band(f"(d) {key}", got16[key], plain16[key], want32[key])
+        held(f"(d) f32 {key} max|err|/max, mega vs plain route",
+             rel_err(got32[key], want32[key]), 1e-4)
+    del got16, plain16, got32, want32
+    sub = dps[:sizes["n_ref"]]
+    rot = random_rotation(96)
+    d = torch.as_tensor(irreps_wigner_D("3x0e+2x1o+1x2e", rot))
+    k32 = eng_t["k32"]
+    o, o_r = (k32.forward_batch(k32.collate(x), False) for x in (sub, rotated(sub, rot)))
+    for key in blocks:
+        b0 = o[key].cpu().double()
+        held(f"(d) f32 mega route, {key}(R x) against D {key}(x) D^T, max|err|/max",
+             rel_err(o_r[key].cpu(), d @ b0 @ d.T), 1e-4)
+    del eng_t, k32, o, o_r
+    if card_run:
+        zoo_times("(d) xmatnet, mega route", eng, dps, mega_b, False, card, head=True)
+    del eng
+    b = batch_to_device(collate(matrix_labels(dps), kernel_layout=layout(*sizes["layout"][:2])),
+                        device)
+    return forward, zoo_train("xmatnet mega", "xmatnet", b, dict(message_fwd=3, message_bwd=3),
+                              device, card, sizes, "bf16")
+
+
+def phase_zoo(dps, device, card, sizes):
+    """Phase 9: (a)-(d); returns each path's launches, by kernel."""
+    out = {}
+    t0 = time.perf_counter()
+    for cell in ("painn", "so3krates"):
+        out[f"{cell}_predict"], out[f"{cell}_train_step"] = phase_zoo_f32(cell, dps, device,
+                                                                          card, sizes)
+    out["cartesian_predict"], out["cartesian_train_step"] = phase_cartesian(dps, device, card,
+                                                                            sizes)
+    out["xmatnet_forward"], out["xmatnet_train_step"] = phase_xmatnet(dps, device, card, sizes)
+    print(f"[zoo] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -2024,7 +2481,7 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5, 7 and 8 at a tiny size on the CPU with the "
+                    help="run phases 3-5, 7, 8 and 9 at a tiny size on the CPU with the "
                          "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -2273,6 +2730,13 @@ def main():
         for path, counts in ewald.items():
             row[f"launches_{path}"] = counts.get(row["name"], 0)
 
+    # phase 9: PaiNN, SO3krates, the Cartesian head and XMatNet; each path's
+    # launches stand beside each row's
+    zoo = phase_zoo(dps, device, card, ZOO_SIZES)
+    for row in rows:
+        for path, counts in zoo.items():
+            row[f"launches_{path}"] = counts.get(row["name"], 0)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2281,7 +2745,7 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-5, 7 and 8 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5, 7, 8 and 9 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
@@ -2352,6 +2816,9 @@ def rehearsal():
                     EWALD_REHEARSAL)
     print("[rehearsal] phase 8 (XPaiNN-Ewald, multi-head) ran at a tiny size on the CPU (not a "
           "device result)")
+    phase_zoo(dps, torch.device("cpu"), "CPU rehearsal, not a device result", ZOO_REHEARSAL)
+    print("[rehearsal] phase 9 (PaiNN, SO3krates, the Cartesian head, XMatNet) ran at a tiny "
+          "size on the CPU (not a device result)")
 
 
 if __name__ == "__main__":

@@ -787,3 +787,107 @@ def test_cuda_v2_train_step_launches(cuda_device):
     """One energy + force train step of a 3-block v2 model: 3 v2 launches
     (its backward is plain ops, as in the JAX package), no message kernel."""
     assert _train_step_launches(cuda_device, True) == _counts(gather_scatter_v2=3)
+
+
+# the rest of the model zoo at small widths (chip_smoke.py phase 9 runs
+# them at full width): PaiNN and SO3krates run no kernel; the Cartesian
+# head and XMatNet sit on the mega route's message kernels
+ZOO_XPAINN = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
+                  num_basis=8, action_blocks=3, use_pallas_scatter="mega",
+                  pallas_layout=(16, 16, 16, 64))
+ZOO_SHELLS = {"H": [0, 0, 1], "He": [0, 0, 1], "Li": [0, 0, 0, 1, 1], "Be": [0, 0, 0, 1, 1],
+              **{e: [0, 0, 0, 1, 1, 2] for e in ("B", "C", "N", "O")}}
+ZOO = {
+    "painn": ("painn", dict(node_dim=16, num_basis=8), {}),
+    "so3krates": ("so3krates", dict(node_dim=24, node_channel=8, num_basis=8,
+                                    embed_basis="one-hot"), {}),
+    "cartesian": ("xpainn", dict(ZOO_XPAINN, output_modes=["energy", "cartesian"],
+                                 hidden_channels=4, hidden_dim=8),
+                  dict(message_fwd=3, message_bwd=3)),
+    "xmatnet": ("xmatnet", dict(ZOO_XPAINN, hidden_irreps="4x0e+4x1o+4x2e",
+                                target_basis=ZOO_SHELLS, elements=list(ZOO_SHELLS)),
+                dict(message_fwd=3)),
+}
+
+
+def _zoo_molecules(n_mols=6, seed=3):
+    rng = np.random.default_rng(seed)
+    dps = []
+    for _ in range(n_mols):
+        n = int(rng.integers(5, 12))
+        pos = rng.normal(size=(n, 3)) * 1.5
+        dps.append(Datapoint(rng.integers(1, 9, n), pos, edge_index=radius_graph_np(pos, 5.0)[0]))
+    return dps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", list(ZOO))
+def test_cuda_model_zoo_matches_cpu(cuda_device, cell):
+    """Each family in f32 on the card against the port's own CPU run of the
+    same weights, on the same collated batch: energies 1e-4, forces 3e-3 of
+    max |F| (chip_smoke.py's element-wise f32 gate), the Cartesian tensor
+    and XMatNet's blocks 1e-4 of the largest entry; the launches of one
+    call: none for PaiNN and SO3krates, 3 + 3 per Cartesian-head predict
+    with forces, 3 forward launches per XMatNet forward."""
+    model, kw, want_launches = ZOO[cell]
+    module, extra, cutoff = resolve_model(model, **kw)
+    init_params(module, seed=0)
+    state = module.state_dict()
+    engines = {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        m = resolve_model(model, **kw)[0]
+        m.load_state_dict(state)
+        engines[name] = InferenceEngine(module=m, model_kwargs=kw, extra=extra, cutoff=cutoff,
+                                        device=dev)
+    forces = cell != "xmatnet"
+    batch = engines["card"].collate(_zoo_molecules())
+    fm.reset_launch_counts()
+    got = engines["card"].forward_batch(batch, forces)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == _counts(**want_launches)
+    want = engines["cpu"].forward_batch(batch, forces)
+    checks = {keys.TOTAL_ENERGY: 1e-4, keys.FORCES: 3e-3, keys.CARTESIAN_TENSOR: 1e-4,
+              keys.NODE_MAT_BLOCKS: 1e-4, keys.EDGE_MAT_BLOCKS: 1e-4}
+    assert set(want) & set(checks)
+    for k in set(want) & set(checks):
+        _close(got[k].cpu(), want[k], checks[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["cartesian", "xmatnet"])
+def test_cuda_model_zoo_train_step_launches(cuda_device, cell):
+    """One bf16 train step on the card: 3 + 6 + 3 message launches for the
+    Cartesian head on {energy, forces, cartesian_tensor} (the force loss's
+    second order), 3 + 3 + 0 for XMatNet on its matrix blocks (no force
+    term); a finite loss and parameters."""
+    model, kw, _ = ZOO[cell]
+    kw = dict(kw, compute_dtype="bfloat16", update_compute_dtype="bfloat16")
+    module, extra, _ = resolve_model(model, **kw)
+    init_params(module, seed=0)
+    module = module.to(cuda_device)
+    rng = np.random.default_rng(4)
+    dps = _zoo_molecules()
+    if cell == "cartesian":
+        weights = {"energy": 1.0, "forces": 10.0, keys.CARTESIAN_TENSOR: 1.0}
+        for d in dps:
+            d.energy, d.forces = float(rng.normal()), rng.normal(size=(d.num_atoms, 3))
+            d.extras[keys.CARTESIAN_TENSOR] = rng.normal(size=(3, 3)).astype(np.float32)
+        want = dict(message_fwd=3, message_bwd=6, message_bwd2=3)
+    else:
+        weights = {keys.NODE_MAT_BLOCKS: 1.0, keys.EDGE_MAT_BLOCKS: 1.0}
+        for d in dps:
+            for k, n in ((keys.NODE_MAT_BLOCKS, d.num_atoms), (keys.EDGE_MAT_BLOCKS, d.num_edges)):
+                d.extras[k] = rng.normal(size=(n, 14, 14)).astype(np.float32)
+        want = dict(message_fwd=3, message_bwd=3)
+    layout = {"block_nodes": 16, "chunk": 16, "pad_nodes": 16, "max_chunks": 64}
+    batch = batch_to_device(collate(dps, kernel_layout=layout), cuda_device)
+    params = list(module.parameters())
+    step = make_step_core(make_forward(module, extra, create_graph=True),
+                          WeightedLoss("l2", **weights), params, resolve_optimizer("adamw", params),
+                          resolve_lr_schedule("cosine_annealing", 5e-4, 100, warmup_steps=10),
+                          "forces" in weights, False, 5.0, 0.999, ErrorMetric(*weights))
+    fm.reset_launch_counts()
+    loss, _ = step(batch, 0, 1.0, [p.detach().clone() for p in params])
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == _counts(**want)
+    assert torch.isfinite(loss) and all(torch.isfinite(p).all() for p in params)

@@ -310,10 +310,17 @@ def test_port_charge_dipole_polar_properties():
 
 @pytest.mark.parametrize("name", ["painn", "so3krates", "xmatnet"])
 def test_unported_families_and_cartesian_head_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        resolve_model(name, node_dim=16)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        resolve_output("cartesian", node_dim=16)
+    """The families once missing from the port now build (held against JAX
+    in tests/test_torch_painn_so3krates.py and test_torch_xe3net_xmatnet.py),
+    as does the Cartesian head; a name neither package knows raises."""
+    kw = dict(node_dim=24, target_basis={"H": [0]}, elements=["H"])
+    module, extra, _ = resolve_model(name, **kw)
+    assert extra and sum(p.numel() for p in module.parameters()) > 0
+    assert resolve_output("cartesian", node_dim=16, node_irreps=IRREPS) is not None
+    with pytest.raises(NotImplementedError, match="Unsupported model"):
+        resolve_model(name + "-x", **kw)
+    with pytest.raises(NotImplementedError, match="Unsupported output head"):
+        resolve_output(name, node_dim=16)
 
 
 def test_loss_and_metric_on_head_targets_match_jax():

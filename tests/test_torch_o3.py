@@ -1,6 +1,7 @@
 """The port's o3 core (xequinet_torch.ops) against the JAX package on
-seeded random inputs: Wigner-3j tables, spherical harmonics (l <= 2, with
-a zero vector), the G/S structure ops and the equivariant layers.
+seeded random inputs: Wigner-3j tables, spherical harmonics (l <= 3, with
+a zero vector), the G/S structure ops and the equivariant layers (l <= 3:
+SO3krates' ``max_l``).
 Tolerance: f32 1e-5 relative to the largest reference magnitude."""
 
 import jax
@@ -19,7 +20,8 @@ from xequinet_torch.ops.irreps import Irreps, cat_flat, split_flat
 from xequinet_torch.ops.spherical import spherical_harmonics
 from xequinet_torch.ops.wigner import wigner_3j
 
-IRREPS = ["128x0e+64x1o+32x2e", "16x0e+8x1o+4x2e", "3x1o+2x0e+1x2e+4x0e"]
+IRREPS = ["128x0e+64x1o+32x2e", "16x0e+8x1o+4x2e", "3x1o+2x0e+1x2e+4x0e",
+          "8x0e+8x1o+8x2e+8x3o"]
 
 
 @pytest.fixture(autouse=True)
@@ -35,12 +37,13 @@ def _close(got, want, rel=1e-5):
     assert float(np.abs(got - want).max()) <= rel * scale
 
 
-@pytest.mark.parametrize("ls", [(1, 1, 0), (1, 1, 2), (2, 1, 2), (1, 2, 1), (2, 2, 2)])
+@pytest.mark.parametrize("ls", [(1, 1, 0), (1, 1, 2), (2, 1, 2), (1, 2, 1), (2, 2, 2),
+                                (2, 1, 3), (3, 3, 2)])
 def test_wigner_3j_matches_jax(ls):
     np.testing.assert_allclose(wigner_3j(*ls), jw3j(*ls), atol=1e-12)
 
 
-@pytest.mark.parametrize("irreps", IRREPS + ["1x0e+1x1o+1x2e"])
+@pytest.mark.parametrize("irreps", IRREPS + ["1x0e+1x1o+1x2e", "1x0e+1x1o+1x2e+1x3o"])
 def test_spherical_harmonics_match_jax(rng, irreps):
     vec = rng.normal(size=(7, 3)).astype(np.float32)
     vec[3] = 0.0  # padding edge: zero harmonics for l >= 1

@@ -1,10 +1,9 @@
-"""Model assembly: XPaiNN and XPaiNN-Ewald as ordered block stacks.
+"""Model assembly: every model family of the JAX package (XPaiNN,
+XPaiNN-Ewald, PaiNN, SO3krates, XMatNet) as ordered block stacks.
 
-Port of ``xequinet_tpu/models/model.py:27-144, 187-234, 321-340``.  A
-model is a ``BlockStack`` whose ``blocks`` thread the data dict in order;
-the full forward with forces / virial is
-``models.properties.make_forward``.  PaiNN, SO3krates and XMatNet are not
-ported yet.
+Port of ``xequinet_tpu/models/model.py``.  A model is a ``BlockStack``
+whose ``blocks`` thread the data dict in order; the full forward with
+forces / virial is ``models.properties.make_forward``.
 """
 
 from __future__ import annotations
@@ -18,6 +17,9 @@ from ..ops.irreps import Irreps
 from .electronic import ChargeEmbedding, SpinEmbedding
 from .ewald import EwaldBlock, EwaldInitialNonPBC, EwaldInitialPBC
 from .output import OUTPUT_EXTRA_PROPERTIES, resolve_output
+from .painn import PainnEmbedding, PainnMessage, PainnUpdate
+from .so3krates import EuclideanAttention, InteractionBlock
+from .xmatnet import build_xmatnet
 from .xpainn import XEmbedding, XPainnMessage, XPainnUpdate
 
 DataDict = Dict[str, torch.Tensor]
@@ -127,13 +129,74 @@ def build_xpainn_ewald(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
     return BlockStack(blocks + heads), extra + ewald_extra, cutoff
 
 
-MODEL_BUILDERS = {"xpainn": build_xpainn, "xpainn-ewald": build_xpainn_ewald}
+def build_painn(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
+    """PaiNN: PainnEmbedding -> N x (PainnMessage, PainnUpdate) -> heads."""
+    node_dim = kwargs.get("node_dim", 128)
+    num_basis = kwargs.get("num_basis", 20)
+    cutoff = kwargs.get("cutoff", 5.0)
+    activation = kwargs.get("activation", "silu")
+    blocks: List[nn.Module] = [PainnEmbedding(
+        node_dim=node_dim, num_basis=num_basis,
+        embed_basis=kwargs.get("embed_basis", "gfn2-xtb"),
+        aux_basis=kwargs.get("aux_basis", "aux56"),
+        rbf_kernel=kwargs.get("rbf_kernel", "bessel"), cutoff=cutoff,
+        cutoff_fn=kwargs.get("cutoff_fn", "cosine"))]
+    for _ in range(kwargs.get("action_blocks", 3)):
+        blocks.append(PainnMessage(node_dim=node_dim, num_basis=num_basis,
+                                   activation=activation))
+        blocks.append(PainnUpdate(node_dim=node_dim, activation=activation))
+    heads, extra = _heads(kwargs.get("output_modes", ["energy"]), kwargs, node_dim,
+                          kwargs.get("node_irreps", "128x0e + 64x1o + 32x2e"))
+    return BlockStack(blocks + heads), extra, cutoff
+
+
+def build_so3krates(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
+    """SO3krates: XEmbedding with ``node_channel`` channels of every l up to
+    ``max_l`` -> [Charge / SpinEmbedding] -> N x (EuclideanAttention,
+    InteractionBlock) -> heads."""
+    node_dim = kwargs.get("node_dim", 120)
+    node_channel = kwargs.get("node_channel", 32)
+    node_irreps = Irreps([(node_channel, (l, (-1) ** l))
+                          for l in range(kwargs.get("max_l", 3) + 1)])
+    num_basis = kwargs.get("num_basis", 20)
+    cutoff = kwargs.get("cutoff", 5.0)
+    activation = kwargs.get("activation", "silu")
+    layer_norm = kwargs.get("layer_norm", False)
+    blocks: List[nn.Module] = [XEmbedding(
+        node_dim=node_dim, node_irreps=node_irreps,
+        embed_basis=kwargs.get("embed_basis", "gfn2-xtb"),
+        aux_basis=kwargs.get("aux_basis", "aux56"), num_basis=num_basis,
+        rbf_kernel=kwargs.get("rbf_kernel", "bessel"), cutoff=cutoff,
+        cutoff_fn=kwargs.get("cutoff_fn", "cosine"))]
+    if kwargs.get("charge_embed", False):
+        blocks.append(ChargeEmbedding(node_dim=node_dim, activation=activation))
+    if kwargs.get("spin_embed", False):
+        blocks.append(SpinEmbedding(node_dim=node_dim, activation=activation))
+    for _ in range(kwargs.get("action_blocks", 3)):
+        blocks.append(EuclideanAttention(
+            node_irreps=node_irreps, node_dim=node_dim,
+            num_heads=kwargs.get("num_heads", 4), num_basis=num_basis,
+            activation=activation, layer_norm=layer_norm))
+        blocks.append(InteractionBlock(node_irreps=node_irreps, node_dim=node_dim,
+                                       activation=activation, layer_norm=layer_norm))
+    heads, extra = _heads(kwargs.get("output_modes", ["energy"]),
+                          dict(kwargs, node_irreps=node_irreps), node_dim, node_irreps)
+    return BlockStack(blocks + heads), extra, cutoff
+
+
+MODEL_BUILDERS = {
+    "xpainn": build_xpainn,
+    "xpainn-ewald": build_xpainn_ewald,
+    "painn": build_painn,
+    "so3krates": build_so3krates,
+    "xmatnet": build_xmatnet,
+}
 
 
 def resolve_model(model_name: str, **kwargs: Any):
     name = model_name.lower()
     if name not in MODEL_BUILDERS:
-        raise NotImplementedError(f"model {model_name} is not ported yet")
+        raise NotImplementedError(f"Unsupported model {model_name}")
     return MODEL_BUILDERS[name](**kwargs)
 
 

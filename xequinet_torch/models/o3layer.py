@@ -1,8 +1,7 @@
-"""Equivariant layers with parameters: O3Linear, Gate and
-EquivariantLayerNorm.
+"""Equivariant layers with parameters: O3Linear, Gate,
+EquivariantLayerNorm and the weighted TensorProductModule.
 
-Port of ``xequinet_tpu/models/o3layer.py:23-140`` (the weighted tensor
-product comes with the model families that use it).
+Port of ``xequinet_tpu/models/o3layer.py:23-160``.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from torch import nn
 
 from ..ops.irreps import Irreps
 from ..ops.o3ops import equivariant_layer_norm, invariant, scalar_gate
+from ..ops.tensor_product import TensorProduct
 from .basic import Dense, _normal_, resolve_activation
 
 
@@ -138,3 +138,21 @@ class EquivariantLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return equivariant_layer_norm(x, self.irreps, self.weight, self.bias, self.eps)
+
+
+class TensorProductModule(nn.Module):
+    """A tensor product with its own shared weights: the flat parameter
+    ``weight`` [weight_numel], N(0, 1) at init (e3nn ``o3.TensorProduct``
+    with ``internal_weights=True``)."""
+
+    def __init__(self, tp: TensorProduct):
+        super().__init__()
+        self.tp = tp
+        self.weight = nn.Parameter(torch.zeros(tp.weight_numel)) if tp.weight_numel else None
+
+    def _init(self, gen: torch.Generator) -> None:
+        if self.weight is not None:
+            _normal_(self.weight, gen, 1.0)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        return self.tp.apply(x1, x2, self.weight)

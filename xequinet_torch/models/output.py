@@ -1,10 +1,8 @@
-"""Output heads: energy, scalar, atomic charges, dipole, polarizability
-and spatial extent.
+"""Output heads: energy, scalar, atomic charges, dipole, polarizability,
+spatial extent and (from models/xe3net.py) the Cartesian tensor.
 
 Port of ``xequinet_tpu/models/output.py:38-322``.  Every graph reduction
-is a segment sum over the real atoms (NODE_MASK).  The Cartesian tensor
-head (``"cartesian"``) comes with the tensor-product stack (xe3net) and
-raises until then.
+is a segment sum over the real atoms (NODE_MASK).
 """
 
 from __future__ import annotations
@@ -22,6 +20,7 @@ from ..ops.scatter import segment_sum
 from ..utils.qc import ATOM_MASS
 from .basic import ScalarMLP
 from .o3layer import Gate, O3Linear
+from .xe3net import CartTensorOut
 
 DataDict = Dict[str, torch.Tensor]
 
@@ -215,6 +214,7 @@ _HEADS = {
     "dipole": DipoleOut,
     "polar": PolarOut,
     "spatial": SpatialOut,
+    "cartesian": CartTensorOut,
 }
 
 OUTPUT_EXTRA_PROPERTIES = {
@@ -233,7 +233,7 @@ def resolve_output(mode: str, **kwargs) -> nn.Module:
     """Head factory: the head's own arguments are taken from the
     model_kwargs (every ``*irreps*`` one as Irreps), the rest ignored."""
     if mode not in _HEADS:
-        raise NotImplementedError(f"output head {mode!r} is not ported yet")
+        raise NotImplementedError(f"Unsupported output head {mode!r}")
     cls = _HEADS[mode]
     fields = set(inspect.signature(cls.__init__).parameters) - {"self"}
     return cls(**{k: Irreps(v) if "irreps" in k else v

@@ -1,7 +1,7 @@
-"""Wigner-3j tables in the real spherical-harmonics basis (numpy).
+"""Wigner-3j tables and Wigner-D matrices in the real spherical-harmonics
+basis (numpy).
 
-Port of ``xequinet_tpu/ops/wigner.py:32-129`` (the parts the spherical
-harmonics and the o3 structure matrices need).  Construction:
+Port of ``xequinet_tpu/ops/wigner.py:32-163``.  Construction:
 
 * real so(3) generators obtained by conjugating the complex su(2)
   generators with the standard complex->real change of basis,
@@ -98,3 +98,47 @@ def wigner_3j(l1: int, l2: int, l3: int) -> np.ndarray:
 def irrep_inner_coeff(l: int) -> float:
     """c_l with ``w3j(l,l,0)[m,m',0] = c_l * delta_{mm'}`` (= 1/sqrt(2l+1))."""
     return float(wigner_3j(l, l, 0)[0, 0, 0])
+
+
+# ---------------------------------------------------------------------------
+# Wigner D matrices (equivariance checks, Sph2Cart construction); port of
+# xequinet_tpu/ops/wigner.py:137-163 without scipy.
+# ---------------------------------------------------------------------------
+
+
+def _rotation_log(r: np.ndarray) -> np.ndarray:
+    """Principal logarithm of a 3x3 rotation matrix (antisymmetric)."""
+    cos = float(np.clip((np.trace(r) - 1.0) / 2.0, -1.0, 1.0))
+    theta = math.acos(cos)
+    if theta < 1e-12:
+        return 0.5 * (r - r.T)
+    if math.pi - theta > 1e-6:
+        return theta / (2.0 * math.sin(theta)) * (r - r.T)
+    # a half turn: the axis is the column of R + I with the largest norm
+    s = r + np.eye(3)
+    n = s[:, int(np.argmax(np.linalg.norm(s, axis=0)))]
+    n = n / np.linalg.norm(n)
+    return theta * np.array([[0.0, -n[2], n[1]], [n[2], 0.0, -n[0]], [-n[1], n[0], 0.0]])
+
+
+def _expm_antisymmetric(m: np.ndarray) -> np.ndarray:
+    """exp(M) of a real antisymmetric M, through the Hermitian -iM."""
+    w, u = np.linalg.eigh(-1j * m)
+    return np.real((u * np.exp(1j * w)) @ u.conj().T)
+
+
+def wigner_D(l: int, R_irrep: np.ndarray) -> np.ndarray:
+    """Real Wigner-D matrix of degree ``l`` for a rotation given in the l=1
+    irrep basis (pass ``geometric_rotation_to_irrep_basis(R_xyz)`` for a
+    geometric rotation matrix)."""
+    a = _rotation_log(np.asarray(R_irrep, dtype=np.float64))
+    coeffs = [float(np.sum(a * g) / np.sum(g * g)) for g in so3_generators(1)]
+    return _expm_antisymmetric(sum(c * g for c, g in zip(coeffs, so3_generators(l))))
+
+
+_P_YZX = np.array([[0.0, 1.0, 0.0], [0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])  # (x,y,z) -> (y,z,x)
+
+
+def geometric_rotation_to_irrep_basis(R_xyz: np.ndarray) -> np.ndarray:
+    """A geometric (x,y,z) rotation matrix in the l=1 irrep basis."""
+    return _P_YZX @ R_xyz @ _P_YZX.T

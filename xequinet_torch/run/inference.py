@@ -117,7 +117,7 @@ class InferenceEngine:
             n = dp.num_atoms
             r: Dict[str, np.ndarray] = {}
             for prop in (keys.TOTAL_ENERGY, keys.DIPOLE, keys.POLARIZABILITY, keys.VIRIAL,
-                         keys.SCALAR_OUTPUT, keys.SPATIAL_EXTENT):
+                         keys.SCALAR_OUTPUT, keys.SPATIAL_EXTENT, keys.CARTESIAN_TENSOR):
                 if prop in out:
                     r[prop] = out[prop][g]
             for prop in (keys.FORCES, keys.ATOMIC_CHARGES, keys.ATOMIC_ENERGIES):
