@@ -4,8 +4,8 @@
     python3 chip_smoke.py --profile DIR    # also trace forward+forces and a
                                            # train step of each route with
                                            # torch.profiler
-    python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5,
-                                           # 7, 8 and 9 with the plain versions
+    python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
+                                           # and 7-10 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -115,8 +115,33 @@ Phases (any failed check exits non-zero):
      3 + 6 + 3 on {energy, forces, cartesian_tensor}; 3 + 3 + 0 on the
      matrix blocks) with a falling loss, a median of 7 timed steps and the
      peak memory.
+ 10. the user-facing drivers through ``xequinet_torch.cli.main``, with config
+     files written as text and read by the port's own YAML reader, at full
+     width on the mega route (FLAGSHIP_KW): (a) ``train -C`` for one epoch on
+     an XDB dataset of 320 bench molecules (3 + 6 + 3 launches per step, 3 +
+     3 per validation batch), the same config in a subprocess sent SIGTERM
+     after its first logged step (exit code 143 and a checkpoint), then
+     ``train --resume`` to its end; (b) ``test`` on that checkpoint's test
+     split (3 + 3 launches per batch), its MAE and RMSE against the same
+     batches through InferenceEngine.forward_batch; (c) ``infer --forces``
+     on an extxyz of phase 3's 1024 molecules in chunks of 128 (3 + 3 per
+     chunk), each structure against InferenceEngine.predict on the same
+     chunks, structures/s and edges/s; (d) ``opt --freq --shermo
+     --save-hessian`` with an f32 checkpoint of phase 7's model on 4 of
+     phase 3's molecules without a pair under 0.8 A, one of them with a
+     $freeze file (no launch: the plain route), energies that fall, frozen
+     atoms unmoved, the L-BFGS evaluation rate and one evaluation's device
+     share, then on the largest molecule Calculator.hessian on the card
+     against the CPU (1e-4 of max |H| + 2x the card's change under a
+     one-ulp move), the translational sum rule (1e-3) and analytic_hessian
+     against numerical_hessian (the JAX test's atol 5e-3, rtol 1e-2), with
+     the Hessian's ms; (e) ``md -C`` on phase 7's 4,000-atom free chain with
+     ``pallas: mega``, NVE 20 steps (3 + 3 per force call); (f) IPIDriver
+     against a fake i-PI server on localhost, 3 rounds, against
+     Calculator.calculate.  The drivers' agreement limits are 1e-6 plus
+     twice the reference's own spread over two calls.
 Then one JSON line with the kernels (each with its launches per MD call
-and per phase 8 and phase 9 path too), the card line, and last the device
+and per phase 8, 9 and 10 path too), the card line, and last the device
 JSON line.
 It imports nothing of JAX or of the JAX package.
 """
@@ -2474,6 +2499,617 @@ def phase_zoo(dps, device, card, sizes):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the user-facing drivers, through the command line
+# ---------------------------------------------------------------------------
+# phase 10's sizes on the card and in the CPU rehearsal: the XDB dataset
+# (n_train bench molecules, batch size), the infer batch size, the opt
+# molecules, the MD chain and its steps, and the model's overrides ("kw")
+CLI_SIZES = dict(n_train=320, batch=32, valid_batch=8, infer_batch=128, n_opt=4, opt_steps=40, md_atoms=4000,
+                 md_steps=20, kw={}, layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS))
+CLI_REHEARSAL = dict(n_train=24, batch=4, valid_batch=2, infer_batch=4, n_opt=2, opt_steps=10, md_atoms=700,
+                     md_steps=4,
+                     kw=dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", num_basis=8,
+                             action_blocks=1),
+                     layout=(32, 32, PAD_NODES, MAX_CHUNKS))
+# opt takes phase 3's molecules without a pair closer than this (A)
+OPT_MIN_PAIR = 0.8
+# the JAX package's analytic-against-numerical Hessian test's model
+# (tests/test_round2.py::mini_ckpt), f32
+ROUND2_KW = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
+                 num_basis=8, cutoff=5.0, action_blocks=1, output_modes=["energy"])
+# agreement of a driver with the engine / Calculator it wraps, relative:
+# CLI_TOL plus twice the reference's own spread over two calls on the same
+# inputs (the plain PyTorch sums use float atomics on the card)
+CLI_TOL = 1e-6
+
+
+def yaml_value(v):
+    """A config value as YAML text: flow lists and mappings, quoted
+    strings, floats with a dot (the port's reader refuses 1e-05)."""
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{k}: {yaml_value(x)}" for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(yaml_value(x) for x in v) + "]"
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        r = repr(v)
+        mant, _, exp = r.partition("e")
+        return f"{mant}.0e{exp}" if exp and "." not in mant else r
+    if isinstance(v, int):
+        return str(v)
+    return json.dumps(str(v))
+
+
+def write_yaml(path, sections):
+    """A config file as a user writes one: a block per section, comments."""
+    lines = ["# written by chip_smoke.py phase 10"]
+    for sec, body in sections.items():
+        if isinstance(body, dict):
+            lines.append(f"{sec}:")
+            lines += [f"  {k}: {yaml_value(v)}  # {k}" for k, v in body.items()]
+        else:
+            lines.append(f"{sec}: {yaml_value(body)}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+class _Kept:
+    """Wraps ``module.name`` while alive, keeping what each call returns."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+        self.results = []
+
+    def __enter__(self):
+        def keep(*a, **k):
+            out = self.orig(*a, **k)
+            self.results.append(out)
+            return out
+
+        setattr(self.module, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def spread_limit(a, b):
+    """CLI_TOL plus twice the relative distance of two reference calls."""
+    return CLI_TOL + 2.0 * a / max(b, 1e-30)
+
+
+def cli_train(tmp, kw, dev_args, card_run, sizes, card):
+    """Phase 10 (a): ``train -C`` for one epoch on an XDB dataset of bench
+    molecules (3 + 6 + 3 launches per step, 3 + 3 per validation batch);
+    the same config in a subprocess sent SIGTERM after its first logged
+    step (exit 143 and a checkpoint); then ``train --resume``."""
+    import os
+    import signal
+
+    from xequinet_torch import cli
+    from xequinet_torch.convert import load_checkpoint
+    from xequinet_torch.data.store import create_dataset
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.training import trainer as trainer_mod
+
+    db = os.path.join(tmp, "db")
+    create_dataset(db, build_molecules(sizes["n_train"], seed=99), units={})
+    data = {"db_path": db, "targets": ["energy", "forces"], "batch_size": sizes["batch"],
+            "valid_batch_size": sizes["valid_batch"]}
+    trainer = {"max_epochs": 1, "warmup_epochs": 1, "lossfn": "l2",
+               "losses_weight": TRAIN_WEIGHTS, "ema_decay": 0.999, "grad_clip": 5.0,
+               "save_dir": os.path.join(tmp, "out"), "log_steps": 4, "seed": 0}
+    if not card_run:
+        trainer["device"] = "cpu"
+    cfg = write_yaml(os.path.join(tmp, "train.yaml"),
+                     {"model": {"model_name": "xpainn", "model_kwargs": kw}, "data": data,
+                      "trainer": trainer})
+    # the validation batches that run_train's own valid loader yields, counted
+    # at each validate() (a second pass over that loader launches nothing)
+    validate, n_valid = trainer_mod.Trainer.validate, []
+
+    def counted_validate(self):
+        n_valid.append(sum(1 for _ in self.valid_loader))
+        return validate(self)
+
+    cuda_build.reset_launch_counts()
+    trainer_mod.Trainer.validate = counted_validate
+    try:
+        t0 = time.perf_counter()
+        cli.main(["train", "-C", cfg])
+        sync_if(card_run)
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer.validate = validate
+    last = os.path.join(tmp, "out", "xequinet_last.ckpt")
+    steps, valid = load_checkpoint(last)["step"], sum(n_valid)
+    if steps == 0 or valid == 0:
+        fail(f"(a) train: {steps} steps and {valid} validation batches")
+    counts = path_launches("(a) train", card_run, message_fwd=3 * steps + 3 * valid,
+                           message_bwd=6 * steps + 3 * valid, message_bwd2=3 * steps)
+    print(f"[cli] (a) train -C: 1 epoch, {steps} steps and {valid} validation batches in "
+          f"{wall:.1f} s, launches {counts} — {card}")
+
+    # preemption: the same config, long, in a subprocess
+    save2 = os.path.join(tmp, "pre")
+    long_cfg = write_yaml(os.path.join(tmp, "long.yaml"),
+                          {"model": {"model_name": "xpainn", "model_kwargs": kw}, "data": data,
+                           "trainer": dict(trainer, max_epochs=1000, log_steps=1,
+                                           save_dir=save2)})
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "xequinet_torch", "train", "-C", long_cfg],
+                            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        seen = ""
+        while time.perf_counter() - t0 < 300:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            seen += line
+            if " step 1 loss " in line:
+                break
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    pre = os.path.join(save2, "xequinet_last.ckpt")
+    print(f"[cli] (a) train in a subprocess, SIGTERM after its first logged step: exit code "
+          f"{proc.returncode} after {time.perf_counter() - t0:.1f} s, checkpoint "
+          f"{os.path.exists(pre)}")
+    if proc.returncode != 128 + signal.SIGTERM or not os.path.exists(pre):
+        fail(f"(a) preemption: exit {proc.returncode}, checkpoint {os.path.exists(pre)}; "
+             f"output:\n{(seen + rest)[-3000:]}")
+    blob = load_checkpoint(pre)
+    epoch, step = blob["epoch"], blob["step"]
+    resume_cfg = write_yaml(os.path.join(tmp, "resume.yaml"),
+                            {"model": {"model_name": "xpainn", "model_kwargs": kw}, "data": data,
+                             "trainer": dict(trainer, max_epochs=epoch + 2, save_dir=save2)})
+    cli.main(["train", "-C", resume_cfg, "-c", pre, "--resume"])
+    after = load_checkpoint(pre)
+    print(f"[cli] (a) train --resume from epoch {epoch} step {step}: finished epoch "
+          f"{after['epoch']} at step {after['step']}")
+    if after["epoch"] != epoch + 1 or after["step"] <= step:
+        fail("(a) the resumed run did not go on from the preemption checkpoint")
+    per_valid = {"message_fwd": 3 * valid, "message_bwd": 3 * valid} if card_run else {}
+    return cfg, last, {k: (v - per_valid.get(k, 0)) // steps for k, v in counts.items()}
+
+
+def sync_if(card_run):
+    if card_run:
+        torch.cuda.synchronize()
+
+
+def cli_test(cfg, ckpt, kw, device, dev_args, card_run, card):
+    """Phase 10 (b): ``test`` on the checkpoint's test split (3 + 3
+    launches per batch); its MAE and RMSE against the same batches through
+    ``InferenceEngine.forward_batch``."""
+    from xequinet_torch import cli
+    from xequinet_torch.data.batching import kernel_layout_from_model_kwargs
+    from xequinet_torch.data.dataset import DataLoader
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run import test as run_test_mod
+    from xequinet_torch.run.inference import InferenceEngine, batch_to_device
+    from xequinet_torch.run.train import build_datasets
+    from xequinet_torch.training.loss import ErrorMetric, MetricAccumulator
+    from xequinet_torch.utils.config import load_config
+
+    config = load_config(cfg)
+    loader = DataLoader(build_datasets(config)[2], config.data.valid_batch_size,
+                        kernel_layout=kernel_layout_from_model_kwargs(kw))
+    n_batches = sum(1 for _ in loader)
+    cuda_build.reset_launch_counts()
+    with _Kept(run_test_mod, "run_test") as kept:
+        t0 = time.perf_counter()
+        cli.main(["test", "-C", cfg, "-c", ckpt] + dev_args)
+        sync_if(card_run)
+        wall = time.perf_counter() - t0
+    counts = path_launches("(b) test", card_run, message_fwd=3 * n_batches,
+                           message_bwd=3 * n_batches)
+    got = kept.results[0]
+    eng = InferenceEngine(ckpt, device=device)
+    metric = ErrorMetric(*config.data.targets)
+    refs = []
+    for _ in range(2):
+        acc = MetricAccumulator()
+        for raw in loader:
+            acc.update(metric(eng.forward_batch(raw), batch_to_device(raw, device)))
+        refs.append(acc.compute())
+    worst = 0.0
+    for prop, r in refs[0].items():
+        for m in ("mae", "rmse"):
+            err = abs(got[prop][m] - r[m]) / r[m]
+            limit = spread_limit(abs(refs[1][prop][m] - r[m]), r[m])
+            worst = max(worst, err / limit)
+            if err > limit:
+                fail(f"(b) test: {prop} {m} {got[prop][m]:.9g} against forward_batch's "
+                     f"{r[m]:.9g}, {err:.3e} relative (limit {limit:.3e})")
+    print(f"[cli] (b) test: {n_batches} batches, {wall / n_batches * 1e3:.1f} ms per batch "
+          f"(wall, model load and data included: {wall:.2f} s); every MAE and RMSE within its "
+          f"limit of forward_batch on the same batches (the closest at {worst:.3f} of it) — "
+          f"{card}")
+    return {k: v // max(n_batches, 1) for k, v in counts.items()}
+
+
+def cli_infer(dps, ckpt, device, dev_args, card_run, card, tmp, sizes):
+    """Phase 10 (c): ``infer --forces`` on an extxyz of phase 3's molecules
+    (3 + 3 launches per chunk); each structure against
+    ``InferenceEngine.predict`` on the same chunks."""
+    import os
+    import pickle
+
+    from xequinet_torch import cli, keys
+    from xequinet_torch.data.fmt_conversion import read_xyz, write_xyz
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run.inference import InferenceEngine
+
+    xyz, out = os.path.join(tmp, "infer.xyz"), os.path.join(tmp, "infer.pkl")
+    write_xyz(xyz, dps)
+    bs = sizes["infer_batch"]
+    n_chunks = (len(dps) + bs - 1) // bs
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["infer", "-c", ckpt, "-in", xyz, "-out", out, "--forces", "-b", str(bs)] + dev_args)
+    sync_if(card_run)
+    wall = time.perf_counter() - t0
+    counts = path_launches("(c) infer", card_run, message_fwd=3 * n_chunks,
+                           message_bwd=3 * n_chunks)
+    with open(out, "rb") as f:
+        got = pickle.load(f)
+    frames = read_xyz(xyz)
+    eng = InferenceEngine(ckpt, device=device)
+    refs = [[r for i in range(0, len(frames), bs) for r in eng.predict(frames[i : i + bs])]
+            for _ in range(2)]
+
+    # energies: |dE| over the largest |E| of the run, so that no structure
+    # whose energy is near zero widens the limit of the others; forces: over
+    # each structure's own max |F|.  Each distance names its structure.
+    e_scale = max(abs(float(y[keys.TOTAL_ENERGY])) for y in refs[0])
+
+    def dist(a, b):
+        e = [abs(float(x[keys.TOTAL_ENERGY]) - float(y[keys.TOTAL_ENERGY])) / e_scale
+             for x, y in zip(a, b)]
+        f = [float(np.abs(x[keys.FORCES] - y[keys.FORCES]).max())
+             / float(np.abs(y[keys.FORCES]).max()) for x, y in zip(a, b)]
+        return [(max(v), int(np.argmax(v))) for v in (e, f)]
+
+    ((e_err, e_at), (f_err, f_at)) = dist(got, refs[0])
+    ((e_sp, e_sp_at), (f_sp, f_sp_at)) = dist(refs[1], refs[0])
+    e_lim, f_lim = spread_limit(e_sp, 1.0), spread_limit(f_sp, 1.0)
+    n_edges = sum(d.num_edges for d in dps)
+    print(f"[cli] (c) infer --forces: {len(dps)} structures in {n_chunks} chunks of {bs}, "
+          f"{wall:.3f} s (reading the file and the model included): {len(dps) / wall:.1f} "
+          f"structures/s, {n_edges / wall:.1f} edges/s; against predict on the same chunks: "
+          f"energy {e_err:.3e} of max |E| {e_scale:.6g} at structure {e_at} (limit {e_lim:.3e}, "
+          f"predict's own spread {e_sp:.3e} at structure {e_sp_at}), forces {f_err:.3e} of "
+          f"each structure's max |F| at structure {f_at} (limit {f_lim:.3e}, predict's own "
+          f"spread {f_sp:.3e} at structure {f_sp_at}) — {card}")
+    if len(got) != len(dps) or e_err > e_lim or f_err > f_lim:
+        fail("(c) infer disagrees with InferenceEngine.predict")
+    return {k: v // n_chunks for k, v in counts.items()}
+
+
+def cli_opt(dps, device, dev_args, card_run, card, tmp, sizes):
+    """Phase 10 (d): ``opt --freq --shermo --save-hessian`` with an f32
+    checkpoint (phase 7's model) on phase 3's molecules without a close
+    pair, one of them with a ``$freeze`` file: energies that fall, frozen
+    atoms unmoved, the L-BFGS evaluation rate.  Then on the largest
+    molecule the card's Hessian against the CPU's, the translational sum
+    rule and the analytic Hessian against the numerical one.  Returns the
+    checkpoint, the largest molecule at its optimised geometry and the
+    launches (none: molecules this small take the plain route)."""
+    import os
+
+    from xequinet_torch import cli, keys
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.data.fmt_conversion import read_xyz, write_xyz
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run import geometry
+
+    ck = md_checkpoint(os.path.join(tmp, "opt_f32.ckpt"), **dict(sizes["kw"], **F32))
+    mols = [d for d in dps if closest_pair(d) >= OPT_MIN_PAIR][: sizes["n_opt"]]
+    big = max(range(len(mols)), key=lambda i: mols[i].num_atoms)
+    frozen_i = 0 if big != 0 else 1
+    calc = Calculator(ck, device=device)
+
+    class Counted(geometry.ForceField):
+        calls = 0
+
+        def __call__(self, pos):
+            Counted.calls += 1
+            return super().__call__(pos)
+
+    spent = [0.0]
+    plain_optimize, plain_ff = geometry.optimize, geometry.ForceField
+
+    def timed_optimize(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return plain_optimize(*a, **k)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    final = {}
+    cuda_build.reset_launch_counts()
+    for tag, idx in (("free", [i for i in range(len(mols)) if i != frozen_i]),
+                     ("frozen", [frozen_i])):
+        xyz = os.path.join(tmp, f"opt_{tag}.xyz")
+        write_xyz(xyz, [mols[i] for i in idx])
+        argv = ["opt", "-c", ck, "-in", xyz, "-out", os.path.join(tmp, f"opt_{tag}_out.xyz"),
+                "--freq", "--shermo", "--save-hessian", "--max-steps",
+                str(sizes["opt_steps"])] + dev_args
+        if tag == "frozen":
+            with open(os.path.join(tmp, "cons.txt"), "w") as f:
+                f.write("$freeze\nxyz 1-3\n")
+            argv += ["-con", os.path.join(tmp, "cons.txt")]
+        geometry.ForceField, geometry.optimize = Counted, timed_optimize
+        try:
+            with _Kept(geometry, "run_opt") as kept:
+                cli.main(argv)
+                sync_if(card_run)
+        finally:
+            geometry.ForceField, geometry.optimize = plain_ff, plain_optimize
+        for k, (frame, entry) in enumerate(zip(read_xyz(xyz), kept.results[0])):
+            e0 = [calc.calculate(frame.atomic_numbers, frame.pos)[keys.TOTAL_ENERGY]
+                  for _ in range(2)]
+            noise = abs(e0[1] - e0[0])
+            suffix = "" if len(idx) == 1 else str(k)
+            shm = os.path.join(tmp, f"opt_{tag}_freq{suffix}.shm")
+            vals = [entry["energy"], *entry["thermo"].values(), *entry["frequencies_cm1"]]
+            print(f"[cli] (d) opt, {tag} molecule {k} ({frame.num_atoms} atoms): E {e0[0]:.6f} -> "
+                  f"{entry['energy']:.6f} eV, converged {entry['converged']}, frequencies "
+                  f"{entry['frequencies_cm1'].min():.1f} .. {entry['frequencies_cm1'].max():.1f} "
+                  f"cm^-1, {entry['thermo']['n_imaginary']} imaginary")
+            if not (np.isfinite(vals).all() and np.isfinite(entry["positions"]).all()):
+                fail(f"(d) opt, {tag}: non-finite results")
+            if entry["energy"] > e0[0] + 2 * noise:
+                fail(f"(d) opt, {tag}: the final energy {entry['energy']} is above the initial "
+                     f"{e0[0]} (the Calculator's own spread {noise:.3e})")
+            if not os.path.exists(shm) or "*wavenum" not in open(shm).read() or \
+                    not os.path.exists(os.path.join(tmp, f"opt_{tag}_h{suffix}.txt")):
+                fail(f"(d) opt, {tag}: no Shermo file or saved Hessian")
+            if tag == "frozen" and not np.array_equal(entry["positions"][:3], frame.pos[:3]):
+                fail("(d) opt: the frozen atoms moved")
+            final[idx[k]] = entry["positions"]
+            print(f"[cli] (d) opt, {tag} molecule {k}: closest pair {closest_pair(frame):.3f} A "
+                  f"at the start, {closest_pair(Datapoint(frame.atomic_numbers, final[idx[k]])):.3f}"
+                  f" A at the end")
+    counts = path_launches("(d) opt", card_run)
+    n_evals = Counted.calls
+    print(f"[cli] (d) opt: {n_evals} L-BFGS evaluations in {spent[0]:.2f} s of optimisation, "
+          f"{n_evals / spent[0]:.1f} evaluations/s — {card}")
+
+    # the Hessian's time and the sum rule on the largest molecule, and the
+    # card against the CPU on the smallest (a full-width Hessian takes the
+    # CPU seconds), at their input geometries: at random weights the
+    # optimiser pulls atoms together (a pair at 0.5 A in the CPU rehearsal)
+    z, pos = mols[big].atomic_numbers, mols[big].pos
+    if card_run:
+        wall, busy = device_ms(lambda: calc.calculate(z, pos), calls=10)
+        print(f"[cli] (d) one evaluation ({len(z)} atoms): {wall:.2f} ms of wall, of which the "
+              f"device is busy {busy:.2f} ms (the rest: host round trip) — {card}")
+    h, times = None, []
+    for _ in range(2):  # the second call is the timed one
+        t0 = time.perf_counter()
+        h = calc.hessian(z, pos)
+        sync_if(card_run)
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = len(z)
+    sum_rule = float(np.abs(h.reshape(3 * n, n, 3).sum(axis=1)).max()) / float(np.abs(h).max())
+    small = min(mols, key=lambda d: d.num_atoms)
+    zs, ps = small.atomic_numbers, small.pos
+    hs = calc.hessian(zs, ps)
+    moved = float(np.abs(calc.hessian(zs, ps * (1 + 1e-7)) - hs).max())
+    h_cpu = Calculator(ck, device="cpu").hessian(zs, ps)
+    scale = float(np.abs(h_cpu).max())
+    err = float(np.abs(hs - h_cpu).max())
+    limit = GRAD_TOL * scale + GRAD_ULP_FACTOR * moved
+    print(f"[cli] (d) Calculator.hessian, {n} atoms: {times[1]:.1f} ms (first call "
+          f"{times[0]:.1f}), translational sum rule {sum_rule:.3e} of max |H| (limit 1e-3); "
+          f"{len(zs)} atoms on {device.type} against the CPU: max |dH| {err:.3e} eV/A^2 (limit "
+          f"{limit:.3e} = {GRAD_TOL:g} x max |H| {scale:.3e} + {GRAD_ULP_FACTOR:g} x the "
+          f"one-ulp change {moved:.3e}) — {card}")
+    if err > limit or sum_rule > 1e-3:
+        fail("(d) the Hessian disagrees with the CPU's or breaks the sum rule")
+    # analytic against numerical, on the JAX package's own check
+    # (tests/test_round2.py: its model, its molecule at rng 0 and its
+    # tolerance, atol 5e-3 + rtol 1e-2) with the port's seed-0 weights.
+    # These turn the forces within 5e-4 A (on the CPU a force of atom 5
+    # moves by 0.24 eV/A over 2e-4 A), so JAX's step of 1e-3 A is off by
+    # 115 eV/A^2 of 148 there: the step is 1e-4 A (f32 positions round at
+    # ~5e-7 A), and the limit adds twice the difference's own error
+    # estimate |D(eps) - D(2 eps)| (on the CPU 10 of 225 entries pass the
+    # JAX tolerance only with it; its largest 0.12).  At the flagship's
+    # widths the curvature moves by ~3% under a one-ulp move, and central
+    # differences converge at no step
+    rng = np.random.default_rng(0)
+    z5, p5 = rng.integers(1, 5, 5).astype(np.int32), rng.normal(size=(5, 3)) * 1.5
+    ck5 = md_checkpoint(os.path.join(tmp, "round2.ckpt"), **dict(ROUND2_KW, **F32))
+    ff = geometry.ForceField(Calculator(ck5, device=device), z5)
+    h_a = geometry.analytic_hessian(ff, p5)
+    h_n = geometry.numerical_hessian(ff, p5, eps=1e-4)
+    own = np.abs(h_n - geometry.numerical_hessian(ff, p5, eps=2e-4))
+    jax_tol = 5e-3 + 1e-2 * np.abs(h_n)
+    excess = float((np.abs(h_a - h_n) - jax_tol - 2 * own).max())
+    print(f"[cli] (d) analytic against numerical Hessian (the JAX test's model and molecule, "
+          f"eps 1e-4 A) on {device.type}: max |dH| {np.abs(h_a - h_n).max():.3e} eV/A^2 of max "
+          f"{np.abs(h_n).max():.3e}; {int((np.abs(h_a - h_n) > jax_tol).sum())} of {h_n.size} "
+          f"entries past atol 5e-3 + rtol 1e-2, each within it plus 2 x |D(eps) - D(2 eps)| "
+          f"(max {own.max():.3e}): {'held' if excess <= 0 else 'MISSED'}")
+    if excess > 0 or not np.allclose(h_a, h_a.T, atol=1e-8):
+        fail("(d) the analytic Hessian disagrees with the numerical one")
+    return ck, z, final[big], counts
+
+
+def cli_md(ck, device, dev_args, card_run, card, tmp, sizes):
+    """Phase 10 (e): ``md -C`` on a YAML of phase 7's free chain with
+    ``pallas: mega``: 3 + 3 launches per force call, finite energies."""
+    import os
+    import re
+
+    from xequinet_torch import cli
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.data.fmt_conversion import write_xyz
+    from xequinet_torch.ops import cuda_build
+
+    zf, posf = md_free_chain(sizes["md_atoms"])
+    xyz, log = os.path.join(tmp, "chain.xyz"), os.path.join(tmp, "md.log")
+    write_xyz(xyz, [Datapoint(zf, posf)])
+    steps, every = sizes["md_steps"], 5
+    text = (f"# written by chip_smoke.py phase 10\ninput_file: {json.dumps(xyz)}\n"
+            f"model_file: {json.dumps(ck)}\npallas: mega   # the message kernels\n"
+            f"skin: 0.5\nseed: 0\ninit_temperature: 300.0\nlogfile: {json.dumps(log)}\n"
+            + ("" if card_run else "device: cpu\n")
+            + f"ensembles:\n  - {{name: nve, timestep: {MD_DT},\n     steps: {steps}, "
+            f"log_interval: {every}}}\n")
+    cfg = os.path.join(tmp, "md.yaml")
+    with open(cfg, "w") as f:
+        f.write(text)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["md", "-C", cfg])
+    sync_if(card_run)
+    wall = time.perf_counter() - t0
+    epot = [float(m.group(1)) for m in re.finditer(r"Epot=(\S+)eV", open(log).read())]
+    n_calls = 1 + steps + len(epot)  # first forces, one per step, one per log
+    counts = path_launches("(e) md", card_run, message_fwd=3 * n_calls, message_bwd=3 * n_calls)
+    print(f"[cli] (e) md -C: {len(zf)}-atom chain, NVE {steps} steps of {MD_DT} fs in "
+          f"{wall:.2f} s ({n_calls} force calls), logged Epot {epot} — {card}")
+    if len(epot) != -(-steps // every) or not np.isfinite(epot).all():
+        fail("(e) md: missing or non-finite logged energies")
+    return {k: v // n_calls for k, v in counts.items()}
+
+
+def _ipi_server(frames, replies):
+    """A fake i-PI server on localhost for ``frames`` ((cell, positions) in
+    Bohr): STATUS, POSDATA, STATUS, GETFORCE per frame, then EXIT; each
+    reply's energy, forces and virial go to ``replies``."""
+    import socket
+    import struct
+    import threading
+
+    server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    server.bind(("localhost", 0))
+    server.listen(1)
+    server.settimeout(300)
+
+    def recv(conn, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = conn.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("the driver closed the connection")
+            buf += chunk
+        return buf
+
+    def run():
+        conn, _ = server.accept()
+        try:
+            hdr = lambda m: conn.sendall(m.ljust(12).encode())
+            for cell, pos in frames:
+                hdr("STATUS")
+                recv(conn, 12)
+                hdr("POSDATA")
+                conn.sendall(cell.astype("<f8").tobytes() + np.zeros(9, "<f8").tobytes()
+                             + struct.pack("<i", len(pos)) + pos.astype("<f8").tobytes())
+                hdr("STATUS")
+                recv(conn, 12)
+                hdr("GETFORCE")
+                if recv(conn, 12).decode().strip() != "FORCEREADY":
+                    raise ValueError("no FORCEREADY")
+                e = struct.unpack("<d", recv(conn, 8))[0]
+                n = struct.unpack("<i", recv(conn, 4))[0]
+                f = np.frombuffer(recv(conn, 24 * n), "<f8").reshape(n, 3)
+                v = np.frombuffer(recv(conn, 72), "<f8").reshape(3, 3)
+                recv(conn, 4)
+                replies.append((e, f, v))
+            hdr("EXIT")
+        finally:
+            conn.close()
+            server.close()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return server.getsockname()[1], t
+
+
+def cli_ipi(ck, z, pos, device, card_run, card):
+    """Phase 10 (f): ``IPIDriver`` against a fake server, 3 rounds; each
+    reply against ``Calculator.calculate`` in the wire's units."""
+    from xequinet_torch import keys
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.interface.ipi_driver import IPIDriver
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.utils.qc import unit_conversion
+
+    bohr = unit_conversion("Angstrom", "Bohr")
+    geoms = [pos, pos + 0.01, pos - 0.01]
+    replies = []
+    port, thread = _ipi_server([(np.zeros((3, 3)), g * bohr) for g in geoms], replies)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    drv = IPIDriver(ck, z, address="localhost", port=port,
+                    device=None if card_run else "cpu")
+    rounds = drv.run()
+    wall = time.perf_counter() - t0
+    thread.join(timeout=60)
+    counts = path_launches("(f) i-PI", card_run)
+    if rounds != len(geoms) or thread.is_alive() or len(replies) != len(geoms):
+        fail(f"(f) i-PI: {rounds} rounds, {len(replies)} replies")
+    ref = Calculator(ck, device=device)
+    worst = 0.0
+    for g, (e, f, _) in zip(geoms, replies):
+        r = [ref.calculate(z, g) for _ in range(2)]
+        e_ref = [x[keys.TOTAL_ENERGY] * drv._e_conv for x in r]
+        f_ref = [x[keys.FORCES] * drv._e_conv * drv._l_conv for x in r]
+        fs = float(np.abs(f_ref[0]).max())
+        for err, lim in ((abs(e - e_ref[0]) / abs(e_ref[0]),
+                          spread_limit(abs(e_ref[1] - e_ref[0]), abs(e_ref[0]))),
+                         (float(np.abs(f - f_ref[0]).max()) / fs,
+                          spread_limit(float(np.abs(f_ref[1] - f_ref[0]).max()), fs))):
+            worst = max(worst, err / lim)
+            if err > lim:
+                fail(f"(f) i-PI reply {err:.3e} from Calculator.calculate (limit {lim:.3e})")
+    print(f"[cli] (f) i-PI: {rounds} rounds in {wall:.2f} s (driver start included); energies "
+          f"and forces (Hartree, Hartree/Bohr) within their limits of Calculator.calculate, the "
+          f"closest at {worst:.3f} of it — {card}")
+    return counts
+
+
+def phase_cli(dps, device, card, sizes):
+    """Phase 10: the drivers through ``xequinet_torch.cli.main`` with config
+    files written as text: (a) train, preemption and resume, (b) test, (c)
+    infer, (d) opt with frequencies and the Hessian, (e) md, (f) the i-PI
+    driver.  Returns each path's message-kernel launches per unit."""
+    import os
+    import tempfile
+
+    card_run = device.type == "cuda"
+    dev_args = [] if card_run else ["--device", "cpu"]  # on the card: the default
+    kw = dict(FLAGSHIP_KW, pallas_layout=list(sizes["layout"]), **sizes["kw"])
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        cfg, ckpt, out["cli_train_step"] = cli_train(tmp, kw, dev_args, card_run, sizes, card)
+        out["cli_test_batch"] = cli_test(cfg, ckpt, kw, device, dev_args, card_run, card)
+        out["cli_infer_chunk"] = cli_infer(dps, ckpt, device, dev_args, card_run, card, tmp,
+                                           sizes)
+        ck, z, pos, out["cli_opt"] = cli_opt(dps, device, dev_args, card_run, card, tmp, sizes)
+        out["cli_md_call"] = cli_md(ck, device, dev_args, card_run, card, tmp, sizes)
+        out["cli_ipi"] = cli_ipi(ck, z, pos, device, card_run, card)
+    print(f"[cli] phase 10 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -2481,7 +3117,7 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5, 7, 8 and 9 at a tiny size on the CPU with the "
+                    help="run phases 3-5 and 7-10 at a tiny size on the CPU with the "
                          "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -2737,6 +3373,14 @@ def main():
         for path, counts in zoo.items():
             row[f"launches_{path}"] = counts.get(row["name"], 0)
 
+    # phase 10: the user-facing drivers through the command line; each
+    # path's launches (per train step, test batch, infer chunk, MD call;
+    # opt and i-PI in all) stand beside each row's
+    drivers = phase_cli(dps, device, card, CLI_SIZES)
+    for row in rows:
+        for path, counts in drivers.items():
+            row[f"launches_{path}"] = counts.get(row["name"], 0)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2745,7 +3389,7 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-5, 7, 8 and 9 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5 and 7-10 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
@@ -2819,6 +3463,9 @@ def rehearsal():
     phase_zoo(dps, torch.device("cpu"), "CPU rehearsal, not a device result", ZOO_REHEARSAL)
     print("[rehearsal] phase 9 (PaiNN, SO3krates, the Cartesian head, XMatNet) ran at a tiny "
           "size on the CPU (not a device result)")
+    phase_cli(dps, torch.device("cpu"), "CPU rehearsal, not a device result", CLI_REHEARSAL)
+    print("[rehearsal] phase 10 (train, preemption, resume, test, infer, opt, md, i-PI through "
+          "the command line) ran at a tiny size on the CPU (not a device result)")
 
 
 if __name__ == "__main__":

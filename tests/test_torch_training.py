@@ -89,7 +89,7 @@ def _close(got, want, rel, what=""):
 # ---------------------------------------------------------------------------
 # config
 # ---------------------------------------------------------------------------
-def test_load_config_overrides_without_yaml(monkeypatch):
+def test_load_config_overrides_without_yaml(monkeypatch, tmp_path):
     monkeypatch.setitem(sys.modules, "yaml", None)  # importing yaml now fails
     cfg = load_config(overrides={"model": {"model_kwargs": {"node_dim": 32}},
                                  "trainer": {"max_epochs": 2, "device": "cpu"},
@@ -99,8 +99,13 @@ def test_load_config_overrides_without_yaml(monkeypatch):
     assert cfg.data.targets == ["energy", "forces"]
     with pytest.raises(KeyError, match="trainer.nonexistent_key"):
         load_config(overrides={"trainer": {"nonexistent_key": 3}})
-    with pytest.raises(ImportError):
-        load_config("config.yaml")
+    # YAML files are read by the port's own reader: no PyYAML needed
+    path = tmp_path / "c.yaml"
+    path.write_text("trainer:\n  max_epochs: 3  # three\ndata:\n  targets: [energy]\n")
+    cfg = load_config(str(path))
+    assert cfg.trainer.max_epochs == 3 and cfg.data.targets == ["energy"]
+    with pytest.raises(FileNotFoundError):
+        load_config(str(tmp_path / "missing.yaml"))
     # the JAX package's schema, field for field (the port adds trainer.device)
     import dataclasses
 
@@ -579,11 +584,11 @@ def test_run_train_refusals(tmp_path):
     from xequinet_torch.run.train import run_train_from_args
 
     (tmp_path / "c.yaml").write_text("trainer:\n  dp_devices: 2\n  device: cpu\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         run_train_from_args(argparse.Namespace(config=str(tmp_path / "c.yaml")))
     cfg = XequiConfig()
     cfg.trainer.gp_devices = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         run_train(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

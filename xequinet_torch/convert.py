@@ -15,6 +15,9 @@
   subset flax writes (maps, arrays, str, bin, ints, floats, nil, bools and
   the ext types 1 = ndarray, 2 = complex, 3 = numpy scalar, each ndarray
   packed as ``(shape, dtype name, buffer)``, plus flax's chunked arrays).
+* :func:`optax_adam_state` reads the JAX trainer's ``"opt_state"`` (flax
+  bytes of the optax state tree) as the Adam moments under the port's
+  parameter names, so that a resumed run keeps them.
 """
 
 from __future__ import annotations
@@ -204,6 +207,44 @@ def load_params(module: torch.nn.Module, tree: Dict) -> torch.nn.Module:
         module.load_state_dict(tree, strict=True)
         return module
     return load_flax_params(module, tree)
+
+
+def optax_adam_state(opt_bytes: bytes) -> Tuple[int, int, Dict[str, torch.Tensor],
+                                                 Dict[str, torch.Tensor]]:
+    """(the schedule's update count, the moments' count, mu, nu) of the
+    JAX trainer's optimizer state, mu and nu as state_dict entries of the
+    port's model (:func:`params_from_flax`: the same names and transposes
+    as the weights).
+
+    The tree is decoded, not assumed: the moments are the one node with
+    ``count``, ``mu`` and ``nu`` (optax's ``ScaleByAdamState``, wherever
+    ``inject_hyperparams``, ``chain`` or ``multi_transform`` put it); the
+    schedule's count is that of the node holding ``hyperparams`` (the
+    moments' count without one).  Parameters masked out by
+    ``multi_transform`` (``finetune_modules``) have no moments and are
+    absent from mu and nu."""
+    tree = msgpack_restore(opt_bytes)
+    moments, injected = [], []
+
+    def walk(t):
+        if not isinstance(t, dict):
+            return
+        if {"count", "mu", "nu"} <= set(t):
+            moments.append(t)
+            return
+        if {"count", "hyperparams"} <= set(t):
+            injected.append(t)
+        for v in t.values():
+            walk(v)
+
+    walk(tree)
+    if len(moments) != 1:
+        raise ValueError(f"expected one Adam moment state (count, mu, nu) in the optax state, "
+                         f"found {len(moments)}")
+    count = int(np.asarray(moments[0]["count"]))
+    sched_count = int(np.asarray(injected[0]["count"])) if injected else count
+    return (sched_count, count, params_from_flax(moments[0]["mu"]),
+            params_from_flax(moments[0]["nu"]))
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -1,11 +1,11 @@
-"""Structure formats: the (ext)xyz reader and writer, and the ASE and xTB
-adapters that the MD entry point reaches.
+"""Structure formats: the (ext)xyz reader and writer, and the ASE, PySCF
+and xTB adapters.
 
-Port of ``xequinet_tpu/data/fmt_conversion.py:23-200, 268-281``
-(``read_xyz``, ``write_xyz``, ``read_structures`` with its ASE branch,
-``datapoint_from_ase`` and ``datapoint_to_xtb``).  The self-contained
-extxyz parser keeps the MD path free of third-party packages, including
-the charge / multiplicity comment-line convention; ``ase`` and
+Port of ``xequinet_tpu/data/fmt_conversion.py`` (``read_xyz``,
+``write_xyz``, ``read_structures`` with its ASE branch, the ASE and PySCF
+adapters both ways, and ``datapoint_to_xtb``).  The self-contained extxyz
+parser keeps the drivers free of third-party packages, including the
+charge / multiplicity comment-line convention; ``ase``, ``pyscf`` and
 ``tblite`` are imported only in the functions that need them.
 """
 
@@ -170,6 +170,48 @@ def datapoint_from_ase(atoms) -> Datapoint:
         kw["spin"] = int(info["multiplicity"]) - 1
     return Datapoint(atomic_numbers=atoms.get_atomic_numbers().astype(np.int32),
                      pos=atoms.get_positions(), **kw)
+
+
+def datapoint_to_ase(dp: Datapoint):
+    """Datapoint -> ASE Atoms (requires ase)."""
+    from ase import Atoms
+
+    kw = {}
+    if dp.has_cell:
+        kw["cell"] = dp.cell
+        kw["pbc"] = dp.pbc
+    atoms = Atoms(numbers=dp.atomic_numbers, positions=dp.pos, **kw)
+    if dp.charge is not None:
+        atoms.info["charge"] = int(dp.charge)
+    if dp.spin is not None:
+        atoms.info["multiplicity"] = int(dp.spin) + 1
+    return atoms
+
+
+def datapoint_from_pyscf(mole) -> Datapoint:
+    """PySCF Mole -> Datapoint: element symbols from ``mole.elements``,
+    coordinates from ``mole.atom_coords()`` (Bohr) in the model's position
+    unit, the net charge and the spin (n_alpha - n_beta)."""
+    from .. import keys
+    from ..utils.qc import get_default_units, unit_conversion
+
+    pos_unit = get_default_units().get(keys.POSITIONS, "Angstrom")
+    pos = np.asarray(mole.atom_coords()) * unit_conversion("Bohr", pos_unit)
+    z = np.array([ELEMENTS_DICT[str(s).capitalize()] for s in mole.elements], dtype=np.int32)
+    return Datapoint(atomic_numbers=z, pos=pos, charge=int(mole.charge), spin=int(mole.spin))
+
+
+def datapoint_to_pyscf(dp: Datapoint, basis: str = "sto-3g"):
+    """Datapoint -> PySCF Mole, or Cell with a cell (requires pyscf)."""
+    from pyscf import gto
+
+    atom = [(ELEMENTS_LIST[int(z)], tuple(p)) for z, p in zip(dp.atomic_numbers, dp.pos)]
+    if dp.has_cell:
+        from pyscf.pbc import gto as pbcgto
+
+        return pbcgto.Cell(atom=atom, a=dp.cell, basis=basis, unit="Angstrom").build()
+    return gto.M(atom=atom, basis=basis, charge=int(dp.charge or 0), spin=int(dp.spin or 0),
+                 unit="Angstrom")
 
 
 def datapoint_to_xtb(dp: Datapoint, method: str = "GFN2-xTB"):

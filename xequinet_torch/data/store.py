@@ -13,7 +13,8 @@ Record format (little-endian):
 File layout:
   [8-byte magic "XDBSTOR1"][int64 size, record]...[int64 offsets...][int64 n_records]
 
-Reading the JAX package's LMDB datasets comes with a later slice.
+A directory with ``data.lmdb`` and no ``data.xdb`` (a reference XequiNet
+LMDB dataset) is read in place through ``data/lmdb_reader.LMDBReader``.
 """
 
 from __future__ import annotations
@@ -234,12 +235,11 @@ class XDBDataset:
         if xdb.exists():
             self.reader = XDBReader(xdb)
         elif (self.db_path / "data.lmdb").exists():
-            raise NotImplementedError(
-                "LMDB datasets are not read by the port yet (ROADMAP item 6); "
-                "convert them to XDB with the JAX package"
-            )
+            from .lmdb_reader import LMDBReader
+
+            self.reader = LMDBReader(self.db_path / "data.lmdb")
         else:
-            raise FileNotFoundError(f"no data.xdb under {self.db_path}")
+            raise FileNotFoundError(f"no data.xdb or data.lmdb under {self.db_path}")
         info = json.loads((self.db_path / "info.json").read_text())
         self.units: Dict[str, str] = info.get("units", {})
         split_file = self.db_path / f"{split_name}.json"

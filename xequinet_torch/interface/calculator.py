@@ -30,7 +30,9 @@ the drift passes ``skin_prefetch`` of that limit a worker thread rebuilds
 from the current positions while the old list keeps serving, and a later
 call swaps the finished build in (``n_rebuilds``, ``n_async_swaps``).
 
-``hessian`` and the ASE adapter of the JAX module are not ported yet.
+``hessian`` gives the analytic [3n, 3n] Hessian on the plain route
+(second derivatives by autograd at a neighbour list held fixed), and
+:class:`XequiCalculator` is the ASE adapter (ASE imported lazily).
 """
 
 from __future__ import annotations
@@ -43,15 +45,31 @@ import torch
 from .. import keys
 from ..data.batching import _apply_kernel_layout, bucket_capacity, kernel_slot_cap
 from ..models.model import resolve_model
-from ..models.properties import make_forward
+from ..models.properties import compute_edge_data, make_forward
 from ..models.xpainn import SLOT_PLAN
 from ..ops.fused_message import build_slot_plan
 from ..ops.radius_graph import radius_graph_fixed, radius_graph_np, radius_graph_pbc_np
 from ..ops.spatial_sort import ghost_layout_pbc, index_reach, spatial_sort_free
 from ..run.inference import load_model_from_checkpoint, resolve_device
 from ..utils.precision import set_matmul_precision
-from ..utils.qc import get_default_units
+from ..utils.qc import get_default_units, unit_conversion
 
+# rows of the Hessian per batched backward pass (``Calculator.hessian``)
+HESSIAN_ROWS = 256
+
+
+def _padded(rows: np.ndarray, cap: int) -> np.ndarray:
+    """``rows`` as f32 in the first rows of ``cap`` zero rows."""
+    out = np.zeros((cap,) + np.shape(rows)[1:], dtype=np.float32)
+    out[: len(rows)] = rows
+    return out
+
+
+def _padded_edges(ei: np.ndarray, e_cap: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A host edge list [2, ne] as edge_index [2, e_cap] and its mask."""
+    edge_index = np.zeros((2, e_cap), dtype=np.int32)
+    edge_index[:, : ei.shape[1]] = ei
+    return edge_index, np.arange(e_cap) < ei.shape[1]
 
 
 class Calculator:
@@ -107,6 +125,17 @@ class Calculator:
         n_cap = self.max_atoms or bucket_capacity(n_atoms)
         e_cap = self.max_edges or bucket_capacity(max(n_atoms * 40, 64))
         return n_cap, e_cap
+
+    def _edge_capacity(self, ne: int, e_cap: int) -> int:
+        """The edge capacity that holds ``ne`` edges: ``e_cap`` where they
+        fit, else a larger bucket (e.g. NPT compression); a pinned
+        ``max_edges`` raises, as truncation would mean silently wrong
+        forces."""
+        if ne <= e_cap:
+            return e_cap
+        if self.max_edges:
+            raise ValueError(f"edge overflow {ne} > {e_cap}; raise max_edges")
+        return bucket_capacity(ne)
 
     def _build_module(self, **over) -> torch.nn.Module:
         """The checkpoint's model with ``over`` in its kwargs, carrying the
@@ -402,16 +431,12 @@ class Calculator:
                     meta["dev_static"] = self._mega_upload(batch, meta)
                 return ("mega", built)
             ei, offs = radius_graph_pbc_np(pos, cellc, pbcc, r_build)
-            ne = ei.shape[1]
-            if ne > e_cap:
+            if ei.shape[1] > e_cap:
                 return None  # capacity overflow: the synchronous path regrows
-            edge_index = np.zeros((2, e_cap), dtype=np.int32)
-            edge_index[:, :ne] = ei
-            cell_offsets = np.zeros((e_cap, 3), dtype=np.float32)
-            cell_offsets[:ne] = offs
+            edge_index, edge_mask = _padded_edges(ei, e_cap)
             return ("pbc", {
-                "ei_dev": self._dev(edge_index), "em_dev": self._dev(np.arange(e_cap) < ne),
-                "co_dev": self._dev(cell_offsets), "n_cap": n_cap, "e_cap": e_cap,
+                "ei_dev": self._dev(edge_index), "em_dev": self._dev(edge_mask),
+                "co_dev": self._dev(_padded(offs, e_cap)), "n_cap": n_cap, "e_cap": e_cap,
                 "pos_build": pos, "n": n,
             })
 
@@ -488,9 +513,7 @@ class Calculator:
             out = self._mega["apply"](data, True, self.compute_virial)
             self.last_route = "mega"
             return self._result(out, st["real_rank"])
-        pos_pad = np.zeros((st["n_cap"], 3), dtype=np.float32)
-        pos_pad[:n] = positions
-        out = self._eval_pbc(self._dev(pos_pad), st["ei_dev"], st["em_dev"], st["co_dev"],
+        out = self._eval_pbc(self._dev(_padded(positions, st["n_cap"])), st["ei_dev"], st["em_dev"], st["co_dev"],
                              st["sb_dev"])
         self.last_route = "plain"
         return self._result(out, slice(0, n))
@@ -525,8 +548,7 @@ class Calculator:
 
         static_batch = self._make_batch(n_cap, e_cap, atomic_numbers, charge, spin,
                                         cell if has_cell else None)
-        pos_pad = np.zeros((n_cap, 3), dtype=np.float32)
-        pos_pad[:n] = positions
+        pos_pad = _padded(positions, n_cap)
         r_build = self.cutoff + self.skin
 
         if has_cell:
@@ -538,20 +560,13 @@ class Calculator:
                     offs=offs)
                 if res is not None:
                     return res
-            ne = ei.shape[1]
-            if ne > e_cap:
-                if self.max_edges:
-                    raise ValueError(f"edge overflow {ne} > {e_cap}; raise max_edges")
-                e_cap = bucket_capacity(ne)  # e.g. NPT compression: grow
-            edge_index = np.zeros((2, e_cap), dtype=np.int32)
-            edge_index[:, :ne] = ei
-            cell_offsets = np.zeros((e_cap, 3), dtype=np.float32)
-            cell_offsets[:ne] = offs
+            e_cap = self._edge_capacity(ei.shape[1], e_cap)
+            edge_index, edge_mask = _padded_edges(ei, e_cap)
             if self.skin > 0.0:
                 static_batch[keys.EDGE_CUTOFF] = np.array([self.cutoff], dtype=np.float32)
             self._ensure_params()
-            ei_dev, em_dev = self._dev(edge_index), self._dev(np.arange(e_cap) < ne)
-            co_dev = self._dev(cell_offsets)
+            ei_dev, em_dev = self._dev(edge_index), self._dev(edge_mask)
+            co_dev = self._dev(_padded(offs, e_cap))
             sb_dev = {k: self._dev(v) for k, v in static_batch.items()}
             out = self._eval_pbc(self._dev(pos_pad), ei_dev, em_dev, co_dev, sb_dev)
             if self.skin > 0.0:
@@ -576,25 +591,129 @@ class Calculator:
                                            ei, n, n_cap, e_cap, charge, spin)
                 if res is not None:
                     return res
-            ne = ei.shape[1]
-            if ne > e_cap:
-                if self.max_edges:
-                    # a pinned capacity: refuse, truncation would mean
-                    # silently wrong forces
-                    raise ValueError(f"edge overflow {ne} > {e_cap}; raise max_edges")
-                e_cap = bucket_capacity(ne)
+            e_cap = self._edge_capacity(ei.shape[1], e_cap)
             self._ensure_params()
             sb_dev = {k: self._dev(v) for k, v in static_batch.items()}
             pos_dev = self._dev(pos_pad)
             while True:
                 out, n_found = self._eval_free(pos_dev, sb_dev, n_cap, e_cap)
-                n_found = int(n_found)
-                if n_found <= e_cap:
+                # the device search may find more edges than the capacity
+                grown = self._edge_capacity(int(n_found), e_cap)
+                if grown == e_cap:
                     break
-                # the device search found more edges than the capacity:
-                # never truncate silently
-                if self.max_edges:
-                    raise ValueError(f"edge overflow {n_found} > {e_cap}; raise max_edges")
-                e_cap = bucket_capacity(n_found)
+                e_cap = grown
         self.last_route = "plain"
         return self._result(out, slice(0, n))
+
+    # ------------------------------------------------------------------
+    def hessian(
+        self,
+        atomic_numbers: np.ndarray,
+        positions: np.ndarray,
+        cell: Optional[np.ndarray] = None,
+        pbc: Optional[np.ndarray] = None,
+        charge: Optional[int] = None,
+        spin: Optional[int] = None,
+    ) -> np.ndarray:
+        """Analytic Hessian of the total energy, [3n, 3n] in model units,
+        symmetrised (the JAX Calculator's contract, its ``jax.hessian``).
+
+        The neighbour list is built on the host at the given geometry and
+        held fixed through both derivatives, free and periodic (at a fixed
+        topology the edge set is locally constant, and the cutoff
+        envelopes are smooth at the boundary).  It runs the plain-route
+        model that :meth:`_ensure_params` builds, as the JAX Hessian runs
+        its non-mega forward: the message kernels' backward has no second
+        derivative in position space to offer here.
+
+        The forces come from one ``autograd.grad`` with
+        ``create_graph=True``; the rows are vector-Jacobian products of the
+        real atoms' 3n force components only, batched with
+        ``is_grads_batched=True`` (``vmap`` over the backward graph: every
+        op of the plain route has a batching rule), ``HESSIAN_ROWS`` rows at
+        a time with the graph retained between passes, which bounds the
+        memory of the batched backward for large systems.  f32 matmuls run
+        without TF32 unless the Calculator's ``matmul_precision`` asks for
+        it."""
+        n = len(atomic_numbers)
+        n_cap, e_cap = self._capacities(n)
+        has_cell = cell is not None and pbc is not None and np.any(pbc)
+        if has_cell:
+            ei, offs = radius_graph_pbc_np(positions, cell, pbc, self.cutoff)
+        else:
+            ei, offs = radius_graph_np(positions, self.cutoff)
+        e_cap = self._edge_capacity(ei.shape[1], e_cap)
+        batch = self._make_batch(n_cap, e_cap, atomic_numbers, charge, spin,
+                                 cell if has_cell else None)
+        batch[keys.EDGE_INDEX], batch[keys.EDGE_MASK] = _padded_edges(ei, e_cap)
+        if has_cell:
+            batch[keys.CELL_OFFSETS] = _padded(offs, e_cap)
+        module = self._ensure_params()
+        data = {k: self._dev(v) for k, v in batch.items()}
+        pos = self._dev(_padded(positions, n_cap)).requires_grad_(True)
+        rows = []
+        with torch.enable_grad():
+            data[keys.POSITIONS] = pos
+            energy = module(compute_edge_data(data))[keys.TOTAL_ENERGY][0]
+            (grad,) = torch.autograd.grad(energy, pos, create_graph=True)
+            g = grad[:n].reshape(-1)
+            eye = torch.eye(3 * n, dtype=g.dtype, device=g.device)
+            for s in range(0, 3 * n, HESSIAN_ROWS):
+                (h,) = torch.autograd.grad(g, pos, grad_outputs=eye[s : s + HESSIAN_ROWS],
+                                           retain_graph=True, is_grads_batched=True)
+                rows.append(h[:, :n].reshape(-1, 3 * n).detach())
+        H = torch.cat(rows).cpu().numpy()
+        return 0.5 * (H + H.T)
+
+
+class XequiCalculator:
+    """ASE adapter (requires ase): energy, per-atom energies, forces and
+    stress in ASE units (eV, Angstrom) from a :class:`Calculator` with the
+    virial on.  ``kwargs`` go to the Calculator (``device`` among them)."""
+
+    implemented_properties = ["energy", "energies", "forces", "stress"]
+
+    def __init__(self, ckpt_file: str, **kwargs) -> None:
+        from ase.calculators.calculator import Calculator as ASECalcBase
+
+        self._core = Calculator(ckpt_file, compute_virial=True, **kwargs)
+        units_map = self._core.units
+        self._e_conv = unit_conversion(units_map.get(keys.TOTAL_ENERGY, "eV"), "eV")
+        self._l_conv = unit_conversion(units_map.get(keys.POSITIONS, "Angstrom"), "Angstrom")
+        self.results: Dict = {}
+
+        class _Adapter(ASECalcBase):
+            implemented_properties = self.implemented_properties
+
+            def calculate(inner, atoms=None, properties=("energy",), system_changes=()):
+                ASECalcBase.calculate(inner, atoms, properties, system_changes)
+                inner.results = self._compute(atoms)
+
+        self._adapter_cls = _Adapter
+
+    def as_ase(self):
+        return self._adapter_cls()
+
+    def _compute(self, atoms) -> Dict[str, np.ndarray]:
+        info = atoms.info
+        periodic = bool(np.any(atoms.pbc))
+        res = self._core.calculate(
+            atoms.get_atomic_numbers(),
+            atoms.get_positions() / self._l_conv,
+            cell=np.asarray(atoms.cell) / self._l_conv if periodic else None,
+            pbc=np.asarray(atoms.pbc) if periodic else None,
+            charge=info.get("charge"),
+            spin=(info.get("multiplicity", 1) - 1) if "multiplicity" in info else None,
+        )
+        e_f = self._e_conv
+        out = {"energy": res[keys.TOTAL_ENERGY] * e_f,
+               "forces": res[keys.FORCES] * (e_f / self._l_conv)}
+        if keys.ATOMIC_ENERGIES in res:
+            out["energies"] = res[keys.ATOMIC_ENERGIES] * e_f
+        if keys.VIRIAL in res and periodic:
+            # stress = -virial / volume, symmetrised, in Voigt order
+            # (xx, yy, zz, yz, xz, xy)
+            s = -res[keys.VIRIAL] * e_f / atoms.get_volume()
+            s = 0.5 * (s + s.T)
+            out["stress"] = np.array([s[0, 0], s[1, 1], s[2, 2], s[1, 2], s[0, 2], s[0, 1]])
+        return out

@@ -1,13 +1,17 @@
-"""Batch property prediction: every head's output, forces and virial.
+"""``xeq infer``: batch property prediction (every head's output, forces
+and virial), with the optional xTB delta correction.
 
-Port of ``xequinet_tpu/run/inference.py:30-138`` (``InferenceEngine``) and
+Port of ``xequinet_tpu/run/inference.py`` (``InferenceEngine``,
+``_delta_correction``, ``run_infer``, ``run_infer_from_args``) and of
 ``xequinet_tpu/run/test.py:27-37`` (``load_model_from_checkpoint``).  The
-engine runs on the card unless the caller passes ``device="cpu"``.  The
-xTB delta correction, unit handling and the CLI come with a later slice.
+engine runs on the card unless the caller passes ``device="cpu"``.
+Results are in the checkpoint's default units (``default_units`` of its
+config, set when it is loaded).
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -22,10 +26,12 @@ from ..data.batching import (
     kernel_layout_from_model_kwargs,
 )
 from ..data.datapoint import Datapoint
+from ..data.fmt_conversion import read_structures
 from ..data.transforms import NeighborTransform
 from ..models.model import resolve_model
 from ..models.properties import make_forward
-from ..utils.qc import set_default_units
+from ..utils.logger import ZeroLogger
+from ..utils.qc import get_default_units, set_default_units, unit_conversion
 
 
 def resolve_device(device=None) -> torch.device:
@@ -126,3 +132,87 @@ class InferenceEngine:
             node_off += n
             results.append(r)
         return results
+
+
+def _delta_correction(dp: Datapoint, result: Dict[str, np.ndarray], method: str):
+    """Add the semi-empirical xTB baseline back to one structure's
+    prediction, in the default units (requires tblite)."""
+    from ..data.fmt_conversion import datapoint_to_xtb
+
+    res = datapoint_to_xtb(dp, method=keys.xTB_METHODS.get(method, method)).singlepoint()
+    default = get_default_units()
+    energy_unit = default.get(keys.TOTAL_ENERGY, "eV")
+    length_unit = default.get(keys.POSITIONS, "Angstrom")
+    e_conv = unit_conversion("Hartree", energy_unit)
+    f_conv = unit_conversion("Hartree/Bohr", f"{energy_unit}/{length_unit}")
+    if keys.TOTAL_ENERGY in result:
+        result[keys.TOTAL_ENERGY] = result[keys.TOTAL_ENERGY] + res.get("energy") * e_conv
+    if keys.FORCES in result:
+        result[keys.FORCES] = result[keys.FORCES] - res.get("gradient") * f_conv
+    if keys.VIRIAL in result and res.get("virial") is not None:
+        result[keys.VIRIAL] = result[keys.VIRIAL] + res.get("virial") * e_conv
+    if keys.ATOMIC_CHARGES in result:
+        result[keys.ATOMIC_CHARGES] = result[keys.ATOMIC_CHARGES] + res.get("charges")
+    if keys.DIPOLE in result:
+        # xTB's dipole is in e Bohr
+        result[keys.DIPOLE] = result[keys.DIPOLE] + res.get("dipole") * unit_conversion(
+            "Bohr", length_unit)
+    return result
+
+
+def run_infer(
+    ckpt_file: str,
+    input_file: str,
+    input_format: Optional[str] = None,
+    output_file: Optional[str] = None,
+    compute_forces: bool = True,
+    compute_virial: bool = False,
+    delta_method: Optional[str] = None,
+    batch_size: int = 16,
+    logger=None,
+    device=None,
+) -> List[Dict[str, np.ndarray]]:
+    """Each structure of ``input_file`` predicted in chunks of
+    ``batch_size``; logged, and pickled to ``output_file`` (a list of
+    per-structure dicts) when given."""
+    logger = logger or ZeroLogger()
+    engine = InferenceEngine(ckpt_file, device=device)
+    dps = read_structures(input_file, input_format)
+    logger.info(f"read {len(dps)} structures from {input_file}")
+
+    all_results: List[Dict[str, np.ndarray]] = []
+    for i in range(0, len(dps), batch_size):
+        chunk = dps[i : i + batch_size]
+        results = engine.predict(chunk, compute_forces, compute_virial)
+        if delta_method:
+            results = [_delta_correction(dp, r, delta_method) for dp, r in zip(chunk, results)]
+        all_results.extend(results)
+
+    energy_unit = get_default_units().get(keys.TOTAL_ENERGY, "")
+    lines = []
+    for i, r in enumerate(all_results):
+        parts = [f"structure {i}:"]
+        if keys.TOTAL_ENERGY in r:
+            parts.append(f"energy = {float(r[keys.TOTAL_ENERGY]):.8f} {energy_unit}")
+        lines.append("  ".join(parts))
+    logger.info("\n".join(lines))
+
+    if output_file:
+        with open(output_file, "wb") as f:
+            pickle.dump(all_results, f)
+        logger.info(f"full results written to {output_file}")
+    return all_results
+
+
+def run_infer_from_args(args) -> List[Dict[str, np.ndarray]]:
+    return run_infer(
+        args.ckpt,
+        args.input,
+        input_format=getattr(args, "format", None),
+        output_file=getattr(args, "output", None),
+        compute_forces=getattr(args, "forces", False),
+        compute_virial=getattr(args, "stress", False),
+        delta_method=getattr(args, "delta", None),
+        batch_size=getattr(args, "batch_size", 16),
+        device=getattr(args, "device", None),
+    )

@@ -5,7 +5,7 @@ Port of ``xequinet_tpu/run/train.py:38-60, 439-556`` on one device.  It
 runs on the card unless the config (``trainer.device``) or the caller
 asks for the CPU; without a card it raises.  Data-parallel
 (``dp_devices > 1``) and halo (``gp_devices > 1``) training come with
-ROADMAP item 10 and raise.
+ROADMAP item 6 and raise.
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ def run_train(config: XequiConfig, logger=None, device=None) -> Trainer:
         if getattr(tc, name) and getattr(tc, name) > 1:
             raise NotImplementedError(
                 f"{name}={getattr(tc, name)}: multi-device training is not ported "
-                "yet (ROADMAP item 10); the port trains on one device"
+                "yet (ROADMAP item 6); the port trains on one device"
             )
     dev = resolve_device(device if device is not None else tc.device)
     logger = logger or ZeroLogger(os.path.join(tc.save_dir, tc.log_file))

@@ -12,8 +12,10 @@ Checkpoints are pickles with the JAX trainer's keys (``model``,
 ``ema_model``, ``opt_state``, ``config``, ``epoch``, ``loss``,
 ``loss2file``, ``plateau``, ``stoppings``), torch state_dicts in place of
 its flax msgpack blobs; the JAX trainer's checkpoints load here too
-(``convert.load_params``).  The preemption handler of the JAX trainer is
-not ported yet (ROADMAP item 6).
+(``convert.load_params``), and a resume from one keeps its Adam moments
+and update count (``convert.optax_adam_state``).  While :meth:`Trainer.start`
+runs, SIGTERM and SIGINT write a resumable last checkpoint and exit with
+128 + the signal number (the JAX trainer's preemption handler).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import math
 import os
 import pickle
 import re
+import signal
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -32,14 +35,15 @@ import torch
 from torch import nn
 
 from .. import keys
-from ..convert import load_checkpoint, load_params
+from ..convert import load_checkpoint, load_params, optax_adam_state
 from ..models.model import resolve_model
 from ..models.properties import make_forward
 from ..run.inference import batch_to_device
 from ..utils.config import XequiConfig, config_to_dict
 from ..utils.logger import StepTimer
 from .loss import ErrorMetric, MetricAccumulator, WeightedLoss
-from .lr_schedule import PlateauScheduler, resolve_lr_schedule, resolve_optimizer, set_lr
+from .lr_schedule import (OptaxRAdam, PlateauScheduler, resolve_lr_schedule, resolve_optimizer,
+                          set_lr)
 
 DataDict = Dict[str, torch.Tensor]
 
@@ -261,6 +265,10 @@ class Trainer:
         # best-k heap of (-loss, file)
         self.best_heap: List[Tuple[float, str]] = []
         self._f32_switched = False
+        # preemption: the signal seen, and whether a step loop is running
+        # (where a save waits for the step boundary)
+        self._preempt_signal: Optional[int] = None
+        self._in_train_loop = False
         self._build_steps()
 
         os.makedirs(tc.save_dir, exist_ok=True)
@@ -329,17 +337,25 @@ class Trainer:
         self.train_loader.set_epoch(self.epoch)
         acc = MetricAccumulator()
         loss = None
-        for step, raw in enumerate(self.train_loader):
-            batch = batch_to_device(raw, self.device)
-            self.step_timer.start()
-            loss, metrics = self.train_step(batch, self.step, self.lr_scale, self._ema_params())
-            self.step_timer.stop()
-            self.step += 1
-            if (step + 1) % self.tc.log_steps == 0:
-                acc.update(metrics)
-                self._log(f"epoch {self.epoch} step {step + 1} loss {float(loss):.6f}\n"
-                          f"{_fmt_metrics(acc.compute())}")
-                acc.reset()
+        self._in_train_loop = True
+        try:
+            for step, raw in enumerate(self.train_loader):
+                batch = batch_to_device(raw, self.device)
+                self.step_timer.start()
+                loss, metrics = self.train_step(batch, self.step, self.lr_scale,
+                                                self._ema_params())
+                self.step_timer.stop()
+                self.step += 1
+                if self._preempt_signal is not None:
+                    # a step boundary: the optimizer step and the EMA are whole
+                    self._save_preemption_and_exit(self._preempt_signal)
+                if (step + 1) % self.tc.log_steps == 0:
+                    acc.update(metrics)
+                    self._log(f"epoch {self.epoch} step {step + 1} loss {float(loss):.6f}\n"
+                              f"{_fmt_metrics(acc.compute())}")
+                    acc.reset()
+        finally:
+            self._in_train_loop = False
         return float("nan") if loss is None else float(loss)
 
     def validate(self) -> Dict[str, Dict[str, float]]:
@@ -389,13 +405,13 @@ class Trainer:
         if self.ema_module is not None:
             load_params(self.ema_module, blob.get("ema_model", blob["model"]))
         opt = blob.get("opt_state")
+        step = 0
         if isinstance(opt, dict) and "param_groups" in opt:
             self.optimizer.load_state_dict(opt)
-        elif opt is not None:
-            self._log("the checkpoint's optimizer state is the JAX trainer's; "
-                      "the optimizer starts afresh")
+        elif isinstance(opt, (bytes, bytearray)):
+            step = self._load_optax_state(opt)
         self.epoch = blob.get("epoch", 0) + 1
-        self.step = blob.get("step", 0)
+        self.step = blob.get("step", step)
         self.best_heap = [tuple(x) for x in blob.get("loss2file", [])]
         if self.plateau and blob.get("plateau"):
             self.plateau.load_state_dict(blob["plateau"])
@@ -407,8 +423,86 @@ class Trainer:
                 es.num_bad = st.get("num_bad", es.num_bad)
         self._log(f"resumed from {path} at epoch {self.epoch}")
 
+    def _load_optax_state(self, opt_bytes: bytes) -> int:
+        """The JAX trainer's Adam moments and count in this optimizer's
+        state (``convert.optax_adam_state``); returns the schedule's update
+        count, from which the learning-rate schedule goes on."""
+        sched_count, count, mu, nu = optax_adam_state(opt_bytes)
+        names = {id(p): n for n, p in self.module.named_parameters()}
+        missing = []
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                name = names[id(p)]
+                if name not in mu:
+                    missing.append(name)
+                    continue
+                if tuple(mu[name].shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: optax moments {tuple(mu[name].shape)} vs "
+                                     f"parameter {tuple(p.shape)}")
+                st = {"exp_avg": mu[name].to(p), "exp_avg_sq": nu[name].to(p)}
+                if isinstance(self.optimizer, OptaxRAdam):
+                    st["step"] = count
+                else:
+                    st["step"] = torch.tensor(float(count), dtype=torch.float32)
+                if isinstance(self.optimizer, torch.optim.NAdam):
+                    # with momentum_decay = inf every mu_t is b1
+                    st["mu_product"] = torch.tensor(group["betas"][0] ** count,
+                                                    dtype=torch.float32)
+                self.optimizer.state[p] = st
+        if missing:
+            raise KeyError(f"the JAX optimizer state has no moments for the trainable "
+                           f"parameters {missing[:5]} (of {len(missing)})")
+        self._log(f"the JAX trainer's optimizer state carried over: {count} Adam updates, "
+                  f"schedule at update {sched_count}")
+        return sched_count
+
+    # ------------------------------------------------------------------
+    def _save_preemption_and_exit(self, signum: int) -> None:
+        self._log(f"signal {signum}: writing the preemption checkpoint and exiting")
+        try:
+            self.save_last(float("inf"))
+        except Exception as exc:  # reported, then the exit goes on
+            self._log(f"preemption checkpoint FAILED: {exc!r}")
+            import traceback
+
+            traceback.print_exc()
+        raise SystemExit(128 + signum)
+
+    def _install_preemption_handler(self) -> Dict[int, Any]:
+        """SIGTERM / SIGINT save a resumable last checkpoint and exit with
+        128 + signum.  Inside the step loop the parameters are live
+        tensors that ``optimizer.step()`` updates in place, so the handler
+        (which runs between bytecodes) only sets a flag there and the loop
+        saves at the next step boundary; outside it (validation,
+        checkpointing, between epochs) it saves at once.  A second signal
+        exits without saving.  Outside the main thread nothing is
+        installed.  Returns the handlers it replaced."""
+
+        def handler(signum, frame):
+            if self._preempt_signal is not None:
+                raise SystemExit(128 + signum)
+            self._preempt_signal = signum
+            if not self._in_train_loop:
+                self._save_preemption_and_exit(signum)
+
+        previous = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread
+                pass
+        return previous
+
     # ------------------------------------------------------------------
     def start(self) -> None:
+        previous = self._install_preemption_handler()
+        try:
+            self._run_epochs()
+        finally:
+            for sig, h in previous.items():
+                signal.signal(sig, signal.SIG_DFL if h is None else h)
+
+    def _run_epochs(self) -> None:
         tc = self.tc
         for epoch in range(self.epoch, tc.max_epochs):
             self.epoch = epoch
