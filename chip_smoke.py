@@ -5,7 +5,7 @@
                                            # train step of each route with
                                            # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
-                                           # and 7-10 with the plain versions
+                                           # and 7-11 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -140,13 +140,39 @@ Phases (any failed check exits non-zero):
      against a fake i-PI server on localhost, 3 rounds, against
      Calculator.calculate.  The drivers' agreement limits are 1e-6 plus
      twice the reference's own spread over two calls.
+ 11. determinism, export, data parallelism and profiling, at FLAGSHIP_KW:
+     (a) the spread of two identical calls (max |a - b| / max |a| of
+     energy, forces, virial and parameter gradients) and the median ms of
+     the bf16 mega train step and the f32 plain route's step on phase 3's
+     batch, InferenceEngine.predict and one Calculator.calculate on phase
+     7's box, with PyTorch's default sums (the port's) and under
+     torch.use_deterministic_algorithms (which must repeat bit for bit);
+     (b) export_model at 256 atoms and 8192 edges of f32 checkpoints, six
+     cases in six spawned processes (energy with the virial on the
+     28-atom molecule, periodic on a phase 8 cell, gmx on a 120-atom
+     periodic box in nm and kJ/mol with n_edges_found and needed_reps
+     checked, dipole and a baked net charge on phase 8 (c)'s heads,
+     matrix on phase 9 (d)'s XMatNet), each loaded program (no launch)
+     against the plain Calculator or forward: energy 1e-4, forces 3e-3 /
+     2e-4, each plus twice the reference's own spread, with the export's
+     seconds and the program's ms per call; (c) two spawned ranks of one
+     gloo group on the one card train through run_train with dp_devices
+     2, a micro-batch of 32 molecules each, one epoch of 8 steps:
+     exactly 3 + 6 + 3 launches per step on each rank, bit-identical
+     parameters and EMA, checkpoints from rank 0 alone, and one f32
+     step's all-reduced gradient against the mean of the two
+     micro-batches' gradients taken in one process (phase 6's limit); the
+     step's and the all-reduce's ms; (d) utils/profiling.trace around two
+     mega train steps holds the annotate names and the three message
+     kernels, and device_memory_stats reads the card.
 Then one JSON line with the kernels (each with its launches per MD call
-and per phase 8, 9 and 10 path too), the card line, and last the device
-JSON line.
+and per phase 8, 9, 10 and 11 path too), the card line, and last the
+device JSON line.
 It imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -819,11 +845,14 @@ GRAD_TOL, GRAD_ULP_FACTOR = 1e-4, 2.0
 FLAGSHIP_TASK = ("xpainn", TRAIN_WEIGHTS, False)
 
 
-def train_model(device, task=FLAGSHIP_TASK, **over):
+def train_model(device, task=FLAGSHIP_TASK, dp_step=False, **over):
     """Flagship XPaiNN (or ``task``'s model family) with seeded weights,
-    its forward for training and the step core of bench.py's recipe."""
+    its forward for training and the step core of bench.py's recipe; with
+    ``dp_step``, the data-parallel step (``make_dp_train_step``, in a
+    process group) without the clip, its optimizer as ``step.optimizer``."""
     from xequinet_torch.models.model import init_params, resolve_model
     from xequinet_torch.models.properties import make_forward
+    from xequinet_torch.parallel.data_parallel import make_dp_train_step
     from xequinet_torch.training.loss import ErrorMetric, WeightedLoss
     from xequinet_torch.training.lr_schedule import resolve_lr_schedule, resolve_optimizer
     from xequinet_torch.training.trainer import make_step_core
@@ -836,8 +865,10 @@ def train_model(device, task=FLAGSHIP_TASK, **over):
     opt = resolve_optimizer("adamw", params)
     sched = resolve_lr_schedule("cosine_annealing", 5e-4, 10000, warmup_steps=100)
     forward = make_forward(module, extra, create_graph=True)
-    step = make_step_core(forward, WeightedLoss("l2", **weights), params, opt, sched,
-                          "forces" in weights, virial, 5.0, 0.999, ErrorMetric(*weights))
+    core, clip = (make_dp_train_step, None) if dp_step else (make_step_core, 5.0)
+    step = core(forward, WeightedLoss("l2", **weights), params, opt, sched,
+                "forces" in weights, virial, clip, 0.999, ErrorMetric(*weights))
+    step.optimizer = opt
     return module, forward, step, [p.detach().clone() for p in params]
 
 
@@ -1794,11 +1825,11 @@ def bf16_virial_band(tag, got16, plain16, want32, n_graphs):
         fail(f"{tag}: the mega route's bf16 virial is further from f32 than the band")
 
 
-def compare_heads(tag, got, want, n_graphs, n_atoms, tol, elementwise):
+def head_errors(got, want, n_graphs, n_atoms, elementwise):
     """The dipole, polarizability and spatial extent per graph (max |err| /
-    max |ref|) within ``tol``; the atomic charges element-wise
-    (``elementwise``) or by their mean |q| (bf16: the routes round at
-    different points, as for forces)."""
+    max |ref|); the atomic charges element-wise (``elementwise``) or by
+    their mean |q| (bf16: the routes round at different points, as for
+    forces)."""
     from xequinet_torch import keys
 
     errs = {k: rel_err(got[k][:n_graphs].cpu(), want[k][:n_graphs].cpu())
@@ -1810,6 +1841,12 @@ def compare_heads(tag, got, want, n_graphs, n_atoms, tol, elementwise):
     else:
         errs["mean|q|"] = abs(float(qg.abs().mean()) - float(qw.abs().mean())) / \
             float(qw.abs().mean())
+    return errs
+
+
+def compare_heads(tag, got, want, n_graphs, n_atoms, tol, elementwise):
+    """:func:`head_errors` within ``tol``."""
+    errs = head_errors(got, want, n_graphs, n_atoms, elementwise)
     print(f"[heads] {tag}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (limit {tol:g})")
     if not all(np.isfinite(v) and v <= tol for v in errs.values()):
@@ -1991,25 +2028,41 @@ def phase_ewald_free(dps, device, card, sizes):
     return launches
 
 
-def phase_multihead(dps, device, card, sizes):
-    """Phase 8 (c): XPaiNN conditioned on charge and spin with the energy,
-    charges, dipole, polar and spatial heads (FLAGSHIP_KW + MULTI_HEADS) on
-    the molecule batch of phase 3 with random integer charges (-2..2) and
-    spins (0..2), served through the kernels (3 + 3 launches per predict);
-    against the plain route: bf16 energies, mean |F|, each per-graph head
-    within 2e-2 and mean |q|; f32 within 1e-4, forces and charges
-    element-wise; the f32 charges sum to each graph's charge within 1e-4."""
-    from xequinet_torch import keys
+def multihead_inputs(dps, device, sizes):
+    """Phase 8 (c)'s molecules (phase 3's with random integer charges
+    -2..2 and spins 0..2) and its engine (FLAGSHIP_KW + MULTI_HEADS, mega
+    route) with its plain-route twins in bf16 and f32: (dpc, eng, twins)."""
     from xequinet_torch.data.datapoint import Datapoint
-    from xequinet_torch.ops import cuda_build
 
-    card_run = device.type == "cuda"
     rng = np.random.default_rng(4321)
     dpc = [Datapoint(d.atomic_numbers, d.pos, edge_index=d.edge_index,
                      charge=int(rng.integers(-2, 3)), spin=int(rng.integers(0, 3)))
            for d in dps]
     over = dict(MULTI_HEADS, pallas_layout=sizes["layout"], **sizes["kw"])
     eng = make_engine(device, **over)
+    eng_t = twins(device, "xpainn", over, eng.module.state_dict(),
+                  plain={"use_pallas_scatter": False}, k32=F32,
+                  p32=dict(F32, use_pallas_scatter=False))
+    return dpc, eng, eng_t
+
+
+def phase_multihead(dps, device, card, sizes):
+    """Phase 8 (c): XPaiNN conditioned on charge and spin with the energy,
+    charges, dipole, polar and spatial heads on the molecule batch of phase
+    3 (:func:`multihead_inputs`), served through the kernels (3 + 3
+    launches per predict); against the plain route: bf16 energies, mean
+    |F|, each per-graph head within 2e-2 and mean |q|; f32 within 1e-4,
+    forces and charges element-wise; the f32 charges sum to each graph's
+    charge within 1e-4.  The compared calls run under deterministic sums:
+    with the default float atomics both routes' bf16 dipoles move from
+    call to call, and once landed 2.4e-2 apart on code the check had
+    passed (on an H100; ``check_repeat.py --check heads`` measures both
+    modes)."""
+    from xequinet_torch import keys
+    from xequinet_torch.ops import cuda_build
+
+    card_run = device.type == "cuda"
+    dpc, eng, eng_t = multihead_inputs(dps, device, sizes)
     cuda_build.reset_launch_counts()
     res = eng.predict(dpc)
     if card_run:
@@ -2022,13 +2075,11 @@ def phase_multihead(dps, device, card, sizes):
            for r in res):
         fail(f"(c): predict did not return finite {sorted(want_keys)}")
     n_g, n_at = len(dpc), sum(d.num_atoms for d in dpc)
-    eng_t = twins(device, "xpainn", over, eng.module.state_dict(),
-                  plain={"use_pallas_scatter": False}, k32=F32,
-                  p32=dict(F32, use_pallas_scatter=False))
     mega_b, plain_b = eng.collate(dpc), eng_t["plain"].collate(dpc)
-    got16, want16 = eng.forward_batch(mega_b), eng_t["plain"].forward_batch(plain_b)
-    got32 = eng_t["k32"].forward_batch(mega_b)
-    want32 = eng_t["p32"].forward_batch(plain_b)
+    with deterministic_sums():
+        got16, want16 = eng.forward_batch(mega_b), eng_t["plain"].forward_batch(plain_b)
+        got32 = eng_t["k32"].forward_batch(mega_b)
+        want32 = eng_t["p32"].forward_batch(plain_b)
     compare_outputs("(c) multi-head, bf16 mega vs plain route", got16, want16, n_g, n_at,
                     TOL["bfloat16"])
     compare_heads("bf16 mega vs plain route", got16, want16, n_g, n_at, TOL["bfloat16"], False)
@@ -2796,6 +2847,46 @@ def cli_infer(dps, ckpt, device, dev_args, card_run, card, tmp, sizes):
     return {k: v // n_chunks for k, v in counts.items()}
 
 
+def hessian_vs_numerical(device, ck5_path):
+    """Phase 10 (d)'s analytic against numerical Hessian on the JAX
+    package's own check (tests/test_round2.py: its model, its molecule at
+    rng 0 and its tolerance, atol 5e-3 + rtol 1e-2) with the port's seed-0
+    weights (the checkpoint is written to ``ck5_path`` once).  These turn
+    the forces within 5e-4 A (on the CPU a force of atom 5 moves by 0.24
+    eV/A over 2e-4 A), so JAX's step of 1e-3 A is off by 115 eV/A^2 of 148
+    there: the step is 1e-4 A (f32 positions round at ~5e-7 A), and the
+    limit adds twice the difference's own error estimate |D(eps) - D(2
+    eps)| (on the CPU 10 of 225 entries pass the JAX tolerance only with
+    it; its largest 0.12).  At the flagship's widths the curvature moves by
+    ~3% under a one-ulp move, and central differences converge at no step.
+    Returns the largest excess over the limit (> 0: missed; +inf if the
+    analytic Hessian is not symmetric) and a line that reports it."""
+    import os
+
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.run import geometry
+
+    rng = np.random.default_rng(0)
+    z5, p5 = rng.integers(1, 5, 5).astype(np.int32), rng.normal(size=(5, 3)) * 1.5
+    if not os.path.exists(ck5_path):
+        md_checkpoint(ck5_path, **dict(ROUND2_KW, **F32))
+    ff = geometry.ForceField(Calculator(ck5_path, device=device), z5)
+    h_a = geometry.analytic_hessian(ff, p5)
+    h_n = geometry.numerical_hessian(ff, p5, eps=1e-4)
+    own = np.abs(h_n - geometry.numerical_hessian(ff, p5, eps=2e-4))
+    jax_tol = 5e-3 + 1e-2 * np.abs(h_n)
+    excess = float((np.abs(h_a - h_n) - jax_tol - 2 * own).max())
+    if not np.allclose(h_a, h_a.T, atol=1e-8):
+        excess = float("inf")
+    line = (f"analytic against numerical Hessian (the JAX test's model and molecule, eps 1e-4 "
+            f"A) on {device.type}: max |dH| {np.abs(h_a - h_n).max():.3e} eV/A^2 of max "
+            f"{np.abs(h_n).max():.3e}; {int((np.abs(h_a - h_n) > jax_tol).sum())} of "
+            f"{h_n.size} entries past atol 5e-3 + rtol 1e-2, each within it plus 2 x |D(eps) "
+            f"- D(2 eps)| (max {own.max():.3e}), largest excess {excess:.3e}: "
+            f"{'held' if excess <= 0 else 'MISSED'}")
+    return excess, line
+
+
 def cli_opt(dps, device, dev_args, card_run, card, tmp, sizes):
     """Phase 10 (d): ``opt --freq --shermo --save-hessian`` with an f32
     checkpoint (phase 7's model) on phase 3's molecules without a close
@@ -2919,32 +3010,9 @@ def cli_opt(dps, device, dev_args, card_run, card, tmp, sizes):
           f"one-ulp change {moved:.3e}) — {card}")
     if err > limit or sum_rule > 1e-3:
         fail("(d) the Hessian disagrees with the CPU's or breaks the sum rule")
-    # analytic against numerical, on the JAX package's own check
-    # (tests/test_round2.py: its model, its molecule at rng 0 and its
-    # tolerance, atol 5e-3 + rtol 1e-2) with the port's seed-0 weights.
-    # These turn the forces within 5e-4 A (on the CPU a force of atom 5
-    # moves by 0.24 eV/A over 2e-4 A), so JAX's step of 1e-3 A is off by
-    # 115 eV/A^2 of 148 there: the step is 1e-4 A (f32 positions round at
-    # ~5e-7 A), and the limit adds twice the difference's own error
-    # estimate |D(eps) - D(2 eps)| (on the CPU 10 of 225 entries pass the
-    # JAX tolerance only with it; its largest 0.12).  At the flagship's
-    # widths the curvature moves by ~3% under a one-ulp move, and central
-    # differences converge at no step
-    rng = np.random.default_rng(0)
-    z5, p5 = rng.integers(1, 5, 5).astype(np.int32), rng.normal(size=(5, 3)) * 1.5
-    ck5 = md_checkpoint(os.path.join(tmp, "round2.ckpt"), **dict(ROUND2_KW, **F32))
-    ff = geometry.ForceField(Calculator(ck5, device=device), z5)
-    h_a = geometry.analytic_hessian(ff, p5)
-    h_n = geometry.numerical_hessian(ff, p5, eps=1e-4)
-    own = np.abs(h_n - geometry.numerical_hessian(ff, p5, eps=2e-4))
-    jax_tol = 5e-3 + 1e-2 * np.abs(h_n)
-    excess = float((np.abs(h_a - h_n) - jax_tol - 2 * own).max())
-    print(f"[cli] (d) analytic against numerical Hessian (the JAX test's model and molecule, "
-          f"eps 1e-4 A) on {device.type}: max |dH| {np.abs(h_a - h_n).max():.3e} eV/A^2 of max "
-          f"{np.abs(h_n).max():.3e}; {int((np.abs(h_a - h_n) > jax_tol).sum())} of {h_n.size} "
-          f"entries past atol 5e-3 + rtol 1e-2, each within it plus 2 x |D(eps) - D(2 eps)| "
-          f"(max {own.max():.3e}): {'held' if excess <= 0 else 'MISSED'}")
-    if excess > 0 or not np.allclose(h_a, h_a.T, atol=1e-8):
+    excess, line = hessian_vs_numerical(device, ck5_path=os.path.join(tmp, "round2.ckpt"))
+    print(f"[cli] (d) {line}")
+    if excess > 0:
         fail("(d) the analytic Hessian disagrees with the numerical one")
     return ck, z, final[big], counts
 
@@ -3044,7 +3112,12 @@ def _ipi_server(frames, replies):
 
 def cli_ipi(ck, z, pos, device, card_run, card):
     """Phase 10 (f): ``IPIDriver`` against a fake server, 3 rounds; each
-    reply against ``Calculator.calculate`` in the wire's units."""
+    reply against ``Calculator.calculate`` in the wire's units.  Both run
+    under deterministic sums: with the default float atomics the reply is
+    a third sample of the reference's noise, and twice the spread of two
+    samples did not always cover it (forces 9.057e-6 against a limit of
+    8.111e-6 on an H100, on code the check had passed), so the limit is
+    CLI_TOL alone."""
     from xequinet_torch import keys
     from xequinet_torch.interface.calculator import Calculator
     from xequinet_torch.interface.ipi_driver import IPIDriver
@@ -3059,7 +3132,8 @@ def cli_ipi(ck, z, pos, device, card_run, card):
     t0 = time.perf_counter()
     drv = IPIDriver(ck, z, address="localhost", port=port,
                     device=None if card_run else "cpu")
-    rounds = drv.run()
+    with deterministic_sums():
+        rounds = drv.run()
     wall = time.perf_counter() - t0
     thread.join(timeout=60)
     counts = path_launches("(f) i-PI", card_run)
@@ -3068,7 +3142,8 @@ def cli_ipi(ck, z, pos, device, card_run, card):
     ref = Calculator(ck, device=device)
     worst = 0.0
     for g, (e, f, _) in zip(geoms, replies):
-        r = [ref.calculate(z, g) for _ in range(2)]
+        with deterministic_sums():
+            r = [ref.calculate(z, g) for _ in range(2)]
         e_ref = [x[keys.TOTAL_ENERGY] * drv._e_conv for x in r]
         f_ref = [x[keys.FORCES] * drv._e_conv * drv._l_conv for x in r]
         fs = float(np.abs(f_ref[0]).max())
@@ -3110,6 +3185,703 @@ def phase_cli(dps, device, card, sizes):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: determinism, export, data parallelism, profiling
+# ---------------------------------------------------------------------------
+# phase 11's sizes on the card and in the CPU rehearsal
+P11_SIZES = dict(layout=(BN, CHUNK), kw={}, det=dict(calls=5, md=MD_SIZES),
+                 dp=dict(n_train=512, n_valid=16, batch=64, timeout=420))
+P11_REHEARSAL = dict(layout=(32, 32), kw=dict(action_blocks=1, node_dim=16,
+                                              node_irreps="16x0e+8x1o+4x2e", num_basis=8),
+                     det=dict(calls=2, md=MD_REHEARSAL),
+                     dp=dict(n_train=16, n_valid=4, batch=4, timeout=240))
+
+
+def spread(a, b):
+    """max |a - b| / max |a|."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+
+
+def grads_sample(module, forward, batch, task=FLAGSHIP_TASK):
+    """Energy, forces and every parameter gradient of the force loss on
+    ``batch``, on the host."""
+    from xequinet_torch import keys
+    from xequinet_torch.training.loss import WeightedLoss
+    from xequinet_torch.training.trainer import loss_and_grads
+
+    _, weights, virial = task
+    named = list(module.named_parameters())
+    _, _, out, grads = loss_and_grads(forward, WeightedLoss("l2", **weights),
+                                      [p for _, p in named], batch, "forces" in weights, virial)
+    res = {"energy": out[keys.TOTAL_ENERGY].detach().float().cpu().numpy(),
+           "forces": out[keys.FORCES].detach().float().cpu().numpy()}
+    res.update({f"grad {n}": g.float().cpu().numpy() for (n, _), g in zip(named, grads)})
+    return res
+
+
+def det_spreads(samples):
+    """The spread of each quantity between two samples; gradients as the
+    largest over the parameters (with its name)."""
+    a, b = samples
+    out, worst = {}, (-1.0, "")
+    for k in a:
+        s = spread(a[k], b[k])
+        if k.startswith("grad "):
+            worst = max(worst, (s, k[5:]))
+        else:
+            out[k] = s
+    if worst[1]:
+        out[f"parameter gradients (worst: {worst[1]})"] = worst[0]
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_sums(enabled=True):
+    """``torch.use_deterministic_algorithms(enabled)`` for the body and the
+    caller's setting back on exit; empty tensors are not filled with NaN
+    (the fill is not a sum, and only costs time)."""
+    import torch.utils.deterministic as tud
+
+    was = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    was_fill = tud.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(enabled)
+    tud.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=was_warn)
+        tud.fill_uninitialized_memory = was_fill
+
+
+def det_case(tag, sample, timed, card_run, calls, card):
+    """Phase 11 (a), one call: two samples and ``calls`` timed calls in
+    each mode, PyTorch's default sums (the port's) and its deterministic
+    algorithms (:func:`deterministic_sums` around the same call), timed in
+    turns default, deterministic, deterministic, default.  ``sample()`` ->
+    host arrays; ``timed()`` runs one call.  Returns each mode's (spreads,
+    median ms), the cost and what moved under deterministic sums."""
+    sync = torch.cuda.synchronize if card_run else (lambda: None)
+
+    def in_mode(det, fn):
+        with deterministic_sums(det):
+            return fn()
+
+    spreads = {det: det_spreads([in_mode(det, sample) for _ in range(2)])
+               for det in (False, True)}
+    ms = {False: [], True: []}
+    for det in (False, True, True, False):
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            in_mode(det, timed)
+            sync()
+            ms[det].append((time.perf_counter() - t0) * 1e3)
+    med = {det: float(np.median(v)) for det, v in ms.items()}
+    for det in (False, True):
+        name = "deterministic sums" if det else "default sums (the port's)"
+        print(f"[det] {tag}, {name}: median {med[det]:.3f} ms of {2 * calls} calls; spread "
+              "between two calls (max |a - b| / max |a|): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in spreads[det].items()) + f" — {card}")
+    cost = med[True] / med[False] - 1.0
+    moved = {k: v for k, v in spreads[True].items() if v != 0.0}
+    print(f"[det] {tag}: deterministic sums cost {100 * cost:+.1f}% of the default's ms; "
+          + (f"NOT bit for bit: {moved}" if moved else "bit for bit"))
+    return {"default": (spreads[False], med[False]), "deterministic": (spreads[True], med[True]),
+            "cost": cost, "moved": moved}
+
+
+def phase_determinism(dps, device, card, tmp, sizes, kw, lay):
+    """Phase 11 (a): the spread of two identical calls and the ms of each
+    mode, for the flagship mega train step (bf16, the 1024-molecule
+    batch), the f32 plain route's train step, InferenceEngine.predict (mega,
+    bf16, with forces) and Calculator.calculate on phase 7's 10,000-atom
+    periodic box (mega, skin 0.5, with the virial, the same geometry each
+    call: the hot loop's device path).  The port keeps PyTorch's default
+    sums: the deterministic algorithms cost more than 10% of predict's and
+    of calculate's ms (ROADMAP section 3, recorded); fails if they do not
+    repeat bit for bit, which that record states."""
+    import os
+
+    from xequinet_torch import keys
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
+    from xequinet_torch.run.inference import batch_to_device
+
+    card_run = device.type == "cuda"
+    calls = sizes["calls"]
+    out = {}
+    kw = dict(kw, pallas_layout=(*lay, PAD_NODES, MAX_CHUNKS))
+    cases = (("mega train step (bf16)", kw, collate(dps, kernel_layout=layout(*lay))),
+             ("plain route train step (f32)", dict(kw, use_pallas_scatter=False, **F32),
+              collate(dps)))
+    for tag, over, host_b in cases:
+        b = batch_to_device(host_b, device)
+        module, forward, step, ema = train_model(device, **over)
+        it = iter(range(10 ** 6))
+        out[tag] = det_case(tag, lambda: grads_sample(module, forward, b),
+                            lambda: step(b, next(it), 1.0, ema), card_run, calls, card)
+        del module, forward, step, ema, b
+    eng = make_engine(device, **kw)
+
+    def predict_sample():
+        res = eng.predict(dps)
+        return {"energy": np.array([r[keys.TOTAL_ENERGY] for r in res]),
+                "forces": np.concatenate([r[keys.FORCES] for r in res])}
+
+    out["InferenceEngine.predict"] = det_case("InferenceEngine.predict (mega, bf16, forces)",
+                                              predict_sample, lambda: eng.predict(dps),
+                                              card_run, calls, card)
+    del eng
+    md = sizes["md"]
+    ck = md_checkpoint(os.path.join(tmp, "det_bf16.ckpt"), **md["kw"])
+    z, pos, cell, pbc, _ = md_box(md["n_box"])
+    ei, _ = radius_graph_pbc_np(pos, cell, pbc, 5.0)
+    calc = Calculator(ck, pallas="mega", skin=0.5, compute_virial=True, device=device,
+                      max_atoms=md["max_box"], max_edges=md_edge_cap(ei.shape[1]))
+    box = dict(cell=cell, pbc=pbc)
+    calc.calculate(z, pos, **box)
+    calculate = lambda: calc.calculate(z, pos, **box)
+    out["Calculator.calculate"] = det_case(
+        f"Calculator.calculate ({len(z)}-atom periodic box, mega, "
+        f"{dict(MD_KW, **md['kw'])['compute_dtype']}, virial)",
+        lambda: {k: np.asarray(v) for k, v in calculate().items()
+                 if k in (keys.TOTAL_ENERGY, keys.FORCES, keys.VIRIAL)},
+        calculate, card_run, calls, card)
+    if calc.last_route != "mega" or calc.n_rebuilds != 1:
+        fail(f"(a): the Calculator left the hot loop's path (route {calc.last_route}, "
+             f"{calc.n_rebuilds} rebuilds)")
+    calc.close()
+    moved = {tag: r["moved"] for tag, r in out.items() if r["moved"]}
+    if moved:
+        fail(f"(a): two calls with deterministic sums differ: {moved}")
+    return out
+
+
+# (b) export: the JAX export's default capacities
+EXPORT_CAPS = (256, 8192)
+# element-wise f32 forces of an exported program against the plain
+# Calculator: PERF.md section 2's limits (F32_FORCE_TOL); energy 1e-4
+EXPORT_E_TOL = 1e-4
+
+
+def export_inputs(dp, caps, periodic=False, charge=0):
+    """The energy / dipole / matrix signature's inputs for one structure
+    padded to ``caps`` = (atoms, edges), as numpy arrays."""
+    n, e = caps
+    na, ne = dp.num_atoms, dp.num_edges
+    pos = np.zeros((n, 3), dtype=np.float32)
+    pos[:na] = dp.pos
+    z = np.zeros(n, dtype=np.int32)
+    z[:na] = dp.atomic_numbers
+    ei = np.zeros((2, e), dtype=np.int32)
+    ei[:, :ne] = dp.edge_index
+    args = [pos, z, ei, np.arange(e) < ne]
+    if periodic:
+        offs = np.zeros((e, 3), dtype=np.float32)
+        offs[:ne] = dp.cell_offsets
+        args += [offs, np.asarray(dp.cell, dtype=np.float32)]
+    return args + [np.array([charge], dtype=np.int32)]
+
+
+def _export_job(ckpt, out_dir, kw, device_type):
+    """One ``export_model`` at EXPORT_CAPS, in a worker process; returns its
+    seconds."""
+    from xequinet_torch.interface.export import export_model
+
+    torch.set_num_threads(1)  # six tracers share the host's cores
+    t0 = time.perf_counter()
+    export_model(ckpt, out_dir, *EXPORT_CAPS, device=device_type, **kw)
+    return time.perf_counter() - t0
+
+
+def export_case(tag, job, device, card, inputs, reference, check):
+    """The export ``job`` (a future of :func:`_export_job`: its directory and
+    seconds): load the program, call it on ``inputs`` (no kernel launch)
+    and hand its outputs and ``reference()`` (called twice: its own spread)
+    to ``check``; returns the program's and the reference's ms per call
+    (median of 10), and the launches of the program's call, measured."""
+    from xequinet_torch.interface.export import load_exported
+    from xequinet_torch.ops import cuda_build
+
+    card_run = device.type == "cuda"
+    sync = torch.cuda.synchronize if card_run else (lambda: None)
+    out_dir, future = job
+    t_export = future.result(timeout=600)
+    module, manifest = load_exported(out_dir)
+    args = [torch.as_tensor(a, device=device) for a in inputs]
+    cuda_build.reset_launch_counts()
+    got = [t.detach().cpu().numpy() for t in module(*args)]
+    sync()
+    counts = path_launches(f"(b) exported {tag} call", card_run)
+    ref = [reference(), reference()]
+    check(got, ref)
+    times = {}
+    for name, fn in (("program", lambda: module(*args)), ("reference", reference)):
+        ts = []
+        for _ in range(10):
+            t1 = time.perf_counter()
+            fn()
+            sync()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        times[name] = float(np.median(ts))
+    print(f"[export] {tag}: exported in {t_export:.1f} s, in parallel with the others "
+          f"({manifest['output_mode']}, "
+          f"{manifest['inputs']} -> {manifest['outputs']}); loaded program {times['program']:.3f} "
+          f"ms per call, its reference {times['reference']:.3f} ms — {card}")
+    return times, counts
+
+
+def held_energy_forces(tag, e_got, f_got, ref, conv_e=1.0, conv_f=1.0):
+    """An exported energy and forces against the reference's (two calls,
+    converted by ``conv_e`` / ``conv_f``): energy within EXPORT_E_TOL and
+    forces element-wise within F32_FORCE_TOL, each plus twice the
+    reference's own spread."""
+    from xequinet_torch import keys
+
+    (a, b) = ref
+    e_w = a[keys.TOTAL_ENERGY] * conv_e
+    f_w = a[keys.FORCES] * conv_f
+    e_spread = abs(a[keys.TOTAL_ENERGY] - b[keys.TOTAL_ENERGY]) / abs(a[keys.TOTAL_ENERGY])
+    f_spread = md_force_err(b[keys.FORCES], a[keys.FORCES])
+    e_err = abs(float(e_got) - e_w) / abs(e_w)
+    f_err = md_force_err(f_got[:len(f_w)], f_w)
+    e_lim = EXPORT_E_TOL + 2 * e_spread
+    f_lim = [t + 2 * s for t, s in zip(F32_FORCE_TOL, f_spread)]
+    print(f"[export] {tag}: energy rel diff {e_err:.3e} (limit {e_lim:.3e}), forces max "
+          f"{f_err[0]:.3e} / p99 per atom {f_err[1]:.3e} (limits {f_lim[0]:.3e} / "
+          f"{f_lim[1]:.3e}); the reference's own spread {e_spread:.3e} / {f_spread[0]:.3e}")
+    if not (e_err <= e_lim and f_err[0] <= f_lim[0] and f_err[1] <= f_lim[1]):
+        fail(f"(b) {tag}: the exported program disagrees with its reference")
+
+
+def phase_export(dps, device, card, tmp, kw):
+    """Phase 11 (b): ``export_model`` on the card at the JAX defaults (256
+    atoms, 8192 edges) from f32 checkpoints of phases 7-9, each loaded
+    program against the plain Calculator (or the plain forward): energy
+    with the virial (the 28-atom molecule), ``periodic`` (a phase 8 cell),
+    ``dipole`` (phase 8 (c)'s five heads), ``gmx`` (a periodic box in nm
+    and kJ/mol), ``matrix`` (phase 9 (d)'s XMatNet) and ``net_charge``.
+    The six exports run in six spawned processes at once (tracing is host
+    work).  Returns the launches of the six exported calls, summed (none:
+    the plain route)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from xequinet_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    ck = md_checkpoint(os.path.join(tmp, "x32.ckpt"), **dict(kw, **F32))
+    ck_q = md_checkpoint(os.path.join(tmp, "q32.ckpt"), **dict(kw, **MULTI_HEADS, **F32))
+    ck_m = md_checkpoint(os.path.join(tmp, "m32.ckpt"), model="xmatnet",
+                         **dict(kw, **XMAT_KW, **F32))
+    jobs_kw = {"energy": (ck, dict(compute_virial=True)),
+               "periodic energy": (ck, dict(periodic=True)),
+               "gmx": (ck, dict(output_mode="gmx", max_reps=1)),
+               "dipole": (ck_q, dict(output_mode="dipole")),
+               "net charge": (ck_q, dict(net_charge=1, compute_virial=False)),
+               "matrix": (ck_m, dict(output_mode="matrix"))}
+    pool = ProcessPoolExecutor(len(jobs_kw), mp_context=multiprocessing.get_context("spawn"))
+    jobs = {}
+    for tag, (ckpt, over) in jobs_kw.items():
+        out_dir = os.path.join(tmp, tag.replace(" ", "_"))
+        jobs[tag] = (out_dir, pool.submit(_export_job, ckpt, out_dir, over, device.type))
+    try:
+        calls = _export_checks(jobs, dps, device, card, ck, ck_q, ck_m)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"[export] phase 11 (b) in {time.perf_counter() - t0:.1f} s")
+    return {k: sum(c[k] for c in calls) for k in cuda_build.LAUNCHES}
+
+
+def _export_checks(jobs, dps, device, card, ck, ck_q, ck_m):
+    """Phase 11 (b)'s holds, one per export of ``jobs``; returns each
+    exported call's launches."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.interface.export import GMX_UNITS
+    from xequinet_torch.models.properties import make_forward
+    from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
+    from xequinet_torch.run.inference import (InferenceEngine, batch_to_device,
+                                              load_model_from_checkpoint)
+    from xequinet_torch.utils.qc import unit_conversion
+
+    mol = max(dps, key=lambda d: d.num_atoms)
+    calc = Calculator(ck, compute_virial=True, device=device)
+    ref_mol = lambda: calc.calculate(mol.atomic_numbers, mol.pos)
+
+    def energy_check(got, ref):
+        held_energy_forces(f"energy + virial, {mol.num_atoms} atoms", got[0], got[1], ref)
+        v_err = float(np.abs(got[2] - ref[0][keys.VIRIAL]).max()
+                      / np.abs(ref[0][keys.VIRIAL]).max())
+        print(f"[export] energy + virial: virial max|dV|/max|V| {v_err:.3e} (limit 1e-3)")
+        if v_err > 1e-3:
+            fail("(b) the exported virial disagrees")
+
+    calls = []
+
+    def case(*args):
+        times, counts = export_case(*args)
+        calls.append(counts)
+        return times
+
+    times = case("energy", jobs["energy"], device, card, export_inputs(mol, EXPORT_CAPS),
+                 ref_mol, energy_check)
+    print(f"[export] the loaded energy program {times['program']:.3f} ms per call beside "
+          f"Calculator.calculate's {times['reference']:.3f} ms on the same molecule — {card}")
+
+    cell = build_crystals(8)[3]
+    ref_cell = lambda: calc.calculate(cell.atomic_numbers, cell.pos, cell=cell.cell,
+                                      pbc=cell.pbc)
+    case("periodic energy", jobs["periodic energy"], device, card,
+         export_inputs(cell, EXPORT_CAPS, periodic=True), ref_cell,
+         lambda got, ref: held_energy_forces(f"periodic, a {cell.num_atoms}-atom cell",
+                                             got[0], got[1], ref))
+
+    # gmx: a 12 A periodic box of 120 atoms, in nm and kJ/mol
+    rng = np.random.default_rng(17)
+    box = np.eye(3) * 12.0
+    zb = rng.integers(1, 9, 120).astype(np.int32)
+    pb = rng.uniform(0, 1, size=(120, 3)) @ box
+    n_edges = radius_graph_pbc_np(pb, box, np.ones(3, bool), 5.0)[0].shape[1]
+    nm = unit_conversion("nm", "Angstrom")
+    gmx_in = [np.zeros((EXPORT_CAPS[0], 3), np.float32), np.zeros(EXPORT_CAPS[0], np.int32),
+              (box / nm).astype(np.float32), np.ones(3, bool), np.zeros(1, np.int32)]
+    gmx_in[0][:120] = pb / nm
+    gmx_in[1][:120] = zb
+    e_conv = unit_conversion("eV", GMX_UNITS[keys.TOTAL_ENERGY])
+
+    def gmx_check(got, ref):
+        n_found, needed = int(got[2]), got[3].tolist()
+        print(f"[export] gmx: n_edges_found {n_found} (the host list {n_edges}, max_edges "
+              f"{EXPORT_CAPS[1]}), needed_reps {needed} (max_reps 1)")
+        if n_found != n_edges or n_found > EXPORT_CAPS[1] or max(needed) > 1:
+            fail("(b) gmx: the in-graph neighbour list overflowed or missed edges")
+        held_energy_forces("gmx, a 120-atom periodic box", got[0], got[1], ref, e_conv,
+                           e_conv * nm)
+
+    case("gmx", jobs["gmx"], device, card, gmx_in,
+         lambda: calc.calculate(zb, pb, cell=box, pbc=np.ones(3, bool)), gmx_check)
+
+    # dipole and net_charge on the five-head model, with a charge of +1
+    eng_q = InferenceEngine(ck_q, device=device)
+    mol_q = Datapoint(mol.atomic_numbers, mol.pos, edge_index=mol.edge_index, charge=1)
+    ref_q = lambda: eng_q.predict([mol_q], compute_forces=False)[0]
+
+    def dipole_check(got, ref):
+        errs = {}
+        for i, k in enumerate((keys.ATOMIC_CHARGES, keys.DIPOLE)):
+            w = ref[0][k]
+            errs[k] = float(np.abs(got[i][:len(w)] - w).max() / np.abs(w).max())
+            errs[k + " spread"] = float(np.abs(ref[1][k] - w).max() / np.abs(w).max())
+        q_sum = float(got[0][:mol.num_atoms].sum())
+        print(f"[export] dipole, charge +1: charges {errs[keys.ATOMIC_CHARGES]:.3e}, dipole "
+              f"{errs[keys.DIPOLE]:.3e} of their max (limit 1e-4 + 2x the spread); charges "
+              f"sum to {q_sum:.6f}")
+        for k in (keys.ATOMIC_CHARGES, keys.DIPOLE):
+            if errs[k] > 1e-4 + 2 * errs[k + " spread"]:
+                fail(f"(b) dipole: {k} disagrees")
+        if abs(q_sum - 1.0) > 1e-4:
+            fail("(b) dipole: the charges do not sum to the total charge")
+
+    case("dipole", jobs["dipole"], device, card,
+         export_inputs(mol, EXPORT_CAPS, charge=1), ref_q, dipole_check)
+    calc_q = Calculator(ck_q, device=device)
+    case("net charge", jobs["net charge"], device, card,
+         export_inputs(mol, EXPORT_CAPS, charge=-3),
+         lambda: calc_q.calculate(mol.atomic_numbers, mol.pos, charge=1),
+         lambda got, ref: held_energy_forces("energy, net_charge +1 baked in (input -3 "
+                                             "ignored)", got[0], got[1], ref))
+
+    # matrix: XMatNet's blocks against its plain forward
+    m_mod, m_extra, _, _, _ = load_model_from_checkpoint(ck_m)
+    m_fwd = make_forward(m_mod.to(device).eval().requires_grad_(False), m_extra)
+    m_batch = collate([mol])
+    ref_m = lambda: {k: v.cpu().numpy() for k, v in
+                     m_fwd(batch_to_device(m_batch, device), False, False).items()
+                     if k in (keys.NODE_MAT_BLOCKS, keys.EDGE_MAT_BLOCKS)}
+
+    def matrix_check(got, ref):
+        rows = {keys.NODE_MAT_BLOCKS: mol.num_atoms, keys.EDGE_MAT_BLOCKS: mol.num_edges}
+        for i, (k, n) in enumerate(rows.items()):
+            w = ref[0][k][:n]
+            err = float(np.abs(got[i][:n] - w).max() / np.abs(w).max())
+            spread = float(np.abs(ref[1][k][:n] - w).max() / np.abs(w).max())
+            print(f"[export] matrix: {k} {err:.3e} of its max (limit 1e-4 + 2 x {spread:.3e})")
+            if err > 1e-4 + 2 * spread:
+                fail(f"(b) matrix: {k} disagrees")
+
+    case("matrix", jobs["matrix"], device, card, export_inputs(mol, EXPORT_CAPS), ref_m,
+         matrix_check)
+    calc.close()
+    return calls
+
+
+def dp_micro_batch(rank, lay):
+    """Rank ``rank``'s micro-batch of phase 11 (c)'s f32 gradient check: 32
+    bench molecules each (seed 77), in the mega slot layout."""
+    from xequinet_torch.data.batching import collate
+
+    dps = build_molecules(64, seed=77)
+    return collate(dps[32 * rank:32 * (rank + 1)], kernel_layout=layout(*lay))
+
+
+def _dp_rank(rank, port, db, tmp, sizes, kw, lay, device_type):
+    """One rank of phase 11 (c), in a spawned process: a gloo group of 2 (the
+    caller's own: maybe_init_distributed leaves it as it is), ``run_train``
+    with dp_devices 2 on the mega route, each step's launches and ms
+    recorded; then 10 all-reduces of the step's gradient buffer, timed, and
+    one f32 ``make_dp_train_step`` without the clip.  Writes its record to
+    ``tmp/dp_rank<rank>.json``."""
+    import hashlib
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.parallel import data_parallel as dp
+    from xequinet_torch.run.inference import batch_to_device
+    from xequinet_torch.run.train import run_train
+    from xequinet_torch.training import trainer as trainer_mod
+    from xequinet_torch.utils.config import load_config
+
+    card_run = device_type == "cuda"
+    sync = torch.cuda.synchronize if card_run else (lambda: None)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    rec = {"steps": [], "step_ms": [], "allreduce_ms": []}
+    build = trainer_mod.Trainer._build_steps
+
+    def counted_build(self):
+        build(self)
+        step = self.train_step
+
+        def counted(*a, **k):
+            cuda_build.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            out = step(*a, **k)
+            sync()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["steps"].append(dict(cuda_build.LAUNCHES))
+            return out
+
+        self.train_step = counted
+
+    trainer_mod.Trainer._build_steps = counted_build
+    kw = dict(FLAGSHIP_KW, pallas_layout=(*lay, PAD_NODES, MAX_CHUNKS), **kw)
+    trainer = {"max_epochs": 1, "warmup_epochs": 0, "lossfn": "l2",
+               "losses_weight": TRAIN_WEIGHTS, "ema_decay": 0.999, "grad_clip": 5.0,
+               "save_dir": os.path.join(tmp, f"run{rank}"), "log_steps": 1000, "seed": 0,
+               "dp_devices": 2}
+    if not card_run:
+        trainer["device"] = "cpu"
+    cfg = load_config(overrides={
+        "model": {"model_name": "xpainn", "model_kwargs": kw},
+        "data": {"db_path": db, "targets": ["energy", "forces"],
+                 "batch_size": sizes["batch"], "valid_batch_size": 8},
+        "trainer": trainer})
+    t0 = time.perf_counter()
+    tr = run_train(cfg)
+    sync()
+    rec["wall_s"] = time.perf_counter() - t0
+    trainer_mod.Trainer._build_steps = build
+    # the step's all-reduce alone: the gradients' sizes and the loss
+    grads = [torch.zeros_like(p) for p in tr.module.parameters()]
+    grads.append(torch.zeros(1, device=grads[0].device))
+    for _ in range(10):
+        sync()
+        t0 = time.perf_counter()
+        dp.all_reduce_mean_(grads)
+        sync()
+        rec["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    digest = lambda ts: hashlib.sha256(b"".join(
+        t.detach().double().cpu().numpy().tobytes() for t in ts)).hexdigest()
+    rec["params"] = digest(tr.module.parameters())
+    rec["ema"] = digest(tr.ema_module.parameters())
+    rec["world_size"] = tr.world_size
+    # one f32 step of make_dp_train_step (no clip) from the seed-0 f32
+    # weights: the all-reduced gradient, read back from Adam's first moment
+    module, _, step, ema = train_model(torch.device(device_type), dp_step=True,
+                                       **dict(kw, **F32))
+    b = batch_to_device(dp_micro_batch(rank, lay), device_type)
+    step(b, 0, 1.0, ema)
+    b1 = step.optimizer.defaults["betas"][0]
+    if rank == 0:
+        torch.save({n: (step.optimizer.state[p]["exp_avg"] / (1 - b1)).cpu()
+                    for n, p in module.named_parameters()}, os.path.join(tmp, "dp_grads.pt"))
+    with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def phase_dp(device, card, tmp, sizes, kw, lay):
+    """Phase 11 (c): two ranks of one gloo group on the one card (NCCL
+    refuses two ranks on one device; gloo stages the card's tensors through
+    the host) train FLAGSHIP_KW on the mega route, bf16, on bench molecules,
+    a micro-batch of batch / 2 per rank, one epoch, through ``run_train``
+    with dp_devices 2: bit-identical parameters and EMA at the end, 3 + 6 +
+    3 message launches per step on each rank, checkpoints from rank 0
+    alone, and the gradient of one f32 ``make_dp_train_step`` without the
+    clip (Adam's first moment over 1 - beta1) against the mean of the two
+    micro-batches' gradients taken here, within phase 6's limit.
+    Returns the launches per rank and step."""
+    import json
+    import os
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from xequinet_torch.data.store import create_dataset
+
+    card_run = device.type == "cuda"
+    t0 = time.perf_counter()
+    db = os.path.join(tmp, "dpdb")
+    n_train, n_valid = sizes["n_train"], sizes["n_valid"]
+    create_dataset(db, build_molecules(n_train + n_valid, seed=98), units={},
+                   split={"train": list(range(n_train)),
+                          "valid": list(range(n_train, n_train + n_valid)), "test": []})
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.start_processes(_dp_rank, args=(port, db, tmp, sizes, kw, lay, device.type), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + sizes["timeout"]
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                fail(f"(c) the two ranks did not finish within {sizes['timeout']} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+    recs = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    print(f"[dp] world size 2 on one card over gloo (two processes on one device; gloo "
+          f"stages the card's tensors through the host): its ms are not a multi-GPU speed")
+    want = dict(message_fwd=3, message_bwd=6, message_bwd2=3) if card_run else {}
+    counts = recs[0]["steps"][0]
+    for r, rec in enumerate(recs):
+        bad = [c for c in rec["steps"] if card_run and
+               c != {k: want.get(k, 0) for k in c}]
+        print(f"[dp] rank {r}: {len(rec['steps'])} steps in {rec['wall_s']:.1f} s of run_train; "
+              f"median step {np.median(rec['step_ms']):.3f} ms; the step's gradient all-reduce "
+              f"alone {np.median(rec['allreduce_ms']):.3f} ms (median of "
+              f"{len(rec['allreduce_ms'])}); launches per step {rec['steps'][0]} — {card}")
+        if bad or rec["world_size"] != 2:
+            fail(f"(c) rank {r}: launches per step {bad[:2]} (want {want}), world size "
+                 f"{rec['world_size']}")
+    if recs[0]["params"] != recs[1]["params"] or recs[0]["ema"] != recs[1]["ema"]:
+        fail("(c) the ranks' parameters or EMA differ after training")
+    if len(recs[0]["steps"]) != len(recs[1]["steps"]):
+        fail("(c) the ranks ran different numbers of steps")
+    ck0 = [f for f in os.listdir(os.path.join(tmp, "run0")) if f.endswith(".ckpt")]
+    ck1 = [f for f in os.listdir(os.path.join(tmp, "run1")) if f.endswith(".ckpt")] \
+        if os.path.isdir(os.path.join(tmp, "run1")) else []
+    print(f"[dp] parameters and EMA bit-identical on both ranks; checkpoints: rank 0 {ck0}, "
+          f"rank 1 {ck1}")
+    if not ck0 or ck1:
+        fail("(c) checkpoints were not written by rank 0 alone")
+
+    # the f32 DP step's gradient against the mean of the two micro-batches'
+    # gradients, taken in this process
+    module, forward, _, _ = train_model(device, **dict(
+        kw, pallas_layout=(*lay, PAD_NODES, MAX_CHUNKS), **F32))
+    from xequinet_torch.run.inference import batch_to_device
+
+    got = torch.load(os.path.join(tmp, "dp_grads.pt"))
+    sums, nudged = {}, {}
+    for r in range(2):
+        b = batch_to_device(dp_micro_batch(r, lay), device)
+        for acc, scale in ((sums, 1.0), (nudged, 1.0 + 1e-7)):
+            _, g = model_grads(module, forward, b, scale)
+            for n, v in g.items():
+                acc[n] = acc.get(n, 0) + v.cpu()
+    worst, worst_ratio = "", 0.0
+    for n, v in sums.items():
+        mean = v / 2
+        scale_n = max(float(mean.abs().max()), 1e-30)
+        limit = GRAD_TOL + GRAD_ULP_FACTOR * float((nudged[n] / 2 - mean).abs().max()) / scale_n
+        err = float((got[n] - mean).abs().max()) / scale_n
+        if err / limit > worst_ratio:
+            worst, worst_ratio = n, err / limit
+        if err > limit:
+            fail(f"(c) the f32 DP step's gradient of {n} differs from the mean by {err:.3e} of "
+                 f"its max (limit {limit:.3e})")
+    print(f"[dp] f32 make_dp_train_step (no clip): its gradient, from Adam's first moment, "
+          f"within its limit of the two micro-batches' mean taken in one process for every "
+          f"parameter, the closest {worst} at {worst_ratio:.3f} of it; phase 11 (c) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: v for k, v in counts.items()}
+
+
+def phase_profiling(dps, device, card, tmp, kw, lay):
+    """Phase 11 (d): ``utils/profiling.trace`` around two mega train steps,
+    each in an ``annotate`` range: the trace holds the annotate names and
+    (on the card) the three message kernels; ``device_memory_stats`` reads
+    the card."""
+    import json
+    import os
+    import re
+
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.run.inference import batch_to_device
+    from xequinet_torch.utils import profiling
+
+    card_run = device.type == "cuda"
+    module, forward, step, ema = train_model(device, **dict(kw, pallas_layout=(
+        *lay, PAD_NODES, MAX_CHUNKS)))
+    b = batch_to_device(collate(dps[:256], kernel_layout=layout(*lay)), device)
+    step(b, 0, 1.0, ema)
+    logdir = os.path.join(tmp, "trace")
+    with profiling.trace(logdir):
+        for i in (1, 2):
+            with profiling.annotate(f"xeq_train_step_{i}"):
+                step(b, i, 1.0, ema)
+        if card_run:
+            torch.cuda.synchronize()
+    with open(os.path.join(logdir, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: sorted(n for n in names if re.search(rf"\b{k}_[a-z0-9_]*kernel", n))[:2]
+             for k in MESSAGE_KERNELS}
+    mem = profiling.device_memory_stats()
+    print(f"[profile] trace.json: annotate ranges "
+          f"{sorted(n for n in names if n.startswith('xeq_train_step'))}; "
+          f"message kernels {found}; device_memory_stats {mem}")
+    if not {"xeq_train_step_1", "xeq_train_step_2"} <= names:
+        fail("(d) the trace lacks the annotate ranges")
+    if card_run and (not all(found.values()) or not mem
+                     or not all(v["limit_gb"] > 0 for v in mem.values())):
+        fail("(d) the trace lacks a message kernel, or no card's memory was read")
+
+
+def phase_11(dps, device, card, sizes):
+    """Phase 11: (a) determinism, (b) export, (c) data parallelism across
+    two processes, (d) profiling.  Returns each path's launches."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    kw, lay = sizes["kw"], sizes["layout"]
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        phase_determinism(dps, device, card, tmp, sizes["det"], kw, lay)
+        out["export_call"] = phase_export(dps, device, card, tmp, kw)
+        out["dp_train_step"] = phase_dp(device, card, tmp, sizes["dp"], kw, lay)
+        phase_profiling(dps, device, card, tmp, kw, lay)
+    print(f"[phase 11] in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -3117,7 +3889,7 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 and 7-10 at a tiny size on the CPU with the "
+                    help="run phases 3-5 and 7-11 at a tiny size on the CPU with the "
                          "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -3381,6 +4153,14 @@ def main():
         for path, counts in drivers.items():
             row[f"launches_{path}"] = counts.get(row["name"], 0)
 
+    # phase 11: determinism, export, data parallelism and profiling; each
+    # path's launches (per rank and train step, per exported call) stand
+    # beside each row's
+    p11 = phase_11(dps, device, card, P11_SIZES)
+    for row in rows:
+        for path, counts in p11.items():
+            row[f"launches_{path}"] = counts.get(row["name"], 0)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3466,6 +4246,9 @@ def rehearsal():
     phase_cli(dps, torch.device("cpu"), "CPU rehearsal, not a device result", CLI_REHEARSAL)
     print("[rehearsal] phase 10 (train, preemption, resume, test, infer, opt, md, i-PI through "
           "the command line) ran at a tiny size on the CPU (not a device result)")
+    phase_11(dps, torch.device("cpu"), "CPU rehearsal, not a device result", P11_REHEARSAL)
+    print("[rehearsal] phase 11 (determinism, export, data parallelism, profiling) ran at a "
+          "tiny size on the CPU (not a device result)")
 
 
 if __name__ == "__main__":

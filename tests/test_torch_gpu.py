@@ -891,3 +891,46 @@ def test_cuda_model_zoo_train_step_launches(cuda_device, cell):
     torch.cuda.synchronize()
     assert fm.LAUNCHES == _counts(**want)
     assert torch.isfinite(loss) and all(torch.isfinite(p).all() for p in params)
+
+
+@pytest.mark.gpu
+def test_cuda_exported_energy_program_matches_calculator(cuda_device, tmp_path):
+    """``export_model`` on the card (energy with the virial, 64 atoms, 2048
+    edges, an f32 XPaiNN checkpoint): the loaded program launches no
+    kernel and agrees with the plain Calculator on the card, energy 1e-4
+    relative, forces element-wise 3e-3 / 2e-4 of max |F| (max, 99th
+    percentile per atom; chip_smoke.py's F32_FORCE_TOL), virial 1e-3."""
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.interface.export import export_model, load_exported
+    from xequinet_torch.training.trainer import save_checkpoint
+
+    kw = dict(node_dim=32, node_irreps="32x0e+16x1o+8x2e", embed_basis="one-hot", num_basis=8,
+              action_blocks=2, output_modes=["energy"], cutoff=5.0)
+    module, _, _ = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    ckpt = str(tmp_path / "m.ckpt")
+    save_checkpoint(ckpt, module, {"model_name": "xpainn", "model_kwargs": kw,
+                                   "default_units": {}})
+    export_model(ckpt, str(tmp_path / "exp"), max_atoms=64, max_edges=2048)
+    program, manifest = load_exported(str(tmp_path / "exp"))
+    assert manifest["compute_virial"] and manifest["max_atoms"] == 64
+    rng = np.random.default_rng(8)
+    z = rng.integers(1, 9, 40).astype(np.int32)
+    pos = rng.normal(size=(40, 3)) * 2.5
+    ei, _ = radius_graph_np(pos, 5.0)
+    args = [np.zeros((64, 3), np.float32), np.zeros(64, np.int32),
+            np.zeros((2, 2048), np.int32), np.arange(2048) < ei.shape[1],
+            np.zeros(1, np.int32)]
+    args[0][:40], args[1][:40], args[2][:, :ei.shape[1]] = pos, z, ei
+    fm.reset_launch_counts()
+    e, f, v = program(*[torch.as_tensor(a, device=cuda_device) for a in args])
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == _counts()
+    ref = Calculator(ckpt, compute_virial=True, device=cuda_device).calculate(z, pos)
+    assert abs(float(e) - ref[keys.TOTAL_ENERGY]) <= 1e-4 * abs(ref[keys.TOTAL_ENERGY])
+    f = f.cpu().numpy()[:40]
+    scale = np.abs(ref[keys.FORCES]).max()
+    assert np.abs(f - ref[keys.FORCES]).max() <= 3e-3 * scale
+    assert np.quantile(np.linalg.norm(f - ref[keys.FORCES], axis=-1), 0.99) <= 2e-4 * scale
+    vw = ref[keys.VIRIAL]
+    assert np.abs(v.cpu().numpy() - vw).max() <= 1e-3 * np.abs(vw).max()

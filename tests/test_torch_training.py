@@ -577,18 +577,20 @@ def test_trainer_freezing_f32_switch_early_stop_and_jax_checkpoint(tmp_path, rng
 
 
 def test_run_train_refusals(tmp_path):
-    """Multi-device training raises (here through run_train_from_args and a
-    YAML config), and so does the default device without a card."""
+    """Halo training (gp_devices > 1) raises, naming the halo slice (here
+    also through run_train_from_args and a YAML config), and so does the
+    default device without a card.  Data-parallel training runs
+    (tests/test_torch_parallel.py)."""
     import argparse
 
     from xequinet_torch.run.train import run_train_from_args
 
-    (tmp_path / "c.yaml").write_text("trainer:\n  dp_devices: 2\n  device: cpu\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    (tmp_path / "c.yaml").write_text("trainer:\n  gp_devices: 2\n  device: cpu\n")
+    with pytest.raises(NotImplementedError, match="halo"):
         run_train_from_args(argparse.Namespace(config=str(tmp_path / "c.yaml")))
     cfg = XequiConfig()
     cfg.trainer.gp_devices = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(NotImplementedError, match="halo"):
         run_train(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

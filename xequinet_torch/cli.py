@@ -2,11 +2,12 @@
 
 The subcommands and flags of the JAX package's ``xeq``
 (``xequinet_tpu/cli.py``), dispatched to the port's drivers, plus
-``--device`` on ``infer``, ``test`` and ``opt``.  Every subcommand runs
-on the card unless the CPU is asked for (``--device cpu``; for ``train``
-and ``md`` in the config: ``trainer.device`` / ``device``); without a
-card it raises.  ``export`` parses its flags and raises: it is not
-ported yet (ROADMAP item 6).
+``--device`` on ``infer``, ``test``, ``opt`` and ``export`` and
+``--no-virial`` on ``export``.  Every subcommand runs on the card unless
+the CPU is asked for (``--device cpu``; for ``train`` and ``md`` in the
+config: ``trainer.device`` / ``device``); without a card it raises.
+``train`` runs data-parallel across processes when launched by
+``torchrun`` with ``trainer.dp_devices`` > 1 (``run/train.py``).
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_md = sub.add_parser("md", help="molecular dynamics")
     p_md.add_argument("--config", "-C", default="md.yaml")
 
-    p_export = sub.add_parser("export", help="export a model for deployment (not ported)")
+    p_export = sub.add_parser("export", help="export a model for deployment (torch.export)")
     p_export.add_argument("--ckpt", "-c", required=True)
     p_export.add_argument("--output", "-out", dest="output", required=True)
     p_export.add_argument("--max-atoms", type=int, default=256)
@@ -94,6 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
                           help="bake a fixed total charge into the export")
     p_export.add_argument("--max-reps", type=int, default=1,
                           help="gmx mode: static cell-image replication bound")
+    p_export.add_argument("--no-virial", action="store_true",
+                          help="energy mode: energy and forces only")
+    _device_flag(p_export)
     return parser
 
 
@@ -120,9 +124,9 @@ def main(argv=None) -> int:
 
         run_md_from_args(args)
     elif args.task == "export":
-        raise NotImplementedError(
-            "export is not ported yet (ROADMAP item 6: custom ops through torch.library for "
-            "torch.export)")
+        from .interface.export import run_export_from_args
+
+        run_export_from_args(args)
     return 0
 
 

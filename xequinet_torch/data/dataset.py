@@ -10,7 +10,7 @@ seed the loader yields the JAX loader's batches bit for bit.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -71,8 +71,9 @@ class DataLoader:
     equivalent of the reference's DistributedSampler+DataLoader pair,
     run/train.py:100-129, re-designed for static shapes).  Graphs larger
     than the whole capacity are skipped and counted in ``.n_dropped``.
-    Training is single-device, so there is no per-process shard; arrays
-    are float32.
+    ``process_shard`` = (rank, world): each process iterates a disjoint
+    strided slice of the same seeded permutation (the DistributedSampler
+    equivalent).  Arrays are float32.
     """
 
     def __init__(
@@ -82,6 +83,7 @@ class DataLoader:
         capacities: Optional[Dict[str, int]] = None,
         shuffle: bool = False,
         seed: int = 0,
+        process_shard: Optional[Tuple[int, int]] = None,
         kernel_layout: Optional[Dict[str, int]] = None,
         prefetch: int = 0,
     ) -> None:
@@ -105,6 +107,7 @@ class DataLoader:
         self.seed = seed
         self.epoch = 0
         self.n_dropped = 0
+        self.process_shard = process_shard
         # >0: collate batches in a background thread with a bounded
         # queue, overlapping host batch prep with the device step (the
         # reference's DataLoader num_workers analogue; numpy releases
@@ -172,6 +175,9 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(order)
+        if self.process_shard is not None:
+            rank, world = self.process_shard
+            order = order[rank::world]
         cap_n, cap_e, cap_g = (
             self.caps["n_nodes"],
             self.caps["n_edges"],
@@ -214,7 +220,10 @@ class DataLoader:
 
     def __len__(self) -> int:
         # upper-bound estimate (exact count depends on packing)
-        return max(1, math.ceil(len(self.dataset) / self.batch_size))
+        n = len(self.dataset)
+        if self.process_shard is not None:
+            n = math.ceil(n / self.process_shard[1])
+        return max(1, math.ceil(n / self.batch_size))
 
 
 def calculate_stats(

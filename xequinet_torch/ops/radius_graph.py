@@ -1,10 +1,10 @@
 """Cutoff radius graphs, with and without PBC.
 
-Port of ``xequinet_tpu/ops/radius_graph.py:33-196``: the host searches
-(numpy; the O(N) C++ cell lists of ``ops/native.py`` when ``g++`` builds
-them, O(N^2) numpy otherwise) and the fixed-capacity device search of
-the free Calculator (``radius_graph_fixed``, plain torch on the
-Calculator's device).  Convention: edge (center i, neighbor j) for every
+Port of ``xequinet_tpu/ops/radius_graph.py``: the host searches (numpy;
+the O(N) C++ cell lists of ``ops/native.py`` when ``g++`` builds them,
+O(N^2) numpy otherwise) and the fixed-capacity device searches of the
+free Calculator (``radius_graph_fixed``) and of the ``gmx`` export
+(``radius_graph_pbc_fixed``), plain torch on the caller's device.  Convention: edge (center i, neighbor j) for every
 ordered pair with 0 < |r_i - r_j - offset @ cell| < cutoff, so
 vectors = pos[center] - pos[neighbor] - offsets @ cell.
 """
@@ -144,3 +144,64 @@ def radius_graph_fixed(
     center = torch.where(edge_mask, center, last)
     neighbor = torch.where(edge_mask, neighbor, last)
     return torch.stack([center, neighbor]).to(torch.int32), edge_mask, n_found
+
+
+def radius_graph_pbc_fixed(
+    pos: torch.Tensor,
+    cell: torch.Tensor,
+    pbc: torch.Tensor,
+    cutoff: float,
+    max_edges: int,
+    max_reps: int = 1,
+    node_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Periodic neighbour search on the device with static capacities, the
+    in-graph list of the ``gmx`` export (port of
+    ``xequinet_tpu/ops/radius_graph.py:199``).
+
+    The image grid is static, every offset in [-max_reps, max_reps]^3; an
+    image is active where its offset is within the replication the cell
+    needs (ceil(cutoff / plane distance) per periodic axis, 0 elsewhere).
+    Images past the grid are not generated, so both overflows are
+    returned: ``n_edges_found > max_edges`` and ``needed_reps > max_reps``.
+    No data-dependent shape: the [N, N, n_img] mask is compacted by a
+    stable sort of its negation.  Returns (edge_index [2, E] int32,
+    edge_mask [E], cell_offsets [E, 3] in pos's dtype, n_edges_found [],
+    needed_reps [3] int32) with E = min(max_edges, N^2 n_img), center-major;
+    padding edges point at node N - 1."""
+    n = pos.shape[0]
+    vol = torch.linalg.det(cell).abs()
+    crosses = torch.stack([torch.linalg.cross(cell[1], cell[2]),
+                           torch.linalg.cross(cell[2], cell[0]),
+                           torch.linalg.cross(cell[0], cell[1])])
+    plane_d = vol / torch.linalg.vector_norm(crosses, dim=-1)
+    needed = torch.where(pbc, torch.ceil(cutoff / plane_d).to(torch.int32),
+                         torch.zeros(3, dtype=torch.int32, device=pos.device))
+
+    r = np.arange(-max_reps, max_reps + 1)
+    offsets = np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1).reshape(-1, 3)
+    n_img = offsets.shape[0]
+    offsets_t = torch.as_tensor(offsets, dtype=torch.int32, device=pos.device)
+    img_active = (offsets_t.abs() <= needed[None, :]).all(dim=-1)
+
+    shift_vecs = offsets_t.to(pos.dtype) @ cell  # [n_img, 3]
+    d = pos[:, None, None, :] - pos[None, :, None, :] - shift_vecs[None, None, :, :]
+    dist2 = (d * d).sum(-1)
+    valid = (dist2 < cutoff * cutoff) & (dist2 > 1e-8) & img_active[None, None, :]
+    if node_mask is not None:
+        valid = valid & node_mask[:, None, None] & node_mask[None, :, None]
+    flat = valid.reshape(-1)
+    n_found = flat.sum(dtype=torch.int32)
+    order = torch.argsort((~flat).to(torch.int32), stable=True)[:max_edges]
+    center = order // (n * n_img)
+    rem = order % (n * n_img)
+    neighbor = rem // n_img
+    img = rem % n_img
+    edge_mask = flat.index_select(0, order)
+    last = torch.full_like(center, n - 1)
+    center = torch.where(edge_mask, center, last)
+    neighbor = torch.where(edge_mask, neighbor, last)
+    cell_offsets = torch.where(edge_mask[:, None], offsets_t.index_select(0, img),
+                               torch.zeros_like(offsets_t[:1])).to(pos.dtype)
+    return (torch.stack([center, neighbor]).to(torch.int32), edge_mask, cell_offsets,
+            n_found, needed)

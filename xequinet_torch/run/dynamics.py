@@ -624,7 +624,8 @@ def run_md(config: MDConfig, logger=None) -> MDState:
     set_matmul_precision(config.matmul_precision)
     if config.halo_devices and config.halo_devices > 1:
         raise NotImplementedError(
-            "halo_devices > 1 (one system over several devices) is not ported yet")
+            "halo_devices > 1 (one system over several devices) is not ported yet; it is the "
+            "next slice of the port (parallel/halo.py)")
     calc = Calculator(config.model_file, compute_virial=needs_virial,
                       pallas=config.pallas, skin=config.skin,
                       matmul_precision=config.matmul_precision, device=config.device)

@@ -1,16 +1,24 @@
 """Training entry point: config -> units -> datasets + transforms -> loaders ->
 energy statistics -> model -> Trainer.
 
-Port of ``xequinet_tpu/run/train.py:38-60, 439-556`` on one device.  It
-runs on the card unless the config (``trainer.device``) or the caller
-asks for the CPU; without a card it raises.  Data-parallel
-(``dp_devices > 1``) and halo (``gp_devices > 1``) training come with
-ROADMAP item 6 and raise.
+Port of ``xequinet_tpu/run/train.py:38-85, 439-556``.  It runs on the
+card unless the config (``trainer.device``) or the caller asks for the
+CPU; without a card it raises.
+
+Data parallelism: launched as several processes by torchrun (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; NCCL with one card per
+process, gloo on the CPU) or inside a process group the caller made,
+with ``trainer.dp_devices`` 0 (the whole group) or the group's size,
+every process trains on its own shard of the dataset with the global
+batch divided over the processes, the gradients all-reduced and rank 0
+writing the checkpoints (``parallel/``).  Halo training (``gp_devices >
+1``) is the next slice of the port and raises.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 
@@ -48,17 +56,36 @@ def build_datasets(config: XequiConfig):
     return mk("train"), mk("valid"), mk("test")
 
 
+def _resolve_replicas(tc, dev) -> int:
+    """The number of data-parallel processes: the process group's size (1
+    without one).  ``dp_devices`` is 0 or that size; above it the driver
+    warns and trains on the group (the JAX driver's clamp), below it (a
+    part of the group) it refuses."""
+    from ..parallel.mesh import maybe_init_distributed, world_size
+
+    maybe_init_distributed(dev)
+    avail = world_size()
+    n = tc.dp_devices if tc.dp_devices > 0 else avail
+    if n > avail:
+        warnings.warn(f"dp_devices={n} requested but the process group has {avail} "
+                      f"process(es); training on {avail}.")
+        n = avail
+    if n != avail:
+        raise ValueError(f"dp_devices={n} inside a process group of {avail}: launch "
+                         f"{n} processes (or set dp_devices 0)")
+    return n
+
+
 def run_train(config: XequiConfig, logger=None, device=None) -> Trainer:
     """Train as the config says; returns the Trainer after its last epoch.
     ``device`` (or ``trainer.device``): None = the card."""
     tc, dc, mc = config.trainer, config.data, config.model
-    for name in ("dp_devices", "gp_devices"):
-        if getattr(tc, name) and getattr(tc, name) > 1:
-            raise NotImplementedError(
-                f"{name}={getattr(tc, name)}: multi-device training is not ported "
-                "yet (ROADMAP item 6); the port trains on one device"
-            )
+    if tc.gp_devices and tc.gp_devices > 1:
+        raise NotImplementedError(
+            f"gp_devices={tc.gp_devices}: halo training (spatial decomposition) is not "
+            "ported yet; it is the next slice of the port (parallel/halo.py)")
     dev = resolve_device(device if device is not None else tc.device)
+    n_replicas = _resolve_replicas(tc, dev)
     logger = logger or ZeroLogger(os.path.join(tc.save_dir, tc.log_file))
     if tc.seed is not None:
         np.random.seed(tc.seed)
@@ -68,18 +95,33 @@ def run_train(config: XequiConfig, logger=None, device=None) -> Trainer:
     train_set, valid_set, _ = build_datasets(config)
     logger.info(f"datasets: train={len(train_set)} valid={len(valid_set)} on {dev}")
 
+    # the global batch divided over the processes, each on its own shard
+    local_bs = max(1, dc.batch_size // n_replicas)
+    local_valid_bs = max(1, dc.valid_batch_size // n_replicas)
+    shard = None
+    if n_replicas > 1:
+        from ..parallel.mesh import rank
+
+        shard = (rank(), n_replicas)
     caps = None
     if dc.max_nodes and dc.max_edges:
-        caps = {"n_nodes": dc.max_nodes, "n_edges": dc.max_edges,
-                "n_graphs": dc.batch_size + 1}
+        caps = {"n_nodes": dc.max_nodes, "n_edges": dc.max_edges, "n_graphs": local_bs + 1}
     # kernel routes (v2, mega): the loaders emit the block-aligned slot
     # layout with a fixed slot capacity
     kernel_layout = kernel_layout_from_model_kwargs(mc.model_kwargs)
-    train_loader = DataLoader(train_set, dc.batch_size, capacities=caps, shuffle=True,
-                              seed=tc.seed or 0, kernel_layout=kernel_layout, prefetch=2)
-    valid_loader = DataLoader(valid_set, dc.valid_batch_size, capacities=train_loader.caps,
-                              kernel_layout=kernel_layout)
+    train_loader = DataLoader(train_set, local_bs, capacities=caps, shuffle=True,
+                              seed=tc.seed or 0, process_shard=shard,
+                              kernel_layout=kernel_layout, prefetch=2)
+    valid_loader = DataLoader(valid_set, local_valid_bs, capacities=train_loader.caps,
+                              process_shard=shard, kernel_layout=kernel_layout)
     logger.info(f"padded capacities: {train_loader.caps}")
+    if n_replicas > 1:
+        from ..parallel.data_parallel import ReplicaBatcher
+
+        logger.info(f"data parallel: {n_replicas} processes, local batch {local_bs} (global "
+                    f"{dc.batch_size})")
+        train_loader = ReplicaBatcher(train_loader)
+        valid_loader = ReplicaBatcher(valid_loader)
 
     # node shift / scale from the training statistics
     model_kwargs = dict(mc.model_kwargs)

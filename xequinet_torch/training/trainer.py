@@ -1,12 +1,12 @@
 """The Trainer: train / validation steps, EMA, best-k checkpoints, early
 stopping, plateau scheduling, resume.
 
-Port of ``xequinet_tpu/training/trainer.py:42-154, 163-214, 220-651`` on
-one device.  A train step (forward with forces by autodiff, the weighted
-loss, the parameter gradient through the force loss, the clip, the
-optimizer update, the EMA) is :func:`make_step_core`; on the card a
-force loss runs the message blocks' forward, backward and second-order
-kernels.  Host code orchestrates epochs, logging and checkpoints.
+Port of ``xequinet_tpu/training/trainer.py:42-154, 163-214, 220-651``,
+on one device per process.  A train step (forward with forces by
+autodiff, the weighted loss, the parameter gradient through the force
+loss, the clip, the optimizer update, the EMA) is :func:`make_step_core`;
+on the card a force loss runs the message blocks' forward, backward and
+second-order kernels.  Host code orchestrates epochs, logging and checkpoints.
 
 Checkpoints are pickles with the JAX trainer's keys (``model``,
 ``ema_model``, ``opt_state``, ``config``, ``epoch``, ``loss``,
@@ -16,6 +16,13 @@ its flax msgpack blobs; the JAX trainer's checkpoints load here too
 and update count (``convert.optax_adam_state``).  While :meth:`Trainer.start`
 runs, SIGTERM and SIGINT write a resumable last checkpoint and exit with
 128 + the signal number (the JAX trainer's preemption handler).
+
+In a process group of more than one process (``parallel/mesh.py``) the
+steps all-reduce gradients and metric sums (``parallel/data_parallel.py``),
+rank 0's weights are broadcast at the start, and only rank 0 writes
+checkpoints (its logger is the only one that writes, too).  A signal that
+reaches one rank is exchanged with the others, so every rank stops at the
+same step and rank 0 writes the preemption checkpoint.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from .. import keys
 from ..convert import load_checkpoint, load_params, optax_adam_state
 from ..models.model import resolve_model
 from ..models.properties import make_forward
+from ..parallel.mesh import rank, world_size
 from ..run.inference import batch_to_device
 from ..utils.config import XequiConfig, config_to_dict
 from ..utils.logger import StepTimer
@@ -114,19 +122,27 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], clip: float) -> None:
 def make_step_core(forward: Callable, lossfn: WeightedLoss, params: Sequence[nn.Parameter],
                    optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
                    compute_forces: bool, compute_virial: bool, grad_clip: Optional[float],
-                   ema_decay: Optional[float], metric: ErrorMetric):
+                   ema_decay: Optional[float], metric: ErrorMetric,
+                   grad_reduce: Optional[Callable] = None,
+                   metric_reduce: Optional[Callable] = None):
     """``step_core(batch, step, lr_scale, ema_params) -> (loss, metrics)``
     (trainer.py:98-154): the gradient over every parameter (the clip's
     global norm includes frozen ones, as in the JAX package), the
     optimizer (holding only the trainable ones) at the learning rate
     ``schedule(step) * lr_scale``, then ``e = d e + (1 - d) p`` on the
-    separate EMA copy."""
+    separate EMA copy.  ``grad_reduce`` (in place, on the gradients and
+    the loss) and ``metric_reduce`` are the data-parallel hooks
+    (``parallel/data_parallel.py``)."""
     params = list(params)
 
     def step_core(batch: DataDict, step: int, lr_scale: float = 1.0,
                   ema_params: Optional[List[torch.Tensor]] = None):
         loss, _, out, grads = loss_and_grads(forward, lossfn, params, batch,
                                              compute_forces, compute_virial)
+        if grad_reduce is not None:
+            loss = loss.detach().reshape(1)
+            grad_reduce(grads + [loss])
+            loss = loss[0]
         if grad_clip is not None:
             clip_by_global_norm(grads, grad_clip)
         for p, g in zip(params, grads):
@@ -146,15 +162,18 @@ def make_step_core(forward: Callable, lossfn: WeightedLoss, params: Sequence[nn.
         with torch.no_grad():
             metrics = metric({k: v.detach() for k, v in out.items() if torch.is_tensor(v)},
                              batch)
+        if metric_reduce is not None:
+            metrics = metric_reduce(metrics)
         return loss.detach(), metrics
 
     return step_core
 
 
 def make_eval_step(forward: Callable, compute_forces: bool, compute_virial: bool,
-                   metric: ErrorMetric):
+                   metric: ErrorMetric, metric_reduce: Optional[Callable] = None):
     def eval_fn(batch: DataDict):
-        return metric(forward(batch, compute_forces, compute_virial), batch)
+        metrics = metric(forward(batch, compute_forces, compute_virial), batch)
+        return metrics if metric_reduce is None else metric_reduce(metrics)
 
     return eval_fn
 
@@ -227,6 +246,9 @@ class Trainer:
         self.tc = tc
         self.logger = logger
         self.device = torch.device(device)
+        # data parallel across the process group; only rank 0 writes
+        self.world_size = world_size()
+        self.is_main_process = rank() == 0
         self.train_loader = train_loader
         self.valid_loader = valid_loader
         self.extra = extra
@@ -279,6 +301,13 @@ class Trainer:
                 load_params(self.module, load_checkpoint(tc.ckpt_file)["model"])
                 if self.ema_module is not None:
                     self.ema_module.load_state_dict(self.module.state_dict())
+        if self.world_size > 1:
+            from ..parallel.data_parallel import replicate
+
+            replicate([self.module, self.ema_module])
+            if hasattr(train_loader, "stop_request"):
+                # a preemption is acted on at one round on every rank
+                train_loader.stop_request = lambda: self._preempt_signal or 0
 
     # ------------------------------------------------------------------
     def _ema_params(self) -> Optional[List[torch.Tensor]]:
@@ -291,14 +320,20 @@ class Trainer:
         at init and after the late f32 switch."""
         tc = self.tc
         self.forward = make_forward(self.module, self.extra, create_graph=True)
-        self.train_step = make_step_core(
-            self.forward, self.lossfn, self.params, self.optimizer, self.schedule,
-            self.compute_forces, self.compute_virial, tc.grad_clip, tc.ema_decay,
-            self.metric,
-        )
+        args = (self.forward, self.lossfn, self.params, self.optimizer, self.schedule,
+                self.compute_forces, self.compute_virial, tc.grad_clip, tc.ema_decay,
+                self.metric)
         eval_module = self.ema_module if self.ema_module is not None else self.module
-        self.eval_step = make_eval_step(make_forward(eval_module, self.extra),
-                                        self.compute_forces, self.compute_virial, self.metric)
+        eval_args = (make_forward(eval_module, self.extra), self.compute_forces,
+                     self.compute_virial, self.metric)
+        grad_reduce = metric_reduce = None
+        if self.world_size > 1:
+            from ..parallel.data_parallel import all_reduce_mean_, all_reduce_metrics
+
+            grad_reduce, metric_reduce = all_reduce_mean_, all_reduce_metrics
+        self.train_step = make_step_core(*args, grad_reduce=grad_reduce,
+                                         metric_reduce=metric_reduce)
+        self.eval_step = make_eval_step(*eval_args, metric_reduce=metric_reduce)
 
     def _maybe_switch_to_f32(self, epoch: int) -> None:
         """The last ``f32_finetune_epochs`` epochs run with float32 compute
@@ -346,7 +381,7 @@ class Trainer:
                                                 self._ema_params())
                 self.step_timer.stop()
                 self.step += 1
-                if self._preempt_signal is not None:
+                if self._preempt_signal is not None and self.world_size == 1:
                     # a step boundary: the optimizer step and the EMA are whole
                     self._save_preemption_and_exit(self._preempt_signal)
                 if (step + 1) % self.tc.log_steps == 0:
@@ -356,6 +391,10 @@ class Trainer:
                     acc.reset()
         finally:
             self._in_train_loop = False
+        # data parallel: every rank left the loop at the round where one had
+        # a signal pending (ReplicaBatcher), so all stop at the same step
+        if getattr(self.train_loader, "stop_signal", 0):
+            self._save_preemption_and_exit(self.train_loader.stop_signal)
         return float("nan") if loss is None else float(loss)
 
     def validate(self) -> Dict[str, Dict[str, float]]:
@@ -379,6 +418,8 @@ class Trainer:
         }
 
     def save_best_k(self, val_mae: float) -> None:
+        if not self.is_main_process:
+            return
         tc = self.tc
         fname = os.path.join(tc.save_dir, f"{tc.run_name}_ep{self.epoch}_{val_mae:.6f}.ckpt")
         entry = (-val_mae, fname)
@@ -394,6 +435,8 @@ class Trainer:
                         ema_module=self.ema_module, epoch=self.epoch, loss=val_mae)
 
     def save_last(self, val_mae: float) -> None:
+        if not self.is_main_process:
+            return
         save_checkpoint(os.path.join(self.tc.save_dir, f"{self.tc.run_name}_last.ckpt"),
                         self.module, config_to_dict(self.config.model),
                         ema_module=self.ema_module, optimizer=self.optimizer,
@@ -474,15 +517,18 @@ class Trainer:
         tensors that ``optimizer.step()`` updates in place, so the handler
         (which runs between bytecodes) only sets a flag there and the loop
         saves at the next step boundary; outside it (validation,
-        checkpointing, between epochs) it saves at once.  A second signal
-        exits without saving.  Outside the main thread nothing is
-        installed.  Returns the handlers it replaced."""
+        checkpointing, between epochs) it saves at once.  In a process
+        group the signal reaches one rank, so a rank only sets the flag and
+        every rank acts on it together: at the next step boundary (the
+        ReplicaBatcher's round) or at the end of the epoch, where rank 0
+        saves.  A second signal exits without saving.  Outside the main
+        thread nothing is installed.  Returns the handlers it replaced."""
 
         def handler(signum, frame):
             if self._preempt_signal is not None:
                 raise SystemExit(128 + signum)
             self._preempt_signal = signum
-            if not self._in_train_loop:
+            if not self._in_train_loop and self.world_size == 1:
                 self._save_preemption_and_exit(signum)
 
         previous = {}
@@ -523,6 +569,12 @@ class Trainer:
             self.save_last(val_mae)
             if self.plateau is not None:
                 self.lr_scale = self.plateau.step(val_mae)
+            if self.world_size > 1:
+                from ..parallel.data_parallel import agreed_signal
+
+                signum = agreed_signal(self._preempt_signal or 0)
+                if signum:
+                    self._save_preemption_and_exit(signum)
             if self.stopper.step({p: r["mae"] for p, r in results.items()}):
                 self._log(f"early stopping at epoch {epoch}")
                 break

@@ -1,8 +1,9 @@
 """Logging and step timing.
 
 Copy of ``xequinet_tpu/utils/logger.py`` (``ZeroLogger``) and of
-``StepTimer`` from ``xequinet_tpu/utils/profiling.py:37-66``.  The port
-trains on one process, so the logger always writes.
+``StepTimer`` from ``xequinet_tpu/utils/profiling.py:37-66``.  In a
+process group only rank 0 logs; the other ranks get a logger that
+drops everything.
 """
 
 from __future__ import annotations
@@ -14,8 +15,17 @@ import time
 from typing import Dict, List, Optional
 
 
+class _NoOpLogger:
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
 def ZeroLogger(log_file: Optional[str] = None, name: str = "xequinet",
-               level: int = logging.INFO) -> logging.Logger:
+               level: int = logging.INFO):
+    from ..parallel.mesh import rank
+
+    if rank() != 0:
+        return _NoOpLogger()
     logger = logging.getLogger(name)
     logger.setLevel(level)
     for h in list(logger.handlers):
