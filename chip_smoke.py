@@ -5,7 +5,7 @@
                                            # train step of each route with
                                            # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
-                                           # and 7-11 with the plain versions
+                                           # and 7-12 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -165,9 +165,31 @@ Phases (any failed check exits non-zero):
      step's and the all-reduce's ms; (d) utils/profiling.trace around two
      mega train steps holds the annotate names and the three message
      kernels, and device_memory_stats reads the card.
+ 12. one large system over four ranks (spawned, one gloo group on the one
+     card; the exchanges stage their rows through the host), seed-0
+     weights of phase 7's model: the message kernels against their plain
+     versions on shard 0's halo layout of phase 7's box, and their times;
+     (a) HaloCalculator(pallas="mega") on phase 7's 10,000-atom box and
+     4,000-atom chain against the single-process Calculator (bf16:
+     energy and mean |F| 2e-2; f32 on the 2^-10 A grid: 1e-4, forces
+     element-wise F32_FORCE_TOL plus twice the references' own spreads),
+     3 + 3 launches per rank and call, each call's host partition,
+     forward and forces (host clock and CUDA events), exchanges and
+     all-gather timed beside the single-process Calculator's ms; (b)
+     run_md with halo_devices 4, 20 NVE steps on the chain, replicas bit
+     for bit and against the single-process run_md (1e-4 A), the
+     trajectory from rank 0 alone; (c) run_halo_train with gp 2 x dp 2
+     on six 2,000-atom boxes (3 + 6 + 3 launches per rank and step, a
+     falling loss, rank-0 checkpoints), one f32 make_halo_train_step's
+     mean gradient against the single-process gradient of the same loss
+     (phase 6's limit), XPaiNN-Ewald with a charge against the
+     single-process Calculator; (d) the edge partition (plain f32 route,
+     nodes replicated) of the box: energy, forces and virial against one
+     process; (e) the same with NCCL, one card per rank, when the machine
+     has four cards (else "nccl_multi_card: not run").
 Then one JSON line with the kernels (each with its launches per MD call
-and per phase 8, 9, 10 and 11 path too), the card line, and last the
-device JSON line.
+and per phase 8, 9, 10, 11 and 12 path too, and its times on the halo
+layout), the card line, and last the device JSON line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -306,7 +328,8 @@ def message_problem(batch, device, seed=7, bn=BN, chunk=CHUNK, widths=None):
     return dict(x_cat=tt(x_cat), ef=ef.contiguous(), wf=tt(wf), g=tt(g), cx=tt(cx),
                 cef=tt(cef), cwf=tt(cwf),
                 slot_meta=slot_meta + (plan,), edge_mask=b[keys.EDGE_MASK], n_out=n,
-                n_atoms=int(batch[keys.NODE_MASK].sum()), statics=(irreps, nb, nd))
+                n_atoms=int(batch[keys.NODE_MASK].sum()), statics=(irreps, nb, nd),
+                bn=bn, chunk=chunk)
 
 
 def plain_fwd(p, mm):
@@ -330,14 +353,14 @@ def kernel_fwd(p, mm):
     from xequinet_torch.ops import fused_message as fm
 
     return (fm.message_fwd_cuda(p["x_cat"], p["ef"], p["wf"], p["slot_meta"], *p["statics"],
-                                p["n_out"], BN, CHUNK, mm),)
+                                p["n_out"], p["bn"], p["chunk"], mm),)
 
 
 def kernel_bwd(p, mm):
     from xequinet_torch.ops import fused_message as fm
 
     return fm.message_bwd_cuda(p["x_cat"], p["ef"], p["wf"], p["g"], p["slot_meta"],
-                               *p["statics"], p["n_out"], BN, CHUNK, mm)
+                               *p["statics"], p["n_out"], p["bn"], p["chunk"], mm)
 
 
 def plain_bwd2(p, mm, cwf=None):
@@ -353,8 +376,8 @@ def kernel_bwd2(p, mm, cwf=None):
     from xequinet_torch.ops import fused_message as fm
 
     return fm.message_bwd2_cuda(p["x_cat"], p["ef"], p["wf"], p["g"], p["cx"], p["cef"],
-                                cwf, p["slot_meta"], *p["statics"], p["n_out"], BN, CHUNK,
-                                mm)
+                                cwf, p["slot_meta"], *p["statics"], p["n_out"], p["bn"],
+                                p["chunk"], mm)
 
 
 # the message kernels' outputs, by name, as each wrapper returns them
@@ -3882,6 +3905,739 @@ def phase_11(dps, device, card, sizes):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: one large system split over several ranks
+# ---------------------------------------------------------------------------
+# sizes on the card: phase 7's 10,000-atom box and 4,000-atom chain over 4
+# ranks; run_md's steps; run_halo_train's boxes (gp 2 x dp 2), epochs and rate;
+# the box of the f32 gradient and the Ewald check.  The training rate: the
+# energy term grows as the square of the atoms, and on 2,000-atom boxes
+# AdamW's first step at 3e-4 overshoots (the loss 1.5e4 -> 3.3e6, then
+# up and down); at 3e-6 it falls step by step (PERF.md, phase 12)
+H12_SIZES = dict(ranks=4, n_box=10000, n_free=4000, md_steps=20, n_train_atoms=2000,
+                 n_train=4, n_valid=2, epochs=3, lr=3e-6, n_small=2000, calls=3,
+                 timeout=900, kw={})
+H12_REHEARSAL = dict(ranks=4, n_box=600, n_free=700, md_steps=4, n_train_atoms=400,
+                     n_train=4, n_valid=2, epochs=2, lr=3e-4, n_small=400, calls=1,
+                     timeout=600, kw=MD_REHEARSAL["kw"])
+# the halo calculators' kernel layout (HaloCalculator's default, the JAX
+# package's): block_nodes min(256, n_local), chunk 1024
+H12_LAYOUT = (256, 1024)
+H12_WEIGHTS = (1.0, 10.0)
+
+
+def h12_box(n, seed):
+    """md_box(n) moved by 0.05 A of noise from ``seed`` (seed 0: md_box
+    itself): the training set's boxes."""
+    z, pos, cell, pbc, _ = md_box(n)
+    if seed:
+        pos = pos + np.random.default_rng(seed).normal(size=pos.shape) * 0.05
+    return z, pos, cell, pbc
+
+
+def h12_labels(n, perm=None):
+    """The f32 gradient check's labels: energy 0, forces from seed 12 (in
+    input order, or sorted by ``perm``)."""
+    f = (np.random.default_rng(12).normal(size=(n, 3)) * 0.1).astype(np.float32)
+    return 0.0, (f if perm is None else f[perm])
+
+
+def _h12_rank(rank, port, tmp, sizes, device_type, backend):
+    """One rank of phase 12, in a spawned process: a group of ``ranks``
+    (gloo on the one card, or NCCL with one card per rank).  Runs (a) the
+    HaloCalculator on the box and the chain, (b) run_md with halo_devices,
+    (c) run_halo_train (gp 2 x dp 2), one f32 make_halo_train_step and the
+    Ewald model with a charge, (d) the edge partition; writes its record
+    to ``tmp/h12_<backend>_<rank>.json`` and (rank 0) the arrays to
+    ``tmp/h12_<backend>.npz``.  With NCCL only (a) runs."""
+    import hashlib
+    import os
+
+    import torch.distributed as dist
+
+    from xequinet_torch import keys
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.ops import scatter as sc
+    from xequinet_torch.parallel import halo as hm
+
+    card_run = device_type == "cuda"
+    # the host's cores shared by the ranks; f32 without TF32, as in main()
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    world = sizes["ranks"]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    dev = torch.device("cuda", torch.cuda.current_device()) if card_run else torch.device("cpu")
+    sync = torch.cuda.synchronize if card_run else (lambda: None)
+    digest = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    rec, arrays = {"transport": None}, {}
+    ck = {k: os.path.join(tmp, f"h12_{k}.ckpt") for k in ("bf16", "f32", "ewald", "plain")}
+
+    # (a) forward and forces: the parts of each call timed, launches counted
+    def call(calc, z, pos, sys_kw, tag, n_calls):
+        samples = []
+        for i in range(n_calls):
+            cuda_build.reset_launch_counts()
+            sc.reset_exchange_stats()
+            sync()
+            t0 = time.perf_counter()
+            stacked, geom, perm, ws = calc.prepare(z, pos, **sys_kw)
+            t1 = time.perf_counter()
+            if card_run:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            e, f_local = calc.run(stacked, geom, ws, "cell" in sys_kw)
+            if card_run:
+                ev[1].record()
+            sync()
+            t2 = time.perf_counter()
+            stats = dict(sc.EXCHANGE_STATS)
+            launches = dict(cuda_build.LAUNCHES)
+            forces = calc.gather(f_local, stacked, geom, perm)
+            t3 = time.perf_counter()
+            samples.append({"prep_ms": (t1 - t0) * 1e3, "run_ms": (t2 - t1) * 1e3,
+                            "device_ms": ev[0].elapsed_time(ev[1]) if card_run else None,
+                            "gather_ms": (t3 - t2) * 1e3, "total_ms": (t3 - t0) * 1e3,
+                            "exchange_ms": stats["seconds"] * 1e3,
+                            "exchanges": stats["calls"], "exchange_bytes": stats["bytes"],
+                            "launches": launches, "energy": float(e)})
+            rec["transport"] = stats["transport"]
+            arrays[f"{tag}_{i}"] = forces
+            rec.setdefault("digests", {})[f"{tag}_{i}"] = digest(forces)
+        rec.setdefault("geom", {})[tag] = {k: int(v) for k, v in geom.items()} | {
+            "edge_cap": int(calc._edge_cap), "slot_cap": calc._slot_cap,
+            "max_chunks": calc._mxc,
+            "real_edges": [int(x) for x in stacked[keys.EDGE_MASK].sum(1)]}
+        rec.setdefault("calls", {})[tag] = samples
+
+    t0 = time.perf_counter()
+    zb, posb, cell, pbc = h12_box(sizes["n_box"], 0)
+    box = dict(cell=cell, pbc=pbc)
+    zc, posc = md_free_chain(sizes["n_free"])
+    dev_arg = device_type
+    for label in ("bf16", "f32"):
+        calc = hm.HaloCalculator(ck[label], pallas="mega", pallas_layout=H12_LAYOUT,
+                                 device=dev_arg)
+        grid = label == "f32"
+        pb = np.round(posb / MD_GRID) * MD_GRID if grid else posb
+        pc = np.round(posc / MD_GRID) * MD_GRID if grid else posc
+        # the first call builds the model: not timed
+        call(calc, zb, pb, box, f"box_{label}_warm", 1)
+        call(calc, zb, pb, box, f"box_{label}", 1 + (sizes["calls"] if label == "bf16" else 1))
+        call(calc, zc, pc, {}, f"chain_{label}", 2)
+        del calc
+    rec["a_s"] = time.perf_counter() - t0
+    if backend == "nccl":
+        _h12_write(tmp, backend, rank, rec, arrays)
+        dist.destroy_process_group()
+        return
+
+    # (b) MD: every force call counted
+    t0 = time.perf_counter()
+    from xequinet_torch.run.dynamics import run_md
+    from xequinet_torch.utils.config import MDConfig
+
+    orig = hm.HaloCalculator.calculate
+    md_calls = []
+
+    def counted(self, *a, **k):
+        cuda_build.reset_launch_counts()
+        out = orig(self, *a, **k)
+        md_calls.append(dict(cuda_build.LAUNCHES))
+        return out
+
+    hm.HaloCalculator.calculate = counted
+    state = run_md(MDConfig(
+        ensembles=[{"name": "nve", "timestep": MD_DT, "steps": sizes["md_steps"],
+                    "log_interval": 5}],
+        input_file=os.path.join(tmp, "h12_chain.xyz"), model_file=ck["f32"],
+        logfile=os.path.join(tmp, f"h12_md_{rank}.log"),
+        xyz_traj=os.path.join(tmp, f"h12_md_traj_{rank}.xyz"), seed=3, init_temperature=300.0,
+        halo_devices=world, pallas="mega", device=dev_arg))
+    hm.HaloCalculator.calculate = orig
+    rec["md"] = {"pos": digest(state.pos), "vel": digest(state.vel), "calls": md_calls}
+    arrays["md_pos"] = state.pos
+    rec["b_s"] = time.perf_counter() - t0
+
+    # (c) training: run_halo_train with each step's launches and loss
+    t0 = time.perf_counter()
+    from xequinet_torch.run.train import run_train
+    from xequinet_torch.utils.config import load_config
+
+    make_step = hm.make_halo_train_step
+    steps = []
+
+    def counted_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(*sa, **sk):
+            cuda_build.reset_launch_counts()
+            sync()
+            s0 = time.perf_counter()
+            loss = step(*sa, **sk)
+            sync()
+            steps.append({"launches": dict(cuda_build.LAUNCHES), "loss": float(loss),
+                          "ms": (time.perf_counter() - s0) * 1e3})
+            return loss
+
+        return run
+
+    hm.make_halo_train_step = counted_step
+    kw = dict(FLAGSHIP_KW, pallas_layout=(*H12_LAYOUT, 0, 0), **sizes["kw"])
+    trainer = {"max_epochs": sizes["epochs"], "warmup_epochs": 0, "max_lr": sizes["lr"],
+               "seed": 0,
+               "losses_weight": {"energy": H12_WEIGHTS[0], "forces": H12_WEIGHTS[1]},
+               "save_dir": os.path.join(tmp, f"h12_run{rank}"), "run_name": "halo",
+               "dp_devices": 2, "gp_devices": world // 2, "log_steps": 1000}
+    if not card_run:
+        trainer["device"] = "cpu"
+    cfg = load_config(overrides={
+        "model": {"model_name": "xpainn", "model_kwargs": kw},
+        "data": {"db_path": os.path.join(tmp, "h12_db"), "targets": ["energy", "forces"],
+                 "cutoff": 5.0},
+        "trainer": trainer})
+    module = run_train(cfg)
+    hm.make_halo_train_step = make_step
+    rec["train"] = {"steps": steps, "params": digest(np.concatenate(
+        [p.detach().float().cpu().numpy().ravel() for p in module.parameters()])),
+        "layout": list(cfg.model.model_kwargs["pallas_layout"]),
+        "files": sorted(os.listdir(trainer["save_dir"]))}
+    del module
+
+    # one f32 step of make_halo_train_step over every rank: the mean
+    # gradient, from a tap that keeps it
+    from xequinet_torch.models.model import resolve_model
+    from xequinet_torch.run.inference import load_model_from_checkpoint
+
+    zs, poss, cells, pbcs = h12_box(sizes["n_small"], 0)
+    stacked, geom, perm, ws, _, _ = hm.prepare_halo_system(zs, poss, 5.0, world, cell=cells,
+                                                           pbc=pbcs)
+    bn = min(H12_LAYOUT[0], geom["n_local"])
+    stacked, _, mxc = hm.apply_halo_kernel_layout(stacked, geom, {"block_nodes": bn,
+                                                                  "chunk": H12_LAYOUT[1]})
+    loaded, _, _, _, mc = load_model_from_checkpoint(ck["f32"])
+    module, _, _ = resolve_model("xpainn", **dict(mc["model_kwargs"], use_pallas_scatter="mega",
+                                                  pallas_layout=(bn, H12_LAYOUT[1],
+                                                                 geom["halo"], mxc)))
+    module.load_state_dict(loaded.state_dict())
+    module = module.to(dev)
+    names = [n for n, _ in module.named_parameters()]
+
+    class Tap:
+        def step(self):
+            self.grads = [p.grad.detach().cpu().numpy().copy() for p in module.parameters()]
+
+    tap = Tap()
+    e_label, f_label = h12_labels(len(zs), perm)
+    f_st = hm.scatter_labels_to_shards(stacked, geom, f_label)
+    cuda_build.reset_launch_counts()
+    loss = make_step(module, None, geom, tap, *H12_WEIGHTS)(
+        hm.local_batch(stacked, rank, dev), e_label, f_st[rank], ws)
+    rec["grad_step"] = {"loss": float(loss), "launches": dict(cuda_build.LAUNCHES),
+                        "grads": digest(np.concatenate([g.ravel() for g in tap.grads]))}
+    for n, g in zip(names, tap.grads):
+        arrays[f"grad/{n}"] = g
+    del module
+
+    # XPaiNN-Ewald with a charge, on the same box
+    calc = hm.HaloCalculator(ck["ewald"], pallas="mega", pallas_layout=H12_LAYOUT,
+                             device=dev_arg)
+    cuda_build.reset_launch_counts()
+    res = calc.calculate(zs, poss, cell=cells, pbc=pbcs, charge=1)
+    rec["ewald"] = {"energy": res[keys.TOTAL_ENERGY], "launches": dict(cuda_build.LAUNCHES)}
+    arrays["ewald_forces"] = res[keys.FORCES]
+    del calc
+    rec["c_s"] = time.perf_counter() - t0
+
+    # (d) edge partition: the plain f32 route on the box, nodes replicated
+    t0 = time.perf_counter()
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
+    from xequinet_torch.parallel.edge_partition import make_edge_parallel_forward, shard_batch
+    from xequinet_torch.run.inference import batch_to_device
+
+    ei, offs = radius_graph_pbc_np(posb, cell, pbc, 5.0)
+    batch = collate([Datapoint(zb, posb, cell=cell, pbc=pbc, edge_index=ei,
+                               cell_offsets=offs)])
+    loaded, extra, _, _, _ = load_model_from_checkpoint(ck["plain"])
+    fwd = make_edge_parallel_forward(loaded.to(dev).requires_grad_(False),
+                                     extra_properties=extra)
+    share = batch_to_device(shard_batch(batch, world, rank), dev)
+    out = fwd(share, True, True)
+    sync()
+    s0 = time.perf_counter()
+    out = fwd(share, True, True)
+    sync()
+    rec["edge"] = {"ms": (time.perf_counter() - s0) * 1e3,
+                   "energy": float(out[keys.TOTAL_ENERGY][0]),
+                   "forces": digest(out[keys.FORCES].cpu().numpy())}
+    arrays["edge_forces"] = out[keys.FORCES][:len(zb)].cpu().numpy()
+    arrays["edge_virial"] = out[keys.VIRIAL][0].cpu().numpy()
+    rec["d_s"] = time.perf_counter() - t0
+    _h12_write(tmp, backend, rank, rec, arrays)
+    dist.destroy_process_group()
+
+
+def _h12_write(tmp, backend, rank, rec, arrays):
+    import json
+    import os
+
+    with open(os.path.join(tmp, f"h12_{backend}_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    if rank == 0:
+        np.savez(os.path.join(tmp, f"h12_{backend}.npz"), **arrays)
+
+
+def _h12_spawn(tmp, sizes, device_type, backend):
+    """Start the ranks and wait for them, killing all on the time limit;
+    returns (records by rank, rank 0's arrays)."""
+    import json
+    import os
+    import socket
+
+    import torch.multiprocessing as mp
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.start_processes(_h12_rank, args=(port, tmp, sizes, device_type, backend),
+                             nprocs=sizes["ranks"], join=False, start_method="spawn")
+    deadline = time.perf_counter() + sizes["timeout"]
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                fail(f"the {sizes['ranks']} {backend} ranks did not finish within "
+                     f"{sizes['timeout']} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+    recs = []
+    for r in range(sizes["ranks"]):
+        with open(os.path.join(tmp, f"h12_{backend}_{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, dict(np.load(os.path.join(tmp, f"h12_{backend}.npz")))
+
+
+def h12_kernels(device, card, sizes):
+    """Phase 12, kernels: the message kernels against their plain versions on
+    shard 0's halo layout of the box (HaloCalculator's partition and slot
+    layout), then each one's time beside its plain version's and its bound.
+    Returns {name: (max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+    from xequinet_torch import keys
+    from xequinet_torch.parallel import halo as hm
+
+    z, pos, cell, pbc = h12_box(sizes["n_box"], 0)
+    stacked, geom, _, _, _, _ = hm.prepare_halo_system(z, pos, 5.0, sizes["ranks"],
+                                                       cell=cell, pbc=pbc)
+    bn = min(H12_LAYOUT[0], geom["n_local"])
+    stacked, slot_cap, mxc = hm.apply_halo_kernel_layout(
+        stacked, geom, {"block_nodes": bn, "chunk": H12_LAYOUT[1]}, margin=1.3)
+    shard = {k: v[0] for k, v in stacked.items()}
+    shard[keys.POSITIONS] = np.zeros((geom["window"], 3), np.float32)
+    p = message_problem(shard, device, bn=bn, chunk=H12_LAYOUT[1])
+    p["n_atoms"] = int((shard[keys.ATOMIC_NUMBERS] > 0).sum())  # window rows read
+    print(f"[halo] shard 0 of {sizes['ranks']}: window {geom['window']} rows (n_local "
+          f"{geom['n_local']}, halo {geom['halo']}), {int(shard[keys.EDGE_MASK].sum())} real "
+          f"edges in {slot_cap} slots, block_nodes {bn}, chunk {H12_LAYOUT[1]}, max_chunks "
+          f"{mxc}")
+    if device.type != "cuda":
+        for mm in ("float32", "bfloat16"):
+            assert all(torch.isfinite(t).all() for t in plain_fwd(p, mm) + plain_bwd(p, mm))
+        return {}
+    err = check_message_kernels(p, tag="halo shard 0")
+    mm = "bfloat16"
+    p_mm = dict(p, **{k: p[k].to(torch.bfloat16) for k in ("x_cat", "ef", "wf", "g", "cx",
+                                                            "cef")})
+    out = {}
+    fns = (("message_fwd", kernel_fwd, plain_fwd), ("message_bwd", kernel_bwd, plain_bwd),
+           ("message_bwd2", kernel_bwd2, plain_bwd2))
+    for (name, kfn, pfn), (nbytes, flops) in zip(fns, kernel_costs(p, mm)):
+        k_ms = time_ms(lambda: kfn(p_mm, mm))
+        p_ms = time_ms(lambda: pfn(p_mm, mm), iters=5, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, flops, mm)
+        print(f"[time] {name} ({mm}) on shard 0's halo layout: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP) — {card}")
+        out[name] = {"max_abs_err": err[name], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+    del p, p_mm
+    return out
+
+
+def _h12_calls_summary(recs, tag):
+    """Medians over the timed calls of every rank of one case."""
+    keys_ = ("prep_ms", "run_ms", "device_ms", "gather_ms", "total_ms", "exchange_ms")
+    out = {}
+    for k in keys_:
+        vals = [c[k] for r in recs for c in r["calls"][tag] if c[k] is not None]
+        out[k] = float(np.median(vals)) if vals else None
+    c0 = recs[0]["calls"][tag][0]
+    out["exchanges"] = c0["exchanges"]
+    out["bytes_sent"] = c0["exchange_bytes"]
+    return out
+
+
+def _h12_check_a(part, recs, arr, ref, ref_ms, card, card_run, ranks, kw):
+    """Phase 12 (a), or (e) over NCCL: every rank the same forces, 3 + 3
+    launches per rank and call, the calls' parts timed, and agreement with
+    the single-process Calculator (bf16 2e-2; f32 on the grid 1e-4 and
+    forces element-wise within F32_FORCE_TOL plus twice the larger of the
+    two runs' own spreads over two calls).  Returns one call's launches."""
+    from xequinet_torch import keys
+
+    from xequinet_torch.ops.irreps import Irreps
+    from xequinet_torch.parallel.halo import comm_bytes_per_block
+
+    kw = dict(MD_KW, **kw)
+    feat_dim = kw["node_dim"] + Irreps(kw["node_irreps"]).dim  # the aggregate's columns
+    refresh = {t: comm_bytes_per_block(recs[0]["geom"][f"{t}_bf16"], feat_dim,
+                                       0)["halo_exchange"] for t in ("box", "chain")}
+    want = dict(message_fwd=3, message_bwd=3) if card_run else {}
+    for r in recs[1:]:
+        if r["digests"] != recs[0]["digests"]:
+            fail(f"{part} the ranks returned different forces")
+    halo_call = None
+    for r, rec in enumerate(recs):
+        for tag, samples in rec["calls"].items():
+            for c in samples:
+                got = {k: v for k, v in c["launches"].items() if v}
+                if card_run and got != want:
+                    fail(f"{part} rank {r} {tag}: launches {got}, want {want}")
+                halo_call = c["launches"]
+    for sys_tag in ("box", "chain"):
+        g = recs[0]["geom"][f"{sys_tag}_bf16"]
+        print(f"[halo] {part} {sys_tag}: {ranks} shards of n_local {g['n_local']}, halo "
+              f"{g['halo']}, window {g['window']}, edge_cap {g['edge_cap']}, real edges per "
+              f"shard {g['real_edges']}, slot_cap {g['slot_cap']}, max_chunks "
+              f"{g['max_chunks']}")
+        for label in ("bf16", "f32"):
+            tag = f"{sys_tag}_{label}"
+            s = _h12_calls_summary(recs, tag)
+            print(f"[halo] {part} {tag}, per rank and call (median over ranks and calls): "
+                  f"total {s['total_ms']:.2f} ms = host partition {s['prep_ms']:.2f} + "
+                  f"forward and forces {s['run_ms']:.2f} (CUDA events "
+                  + (f"{s['device_ms']:.2f}" if s['device_ms'] is not None else "not measured")
+                  + f") + all-gather {s['gather_ms']:.2f} ms; exchanges "
+                  f"{s['exchange_ms']:.2f} ms of host time in {s['exchanges']}, rank 0 sending "
+                  f"{s['bytes_sent']} bytes, a feature refresh {refresh[sys_tag]} (2 x halo "
+                  f"{g['halo']} x {feat_dim} columns x 4 bytes); launches {halo_call}"
+                  + (f"; the single-process Calculator {ref_ms[sys_tag]:.2f} ms"
+                     if label == "bf16" else "") + f" — {card}")
+        e16 = recs[0]["calls"][f"{sys_tag}_bf16"][0]["energy"]
+        md_compare(f"{part} {sys_tag} bf16 halo over {ranks} ranks vs single-process mega",
+                   {keys.TOTAL_ENERGY: e16, keys.FORCES: arr[f"{sys_tag}_bf16_0"]},
+                   ref[f"{sys_tag}_bf16"], TOL["bfloat16"])
+        r0, r1 = ref[f"{sys_tag}_f32"]
+        spread_max, spread_q = md_force_err(r1[keys.FORCES], r0[keys.FORCES])
+        h_max, h_q = md_force_err(arr[f"{sys_tag}_f32_1"], arr[f"{sys_tag}_f32_0"])
+        f_tol = (F32_FORCE_TOL[0] + 2 * max(spread_max, h_max),
+                 F32_FORCE_TOL[1] + 2 * max(spread_q, h_q))
+        print(f"[halo] {part} {sys_tag} f32 own spreads over two calls (max, p99): "
+              f"single-process plain {spread_max:.3e}, {spread_q:.3e}; halo {h_max:.3e}, "
+              f"{h_q:.3e}")
+        e32 = recs[0]["calls"][f"{sys_tag}_f32"][0]["energy"]
+        md_compare(f"{part} {sys_tag} f32 halo over {ranks} ranks vs single-process plain, on "
+                   f"the {MD_GRID:g} A grid",
+                   {keys.TOTAL_ENERGY: e32, keys.FORCES: arr[f"{sys_tag}_f32_0"]}, r0,
+                   1e-4, f_tol)
+    return halo_call
+
+
+def _h12_nccl(tmp, device, card, sizes, ref, ref_ms):
+    """Phase 12 (e): (a) again with NCCL, one card per rank, where the
+    machine has the cards; else a line that says it did not run."""
+    card_run = device.type == "cuda"
+    ranks = sizes["ranks"]
+    n_cards = torch.cuda.device_count() if card_run else 0
+    if n_cards < ranks:
+        print(f"[halo] nccl_multi_card: not run ({n_cards} card)")
+        return
+    t0 = time.perf_counter()
+    nrecs, narr = _h12_spawn(tmp, sizes, device.type, "nccl")
+    print(f"[halo] (e) {ranks} NCCL ranks, one card each, exchange transport "
+          f"{nrecs[0]['transport']}; (a) in {nrecs[0]['a_s']:.1f} s, the ranks in "
+          f"{time.perf_counter() - t0:.1f} s — {card}")
+    _h12_check_a("(e)", nrecs, narr, ref, ref_ms, card, card_run, ranks, sizes["kw"])
+    print(f"[halo] nccl_multi_card: ran on {ranks} of {n_cards} cards")
+
+
+def phase_halo(device, card, sizes, nccl_only=False):
+    """Phase 12: one large system split over ``ranks`` processes (gloo on
+    the one card; NCCL with one card per rank when there are enough).
+    (a) HaloCalculator(pallas="mega") on phase 7's box and chain against the
+    single-process Calculator (bf16: energy and mean |F| 2e-2; f32 on the
+    2^-10 A grid: energy and mean |F| 1e-4, forces element-wise within
+    F32_FORCE_TOL plus twice the reference's own spread), 3 + 3 launches
+    per rank and call, the call's parts timed; the kernels on shard 0's
+    halo layout; (b) run_md with halo_devices against the single-process
+    run_md, replicas bit-identical; (c) run_halo_train gp 2 x dp 2 (3 + 6 +
+    3 launches per rank and step, a falling loss, rank-0 checkpoints), one
+    f32 make_halo_train_step's gradient against the single-process
+    gradient of the same loss, XPaiNN-Ewald with a charge against the
+    single-process Calculator; (d) the edge partition (plain f32 route) of
+    the box against the single-process forward: energy, forces, virial;
+    (e) the NCCL run (``nccl_only``: the references and (e) alone).
+    Returns (each path's launches, the kernels' records)."""
+    import os
+    import tempfile
+
+    from xequinet_torch import keys
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.data.datapoint import Datapoint
+    from xequinet_torch.data.fmt_conversion import write_xyz
+    from xequinet_torch.data.store import create_dataset
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
+    from xequinet_torch.run.inference import batch_to_device, load_model_from_checkpoint
+    from xequinet_torch.models.properties import make_forward
+
+    t_all = time.perf_counter()
+    card_run = device.type == "cuda"
+    ranks = sizes["ranks"]
+    kern = {} if nccl_only else h12_kernels(device, card, sizes)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        # the checkpoints (seed-0 weights, phase 7's model), the chain as an
+        # extxyz for run_md, the training boxes as an XDB dataset
+        md_checkpoint(os.path.join(tmp, "h12_bf16.ckpt"), **sizes["kw"])
+        f32 = dict(sizes["kw"], **F32)
+        md_checkpoint(os.path.join(tmp, "h12_f32.ckpt"), **f32)
+        md_checkpoint(os.path.join(tmp, "h12_plain.ckpt"), **f32)
+        md_checkpoint(os.path.join(tmp, "h12_ewald.ckpt"), "xpainn-ewald",
+                      **dict(f32, charge_embed=True, **EWALD_PBC))
+        zc, posc = md_free_chain(sizes["n_free"])
+        write_xyz(os.path.join(tmp, "h12_chain.xyz"), [Datapoint(zc, posc)])
+        n_t, n_v = sizes["n_train"], sizes["n_valid"]
+        boxes = [h12_box(sizes["n_train_atoms"], 100 + i) for i in range(n_t + n_v)]
+        create_dataset(os.path.join(tmp, "h12_db"), [
+            Datapoint(z, p, cell=c, pbc=b, energy=0.0, forces=np.zeros((len(z), 3)))
+            for z, p, c, b in boxes], units={},
+            split={"train": list(range(n_t)), "valid": list(range(n_t, n_t + n_v)),
+                   "test": []})
+
+        # the single-process references first, on the idle card
+        zb, posb, cell, pbc = h12_box(sizes["n_box"], 0)
+        box = dict(cell=cell, pbc=pbc)
+        ref, ref_ms = {}, {}
+        for sys_tag, z, pos, kw in (("box", zb, posb, box), ("chain", zc, posc, {})):
+            mega = Calculator(os.path.join(tmp, "h12_bf16.ckpt"), pallas="mega",
+                              device=device)
+            ref[f"{sys_tag}_bf16"] = mega.calculate(z, pos, **kw)
+            times = []
+            for _ in range(sizes["calls"]):
+                t0 = time.perf_counter()
+                mega.calculate(z, pos, **kw)
+                if card_run:
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ref_ms[sys_tag] = float(np.median(times))
+            plain = Calculator(os.path.join(tmp, "h12_f32.ckpt"), device=device)
+            grid = np.round(pos / MD_GRID) * MD_GRID
+            ref[f"{sys_tag}_f32"] = [plain.calculate(z, grid, **kw) for _ in range(2)]
+            del mega, plain
+        if card_run:
+            torch.cuda.empty_cache()
+        print(f"[halo] single-process Calculator(pallas='mega'), bf16, median of "
+              f"{sizes['calls']} calls: box {ref_ms['box']:.2f} ms, chain {ref_ms['chain']:.2f} "
+              f"ms per call — {card}")
+
+        if nccl_only:
+            _h12_nccl(tmp, device, card, sizes, ref, ref_ms)
+            return {}, {}
+        t0 = time.perf_counter()
+        recs, arr = _h12_spawn(tmp, sizes, device.type, "gloo")
+        spawn_s = time.perf_counter() - t0
+        where = "the one card" if card_run else "the CPU"
+        print(f"[halo] {ranks} ranks of one gloo group on {where}, exchange transport: "
+              f"{recs[0]['transport']}; the ranks ran in {spawn_s:.1f} s "
+              f"((a) {recs[0]['a_s']:.1f} s, (b) {recs[0]['b_s']:.1f} s, (c) "
+              f"{recs[0]['c_s']:.1f} s, (d) {recs[0]['d_s']:.1f} s) — {card}")
+
+        # (a) every rank the same result; launches; agreement; times
+        want = dict(message_fwd=3, message_bwd=3) if card_run else {}
+        halo_call = _h12_check_a("(a)", recs, arr, ref, ref_ms, card, card_run, ranks,
+                                 sizes["kw"])
+
+        # (b) MD
+        for r, rec in enumerate(recs):
+            if (rec["md"]["pos"], rec["md"]["vel"]) != (recs[0]["md"]["pos"],
+                                                        recs[0]["md"]["vel"]):
+                fail(f"(b) rank {r}'s MD state differs from rank 0's")
+            bad = [c for c in rec["md"]["calls"]
+                   if card_run and {k: v for k, v in c.items() if v} != want]
+            if bad:
+                fail(f"(b) rank {r}: launches per force call {bad[:2]}")
+        if any(os.path.exists(os.path.join(tmp, f"h12_md_traj_{r}.xyz")) for r in
+               range(1, ranks)) or not os.path.exists(os.path.join(tmp, "h12_md_traj_0.xyz")):
+            fail("(b) the trajectory was not written by rank 0 alone")
+        from xequinet_torch.run.dynamics import run_md
+        from xequinet_torch.utils.config import MDConfig
+
+        # the single-process run twice (its own spread is printed).  The
+        # chain spans ~4,800 A, where an f32 coordinate's ulp is ~2.4e-4 A,
+        # and at random weights it heats by ~2,000 K in 1 fs: positions are
+        # held with tests/test_halo.py's run_md limit, |dx| <= 1e-5 + 1e-4
+        # |x| element-wise, and the logged Epot within 1e-4
+        singles = []
+        for _ in range(2):
+            lines = _Lines()
+            st = run_md(MDConfig(
+                ensembles=[{"name": "nve", "timestep": MD_DT, "steps": sizes["md_steps"],
+                            "log_interval": 5}],
+                input_file=os.path.join(tmp, "h12_chain.xyz"),
+                model_file=os.path.join(tmp, "h12_f32.ckpt"), seed=3, init_temperature=300.0,
+                pallas="mega", device=device.type), logger=lines)
+            singles.append((st.pos, md_energies(lines.lines)))
+        with open(os.path.join(tmp, "h12_md_0.log")) as f:
+            e_halo = md_energies(f.read().splitlines())
+        x0 = singles[0][0]
+        spread = float(np.abs(singles[1][0] - x0).max())
+        d_pos = float(np.abs(arr["md_pos"] - x0).max())
+        ratio = float((np.abs(arr["md_pos"] - x0) / (1e-5 + 1e-4 * np.abs(x0))).max())
+        d_e = float(np.abs(e_halo[:, 0] - singles[0][1][:, 0]).max()
+                    / np.abs(singles[0][1][:, 0]).max())
+        print(f"[halo] (b) run_md halo_devices {ranks}, {sizes['md_steps']} NVE steps on the "
+              f"{sizes['n_free']}-atom chain: {len(recs[0]['md']['calls'])} force calls per "
+              f"rank, each {want or 'no launch (CPU)'}; replicas bit-identical; against the "
+              f"single-process run_md (its own spread {spread:.3e} A): max |dx| {d_pos:.3e} A, "
+              f"at {ratio:.3f} of the limit 1e-5 + 1e-4 |x|; Epot at the {len(e_halo)} logged "
+              f"frames {d_e:.3e} of max |Epot| (limit 1e-4)")
+        if ratio > 1.0 or d_e > 1e-4 or len(e_halo) != len(singles[0][1]):
+            fail("(b) the halo MD trajectory left the single-process one")
+
+        # (c) training
+        tr = recs[0]["train"]
+        want_step = dict(message_fwd=3, message_bwd=6, message_bwd2=3) if card_run else {}
+        for r, rec in enumerate(recs):
+            if rec["train"]["params"] != tr["params"]:
+                fail(f"(c) rank {r}'s parameters differ after run_halo_train")
+            bad = [s["launches"] for s in rec["train"]["steps"]
+                   if card_run and {k: v for k, v in s["launches"].items() if v} != want_step]
+            if bad:
+                fail(f"(c) rank {r}: launches per train step {bad[:2]} (want {want_step})")
+            if r and any(f.endswith(".ckpt") for f in rec["train"]["files"]):
+                fail(f"(c) rank {r} wrote a checkpoint")
+        if not {"halo_last.ckpt", "halo_best.ckpt"} <= set(tr["files"]):
+            fail("(c) rank 0 wrote no last / best checkpoint")
+        losses = [s["loss"] for s in tr["steps"]]
+        print(f"[halo] (c) run_halo_train dp 2 x gp {ranks // 2}, {len(losses)} steps on "
+              f"{sizes['n_train']} boxes of {sizes['n_train_atoms']} atoms: loss "
+              + ", ".join(f"{x:.4g}" for x in losses) + f"; median step "
+              f"{np.median([s['ms'] for s in tr['steps']]):.1f} ms; launches per step "
+              f"{tr['steps'][0]['launches']}; layout written back {tr['layout']}; rank 0 "
+              f"files {tr['files']} — {card}")
+        per_epoch = len(losses) // sizes["epochs"]
+        first, last = np.mean(losses[:per_epoch]), np.mean(losses[-per_epoch:])
+        print(f"[halo] (c) mean step loss, first epoch {first:.4g}, last epoch {last:.4g}")
+        if not (np.isfinite(losses).all() and last < first):
+            fail("(c) the halo training loss did not fall")
+
+        # one f32 halo step's gradient against the single-process gradient
+        zs, poss, cells, pbcs = h12_box(sizes["n_small"], 0)
+        ei, offs = radius_graph_pbc_np(poss, cells, pbcs, 5.0)
+        sb = batch_to_device(collate([Datapoint(zs, poss, cell=cells, pbc=pbcs, edge_index=ei,
+                                                cell_offsets=offs)]), device)
+        module, extra, _, _, _ = load_model_from_checkpoint(os.path.join(tmp, "h12_f32.ckpt"))
+        module = module.to(device)
+        fwd = make_forward(module, extra, create_graph=True)
+        e_label, f_label = h12_labels(len(zs))
+        f_label = torch.as_tensor(f_label, device=device)
+        named = list(module.named_parameters())
+
+        def loss_grads(scale):
+            b = dict(sb)
+            b[keys.POSITIONS] = b[keys.POSITIONS] * scale
+            out = fwd(b, True, False)
+            f = out[keys.FORCES][:len(zs)]
+            loss = H12_WEIGHTS[0] * (out[keys.TOTAL_ENERGY][0] - e_label) ** 2 + \
+                H12_WEIGHTS[1] * ((f - f_label) ** 2).sum() / (3.0 * len(zs))
+            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+            return float(loss.detach()), {
+                n: (torch.zeros_like(p) if g is None else g).cpu().numpy()
+                for (n, p), g in zip(named, grads)}
+
+        with deterministic_sums():
+            l_ref, g_ref = loss_grads(1.0)
+            _, g_nudged = loss_grads(1.0 + 1e-7)
+        gs = recs[0]["grad_step"]
+        if any(r["grad_step"]["grads"] != gs["grads"] for r in recs):
+            fail("(c) the ranks' mean gradients differ")
+        if card_run and {k: v for k, v in gs["launches"].items() if v} != want_step:
+            fail(f"(c) the f32 halo step launched {gs['launches']}")
+        worst, ratio = "", 0.0
+        for n, g in g_ref.items():
+            scale = max(float(np.abs(g).max()), 1e-30)
+            limit = GRAD_TOL + GRAD_ULP_FACTOR * float(np.abs(g_nudged[n] - g).max()) / scale
+            err = float(np.abs(arr[f"grad/{n}"] - g).max()) / scale
+            if err / limit > ratio:
+                worst, ratio = n, err / limit
+            if err > limit:
+                fail(f"(c) f32 halo step: gradient of {n} differs by {err:.3e} of its max "
+                     f"(limit {limit:.3e})")
+        rel = abs(gs["loss"] - l_ref) / abs(l_ref)
+        print(f"[halo] (c) f32 make_halo_train_step over {ranks} ranks on a "
+              f"{sizes['n_small']}-atom box (launches {gs['launches']}): loss rel diff {rel:.3e} "
+              f"(limit 1e-4) against the single-process plain route's; every mean gradient "
+              f"within its limit, the closest {worst} at {ratio:.3f} of it")
+        if rel > 1e-4:
+            fail("(c) the f32 halo step's loss differs from the single-process loss")
+        del module, sb
+
+        # XPaiNN-Ewald with a charge
+        calc = Calculator(os.path.join(tmp, "h12_ewald.ckpt"), device=device)
+        we = [calc.calculate(zs, poss, cell=cells, pbc=pbcs, charge=1) for _ in range(2)]
+        ew = recs[0]["ewald"]
+        s_max, s_q = md_force_err(we[1][keys.FORCES], we[0][keys.FORCES])
+        md_compare(f"(c) XPaiNN-Ewald (K = 171) with charge 1, halo over {ranks} ranks "
+                   f"(launches {ew['launches']}) vs the single-process plain Calculator",
+                   {keys.TOTAL_ENERGY: ew["energy"], keys.FORCES: arr["ewald_forces"]}, we[0],
+                   1e-4, (F32_FORCE_TOL[0] + 2 * s_max, F32_FORCE_TOL[1] + 2 * s_q))
+        if card_run and {k: v for k, v in ew["launches"].items() if v} != want:
+            fail(f"(c) the Ewald halo call launched {ew['launches']}")
+
+        # (d) edge partition
+        ed = recs[0]["edge"]
+        if any(r["edge"]["forces"] != ed["forces"] for r in recs):
+            fail("(d) the ranks' edge-partition forces differ")
+        ei, offs = radius_graph_pbc_np(posb, cell, pbc, 5.0)
+        bb = batch_to_device(collate([Datapoint(zb, posb, cell=cell, pbc=pbc, edge_index=ei,
+                                                cell_offsets=offs)]), device)
+        module, extra, _, _, _ = load_model_from_checkpoint(os.path.join(tmp, "h12_plain.ckpt"))
+        fwd = make_forward(module.to(device).requires_grad_(False), extra)
+        outs = [fwd(bb, True, True) for _ in range(2)]
+        if card_run:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(bb, True, True)
+        if card_run:
+            torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        res = [{keys.TOTAL_ENERGY: float(o[keys.TOTAL_ENERGY][0]),
+                keys.FORCES: o[keys.FORCES][:len(zb)].cpu().numpy(),
+                keys.VIRIAL: o[keys.VIRIAL][0].cpu().numpy()} for o in outs]
+        s_max, s_q = md_force_err(res[1][keys.FORCES], res[0][keys.FORCES])
+        v_spread = float(np.abs(res[1][keys.VIRIAL] - res[0][keys.VIRIAL]).max()
+                         / np.abs(res[0][keys.VIRIAL]).max())
+        md_compare(f"(d) edge partition over {ranks} ranks, plain f32 route, vs the single "
+                   f"process", {keys.TOTAL_ENERGY: ed["energy"],
+                                keys.FORCES: arr["edge_forces"], keys.VIRIAL: arr["edge_virial"]},
+                   res[0], 1e-4, (F32_FORCE_TOL[0] + 2 * s_max, F32_FORCE_TOL[1] + 2 * s_q),
+                   MD_F32_VIRIAL_ELEM_TOL + 2 * v_spread, v_elem=True)
+        print(f"[halo] (d) edge partition forward+forces+virial {ed['ms']:.2f} ms per rank "
+              f"(host clock), the single process {single_ms:.2f} ms — {card}")
+        del module, bb, outs
+
+        # (e) NCCL with one card per rank
+        _h12_nccl(tmp, device, card, sizes, ref, ref_ms)
+    print(f"[phase 12] in {time.perf_counter() - t_all:.1f} s")
+    return {"halo_call": halo_call or {}, "halo_step": tr["steps"][0]["launches"]}, kern
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -3889,7 +4645,7 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 and 7-11 at a tiny size on the CPU with the "
+                    help="run phases 3-5 and 7-12 at a tiny size on the CPU with the "
                          "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -4161,6 +4917,16 @@ def main():
         for path, counts in p11.items():
             row[f"launches_{path}"] = counts.get(row["name"], 0)
 
+    # phase 12: one large system over several ranks; each path's launches
+    # (per rank and halo force call, per rank and halo train step) and the
+    # kernels' times on a shard's halo layout stand beside each row's
+    p12, halo_kernels = phase_halo(device, card, H12_SIZES)
+    for row in rows:
+        for path, counts in p12.items():
+            row[f"launches_{path}"] = counts.get(row["name"], 0)
+        if row["name"] in halo_kernels:
+            row["halo_layout"] = halo_kernels[row["name"]]
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4169,7 +4935,7 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-5 and 7-10 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5 and 7-12 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
@@ -4249,6 +5015,9 @@ def rehearsal():
     phase_11(dps, torch.device("cpu"), "CPU rehearsal, not a device result", P11_REHEARSAL)
     print("[rehearsal] phase 11 (determinism, export, data parallelism, profiling) ran at a "
           "tiny size on the CPU (not a device result)")
+    phase_halo(torch.device("cpu"), "CPU rehearsal, not a device result", H12_REHEARSAL)
+    print("[rehearsal] phase 12 (halo forward, MD and training over four ranks, edge "
+          "partition) ran at a tiny size on the CPU (not a device result)")
 
 
 if __name__ == "__main__":

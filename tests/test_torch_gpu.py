@@ -934,3 +934,45 @@ def test_cuda_exported_energy_program_matches_calculator(cuda_device, tmp_path):
     assert np.quantile(np.linalg.norm(f - ref[keys.FORCES], axis=-1), 0.99) <= 2e-4 * scale
     vw = ref[keys.VIRIAL]
     assert np.abs(v.cpu().numpy() - vw).max() <= 1e-3 * np.abs(vw).max()
+
+
+@pytest.mark.gpu
+def test_cuda_halo_forward_two_ranks_matches_single_process(cuda_device, tmp_path):
+    """Two ranks of one gloo group on the card (tests/_torch_halo_worker.py)
+    each run their shard of a 400-atom free chain through the message
+    kernels (f32 mega route, 2 + 2 launches per rank): energy and forces
+    against the single-process plain route on the card, 1e-5 and 1e-4 of
+    the largest |F|."""
+    from tests._torch_halo_worker import run_pool
+    from xequinet_torch.parallel.halo import apply_halo_kernel_layout, halo_partition
+
+    fm.build_kernels()  # once, before the ranks start
+    kw = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
+              num_basis=8, cutoff=5.0, action_blocks=2, output_modes=["energy"])
+    rng = np.random.default_rng(0)
+    x = np.cumsum(rng.uniform(0.8, 1.6, size=400))
+    pos = np.column_stack([x, rng.normal(size=(400, 2)) * 1.2])
+    z = rng.integers(1, 9, size=400).astype(np.int32)
+    ei, _ = radius_graph_np(pos, 5.0)
+    ei = ei[:, np.argsort(ei[0], kind="stable")]
+    module, extra, _ = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    state = {k: v.numpy() for k, v in module.state_dict().items()}
+    stacked, geom = halo_partition(z, pos, ei, 2, halo=32)
+    stacked, _, mxc = apply_halo_kernel_layout(stacked, geom, {"block_nodes": 64,
+                                                               "chunk": 32})
+    mega = dict(kw, use_pallas_scatter="mega", pallas_layout=(64, 32, geom["halo"], mxc))
+    outs = run_pool({"halo": dict(kind="forward", kw=mega, state=state, stacked=stacked,
+                                  geom=geom, device="cuda")}, tmp_path, 2)
+    want = make_forward(module.to(cuda_device).requires_grad_(False), extra)(
+        batch_to_device(collate([Datapoint(z, pos, edge_index=ei)]), cuda_device), True)
+    e_want = float(want[keys.TOTAL_ENERGY][0])
+    f_want = want[keys.FORCES][:400].cpu().numpy()
+    nl, h = geom["n_local"], geom["halo"]
+    nm = stacked[keys.NODE_MASK][:, h:h + nl].reshape(-1)
+    for o in outs:
+        r = o["halo"]
+        assert r["launches"].get("message_fwd") == 2 and r["launches"].get("message_bwd") == 2
+        assert abs(r["energy"] - e_want) <= 1e-5 * max(abs(e_want), 1.0)
+        f = r["forces"].reshape(-1, 3)[nm]
+        assert np.abs(f - f_want).max() <= 1e-4 * np.abs(f_want).max()

@@ -576,21 +576,27 @@ def test_trainer_freezing_f32_switch_early_stop_and_jax_checkpoint(tmp_path, rng
         assert torch.equal(t, want[name]), name
 
 
-def test_run_train_refusals(tmp_path):
-    """Halo training (gp_devices > 1) raises, naming the halo slice (here
-    also through run_train_from_args and a YAML config), and so does the
-    default device without a card.  Data-parallel training runs
-    (tests/test_torch_parallel.py)."""
+def test_run_train_refusals(tmp_path, rng):
+    """Halo training (gp_devices > 1) refuses the v2 route, which is not
+    halo-aware (here through run_train_from_args and a YAML config), and a
+    process group smaller than dp x gp; the default device raises without
+    a card.  Data-parallel and halo training run in
+    tests/test_torch_parallel.py and tests/test_torch_halo_train.py."""
     import argparse
 
     from xequinet_torch.run.train import run_train_from_args
 
-    (tmp_path / "c.yaml").write_text("trainer:\n  gp_devices: 2\n  device: cpu\n")
-    with pytest.raises(NotImplementedError, match="halo"):
+    (tmp_path / "c.yaml").write_text(
+        "model:\n  model_kwargs:\n    use_pallas_scatter: v2\n"
+        "trainer:\n  gp_devices: 2\n  device: cpu\n")
+    with pytest.raises(ValueError, match="not halo-aware"):
         run_train_from_args(argparse.Namespace(config=str(tmp_path / "c.yaml")))
+    _dataset(tmp_path / "db", rng, n=6)
     cfg = XequiConfig()
+    cfg.data.db_path = str(tmp_path / "db")
     cfg.trainer.gp_devices = 4
-    with pytest.raises(NotImplementedError, match="halo"):
+    cfg.trainer.save_dir = str(tmp_path / "out")
+    with pytest.raises(ValueError, match="process group has 1"):
         run_train(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -58,7 +58,11 @@ class _Conditioning(nn.Module):
         dot = (query * key).sum(dim=-1, keepdim=True)
         attn = F.softplus(dot / math.sqrt(self.node_dim))
         n_graphs = data[keys.GRAPH_MASK].shape[0]
-        attn_sum = segment_sum(attn, batch, n_graphs, data[keys.NODE_MASK]).index_select(0, batch)
+        # under halo decomposition the normaliser is the all-reduce of the
+        # shards' owned-row sums (scope="graphs"); the per-row numerator
+        # stays unmasked, so halo rows carry their owners' embedding
+        attn_sum = segment_sum(attn, batch, n_graphs, data[keys.NODE_MASK],
+                               scope="graphs").index_select(0, batch)
         embed = self.ResidualLayer_0((attn * value) / torch.clamp(attn_sum, min=1e-9))
         data[keys.NODE_INVARIANT] = node_scalar + embed
         return data

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from .. import keys
+from ..ops.scatter import reduce_graphs
 from .basic import Dense, LayerNorm, ResidualLayer, resolve_activation
 
 DataDict = Dict[str, torch.Tensor]
@@ -194,8 +195,13 @@ class EwaldBlock(nn.Module):
         real = per_graph(torch.cos(k_dot_r) * sinc)  # [G, M, K]
         imag = per_graph(torch.sin(k_dot_r) * sinc)
         res = per_graph(node_res.index_select(0, rows))  # [G, M, D]
-        sf_real = real.transpose(1, 2) @ res  # [G, K, D]
-        sf_imag = imag.transpose(1, 2) @ res
+        # the structure factors are sums over the graph's real atoms: under
+        # halo decomposition each shard (one graph of window rows) sums its
+        # owned rows and the all-reduce over the group makes them whole
+        # (ewald.py:169-179); halo rows add nothing and get no message, and
+        # no output reads them
+        sf_real = reduce_graphs(real.transpose(1, 2) @ res)  # [G, K, D]
+        sf_imag = reduce_graphs(imag.transpose(1, 2) @ res)
         kfilter = self.Dense_0(data[keys.DOWN_PROJECTION])[None]  # [1, K, D]
         msg = real @ (kfilter * sf_real) + imag @ (kfilter * sf_imag)  # [G, M, D]
         msg = msg.reshape(n_graphs * m, dim).index_select(0, slot)

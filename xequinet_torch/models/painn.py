@@ -91,9 +91,9 @@ class PainnMessage(nn.Module):
         message_vector = node_equi.index_select(0, neighbor_idx) * gate_state_vector[:, None, :] \
             + gate_edge_vector[:, None, :] * data[keys.SPHERICAL_HARMONICS][:, :, None]
         data[keys.NODE_INVARIANT] = node_scalar + segment_sum(
-            message_scalar, center_idx, n_nodes, edge_mask)
+            message_scalar, center_idx, n_nodes, edge_mask, scope="edges")
         data[keys.NODE_EQUIVARIANT] = node_equi + segment_sum(
-            message_vector, center_idx, n_nodes, edge_mask)
+            message_vector, center_idx, n_nodes, edge_mask, scope="edges")
         return data
 
 

@@ -109,9 +109,9 @@ class EuclideanAttention(nn.Module):
 
         edge_mask = data[keys.EDGE_MASK]
         data[keys.NODE_INVARIANT] = data[keys.NODE_INVARIANT] + segment_sum(
-            msg_scalar, center_idx, n_nodes, edge_mask)
+            msg_scalar, center_idx, n_nodes, edge_mask, scope="edges")
         data[keys.NODE_EQUIVARIANT] = data[keys.NODE_EQUIVARIANT] + segment_sum(
-            msg_equi, center_idx, n_nodes, edge_mask)
+            msg_equi, center_idx, n_nodes, edge_mask, scope="edges")
         return data
 
 

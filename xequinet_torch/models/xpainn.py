@@ -26,7 +26,7 @@ from ..ops.fused_message import F_PACK, build_slot_plan, fused_message, pack_edg
 from ..ops.gather_scatter_v2 import fused_gather_scale_scatter
 from ..ops.irreps import Irreps
 from ..ops.o3ops import equivariant_dot, invariant, scalar_gate
-from ..ops.scatter import segment_sum
+from ..ops.scatter import _HALO_SPEC, halo_refresh, segment_sum
 from ..ops.slot_layout import window_size
 from ..ops.spherical import spherical_harmonics
 from .basic import AtomEmbedding, Dense, LayerNorm, resolve_activation
@@ -187,7 +187,8 @@ class XPainnMessage(nn.Module):
         message_equi = scalar_gate(neighbor_equi, filter_out[..., :ni], self.irreps) + \
             scalar_gate(rsh, filter_out[..., ni : 2 * ni], self.irreps)
         message_cat = torch.cat([filter_out[..., 2 * ni :], message_equi], dim=-1)
-        return segment_sum(message_cat, center_idx, n_nodes, data[keys.EDGE_MASK])
+        return segment_sum(message_cat, center_idx, n_nodes, data[keys.EDGE_MASK],
+                           scope="edges")
 
     def _slot_plan(self, data, slot_meta, n_nodes):
         """The batch's CSR slot plan, built by the first kernel-route block
@@ -204,6 +205,11 @@ class XPainnMessage(nn.Module):
         there, xpainn.py:214, :227, also in bf16 mode), and its aggregate is
         added to the segment sum of the scalar and harmonic messages.  The
         feature axis is not padded to 128 (a TPU tiling constraint)."""
+        if _HALO_SPEC.get() is not None:
+            raise ValueError(
+                "the v2 kernel route is not halo-aware (as in the JAX package, "
+                "parallel/halo.py:955-958): under halo decomposition use the mega route "
+                "or the plain route")
         ni = self.irreps.num_irreps
         cd = self.cdtype
         edge_mask = data[keys.EDGE_MASK]
@@ -269,9 +275,14 @@ class XPainnMessage(nn.Module):
             str(self.irreps), nb, self.node_dim, n_nodes, bn, chunk, window,
             max_chunks, mm, True,
         )
-        return torch.cat(
-            [agg_full[:, : self.node_dim], agg_full[:, sdp : sdp + dim]], dim=-1
-        )
+        agg = torch.cat([agg_full[:, : self.node_dim], agg_full[:, sdp : sdp + dim]], dim=-1)
+        # under halo decomposition the kernels' edges all end on owned rows,
+        # so the window's halo rows come out zero: refresh them from the
+        # neighbouring ranks, outside FusedMessage, so that the halo
+        # cotangents go back through the exchange and the kernels' backward
+        # stays as it is (xpainn.py:333-343)
+        spec = _HALO_SPEC.get()
+        return agg if spec is None else halo_refresh(agg, spec)
 
 
 class XPainnUpdate(nn.Module):

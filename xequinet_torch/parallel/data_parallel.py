@@ -66,6 +66,23 @@ def all_reduce_metrics(metrics: Metrics) -> Metrics:
     return out
 
 
+def stack_device_batches(batches: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """D padded batches of identical shapes stacked on a leading axis (the
+    JAX ``stack_device_batches``)."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def device_put_sharded_batch(batch: Dict[str, np.ndarray], group=None, device="cpu"
+                             ) -> Dict[str, Tensor]:
+    """This process's slice of a stacked batch's leading axis (its rank in
+    ``group``), on ``device``: the port's counterpart of placing the
+    leading axis over the mesh (JAX ``device_put_sharded_batch``)."""
+    from ..ops.scatter import group_size_rank
+
+    r = group_size_rank(group)[1]
+    return {k: torch.as_tensor(np.asarray(v[r]), device=device) for k, v in batch.items()}
+
+
 def make_dp_train_step(*args, **kwargs):
     """``training.trainer.make_step_core`` with the gradients and the loss
     all-reduced to their mean before the clip, and the metric sums summed,

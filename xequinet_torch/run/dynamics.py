@@ -7,7 +7,10 @@ driven by the port's ``Calculator``, multi-stage ensemble chains,
 Maxwell-Boltzmann initial velocities with zero total momentum, and extxyz
 trajectory output.  Each force call is one ``Calculator.calculate`` on
 the card (``device=None``, the default) or on the CPU (``device: cpu`` in
-the MD config).
+the MD config).  With ``halo_devices > 1`` one system is split over that
+many processes (``parallel/halo.HaloCalculator``; launched by torchrun,
+or inside the caller's process group): every rank integrates the same
+state and rank 0 alone writes the log and the trajectory.
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ from .. import keys
 from ..data.datapoint import Datapoint
 from ..data.fmt_conversion import read_structures, write_xyz
 from ..interface.calculator import Calculator
+from ..parallel.mesh import rank
 from ..utils.config import MDConfig, load_md_config
 from ..utils.logger import ZeroLogger
 from ..utils.precision import set_matmul_precision
 from ..utils.qc import ATOM_MASS, unit_conversion
+from .inference import resolve_device
 
 KB_EV = 8.617333262e-5  # eV / K
 # internal units: eV, Angstrom, amu  ->  time unit = A sqrt(amu/eV)
@@ -609,6 +614,15 @@ ENSEMBLE_FACTORY = {
 
 
 def run_md(config: MDConfig, logger=None) -> MDState:
+    halo = bool(config.halo_devices and config.halo_devices > 1)
+    if halo:
+        # one system over halo_devices processes (torchrun's, or the
+        # caller's group): every rank integrates the same replicated state
+        # from the same seed, and rank 0 alone writes the log and the
+        # trajectory
+        from ..parallel.mesh import maybe_init_distributed
+
+        maybe_init_distributed(resolve_device(config.device))
     logger = logger or ZeroLogger(config.logfile)
     rng = np.random.default_rng(config.seed or 0)
     frames = read_structures(config.input_file, config.input_format)
@@ -622,13 +636,18 @@ def run_md(config: MDConfig, logger=None) -> MDState:
         "npt" in n or n == "parrinellorahman" for n in stage_names
     )
     set_matmul_precision(config.matmul_precision)
-    if config.halo_devices and config.halo_devices > 1:
-        raise NotImplementedError(
-            "halo_devices > 1 (one system over several devices) is not ported yet; it is the "
-            "next slice of the port (parallel/halo.py)")
-    calc = Calculator(config.model_file, compute_virial=needs_virial,
-                      pallas=config.pallas, skin=config.skin,
-                      matmul_precision=config.matmul_precision, device=config.device)
+    if halo:
+        from ..parallel.halo import HaloCalculator
+
+        if needs_virial:
+            raise ValueError("halo_devices > 1 gives no virial: run NPT stages with the "
+                             "single-card Calculator")
+        calc = HaloCalculator(config.model_file, n_shards=config.halo_devices,
+                              pallas=config.pallas, device=config.device)
+    else:
+        calc = Calculator(config.model_file, compute_virial=needs_virial,
+                          pallas=config.pallas, skin=config.skin,
+                          matmul_precision=config.matmul_precision, device=config.device)
     ff = ForceField(
         calc, dp.atomic_numbers,
         cell=dp.cell if dp.has_cell else None,
@@ -676,7 +695,7 @@ def run_md(config: MDConfig, logger=None) -> MDState:
                         f" H'={integ.conserved_energy(state, e_pot):.6f}eV"
                     )
                 logger.info(msg)
-                if config.xyz_traj:
+                if config.xyz_traj and rank() == 0:
                     # ff.cell is the live cell (barostats rescale it);
                     # writing dp.cell would freeze the initial cell into
                     # every NPT snapshot

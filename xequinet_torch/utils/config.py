@@ -125,7 +125,8 @@ class MDConfig:
     # ones through the ghost layout (ops/spatial_sort); other systems take
     # the plain route by the JAX Calculator's own size rules
     pallas: Optional[str] = None
-    # >1: one system halo-decomposed over this many devices (not ported)
+    # >1: one system halo-decomposed over this many processes, one per
+    # card (parallel/halo.HaloCalculator; torchrun or the caller's group)
     halo_devices: int = 0
     # the JAX package's persistent XLA cache; accepted, no effect here
     compile_cache: Any = True
