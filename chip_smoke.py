@@ -5,7 +5,7 @@
                                            # train step of each route with
                                            # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
-                                           # and 7-12 with the plain versions
+                                           # and 7-13 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -187,8 +187,24 @@ Phases (any failed check exits non-zero):
      nodes replicated) of the box: energy, forces and virial against one
      process; (e) the same with NCCL, one card per rank, when the machine
      has four cards (else "nccl_multi_card: not run").
+ 13. the convergence study's path (xequinet_torch/tools) at a short budget:
+     (a) the synthetic PES on the card against the CPU on 16 seed-7
+     clusters (energy 1e-5 relative, forces 1e-4 of max |F|); (b) 960
+     structures of 8-32 atoms generated on the card by the generator's
+     main; (c) ``train -C`` through ``cli.main`` with the study tool's
+     make_config at the study's widths (FLAGSHIP_KW's), bf16, mega route,
+     batch 64, 12 epochs of which the last 2 in f32: exactly 3 + 6 + 3
+     launches per step in the bf16 and in the f32 epochs and 3 + 3 per
+     validation batch, the f32 switch logged with the optimizer still on
+     the module's tensors and the EMA copy rebuilt, finite losses, the
+     validation force MAE of the last epoch at most 0.9 of the first's
+     (EMA weights); (d) run_test on the last checkpoint (EMA), finite
+     metrics; (e) the study tool's nve_drift (FIRE, 600 Langevin steps,
+     400 NVE steps of 0.5 fs, 24 atoms) on that f32 checkpoint: the
+     plain route with no launch (the Calculator's size rules), finite
+     energies, the drift printed, and the ms per call.
 Then one JSON line with the kernels (each with its launches per MD call
-and per phase 8, 9, 10, 11 and 12 path too, and its times on the halo
+and per phase 8, 9, 10, 11, 12 and 13 path too, and its times on the halo
 layout), the card line, and last the device JSON line.
 It imports nothing of JAX or of the JAX package.
 """
@@ -4638,6 +4654,246 @@ def phase_halo(device, card, sizes, nccl_only=False):
     return {"halo_call": halo_call or {}, "halo_step": tr["steps"][0]["launches"]}, kern
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the convergence study's path at a short budget
+# ---------------------------------------------------------------------------
+# phase 13's sizes on the card and in the CPU rehearsal: the PES check's
+# structures, the generated dataset (structures, atoms per structure), the
+# study's widths, epochs, f32 epochs and batch, the NVE steps, and the bar
+# (card only) on the validation force MAE of the last epoch over the
+# first's.  Validation runs on the EMA weights (decay 0.999), which after
+# 144 steps still hold 0.999^144 = 0.87 of the seed's: a correct run read
+# 0.844 on the card (PERF.md), so the bar is 0.9.  The study's 1
+# meV/atom/ps NVE bar holds the integrators and the protocol on the
+# synthetic PES itself (a window of fewer than 400 steps reads the
+# oscillation, not the drift: none in the rehearsal); the model's forces
+# are held to central differences of its energy, plus twice what the
+# energy's own call-to-call spread adds: 5e-2 of |F| on the card, where a
+# correct 12-epoch model read 3.8e-3 to 7.0e-3 (a sign error reads 2),
+# falling only slowly with the step (its PES at |F| of about 50 eV/A;
+# 1.4e-3 to 3.1e-3 on the CPU), 1e-2 for the rehearsal's small model.  Its
+# own drift is printed: a model of a few epochs has the random weights'
+# PES, stiff near the cutoff with no short-range repulsion, and the
+# converged study holds the bar on its model (PERF.md)
+STUDY_SIZES = dict(n_pes=16, n_data=960, atoms=(8, 32), epochs=12, f32_epochs=2, batch=64,
+                   md_steps=400, mae_ratio=0.9, drift_bound=1.0, fd_tol=5e-2, blocks=3,
+                   flags=dict(node_dim=128, irreps="128x0e+64x1o+32x2e", num_basis=20))
+STUDY_REHEARSAL = dict(n_pes=2, n_data=40, atoms=(8, 12), epochs=3, f32_epochs=1, batch=4,
+                       md_steps=40, mae_ratio=None, drift_bound=None, fd_tol=1e-2, blocks=1,
+                       flags=dict(node_dim=16, irreps="16x0e+8x1o+4x2e", num_basis=8))
+
+
+def study_pes(device, card, sizes):
+    """(a) The synthetic PES on the device against the CPU on seed-7
+    clusters of the extended elements: energy 1e-5 relative, forces 1e-4
+    of max |F|."""
+    from xequinet_torch.tools import make_synthetic_dataset as gen
+
+    gen.use_extended_elements()
+    rng = np.random.default_rng(7)
+    on_dev, on_cpu = gen.make_energy_fn(device), gen.make_energy_fn("cpu")
+    worst_e = worst_f = 0.0
+    lo, hi = sizes["atoms"]
+    for _ in range(sizes["n_pes"]):
+        z, pos = gen.random_cluster(rng, int(rng.integers(lo, hi + 1)))
+        e1, g1 = on_dev(pos, z)
+        e2, g2 = on_cpu(pos, z)
+        e1, g1, e2, g2 = float(e1), g1.cpu().numpy(), float(e2), g2.numpy()
+        if not (np.isfinite(e1) and np.isfinite(g1).all()):
+            fail("(a) the PES on the device is not finite")
+        worst_e = max(worst_e, abs(e1 - e2) / abs(e2))
+        worst_f = max(worst_f, float(np.abs(g1 - g2).max() / np.abs(g2).max()))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        on_dev(pos, z)[1].cpu()
+    ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"[study] (a) PES on {device.type} vs the CPU, {sizes['n_pes']} seed-7 clusters: "
+          f"energy {worst_e:.3e} (limit 1e-5), forces {worst_f:.3e} of max |F| (limit 1e-4); "
+          f"{ms:.2f} ms per energy and gradient at {len(z)} atoms — {card}")
+    if worst_e > 1e-5 or worst_f > 1e-4:
+        fail(f"(a) PES device vs CPU: energy {worst_e:.3e}, forces {worst_f:.3e}")
+
+
+def study_yaml(path, cfg):
+    """The study's config as a user writes it: the fields that differ from
+    the schema's defaults."""
+    import dataclasses
+
+    from xequinet_torch.utils.config import XequiConfig
+
+    base = XequiConfig()
+    sections = {}
+    for sec in ("model", "data", "trainer"):
+        got, want = getattr(cfg, sec), getattr(base, sec)
+        sections[sec] = {f.name: getattr(got, f.name) for f in dataclasses.fields(got)
+                         if getattr(got, f.name) != getattr(want, f.name)}
+    return write_yaml(path, sections)
+
+
+def study_train(tmp, db, device, card, sizes):
+    """(c) ``train -C`` through ``cli.main`` with the study tool's config:
+    the launches per step in the bf16 and the f32 epochs and per validation
+    batch, the f32 switch (logged, the optimizer on the module's tensors,
+    the EMA rebuilt), finite losses and a falling validation force MAE."""
+    import os
+    import re
+
+    from xequinet_torch import cli
+    from xequinet_torch.tools import convergence_study as study
+
+    card_run = device.type == "cuda"
+    out = os.path.join(tmp, "study")
+    cfg = study.make_config(db, out, sizes["epochs"], compute_dtype="bfloat16",
+                            f32_finetune_epochs=sizes["f32_epochs"], mega=True,
+                            batch_size=sizes["batch"], device=None if card_run else "cpu",
+                            **sizes["flags"])
+    cfg.model.model_kwargs["action_blocks"] = sizes["blocks"]
+    path = study_yaml(os.path.join(tmp, "study.yaml"), cfg)
+    ledger = study.TrainLaunches()
+    t0 = time.perf_counter()
+    with ledger.active():
+        cli.main(["train", "-C", path])
+    sync_if(card_run)
+    wall = time.perf_counter() - t0
+    log = os.path.join(out, cfg.trainer.log_file)
+    text = open(log).read()
+    counted = ledger.summary()
+    per_step, per_valid = counted["launches_per_train_step"], counted["launches_per_valid_batch"]
+    print(f"[study] (c) train -C, {counted['epochs_counted']} epochs by dtype, "
+          f"{counted['steps_counted']} steps, {counted['valid_batches_counted']} validation "
+          f"batches in {wall:.1f} s; launches per step {per_step}, per validation batch "
+          f"{per_valid}; f32 switch {counted['f32_switch']} — {card}")
+    if counted["epochs_counted"] != {"bfloat16": sizes["epochs"] - sizes["f32_epochs"],
+                                     "float32": sizes["f32_epochs"]}:
+        fail(f"(c) epochs by dtype {counted['epochs_counted']}")
+    if "f32 fine-tune: compute dtypes switched to float32" not in text:
+        fail("(c) the f32 switch is not in the trainer log")
+    sw = counted["f32_switch"][0] if len(counted["f32_switch"]) == 1 else {}
+    if not (sw.get("optimizer_holds_module_params") and sw.get("step_params_are_module_params")
+            and sw.get("ema_rebuilt") and sw.get("compute_dtype") == "float32"
+            and sw.get("mid_run")):
+        fail(f"(c) the f32 switch: {counted['f32_switch']}")
+    if card_run:
+        want = {"message_fwd": 3.0, "message_bwd": 6.0, "message_bwd2": 3.0}
+        for dt, got in per_step.items():
+            if got != want:
+                fail(f"(c) {dt} epochs: {got} launches per step, expected {want}")
+        if per_valid != {"message_fwd": 3.0, "message_bwd": 3.0, "message_bwd2": 0.0}:
+            fail(f"(c) {per_valid} launches per validation batch, expected 3 / 3 / 0")
+    losses = [float(x) for x in re.findall(r"loss (\S+)", text)]
+    if not losses or not np.isfinite(losses).all():
+        fail(f"(c) non-finite or missing losses in the log: {losses[:20]}")
+    epochs = study.parse_epochs(log)
+    curve = study.parse_curve(log)
+    step_ms = [e["step_ms"] for e in epochs if e["step_ms"] is not None]
+    print("[study] (c) validation force MAE by epoch (EMA weights; from the log): "
+          + ", ".join(f"{e}: {m:.4f}" for e, m in curve)
+          + f"; median step {np.median(step_ms):.1f} ms, median epoch "
+          f"{np.median([e['seconds'] for e in epochs]):.2f} s — {card}")
+    if len(curve) != sizes["epochs"]:
+        fail(f"(c) {len(curve)} validation rows parsed for {sizes['epochs']} epochs")
+    if sizes["mae_ratio"] is not None and curve[-1][1] > sizes["mae_ratio"] * curve[0][1]:
+        fail(f"(c) validation force MAE {curve[0][1]:.4f} -> {curve[-1][1]:.4f}, above "
+             f"{sizes['mae_ratio']} of the first epoch's")
+    launches = {f"study_train_step_{'bf16' if dt == 'bfloat16' else 'f32'}":
+                {k: int(v) for k, v in got.items()} for dt, got in per_step.items()}
+    launches["study_valid_batch"] = {k: int(v) for k, v in per_valid.items()}
+    return cfg, os.path.join(out, f"{cfg.trainer.run_name}_last.ckpt"), launches
+
+
+def phase_study(device, card, sizes):
+    """Phase 13: the convergence study's path (xequinet_torch/tools) at a
+    short budget: (a) the PES on the device against the CPU; (b) a dataset
+    generated on the device by the generator's ``main``; (c) ``train -C``
+    at the study's widths on the mega route with the f32 switch; (d)
+    ``run_test`` on the last checkpoint, EMA; (e) the NVE protocol on the
+    synthetic PES, the checkpoint's forces against differences of its
+    energy, and ``nve_drift`` on it.  Returns the message-kernel launches per unit of each path."""
+    import os
+    import tempfile
+
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run.test import run_test
+    from xequinet_torch.tools import convergence_study as study
+    from xequinet_torch.tools import make_synthetic_dataset as gen
+
+    card_run = device.type == "cuda"
+    dev_args = [] if card_run else ["--device", "cpu"]
+    t_all = time.perf_counter()
+    study_pes(device, card, sizes)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        db = os.path.join(tmp, "synth")
+        t0 = time.perf_counter()
+        gen.main([db, "--n", str(sizes["n_data"]), "--atoms", *map(str, sizes["atoms"]),
+                  "--elements", "extended", "--seed", "7"] + dev_args)
+        print(f"[study] (b) {sizes['n_data']} structures generated on {device.type} in "
+              f"{time.perf_counter() - t0:.1f} s, dataset sha256 "
+              f"{study.dataset_checksum(db)[:16]} — {card}")
+
+        cfg, ckpt, launches = study_train(tmp, db, device, card, sizes)
+
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = run_test(cfg, ckpt_file=ckpt, use_ema=True,
+                           device=None if card_run else "cpu")
+        sync_if(card_run)
+        flat = [v for r in metrics.values() for v in (r["mae"], r["rmse"])]
+        print(f"[study] (d) run_test on the last checkpoint, EMA, in "
+              f"{time.perf_counter() - t0:.2f} s: "
+              + ", ".join(f"{p} MAE {r['mae']:.4f} RMSE {r['rmse']:.4f} ({r['count']})"
+                          for p, r in sorted(metrics.items()))
+              + f"; launches {dict(cuda_build.LAUNCHES)} — {card}")
+        if not metrics or not np.isfinite(flat).all():
+            fail(f"(d) run_test metrics {metrics}")
+
+        dev_arg = None if card_run else "cpu"
+        t0 = time.perf_counter()
+        pes = study.pes_nve_drift(sizes["md_steps"], 0.5, 300.0, np.random.default_rng(7),
+                                  device=dev_arg)
+        bound = sizes["drift_bound"]
+        print(f"[study] (e) NVE on the synthetic PES on {device.type}, {pes['n_atoms']} atoms, "
+              f"{pes['steps']} steps of {pes['timestep_fs']} fs after FIRE and 600 Langevin "
+              f"steps, in {time.perf_counter() - t0:.1f} s: drift "
+              f"{pes['drift_meV_per_atom_per_ps']:.4f} meV/atom/ps (limit "
+              f"{bound if bound is not None else 'none at this length'}), max |dE| "
+              f"{pes['max_abs_dev_meV_per_atom']:.4f} meV/atom, {pes['ms_per_call']:.2f} ms "
+              f"per call — {card}")
+        if not np.isfinite(pes["drift_meV_per_atom_per_ps"]) or (
+                bound is not None and pes["drift_meV_per_atom_per_ps"] > bound):
+            fail(f"(e) NVE drift on the synthetic PES {pes}")
+        fd = study.force_check(ckpt, np.random.default_rng(7), device=dev_arg)
+        fd_limit = sizes["fd_tol"] + 2 * fd["spread_rel"]
+        print(f"[study] (e) the checkpoint's forces against central differences of its "
+              f"energy (h {fd['h_A']} A, route {fd['route']}): {fd['rel_err_along_F']:.2e} "
+              f"along F, {fd['rel_err_random']:.2e} along a random direction, of |F| "
+              f"{fd['force_norm']:.3f}; the energy's spread over 3 calls "
+              f"{fd['energy_spread']:.3e} ({fd['spread_rel']:.2e} of h |F|); limit "
+              f"{sizes['fd_tol']} + 2 x that = {fd_limit:.2e} — {card}")
+        if not max(fd["rel_err_along_F"], fd["rel_err_random"]) <= fd_limit:
+            fail(f"(e) forces against differences of the energy: {fd}")
+        t0 = time.perf_counter()
+        drift = study.nve_drift(ckpt, tmp, sizes["md_steps"], 0.5, 300.0,
+                                np.random.default_rng(7), device=dev_arg)
+        print(f"[study] (e) nve_drift on the checkpoint, {drift['n_atoms']} atoms, "
+              f"{drift['steps']} NVE steps of {drift['timestep_fs']} fs after FIRE and 600 "
+              f"Langevin steps, in {time.perf_counter() - t0:.1f} s: drift "
+              f"{drift['drift_meV_per_atom_per_ps']:.4f} meV/atom/ps (printed: a model of a "
+              f"few epochs), max |dE| {drift['max_abs_dev_meV_per_atom']:.4f} meV/atom; route "
+              f"{drift['route']}, launches per force call {drift['launches_per_call']}, "
+              f"{drift['ms_per_call']:.2f} ms per call — {card}")
+        if not np.isfinite([drift["drift_meV_per_atom_per_ps"],
+                            drift["max_abs_dev_meV_per_atom"]]).all():
+            fail(f"(e) NVE drift {drift}")
+        # a 24-atom cluster takes the plain route by the Calculator's size
+        # rules (as the JAX Calculator's), with no kernel launch
+        if drift["route"] != "plain" or any(drift["launches_per_call"].values()):
+            fail(f"(e) route {drift['route']}, launches {drift['launches_per_call']}")
+        launches["study_nve_call"] = {k: int(round(v))
+                                      for k, v in drift["launches_per_call"].items()}
+    print(f"[phase 13] in {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -4645,7 +4901,7 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 and 7-12 at a tiny size on the CPU with the "
+                    help="run phases 3-5 and 7-13 at a tiny size on the CPU with the "
                          "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -4927,6 +5183,14 @@ def main():
         if row["name"] in halo_kernels:
             row["halo_layout"] = halo_kernels[row["name"]]
 
+    # phase 13: the convergence study's path; its launches per train step
+    # (bf16 and f32 epochs), per validation batch and per NVE force call
+    # stand beside each row's
+    p13 = phase_study(device, card, STUDY_SIZES)
+    for row in rows:
+        for path, counts in p13.items():
+            row[f"launches_{path}"] = counts.get(row["name"], 0)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4935,7 +5199,7 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-5 and 7-12 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5 and 7-13 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
@@ -5018,6 +5282,9 @@ def rehearsal():
     phase_halo(torch.device("cpu"), "CPU rehearsal, not a device result", H12_REHEARSAL)
     print("[rehearsal] phase 12 (halo forward, MD and training over four ranks, edge "
           "partition) ran at a tiny size on the CPU (not a device result)")
+    phase_study(torch.device("cpu"), "CPU rehearsal, not a device result", STUDY_REHEARSAL)
+    print("[rehearsal] phase 13 (the study's PES, generator, train with the f32 switch, test "
+          "and NVE drift) ran at a tiny size on the CPU (not a device result)")
 
 
 if __name__ == "__main__":

@@ -72,15 +72,18 @@ def stack_device_batches(batches: Sequence[Dict[str, np.ndarray]]) -> Dict[str, 
     return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
-def device_put_sharded_batch(batch: Dict[str, np.ndarray], group=None, device="cpu"
+def device_put_sharded_batch(batch: Dict[str, np.ndarray], group=None, device=None
                              ) -> Dict[str, Tensor]:
     """This process's slice of a stacked batch's leading axis (its rank in
-    ``group``), on ``device``: the port's counterpart of placing the
-    leading axis over the mesh (JAX ``device_put_sharded_batch``)."""
+    ``group``), on ``device`` (None: the card; without one that raises
+    unless the caller asks for the CPU): the port's counterpart of placing
+    the leading axis over the mesh (JAX ``device_put_sharded_batch``)."""
     from ..ops.scatter import group_size_rank
+    from ..run.inference import resolve_device
 
+    dev = resolve_device(device)
     r = group_size_rank(group)[1]
-    return {k: torch.as_tensor(np.asarray(v[r]), device=device) for k, v in batch.items()}
+    return {k: torch.as_tensor(np.asarray(v[r]), device=dev) for k, v in batch.items()}
 
 
 def make_dp_train_step(*args, **kwargs):
