@@ -5,12 +5,12 @@
                                            # train step of each route with
                                            # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
-                                           # and 7-13 with the plain versions
+                                           # and 7-14 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
   2. build: nvcc builds every kernel from xequinet_torch/csrc (sm_90a),
-     one process per source (five), started together; prints seconds and
+     one process per source (six), started together; prints seconds and
      the ptxas register / shared-memory report.
   3. kernel vs plain: a bench-shaped batch (bench.py build_batch recipe,
      rng 1234, 1024 molecules of 12-28 atoms, BN 512, chunk 512, pad 32),
@@ -203,9 +203,21 @@ Phases (any failed check exits non-zero):
      400 NVE steps of 0.5 fs, 24 atoms) on that f32 checkpoint: the
      plain route with no launch (the Calculator's size rules), finite
      energies, the drift printed, and the ms per call.
+ 14. (run after phase 6's times, where torch.profiler sees the card) the
+     backward's stream-floor probe (xequinet_torch/tools/
+     bwd_stream_floor.py): bench.py's batch at default_rng(0), its layout
+     (48 blocks, 10 max chunks, 189,952 slots) against the JAX tool's JSON;
+     one call of the floor kernel (csrc/bwd_stream_floor.cu: message_bwd's
+     tile route with a near-empty body), one launch and none on any earlier
+     path, bit for bit against its plain version; the floor and message_bwd
+     on the same operands timed and split by pass, beside message_bwd's
+     byte bound, the floor's own, the bytes the floor moves and the
+     tensor-core ideal, and the reading (stream or body); after phase 13,
+     its launches on every model path, all 0.
 Then one JSON line with the kernels (each with its launches per MD call
 and per phase 8, 9, 10, 11, 12 and 13 path too, and its times on the halo
-layout), the card line, and last the device JSON line.
+layout; the sixth row, the stream floor, with its launches per probe
+call), the card line, and last the device JSON line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -1153,25 +1165,10 @@ def pass_split(name, fn, p_mm, mm, card, calls=10):
     ``calls`` calls of ``fn`` after a warm-up) and its bf16 scratch bytes.
     Returns ({pass: ms per call} of the passes the profiler saw, scratch
     bytes)."""
-    import re
-
-    from torch.profiler import ProfilerActivity, profile
-
     from xequinet_torch.ops import fused_message as fm
+    from xequinet_torch.tools import bwd_stream_floor as bsf
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev = lambda e: getattr(e, "self_device_time_total", None) or \
-        getattr(e, "self_cuda_time_total", 0.0)
-    split = {}
-    for tag, kname in PASSES[name]:  # kernel names, templated or not
-        us = sum(dev(e) for e in prof.key_averages() if re.search(rf"\b{kname}\b", e.key))
-        if us:
-            split[tag] = us / 1e3 / calls
+    split = bsf.pass_split(fn, PASSES[name], calls)
     irreps, nb, nd = p_mm["statics"]
     _, _, _, _, (h, _, d, _, _, _) = fm.structure_matrices(irreps, nb, nd)
     t = p_mm["ef"].shape[0]
@@ -4894,6 +4891,70 @@ def phase_study(device, card, sizes):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the backward's stream-floor probe
+# ---------------------------------------------------------------------------
+# the probe's layout at bench.py's batch, default_rng(0): the JAX tool's
+# tools/bwd_stream_floor.json
+FLOOR_LAYOUT = (48, 10, 189952)
+
+
+def phase_floor(device, card):
+    """Phase 14: the stream-floor probe (xequinet_torch/tools/
+    bwd_stream_floor.py) on its flagship batch: its layout against the JAX
+    tool's; one call of the floor kernel (one launch) held bit for bit
+    against its plain version; the floor, message_bwd on the same operands
+    and their passes timed, beside the bounds and the reading.  Returns the
+    floor's row fields (``floor_on_paths`` checks its launches on the model
+    paths)."""
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.tools import bwd_stream_floor as bsf
+
+    t0 = time.perf_counter()
+    p = bsf.problem(device)
+    print(f"[floor] layout {p['layout']} (n_blocks, max_chunks, n_slots; the JAX tool's "
+          f"{FLOOR_LAYOUT}), {p['n_valid']} valid slots, {p['n_atoms']} atoms")
+    if p["layout"] != FLOOR_LAYOUT:
+        fail(f"the probe's layout {p['layout']} is not the JAX tool's {FLOOR_LAYOUT}")
+    cuda_build.reset_launch_counts()
+    got = bsf.floor_call(p)
+    torch.cuda.synchronize()
+    counts = expect_launches("stream-floor probe, one call", bwd_stream_floor=1)
+    try:
+        err = bsf.check_exact(got, bsf.plain_floor(p))
+    except RuntimeError as e:
+        fail(str(e))
+    print(f"[floor] kernel against its plain version: the same bits (max |err| {err:g})")
+    del got
+    try:
+        res = bsf.measure(p)
+    except RuntimeError as e:
+        fail(str(e))
+    for line in bsf.report(res, card):
+        print(f"[floor] {line}")
+    print(f"[phase 14] in {time.perf_counter() - t0:.1f} s")
+    return {"launches": counts["bwd_stream_floor"], "max_abs_err": err, "ms": res["floor_ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["floor_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "library": "none: no single PyTorch call stages message_bwd's streams",
+            "split_ms": res["floor_split_ms"], "moved_bytes": res["floor_moved_bytes"],
+            "moved_ms": res["floor_moved_ms"], "message_bwd_ms": res["message_bwd_ms"],
+            "message_bwd_split_ms": res["message_bwd_split_ms"],
+            "message_bwd_bound_ms": res["bound_ms"], "ideal_ms": res["ideal_ms"],
+            "reading": res["reading"]}
+
+
+def floor_on_paths(rows):
+    """Phase 14, continued: the floor kernel's launches on every model path
+    its row counted (predict, train step, phases 7-13's paths), all 0."""
+    row = next(r for r in rows if r["name"] == "bwd_stream_floor")
+    on_paths = {k: v for k, v in row.items() if k.startswith("launches_")}
+    print(f"[floor] launches on the model paths: {sum(on_paths.values())} over "
+          f"{len(on_paths)} paths")
+    if any(on_paths.values()):
+        fail(f"bwd_stream_floor launched on a model path: {on_paths}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -4901,7 +4962,7 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 and 7-13 at a tiny size on the CPU with the "
+                    help="run phases 3-5 and 7-14 at a tiny size on the CPU with the "
                          "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -5099,6 +5160,13 @@ def main():
         **v1_cases["[E, 1]"], library_ms=lib_ms, library="torch.sparse.mm of CSR (dst, src, w)",
         w_full=dict(v1_cases["[E, D]"], library_ms=None)))
     del pv1
+    # the stream floor (phase 14) runs on no model path: its row takes each
+    # path's count as the others do, and phase 14 fills in the rest
+    rows.append({"name": "bwd_stream_floor", "route": "cuda",
+                 "source": "xequinet_torch/csrc/bwd_stream_floor.cu",
+                 "replaces": "tools/bwd_stream_floor.py:135",
+                 "launches_predict": launches["bwd_stream_floor"],
+                 "launches_train_step": per_step["bwd_stream_floor"]})
 
     mega_b = eng.collate(dps)
     v2_b = eng_v2.collate(dps)
@@ -5123,6 +5191,14 @@ def main():
     time_train_step("mega, 3 + 6 + 3 message kernels", step, b, ema, i0, n_real, card)
     time_train_step("v2, 3 v2 kernels", step_v2, b, ema_v2, i0, n_real, card)
     time_train_step("wide mega, 3 + 6 + 3 message kernels", step_w, b, ema_w, 10, n_real, card)
+
+    # phase 14: the backward's stream-floor probe, run beside phase 6's
+    # times: torch.profiler in this process has seen no device kernel after
+    # phases 12 and 13 on an H100 (cause not found), and the probe's
+    # reading needs its split by pass.  Its launches per probe call
+    # and its times complete the sixth row
+    next(r for r in rows if r["name"] == "bwd_stream_floor").update(
+        phase_floor(device, card))
 
     if args.profile:
         profile_call("forward_forces", lambda: eng.forward_batch(mega_b), args.profile, card)
@@ -5191,6 +5267,9 @@ def main():
         for path, counts in p13.items():
             row[f"launches_{path}"] = counts.get(row["name"], 0)
 
+    # phase 14, continued: the floor kernel ran on none of those paths
+    floor_on_paths(rows)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5199,7 +5278,7 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-5 and 7-13 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5 and 7-14 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
@@ -5285,6 +5364,13 @@ def rehearsal():
     phase_study(torch.device("cpu"), "CPU rehearsal, not a device result", STUDY_REHEARSAL)
     print("[rehearsal] phase 13 (the study's PES, generator, train with the f32 switch, test "
           "and NVE drift) ran at a tiny size on the CPU (not a device result)")
+    from xequinet_torch.tools import bwd_stream_floor as bsf
+
+    pf = bsf.problem("cpu", seed=1234, n_mols=12, bn=bn, chunk=chunk)
+    dx, d_ef, d_wf = bsf.plain_floor(pf)
+    assert not dx.any() and not d_wf.any() and d_ef.any()
+    print(f"[rehearsal] phase 14 (the stream-floor probe) ran its plain floor on {pf['layout']} "
+          f"(n_blocks, max_chunks, n_slots) on the CPU (not a device result)")
 
 
 if __name__ == "__main__":

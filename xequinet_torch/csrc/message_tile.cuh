@@ -2,8 +2,10 @@
 // message_bwd.cu, message_bwd2.cu): cp.async staging of slot rows,
 // mma.sync m16n8k16 products with bf16 operands and f32 accumulators over
 // 32-column K slices of the packed edge features, the slot indices of a
-// tile, the pass that sums per-slot scratch rows along a CSR list, and the
-// filter-weight gradient pass over per-slot rows.
+// tile, the pass that sums per-slot scratch rows along a CSR list, the
+// filter-weight gradient pass over per-slot rows, and the first-order
+// backward's tile layout, tile staging and dx pass (message_bwd.cu and
+// bwd_stream_floor.cu).
 #pragma once
 
 #include "message_common.cuh"
@@ -423,4 +425,116 @@ static int xeq_dwf_pass(const xeq_bf16* ef, const xeq_bf16* a, const xeq_bf16* c
   xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(part, dwf, n_part, kf, h,
                                                                      hp);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The first-order backward's bf16 tile pass (message_bwd.cu): its sizes and
+// shared-memory layout, the staging of one tile, and its dx pass; shared
+// with bwd_stream_floor.cu, which stages and stores what the tile pass does
+// with a near-empty body.
+// ---------------------------------------------------------------------------
+// Sizes and shared-memory offsets (bytes) of the tile pass, from the host.
+struct XeqTileDims {
+  int n_slots, ni, h, hp, d, dp, sdp, kw, kf;
+  int hs;      // H rounded up to 16: the N of fw, the K of d_ef
+  int ht8;     // H rounded up to 8: the dgs part of a scratch row
+  int dt8;     // D rounded up to 8: the dgv part
+  int sd8;     // node_dim = H - 2 ni rounded up to 8: the live scalar g columns
+  int rs;      // scratch row: ht8 + dt8
+  int xs_st;   // staged x row: [gs (ht8) | gv (dt8)] + 8
+  int gs_st;   // staged g row: [gms_s (sd8) | gms_v (dt8)] + 8
+  int w_st;    // wf_s / dfw_s row: hs rounded up to 64, + 8
+  int dfo_st;  // dfo_s row (f32): 2 ni + 8
+  int ke;      // edge-feature columns staged: Kf rounded up to 32
+  int est;     // their row stride (bf16): ke + 8, conflict-free fragments
+  int kwp;     // rows of wf in the K slices of fw and the columns of d_ef: Kw to 32
+  int wf_smem;   // wf's live rows copied to shared memory, else read from L2
+  int nst;       // stages: 2 (the next tile's copies behind this one's compute) or 1
+  int dwf_regs;  // the d_wf partial in registers (Kf <= 32, H <= 768), else
+                 // dfw rows to a scratch and xeq_dwf_pass
+  int off_g, off_e, off_pos, stage;  // within a stage; stage size
+  int off_wf, off_dfw, off_dfo, off_tab, smem;
+};
+
+// Issue the cp.async copies of one tile (slots k0 .. k0+XEQ_BT-1, one warp
+// per slot, its indices in ``ix``) into a stage: each slot's x row (gs and
+// gv columns), g row (gms_s and gms_v columns) and its edge-feature
+// columns, zero-filled for padding slots, slots past the covered range and
+// slots past n_slots; and its scratch row (position in the CSR list by
+// source, -1 for slots that add nothing).
+__device__ __forceinline__ void xeq_tile_load(unsigned char* st, int est, int k0, XeqSlotIdx ix,
+                                              const XeqTileDims& p,
+                                              const xeq_bf16* __restrict__ x,
+                                              const xeq_bf16* __restrict__ g,
+                                              const xeq_bf16* __restrict__ ef) {
+  const int t = threadIdx.x >> 5;
+  const bool ok = ix.dst >= 0;
+  const XeqSeg sg[3] = {
+      {(xeq_bf16*)st + t * p.xs_st, x + (int64_t)(ok ? ix.src : 0) * (p.hp + p.dp), p.ht8,
+       p.hp, p.rs >> 3},
+      {(xeq_bf16*)(st + p.off_g) + t * p.gs_st, g + (int64_t)(ok ? ix.dst : 0) * (p.sdp + p.dp),
+       p.sd8, p.sdp, (p.sd8 + p.dt8) >> 3},
+      {(xeq_bf16*)(st + p.off_e) + t * est, ef + (int64_t)(ok ? k0 + t : 0) * XEQ_FPACK,
+       est - 8, 0, (est - 8) / 8}};
+  xeq_stage_segs(sg, ok);
+  if ((threadIdx.x & 31) == 0) ((int*)(st + p.off_pos))[t] = ok ? ix.pos : -1;
+}
+
+// dx [n_rows, Hp+Dp] f32: the scratch rows summed by source (scratch
+// column c goes to dx column c (< ht8) or Hp + c - ht8, the rest is zero).
+__global__ void __launch_bounds__(256)
+message_bwd_dx_rows_kernel(const xeq_bf16* __restrict__ rows, const int* __restrict__ src_ptr,
+                           float* __restrict__ dx, int n_rows, int ht8, int dt8, int hp,
+                           int xw) {
+  xeq_rows_sum(rows, src_ptr, dx, n_rows, ht8, dt8, hp, xw);
+}
+
+// The tile pass's shared-memory layout: two stages and wf's live rows in
+// shared memory where they fit, else wf from L2, else one stage; false
+// when no layout fits (ops/fused_message.py::_tile_layouts states the
+// most compact one).
+static bool bwd_tile_dims(XeqTileDims& p, int n_slots, int ni, int h_dim, int hp, int d,
+                          int dp, int sdp, int kw, int kf) {
+  p.n_slots = n_slots; p.ni = ni; p.h = h_dim; p.hp = hp; p.d = d; p.dp = dp;
+  p.sdp = sdp; p.kw = kw; p.kf = kf;
+  p.hs = xeq_round_up(h_dim, 16);
+  p.ht8 = xeq_round_up(h_dim, 8);
+  p.dt8 = xeq_round_up(d, 8);
+  p.sd8 = xeq_round_up(h_dim - 2 * ni, 8);
+  p.rs = p.ht8 + p.dt8;
+  p.xs_st = p.rs + 8;
+  p.gs_st = p.sd8 + p.dt8 + 8;
+  p.w_st = xeq_round_up(p.hs, 64) + 8;
+  p.dfo_st = 2 * ni + 8;
+  p.ke = xeq_round_up(kf, XEQ_BT_KE);
+  p.est = p.ke + 8;
+  p.kwp = xeq_round_up(kw, XEQ_BT_KE);
+  p.dwf_regs = kf <= XEQ_BT_KE && p.hs <= 16 * 8 * XEQ_BT_NTW;
+  p.off_g = XEQ_BT * p.xs_st * 2;
+  p.off_e = p.off_g + XEQ_BT * p.gs_st * 2;
+  p.off_pos = p.off_e + XEQ_BT * p.est * 2;
+  p.stage = xeq_round_up(p.off_pos + XEQ_BT * 4, 16);
+  const int dfo_bytes = XEQ_BT * p.dfo_st * 4, red_bytes = 4 * XEQ_BT * p.kwp * 4;
+  const int rest = XEQ_BT * p.w_st * 2 + (dfo_bytes > red_bytes ? dfo_bytes : red_bytes) +
+                   xeq_round_up((p.dt8 + ni) * 4, 16);
+  const int wf_bytes = p.kwp * p.w_st * 2;
+  const int layouts[3][2] = {{2, 1}, {2, 0}, {1, 0}};  // (stages, wf in shared memory)
+  p.smem = XEQ_SMEM_MAX + 1;
+  p.nst = 1;
+  p.wf_smem = 0;
+  for (const auto& l : layouts) {
+    const int smem = l[0] * p.stage + l[1] * wf_bytes + rest;
+    if (smem <= XEQ_SMEM_MAX) {
+      p.nst = l[0];
+      p.wf_smem = l[1];
+      p.smem = smem;
+      break;
+    }
+  }
+  p.off_wf = p.nst * p.stage;
+  p.off_dfw = p.off_wf + (p.wf_smem ? wf_bytes : 0);
+  p.off_dfo = p.off_dfw + XEQ_BT * p.w_st * 2;
+  p.off_tab = p.off_dfo + (dfo_bytes > red_bytes ? dfo_bytes : red_bytes);
+  return kf - kw <= XEQ_MAXY && d < 65536 && p.sd8 <= p.ht8 && p.ht8 <= hp && p.dt8 <= dp &&
+         p.smem <= XEQ_SMEM_MAX;
 }

@@ -8,7 +8,10 @@ Port of ``xequinet_tpu/ops/pallas_message.py``: ``_kernel`` (:177, via
 and ``_bwd2_kernel`` (:563, via ``_mega_bwd2_call`` :770-879), the
 second order that force training runs, becomes ``csrc/message_bwd2.cu``;
 the source notes there say what bounds each on the H100 and what the
-design does about it.  Per slot (a padded edge of
+design does about it.  The TPU tool ``tools/bwd_stream_floor.py``'s
+``floor_kernel`` (:73), ``_bwd_kernel``'s streams with a near-empty body,
+becomes ``csrc/bwd_stream_floor.cu`` (:func:`bwd_stream_floor_cuda`, on no
+model path).  Per slot (a padded edge of
 the block-aligned layout of ``ops/slot_layout.py``):
 
     fw        = ef @ Wf_aug                  [Hp]   radial filter
@@ -603,6 +606,43 @@ def message_fwd_cuda(
     return out
 
 
+def _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, node_dim,
+               n_out, block_nodes, chunk, mm_dtype):
+    """What a launch of the first-order backward takes, shared by
+    :func:`message_bwd_cuda` and :func:`bwd_stream_floor_cuda` so that the
+    two cannot drift: the widths, the route, the operands in the kernel's
+    dtype, the slot plan, the index maps, the outputs (dx, d_ef, d_wf),
+    the per-block d_wf partials and the scratch."""
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    mm = _mm_dtype(mm_dtype)
+    tiles = tile_route("message_bwd", mm, irreps_str, num_basis, node_dim)
+    dev = x_cat.device
+    n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
+    cast = lambda t: t.to(mm).contiguous()
+    xk, efk, wfk, gk = map(cast, (x_cat, edge_feat, wf_aug, g))
+    n_part = torch.cuda.get_device_properties(dev).multi_processor_count
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_hc = 1 if tiles else walk_chunks("message_bwd", ni, h, kw, kf)
+    b = dict(
+        dims=(ni, h, hp, d, dp, sdp, kw, kf), mm=mm, tiles=tiles, n_rows=n_rows,
+        t_slots=t_slots, n_part=n_part, n_hc=n_hc, xk=xk, efk=efk, wfk=wfk, gk=gk,
+        plan=_plan(slot_meta, n_out, n_rows, block_nodes, chunk),
+        maps=_device_maps(irreps_str, num_basis, dev),
+        dx=torch.empty((n_rows, hp + dp), **f32),
+        d_ef=torch.empty((t_slots, F_PACK), **f32),
+        dwf_part=torch.empty((n_part, kf, h), **f32),
+        d_wf=torch.empty((F_PACK, hp), **f32),
+        rows=torch.empty(bwd_scratch_shape(t_slots, h, d) if tiles else (0,),
+                         dtype=torch.bfloat16, device=dev),
+        dfw_rows=_dfw_scratch(tiles, "message_bwd", t_slots, ni, node_dim, d, kw, kf, dev),
+        def_part=torch.empty((n_hc, t_slots, kf) if n_hc > 1 else (0,), **f32),
+    )
+    _check_cuda(xk, efk, wfk, gk, b["plan"]["src_ptr"], b["dx"], b["rows"])
+    if any(t.data_ptr() % 16 for t in (xk, efk, gk)):
+        raise ValueError("fused message: operands must be 16-byte aligned")
+    return b
+
+
 def message_bwd_cuda(
     x_cat, edge_feat, wf_aug, g, slot_meta,
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
@@ -617,47 +657,92 @@ def message_bwd_cuda(
     (:func:`walk_chunks`) whose d_ef partials a reduction sums."""
     if not x_cat.is_cuda:
         raise ValueError("message_bwd_cuda takes CUDA tensors")
-    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
-    mm = _mm_dtype(mm_dtype)
-    bf16 = mm == torch.bfloat16
-    tiles = tile_route("message_bwd", mm, irreps_str, num_basis, node_dim)
-    dev = x_cat.device
-    n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
-    xk = x_cat.to(mm).contiguous()
-    efk = edge_feat.to(mm).contiguous()
-    wfk = wf_aug.to(mm).contiguous()
-    gk = g.to(mm).contiguous()
-    plan = _plan(slot_meta, n_out, n_rows, block_nodes, chunk)
-    maps = _device_maps(irreps_str, num_basis, dev)
-    n_part = torch.cuda.get_device_properties(dev).multi_processor_count
-    dx = torch.empty((n_rows, hp + dp), dtype=torch.float32, device=dev)
-    d_ef = torch.empty((t_slots, F_PACK), dtype=torch.float32, device=dev)
-    dwf_part = torch.empty((n_part, kf, h), dtype=torch.float32, device=dev)
-    d_wf = torch.empty((F_PACK, hp), dtype=torch.float32, device=dev)
-    rows = torch.empty(bwd_scratch_shape(t_slots, h, d) if tiles else (0,),
-                       dtype=torch.bfloat16, device=dev)
-    dfw_rows = _dfw_scratch(tiles, "message_bwd", t_slots, ni, node_dim, d, kw, kf, dev)
-    n_hc = 1 if tiles else walk_chunks("message_bwd", ni, h, kw, kf)
-    def_part = torch.empty((n_hc, t_slots, kf) if n_hc > 1 else (0,), dtype=torch.float32,
-                           device=dev)
-    _check_cuda(xk, efk, wfk, gk, plan["src_ptr"], dx, rows)
-    if any(t.data_ptr() % 16 for t in (xk, efk, gk)):
-        raise ValueError("fused message: operands must be 16-byte aligned")
+    b = _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, node_dim,
+                   n_out, block_nodes, chunk, mm_dtype)
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, maps = b["plan"], b["maps"]
     launch(
         "message_bwd",
-        xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), gk.data_ptr(),
+        b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(), b["gk"].data_ptr(),
         plan["src_ptr"].data_ptr(), plan["src_slots"].data_ptr(),
         plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(),
         plan["src_pos"].data_ptr(),
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
-        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), rows.data_ptr(),
-        _ptr(dfw_rows), _ptr(def_part),
-        dx.data_ptr(), d_ef.data_ptr(), dwf_part.data_ptr(), d_wf.data_ptr(),
-        n_rows, t_slots, n_part, ni, h, hp, d, dp, sdp, kw, kf,
-        int(bf16), int(tiles), n_hc, torch.cuda.current_stream(dev).cuda_stream,
+        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), b["rows"].data_ptr(),
+        _ptr(b["dfw_rows"]), _ptr(b["def_part"]),
+        b["dx"].data_ptr(), b["d_ef"].data_ptr(), b["dwf_part"].data_ptr(),
+        b["d_wf"].data_ptr(),
+        b["n_rows"], b["t_slots"], b["n_part"], ni, h, hp, d, dp, sdp, kw, kf,
+        int(b["mm"] == torch.bfloat16), int(b["tiles"]), b["n_hc"],
+        torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
-    return dx, d_ef, d_wf
+    return b["dx"], b["d_ef"], b["d_wf"]
+
+
+def _floor_route(irreps_str, num_basis, node_dim, mm_dtype) -> bool:
+    """Whether the stream floor takes these widths: message_bwd's bf16 tile
+    route with its d_wf partial in registers (Kf <= 32, H <= 768)."""
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    return (tile_route("message_bwd", mm_dtype, irreps_str, num_basis, node_dim)
+            and _dwf_regs("message_bwd", ni, node_dim, d, kw, kf))
+
+
+def bwd_stream_floor_cuda(
+    x_cat, edge_feat, wf_aug, g, slot_meta,
+    irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx_cat, d_edge_feat, d_wf_aug), f32, by ``csrc/bwd_stream_floor.cu``:
+    :func:`message_bwd_cuda`'s bf16 tile route, with its launch's operands,
+    plan, maps, scratch and outputs, staging and storing what its tile pass
+    does with a near-empty body, then its dx pass and its d_wf reduction.
+    The values are :func:`plain_bwd_stream_floor`'s; the time is the
+    backward's stream floor (``xequinet_torch/tools/bwd_stream_floor.py``).
+    Takes only the widths of :func:`_floor_route`."""
+    if not x_cat.is_cuda:
+        raise ValueError("bwd_stream_floor_cuda takes CUDA tensors")
+    if not _floor_route(irreps_str, num_basis, node_dim, mm_dtype):
+        raise ValueError("bwd_stream_floor_cuda takes message_bwd's bf16 tile route "
+                         "(tile_route) with its d_wf partial in registers (Kf <= 32, H <= 768)")
+    b = _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, node_dim,
+                   n_out, block_nodes, chunk, mm_dtype)
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, maps = b["plan"], b["maps"]
+    launch(
+        "bwd_stream_floor",
+        b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(), b["gk"].data_ptr(),
+        plan["src_ptr"].data_ptr(), plan["slot_src"].data_ptr(),
+        plan["slot_dst"].data_ptr(), plan["src_pos"].data_ptr(),
+        maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
+        maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(), b["rows"].data_ptr(),
+        b["dx"].data_ptr(), b["d_ef"].data_ptr(), b["dwf_part"].data_ptr(),
+        b["d_wf"].data_ptr(),
+        b["n_rows"], b["t_slots"], b["n_part"], ni, h, hp, d, dp, sdp, kw, kf,
+        torch.cuda.current_stream(x_cat.device).cuda_stream,
+    )
+    return b["dx"], b["d_ef"], b["d_wf"]
+
+
+def plain_bwd_stream_floor(
+    x_cat, edge_feat, wf_aug, g, slot_meta,
+    irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What :func:`bwd_stream_floor_cuda` returns, in plain tensor ops: dx
+    and d_wf zero, and each slot's d_ef row the tile pass's staged
+    edge-feature columns (Kf rounded up to 32) in the kernel's dtype, as
+    f32, on the slots that add something (zero past those columns and on
+    the other slots).  Port of ``floor_kernel``'s outputs
+    (tools/bwd_stream_floor.py:73-99), which copies all 128 columns on
+    every slot of the covered chunks."""
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    dev = x_cat.device
+    valid = _plan(slot_meta, n_out, x_cat.shape[0], block_nodes, chunk)["slot_dst"] >= 0
+    ke = _ru(kf, 32)
+    d_ef = torch.zeros((edge_feat.shape[0], F_PACK), dtype=torch.float32, device=dev)
+    d_ef[:, :ke] = torch.where(valid[:, None], edge_feat[:, :ke].to(_mm_dtype(mm_dtype)).float(),
+                               torch.zeros((), device=dev))
+    return (torch.zeros((x_cat.shape[0], hp + dp), dtype=torch.float32, device=dev), d_ef,
+            torch.zeros((F_PACK, hp), dtype=torch.float32, device=dev))
 
 
 def _round8(n: int) -> int:
