@@ -210,8 +210,9 @@ Phases (any failed check exits non-zero):
      one call of the floor kernel (csrc/bwd_stream_floor.cu: message_bwd's
      tile route with a near-empty body), one launch and none on any earlier
      path, bit for bit against its plain version; the floor and message_bwd
-     on the same operands timed and split by pass, beside message_bwd's
-     byte bound, the floor's own, the bytes the floor moves and the
+     on the same operands timed and split by pass (each split must sum to
+     at least 0.9 of its CUDA-event time per call), beside the floor's own
+     byte bound, message_bwd's, the bytes the floor moves and the
      tensor-core ideal, and the reading (stream or body); after phase 13,
      its launches on every model path, all 0.
 Then one JSON line with the kernels (each with its launches per MD call
@@ -1146,29 +1147,15 @@ def kernel_costs(p, mm):
     return (fwd_bytes, fwd_flops), (bwd_bytes, bwd_flops), (bwd2_bytes, bwd2_flops)
 
 
-# each wrapper's launches by pass (kernel names as torch.profiler shows them)
-PASSES = {
-    "message_bwd": (("tile pass", "message_bwd_tile_kernel"),
-                    ("dx pass", "message_bwd_dx_rows_kernel"),
-                    ("d_wf pass", "xeq_dwf_pass_kernel"),
-                    ("d_wf reduction", "xeq_dwf_reduce_kernel")),
-    "message_bwd2": (("tile pass", "message_bwd2_tile_kernel"),
-                     ("d2x pass", "message_bwd2_d2x_rows_kernel"),
-                     ("d2g pass", "message_bwd2_d2g_rows_kernel"),
-                     ("d2wf pass", "xeq_dwf_pass_kernel"),
-                     ("d2wf reduction", "xeq_dwf_reduce_kernel")),
-}
-
-
 def pass_split(name, fn, p_mm, mm, card, calls=10):
     """A wrapper's device time per launch by pass (torch.profiler over
     ``calls`` calls of ``fn`` after a warm-up) and its bf16 scratch bytes.
-    Returns ({pass: ms per call} of the passes the profiler saw, scratch
+    Returns ({pass: ms per launch} of the passes the profiler saw, scratch
     bytes)."""
     from xequinet_torch.ops import fused_message as fm
     from xequinet_torch.tools import bwd_stream_floor as bsf
 
-    split = bsf.pass_split(fn, PASSES[name], calls)
+    split, seen = bsf.pass_split(fn, fm.PASSES[name], calls)
     irreps, nb, nd = p_mm["statics"]
     _, _, _, _, (h, _, d, _, _, _) = fm.structure_matrices(irreps, nb, nd)
     t = p_mm["ef"].shape[0]
@@ -1176,8 +1163,9 @@ def pass_split(name, fn, p_mm, mm, card, calls=10):
               else list(fm.bwd2_scratch_shapes(t, h, nd, d)))
     scratch = sum(r * w * 2 for r, w in shapes)
     shown = ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()) or "not measured"
-    print(f"[time] {name} ({mm}) per launch by pass (torch.profiler, {calls} calls): "
-          f"{shown}; scratch " + " + ".join(f"{r} x {w}" for r, w in shapes)
+    print(f"[time] {name} ({mm}) per launch by pass (torch.profiler, {calls} calls"
+          f"{bsf.seen_note(seen, calls)}): {shown}; scratch "
+          + " + ".join(f"{r} x {w}" for r, w in shapes)
           + f" bf16 = {scratch / 1e6:.1f} MB written once, read once — {card}")
     return split, scratch
 
@@ -4937,10 +4925,11 @@ def phase_floor(device, card):
             "plain_ms": res["plain_ms"], "bound_ms": res["floor_bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             "library": "none: no single PyTorch call stages message_bwd's streams",
-            "split_ms": res["floor_split_ms"], "moved_bytes": res["floor_moved_bytes"],
+            "split_ms": res["floor_split_ms"], "split_share": res["floor_split_share"],
+            "moved_bytes": res["floor_moved_bytes"],
             "moved_ms": res["floor_moved_ms"], "message_bwd_ms": res["message_bwd_ms"],
             "message_bwd_split_ms": res["message_bwd_split_ms"],
-            "message_bwd_bound_ms": res["bound_ms"], "ideal_ms": res["ideal_ms"],
+            "message_bwd_bound_ms": res["message_bwd_bound_ms"], "ideal_ms": res["ideal_ms"],
             "reading": res["reading"]}
 
 
@@ -5066,7 +5055,7 @@ def main():
                      "launches_train_step": per_step[name], "max_abs_err": abs_err[name],
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
-        if name in PASSES:
+        if name in fm.PASSES:
             rows[-1]["split_ms"], rows[-1]["scratch_bytes"] = pass_split(
                 name, lambda: kfn(p_mm, mm), p_mm, mm, card)
     # the f32 instances at the flagship widths (f32_finetune_epochs runs
@@ -5089,7 +5078,7 @@ def main():
                   f"{flops / 1e9:.2f} GFLOP) — {card}")
             row.setdefault("wide_bfloat16", {})[tag] = {
                 "ms": k_ms, "bound_ms": b_ms, "bound_by": b_by, "route": route}
-            if name in PASSES:
+            if name in fm.PASSES:
                 pass_split(name, lambda: kfn(pw, mm), pw, mm, card)
     del wide
     # why the second order has a specialisation without the cwf terms:

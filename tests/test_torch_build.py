@@ -1,8 +1,7 @@
 """The port's kernel registry (xequinet_torch.ops.cuda_build) on the CPU,
 with a stand-in for nvcc: every source builds, one compiler process per
 source started together, each with its own time and report; a failed
-compile raises; another checkout's sources build beside these; the op
-modules share one launch counter.  Compiling and
+compile raises; the op modules share one launch counter.  Compiling and
 launching the real kernels needs a card (tests/test_torch_gpu.py)."""
 
 import stat
@@ -58,25 +57,6 @@ def test_build_kernels_raises_on_a_failed_compile(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for gather_scatter_v2.cu"):
         cuda_build.build_kernels(["message_fwd", "gather_scatter_v2"])
     assert not cuda_build._lib_path("gather_scatter_v2").exists()
-
-
-def test_sources_from_builds_another_checkouts_sources(tmp_path, monkeypatch):
-    _fake_nvcc(tmp_path, monkeypatch)
-    other = tmp_path / "other_csrc"
-    other.mkdir()
-    for f in ("message_bwd.cu",) + cuda_build._KERNELS["message_bwd"][1]:
-        (other / f).write_bytes((cuda_build.CSRC_DIR / f).read_bytes())
-    mine, fwd = cuda_build._lib_path("message_bwd"), cuda_build._lib_path("message_fwd")
-    with cuda_build.sources_from(other, "message_bwd"):
-        assert cuda_build._lib_path("message_bwd") == mine  # the same sources
-        (other / "message_tile.cuh").write_text("// another version\n")
-        theirs = cuda_build._lib_path("message_bwd")
-        assert theirs != mine
-        assert cuda_build._lib_path("message_fwd") == fwd  # not named: this checkout's
-        cuda_build.build_kernels(["message_bwd"])
-        assert "message_bwd.cu" in cuda_build.BUILD_INFO["message_bwd"]["ptxas"]
-    assert theirs.read_text() == "built\n" and not mine.exists()
-    assert cuda_build._lib_path("message_bwd") == mine
 
 
 def test_op_modules_share_one_launch_counter():

@@ -146,7 +146,9 @@ def test_plain_floor_matches_the_jax_floor_kernel():
 def test_flagship_layout_matches_the_jax_tools_json():
     """bench.py's batch at default_rng(0) on the port's collate gives the
     JAX tool's n_blocks, max_chunks and n_slots (tools/bwd_stream_floor.json),
-    and the tool's byte bound of message_bwd is chip_smoke.py's."""
+    the tool's byte bound of message_bwd is chip_smoke.py's, and the
+    floor's own bound counts what its outputs need: ef's staged columns
+    read, d_ef's written, dx's live columns and d_wf's live rows written."""
     import chip_smoke
 
     batch = bsf.build_batch(np.random.default_rng(0))
@@ -160,7 +162,11 @@ def test_flagship_layout_matches_the_jax_tools_json():
     c = bsf.costs(dict(p, n_valid=int(batch[keys.EDGE_MASK].sum()), layout=got,
                        x_cat=torch.empty((batch[keys.ATOMIC_NUMBERS].shape[0], 0))))
     assert c["bwd_bytes"] == bwd_bytes
-    assert c["floor_bytes"] > c["bwd_bytes"] and c["moved_bytes"] > 5 * c["floor_bytes"]
+    _, _, _, _, (h, _, d, _, _, n_y) = fm.structure_matrices(*p["statics"])
+    n_e, ke, kw = int(batch[keys.EDGE_MASK].sum()), 32, bsf.NUM_BASIS + 1
+    assert bsf.NUM_BASIS + 1 + n_y <= ke  # Kf, staged as 32 columns
+    assert c["floor_bytes"] == n_e * ke * (2 + 4) + (p["n_atoms"] * (h + d) + kw * h) * 4
+    assert c["floor_bytes"] < c["bwd_bytes"] and c["moved_bytes"] > 10 * c["floor_bytes"]
 
 
 def test_floor_wrapper_refuses_cpu_tensors_and_other_routes():
@@ -170,6 +176,21 @@ def test_floor_wrapper_refuses_cpu_tensors_and_other_routes():
     assert fm._floor_route(bsf.IRREPS, bsf.NUM_BASIS, bsf.NODE_DIM, "bfloat16")
     assert not fm._floor_route(bsf.IRREPS, bsf.NUM_BASIS, bsf.NODE_DIM, "float32")
     assert not fm._floor_route(bsf.IRREPS, 23, bsf.NODE_DIM, "bfloat16")  # Kf = 33
+
+
+def test_split_must_account_for_the_timed_call():
+    """A split by pass gives a reading only with a tile pass and passes that
+    sum to at least SPLIT_SHARE of the call's CUDA-event time; launches the
+    profiler did not record are named."""
+    split = {"tile pass": 0.96, "dx pass": 0.18, "d_wf reduction": 0.011}
+    assert bsf.check_split("message_bwd", split, 1.20) == pytest.approx(1.151 / 1.20)
+    with pytest.raises(RuntimeError, match="does not account"):
+        bsf.check_split("message_bwd", split, 1.151 / (bsf.SPLIT_SHARE - 0.01))
+    with pytest.raises(RuntimeError, match="does not account"):
+        bsf.check_split("message_bwd", {"dx pass": 0.18}, 0.19)
+    assert bsf.seen_note({"tile pass": 9, "dx pass": 10}, 10) == \
+        "; tile pass 9 of 10 launches recorded"
+    assert bsf.seen_note({"tile pass": 10}, 10) == ""
 
 
 def test_reading_names_the_gap():

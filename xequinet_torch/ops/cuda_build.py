@@ -6,14 +6,11 @@ compiled by ``nvcc`` for ``sm_90a`` at first use into
 named by a hash of its sources) and bound with ``ctypes``.  The op
 modules (``fused_message``, ``gather_scatter_v2``, ``gather_scatter``)
 launch through :func:`kernel_fn` and count each launch in ``LAUNCHES``.
-:func:`sources_from` builds and launches a kernel from another checkout's
-sources for a while, to hold two versions against each other on one card.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,10 +49,7 @@ _KERNELS = {
 LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNELS}
 # per source: {"seconds": nvcc wall time, "ptxas": registers / smem report}
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
-_LIBS: Dict[tuple, ctypes.CDLL] = {}
-# kernel name -> the csrc directory its sources are taken from while a
-# sources_from block is open (CSRC_DIR otherwise)
-_SOURCES: Dict[str, Path] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -71,34 +65,12 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _csrc(name: str) -> Path:
-    return _SOURCES.get(name, CSRC_DIR)
-
-
 def _lib_path(name: str) -> Path:
     src, headers = _KERNELS[name][:2]
     h = hashlib.sha1()
     for f in (src,) + headers:
-        h.update((_csrc(name) / f).read_bytes())
+        h.update((CSRC_DIR / f).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
-
-
-@contextlib.contextmanager
-def sources_from(csrc_dir, *names):
-    """Inside the block, build and launch the named kernels from the
-    sources in ``csrc_dir`` (another checkout's ``xequinet_torch/csrc``,
-    the same C entry points) instead of this package's; launches count as
-    usual.  Each version is built once, named by the hash of its sources."""
-    before = {n: _SOURCES.get(n) for n in names}
-    _SOURCES.update({n: Path(csrc_dir).resolve() for n in names})
-    try:
-        yield
-    finally:
-        for n, d in before.items():
-            if d is None:
-                _SOURCES.pop(n, None)
-            else:
-                _SOURCES[n] = d
 
 
 def build_kernels(names=None) -> Dict[str, Dict[str, object]]:
@@ -117,7 +89,7 @@ def build_kernels(names=None) -> Dict[str, Dict[str, object]]:
         cmd = [
             _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(_csrc(name) / _KERNELS[name][0]),
+            "-o", str(tmp), str(CSRC_DIR / _KERNELS[name][0]),
         ]
         t0 = time.perf_counter()  # before the process starts: its whole wall time
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -140,12 +112,11 @@ def build_kernels(names=None) -> Dict[str, Dict[str, object]]:
 
 def kernel_fn(name: str):
     """The C entry point of kernel ``name``, built and loaded on first use."""
-    key = (name, _csrc(name))
-    if key not in _LIBS:
+    if name not in _LIBS:
         build_kernels([name])
-        _LIBS[key] = ctypes.CDLL(str(_lib_path(name)))
+        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     sym, argtypes = _KERNELS[name][2:]
-    fn = getattr(_LIBS[key], sym)
+    fn = getattr(_LIBS[name], sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

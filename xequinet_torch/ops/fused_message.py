@@ -778,6 +778,25 @@ def bwd2_scratch_shapes(t_slots: int, h: int, node_dim: int,
     return bwd_scratch_shape(t_slots, h, d), (t_slots, _round8(node_dim) + _round8(d))
 
 
+# each backward wrapper's launches by pass, by kernel name as torch.profiler
+# shows them (the d_wf passes launch only where the tile pass's d_wf
+# partial leaves the registers)
+PASSES = {
+    "message_bwd": (("tile pass", "message_bwd_tile_kernel"),
+                    ("dx pass", "message_bwd_dx_rows_kernel"),
+                    ("d_wf pass", "xeq_dwf_pass_kernel"),
+                    ("d_wf reduction", "xeq_dwf_reduce_kernel")),
+    "message_bwd2": (("tile pass", "message_bwd2_tile_kernel"),
+                     ("d2x pass", "message_bwd2_d2x_rows_kernel"),
+                     ("d2g pass", "message_bwd2_d2g_rows_kernel"),
+                     ("d2wf pass", "xeq_dwf_pass_kernel"),
+                     ("d2wf reduction", "xeq_dwf_reduce_kernel")),
+    "bwd_stream_floor": (("tile pass", "bwd_stream_floor_tile_kernel"),
+                         ("dx pass", "message_bwd_dx_rows_kernel"),
+                         ("d_wf reduction", "xeq_dwf_reduce_kernel")),
+}
+
+
 def message_bwd2_cuda(
     x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta,
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,

@@ -21,25 +21,21 @@ in the JAX tool's order (:147-158) and cut to the port's shapes; the floor
 held bit for bit against :func:`~xequinet_torch.ops.fused_message.
 plain_bwd_stream_floor`; the floor and ``message_bwd`` on the same
 operands each timed as the median of 3 repetitions of 20 calls (CUDA
-events) and split by pass with torch.profiler; the bounds; the reading.
+events) and split by pass with torch.profiler, each split held to its
+timed call; the bounds; the reading.
 
 Usage:
-    python -m xequinet_torch.tools.bwd_stream_floor [--device cpu] [--against ROOT]
-        [--out PATH]
+    python -m xequinet_torch.tools.bwd_stream_floor [--device cpu] [--out PATH]
 
 It runs on the card unless ``--device cpu`` is given, and writes
 ``bwd_stream_floor.json`` beside this file (or ``--out``).  On the CPU it
 builds the batch, prints the layout and runs the plain floor; it times
-nothing there and writes nothing.  ``--against ROOT`` also builds
-``message_bwd`` from another checkout's sources (``ROOT/xequinet_torch/
-csrc``) and holds this checkout's against it on the same operands: the
-same bits, and both timed in turns (ROOT, this, this, ROOT).
+nothing there and writes nothing.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import re
 import subprocess
@@ -56,16 +52,11 @@ IRREPS, NUM_BASIS, NODE_DIM, MM = "128x0e+64x1o+32x2e", 20, 128, "bfloat16"
 REPS, CALLS = 3, 20
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
-# each wrapper's launches by pass (kernel names as torch.profiler shows them)
-PASSES = {
-    "floor": (("tile pass", "bwd_stream_floor_tile_kernel"),
-              ("dx pass", "message_bwd_dx_rows_kernel"),
-              ("d_wf reduction", "xeq_dwf_reduce_kernel")),
-    "message_bwd": (("tile pass", "message_bwd_tile_kernel"),
-                    ("dx pass", "message_bwd_dx_rows_kernel"),
-                    ("d_wf pass", "xeq_dwf_pass_kernel"),
-                    ("d_wf reduction", "xeq_dwf_reduce_kernel")),
-}
+# the least share of a wrapper's CUDA-event ms per call that its passes'
+# device ms (torch.profiler) must sum to: the split accounts for the call
+SPLIT_SHARE = 0.9
+# the calls torch.profiler records for a split by pass
+SPLIT_CALLS = 10
 # (floor + ideal) / the tile pass's time at or above which the streams
 # are read as the gap, and at or below which the body is
 STREAM_SHARE, BODY_SHARE = 0.75, 0.5
@@ -191,7 +182,9 @@ def costs(p):
     index per valid slot (as chip_smoke.kernel_costs counts the backward).
 
     ``bwd_bytes``: what message_bwd must move (Kf columns of ef and d_ef);
-    ``floor_bytes``: the floor as a function (the staged Kf-to-32 columns);
+    ``floor_bytes``: what the floor's outputs need, the staged Kf-to-32
+    columns of ef read and of d_ef written, dx and d_wf written (x, g, wf
+    and the indices do not enter them);
     ``moved_bytes``: what the floor's design moves, the tile pass's staging
     (x row, g row, ef columns per valid slot, mostly from L2 where rows
     repeat), its three slot indices, its scratch rows written and read
@@ -219,7 +212,8 @@ def costs(p):
              + (n_rows + 1) * 4 + n_slots * fm.F_PACK * 4 + n_rows * (hp + dp) * 4
              + n_part * ru(kw, 32) * ru(h, 16) * 2 + 2 * n_part * kf * h * 4
              + fm.F_PACK * hp * 4)
-    return dict(bwd_bytes=function_bytes(kf), floor_bytes=function_bytes(ke), moved_bytes=moved,
+    floor_bytes = n_e * ke * 2 + (n_at * (h + d) + n_e * ke + kw * h) * 4
+    return dict(bwd_bytes=function_bytes(kf), floor_bytes=floor_bytes, moved_bytes=moved,
                 ideal_flops=n_e * (4 * kw * h + 2 * kf * h), scratch_bytes=n_e * rs * 2)
 
 
@@ -240,10 +234,12 @@ def time_calls(fn, reps=REPS, calls=CALLS):
     return float(np.median(out))
 
 
-def pass_split(fn, passes, calls=10):
-    """{pass: device ms per call} by kernel name (torch.profiler over
-    ``calls`` calls after a warm-up); passes the profiler did not see are
-    left out."""
+def pass_split(fn, passes, calls=SPLIT_CALLS):
+    """({pass: device ms per launch}, {pass: launches recorded}) by kernel
+    name (torch.profiler over ``calls`` calls after a warm-up, each pass
+    launched once per call).  A pass's ms is its device time over the
+    launches the profiler recorded, so a record it dropped does not lower
+    it; passes it did not see are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -254,12 +250,33 @@ def pass_split(fn, passes, calls=10):
         torch.cuda.synchronize()
     dev = lambda e: getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0.0)
-    split = {}
+    split, seen = {}, {}
     for tag, kname in passes:  # kernel names, templated or not
-        us = sum(dev(e) for e in prof.key_averages() if re.search(rf"\b{kname}\b", e.key))
-        if us:
-            split[tag] = us / 1e3 / calls
-    return split
+        evs = [e for e in prof.key_averages() if re.search(rf"\b{kname}\b", e.key)]
+        n = sum(e.count for e in evs)
+        if n:
+            split[tag], seen[tag] = sum(dev(e) for e in evs) / 1e3 / n, n
+    return split, seen
+
+
+def seen_note(seen, calls):
+    """The passes of which the profiler recorded other than ``calls``
+    launches, as a note for a printed line ("" when none)."""
+    short = {k: n for k, n in seen.items() if n != calls}
+    return "".join(f"; {k} {n} of {calls} launches recorded" for k, n in short.items())
+
+
+def check_split(name, split, ms):
+    """The share of ``ms`` (a wrapper's CUDA-event ms per call) that its
+    passes' device ms sum to; raises unless the split has a tile pass and
+    that share is at least SPLIT_SHARE, so that a profiler that missed
+    launches gives no reading."""
+    share = sum(split.values()) / ms
+    if "tile pass" not in split or share < SPLIT_SHARE:
+        raise RuntimeError(f"torch.profiler's split of {name} ({split}) does not account for "
+                           f"its {ms:.4f} ms per call (share {share:.3f}, at least "
+                           f"{SPLIT_SHARE} wanted): the reading needs the split by pass")
+    return share
 
 
 def reading(floor_ms, ideal_ms, measured_ms):
@@ -285,50 +302,36 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def hold_against(p, root):
-    """message_bwd of this checkout against the build of ``root``'s
-    sources on ``p``: whether the outputs are the same bits, and each
-    timed (time_calls) in turns, root, this, this, root."""
-    from ..ops import cuda_build
-
-    csrc = Path(root) / "xequinet_torch" / "csrc"
-    theirs = lambda: cuda_build.sources_from(csrc, "message_bwd")
-    mine = bwd_call(p)
-    with theirs():
-        other = bwd_call(p)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(mine, other))
-    turns = []
-    for who in ("against", "this", "this", "against"):
-        with theirs() if who == "against" else contextlib.nullcontext():
-            turns.append((who, time_calls(lambda: bwd_call(p))))
-    return {"root": str(root), "same_bits": same, "turns_ms": turns}
-
-
 def measure(p):
     """The numbers of the JSON on the card (floor first: its launch
-    happens before message_bwd's, with the same operands resident)."""
+    happens before message_bwd's, with the same operands resident).
+    Raises where a split by pass does not account for its timed call."""
+    from ..ops import fused_message as fm
+
     c = costs(p)
     floor_ms = time_calls(lambda: floor_call(p))
-    floor_split = pass_split(lambda: floor_call(p), PASSES["floor"])
+    floor_split, floor_seen = pass_split(lambda: floor_call(p), fm.PASSES["bwd_stream_floor"])
     bwd_ms = time_calls(lambda: bwd_call(p))
-    bwd_split = pass_split(lambda: bwd_call(p), PASSES["message_bwd"])
+    bwd_split, bwd_seen = pass_split(lambda: bwd_call(p), fm.PASSES["message_bwd"])
     plain_ms = time_calls(lambda: plain_floor(p), reps=1, calls=5)
     ideal_ms = c["ideal_flops"] / PEAK_BF16 * 1e3
-    if "tile pass" not in floor_split or "tile pass" not in bwd_split:
-        raise RuntimeError("torch.profiler saw no tile pass on the card: the reading needs "
-                           "the split by pass")
+    floor_share = check_split("the floor", floor_split, floor_ms)
+    bwd_share = check_split("message_bwd", bwd_split, bwd_ms)
     # the reading compares the tile passes (the dx pass is the same kernel
     # in both)
     verdict, text = reading(floor_split["tile pass"], ideal_ms, bwd_split["tile pass"])
     n_blocks, max_chunks, n_slots = p["layout"]
     return {
         "floor_ms": floor_ms, "n_blocks": n_blocks, "max_chunks": max_chunks,
-        "n_slots": n_slots, "floor_split_ms": floor_split, "plain_ms": plain_ms,
+        "n_slots": n_slots, "floor_split_ms": floor_split, "floor_split_seen": floor_seen,
+        "floor_split_share": floor_share, "plain_ms": plain_ms,
         "message_bwd_ms": bwd_ms, "message_bwd_split_ms": bwd_split,
-        "bound_ms": c["bwd_bytes"] / PEAK_BYTES * 1e3, "bound_bytes": c["bwd_bytes"],
-        "floor_bound_ms": c["floor_bytes"] / PEAK_BYTES * 1e3, "floor_bound_bytes":
-        c["floor_bytes"], "floor_moved_bytes": c["moved_bytes"],
+        "message_bwd_split_seen": bwd_seen, "message_bwd_split_share": bwd_share,
+        "message_bwd_bound_ms": c["bwd_bytes"] / PEAK_BYTES * 1e3,
+        "message_bwd_bound_bytes": c["bwd_bytes"],
+        "floor_bound_ms": c["floor_bytes"] / PEAK_BYTES * 1e3,
+        "floor_bound_bytes": c["floor_bytes"],
+        "floor_moved_bytes": c["moved_bytes"],
         "floor_moved_ms": c["moved_bytes"] / PEAK_BYTES * 1e3,
         "scratch_bytes": c["scratch_bytes"], "ideal_flops": c["ideal_flops"],
         "ideal_ms": ideal_ms, "reading": verdict, "reading_text": text,
@@ -338,17 +341,20 @@ def measure(p):
 
 def report(res, card):
     """The tool's printed lines."""
-    fs = ", ".join(f"{k} {v:.4f}" for k, v in res["floor_split_ms"].items()) or "not measured"
-    bs = ", ".join(f"{k} {v:.4f}" for k, v in res["message_bwd_split_ms"].items()) or \
-        "not measured"
+    def split(who):
+        by = ", ".join(f"{k} {v:.4f}" for k, v in res[f"{who}_split_ms"].items())
+        return (f"by pass: {by} ms, {res[f'{who}_split_share']:.1%} of the call"
+                f"{seen_note(res[f'{who}_split_seen'], SPLIT_CALLS)}")
+
     return [
         f"bwd stream floor: {res['floor_ms']:.4f} ms/call ({res['n_blocks']} blocks x "
-        f"{res['max_chunks']} max_chunks, {res['n_slots']} slots; by pass: {fs} ms) — {card}",
-        f"message_bwd on the same operands: {res['message_bwd_ms']:.4f} ms/call (by pass: "
-        f"{bs} ms) — {card}",
-        f"bounds: message_bwd {res['bound_ms']:.4f} ms ({res['bound_bytes'] / 1e6:.1f} MB at "
-        f"3.35 TB/s), the floor as a function {res['floor_bound_ms']:.4f} ms "
-        f"({res['floor_bound_bytes'] / 1e6:.1f} MB); the floor's design moves "
+        f"{res['max_chunks']} max_chunks, {res['n_slots']} slots; {split('floor')}) — {card}",
+        f"message_bwd on the same operands: {res['message_bwd_ms']:.4f} ms/call "
+        f"({split('message_bwd')}) — {card}",
+        f"bounds: the floor's own {res['floor_bound_ms']:.4f} ms "
+        f"({res['floor_bound_bytes'] / 1e6:.1f} MB at 3.35 TB/s), message_bwd's "
+        f"{res['message_bwd_bound_ms']:.4f} ms ({res['message_bwd_bound_bytes'] / 1e6:.1f} "
+        f"MB); the floor's design moves "
         f"{res['floor_moved_bytes'] / 1e6:.1f} MB ({res['floor_moved_ms']:.4f} ms at "
         f"3.35 TB/s); tensor-core ideal {res['ideal_ms']:.4f} ms "
         f"({res['ideal_flops'] / 1e9:.2f} GFLOP at 989 TFLOP/s); plain floor "
@@ -362,8 +368,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where the probe runs: cuda (the default) or cpu (the plain "
                          "floor, no time)")
-    ap.add_argument("--against", metavar="ROOT",
-                    help="also hold message_bwd against the build of ROOT's sources")
     ap.add_argument("--out", default=str(OUT), help="the JSON written by a card run")
     args = ap.parse_args(argv)
 
@@ -390,14 +394,8 @@ def main(argv=None):
           f"{launches} launch")
     res = measure(p)
     res.update(max_abs_err=err, card=card, device=torch.cuda.get_device_name(0))
-    if args.against:
-        res["against"] = hold_against(p, args.against)
     for line in report(res, card):
         print(line)
-    if args.against:
-        a = res["against"]
-        print(f"message_bwd against {a['root']}: same bits {a['same_bits']}; in turns "
-              + ", ".join(f"{w} {t:.4f}" for w, t in a["turns_ms"]) + f" ms — {card}")
     Path(args.out).write_text(json.dumps(res, indent=1) + "\n")
     print(f"wrote {args.out}")
     return res
