@@ -5,7 +5,7 @@
                                            # train step of each route with
                                            # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
-                                           # and 7-14 with the plain versions
+                                           # and 7-15 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -213,11 +213,28 @@ Phases (any failed check exits non-zero):
      on the same operands timed and split by pass (each split must sum to
      at least 0.9 of its CUDA-event time per call), beside the floor's own
      byte bound, message_bwd's, the bytes the floor moves and the
-     tensor-core ideal, and the reading (stream or body); after phase 13,
+     tensor-core ideal, and the reading (stream or body); after phase 15,
      its launches on every model path, all 0.
+ 15. remat (models/remat.py; after phase 13): FLAGSHIP_KW on the mega
+     route with remat off, "full" and "save_edge_agg", seed-0 weights, on
+     phase 3's batch: (a) f32 and (b) bf16 force-loss energies, forces and
+     parameter gradients against remat off, bit for bit under
+     deterministic sums (f32 must be; bf16 prints any difference) and
+     within twice the no-remat call's own spread with the default sums;
+     (c) launches per forces-only call and per train step under each
+     policy, mega and v2 routes, equal to the JAX program's pallas_calls
+     (3 + 3, 3 + 8 + 3; v2 3, 3); (d) one bf16 mega train step's peak
+     device memory, its rise above the memory held before, and its ms
+     (host clock and CUDA events) per setting at 1024 and 4096 molecules;
+     (e) phase 8's 640 Ewald crystals, the force and virial loss under
+     remat against remat off as in (a), and each setting's step peak;
+     (f) run_train with ``remat: true`` for an epoch and resumed for a
+     second (3 + 8 + 3 per step, 3 + 3 per validation batch), then its
+     checkpoint through predict and a Calculator call on phase 7's box
+     (3 + 3 each).
 Then one JSON line with the kernels (each with its launches per MD call
-and per phase 8, 9, 10, 11, 12 and 13 path too, and its times on the halo
-layout; the sixth row, the stream floor, with its launches per probe
+and per phase 8, 9, 10, 11, 12, 13 and 15 path too, and its times on the
+halo layout; the sixth row, the stream floor, with its launches per probe
 call), the card line, and last the device JSON line.
 It imports nothing of JAX or of the JAX package.
 """
@@ -3228,8 +3245,8 @@ def spread(a, b):
 
 
 def grads_sample(module, forward, batch, task=FLAGSHIP_TASK):
-    """Energy, forces and every parameter gradient of the force loss on
-    ``batch``, on the host."""
+    """Energy, forces (the virial where ``task`` trains on it) and every
+    parameter gradient of the force loss on ``batch``, on the host."""
     from xequinet_torch import keys
     from xequinet_torch.training.loss import WeightedLoss
     from xequinet_torch.training.trainer import loss_and_grads
@@ -3238,8 +3255,9 @@ def grads_sample(module, forward, batch, task=FLAGSHIP_TASK):
     named = list(module.named_parameters())
     _, _, out, grads = loss_and_grads(forward, WeightedLoss("l2", **weights),
                                       [p for _, p in named], batch, "forces" in weights, virial)
-    res = {"energy": out[keys.TOTAL_ENERGY].detach().float().cpu().numpy(),
-           "forces": out[keys.FORCES].detach().float().cpu().numpy()}
+    res = {k: out[key].detach().float().cpu().numpy() for k, key in
+           (("energy", keys.TOTAL_ENERGY), ("forces", keys.FORCES), ("virial", keys.VIRIAL))
+           if key in out}
     res.update({f"grad {n}": g.float().cpu().numpy() for (n, _), g in zip(named, grads)})
     return res
 
@@ -4944,6 +4962,354 @@ def floor_on_paths(rows):
         fail(f"bwd_stream_floor launched on a model path: {on_paths}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: rematerialization (remat, remat_policy)
+# ---------------------------------------------------------------------------
+# remat off, then the two policies (models/remat.py)
+REMAT_POLICIES = (None, "full", "save_edge_agg")
+# the JAX program's pallas_calls with remat at three blocks, as
+# tests/test_torch_remat.py reads them from its jaxprs: per forces-only call
+# and per train step
+REMAT_MEGA = ({"message_fwd": 3, "message_bwd": 3},
+              {"message_fwd": 3, "message_bwd": 8, "message_bwd2": 3})
+REMAT_V2 = ({"gather_scatter_v2": 3}, {"gather_scatter_v2": 3})
+# phase 15's sizes on the card and in the CPU rehearsal: the memory cells
+# (molecules of bench.py's build_batch at rng 1234), the Ewald crystals
+# (phase 8's batch), run_train's molecules and phase 7's box
+REMAT_SIZES = dict(kw={}, layout=(BN, CHUNK), memory=(1024, 4096), steps=5, n_cells=640,
+                   n_train=320, batch=32, crystal_layout=CRYSTAL_LAYOUT,
+                   box=dict(n_box=10000, max_box=10240))
+REMAT_REHEARSAL = dict(kw=dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", num_basis=8,
+                               pallas_layout=(32, 32, PAD_NODES, MAX_CHUNKS)),
+                       layout=(32, 32), memory=(12, 24), steps=2, n_cells=8, n_train=16,
+                       batch=4, crystal_layout=(32, 32, PAD_NODES, MAX_CHUNKS),
+                       box=dict(n_box=600, max_box=1024))
+
+
+def remat_over(policy):
+    """The model kwargs of one remat setting (None: remat off)."""
+    return {} if policy is None else {"remat": True, "remat_policy": policy}
+
+
+def remat_agreement(tag, b, device, card, over, task=FLAGSHIP_TASK):
+    """Phase 15 (a), (b), (e): the force loss's energy, forces (virial) and
+    parameter gradients of the model ``over`` with remat "full" and
+    "save_edge_agg" against remat off, the same seed-0 weights: under
+    deterministic sums bit for bit, the remat call right after a call
+    without remat; under the default sums within twice remat off's own
+    spread.  (The autograd engine orders ready nodes by sequence numbers
+    that each thread counts for itself, and a remat rerun records nodes
+    on the card's backward thread: so the parameter pass's sums after it
+    can run in another order, the next call's bits then moving by
+    rounding, with or without remat.)  Returns {policy: what differs under
+    deterministic sums (quantity: max |a - b| / max |a|)}."""
+    card_run = device.type == "cuda"
+    models = {policy: train_model(device, task, **over, **remat_over(policy))[:2]
+              for policy in REMAT_POLICIES}
+    with deterministic_sums(False):
+        own = [grads_sample(*models[None], b, task) for _ in range(2)]
+    norm = lambda d: {("parameter gradients" if k.startswith("parameter gradients") else k): v
+                      for k, v in d.items()}
+    spread0 = norm(det_spreads(own))
+    print(f"[remat] {tag}: remat off, two calls with the default sums: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in spread0.items()) + f" — {card}")
+    out = {}
+    for policy in REMAT_POLICIES[1:]:
+        with deterministic_sums(True):
+            pair = [grads_sample(*models[p], b, task) for p in (None, policy)]
+        moved = {k: v for k, v in det_spreads(pair).items() if v != 0.0}
+        with deterministic_sums(False):
+            away = norm(det_spreads([own[0], grads_sample(*models[policy], b, task)]))
+        over_limit = {k: (v, spread0[k]) for k, v in away.items() if v > 2.0 * spread0[k]}
+        print(f"[remat] {tag}, {policy} against remat off: deterministic sums "
+              + (f"NOT bit for bit: {moved}" if moved else "bit for bit")
+              + "; default sums " + ", ".join(f"{k} {v:.3e}" for k, v in away.items())
+              + f" (limit 2x the own spread) — {card}")
+        if over_limit:
+            fail(f"{tag}, remat {policy}: farther from remat off than twice its own spread: "
+                 f"{over_limit}")
+        out[policy] = moved
+    del models
+    if card_run:
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_launches(b, device, card, sizes):
+    """Phase 15 (c): the kernels' launches per forces-only call and per
+    train step under each policy, mega and v2 routes, against the JAX
+    program's pallas_calls (REMAT_MEGA, REMAT_V2)."""
+    from xequinet_torch.models.model import resolve_model
+    from xequinet_torch.models.properties import make_forward
+    from xequinet_torch.ops import cuda_build
+
+    card_run = device.type == "cuda"
+    sync = torch.cuda.synchronize if card_run else (lambda: None)
+    out = {}
+    for route, want in (("mega", REMAT_MEGA), ("v2", REMAT_V2)):
+        for policy in REMAT_POLICIES[1:]:
+            over = dict(sizes["kw"], **remat_over(policy), **(V2 if route == "v2" else {}))
+            module, _, step, ema = train_model(device, **over)
+            _, extra, _ = resolve_model("xpainn", **model_kwargs("xpainn", over))
+            tag = f"remat {policy}, {route}"
+            cuda_build.reset_launch_counts()
+            make_forward(module, extra)(b, True, False)
+            sync()
+            force = path_launches(f"{tag} forces-only call", card_run, **want[0])
+            cuda_build.reset_launch_counts()
+            step(b, 0, 1.0, ema)
+            sync()
+            train = path_launches(f"{tag} train step", card_run, **want[1])
+            out[f"remat_{policy}_{route}_predict"] = force
+            out[f"remat_{policy}_{route}_train_step"] = train
+            del module, step, ema
+    return out
+
+
+def remat_memory(dps, device, card, sizes):
+    """Phase 15 (d): one bf16 mega train step's peak device memory and its
+    rise above the memory held before, and the step's ms (host clock,
+    median of ``steps`` steps each ending in a synchronize; CUDA events over
+    ``steps`` steps), for each remat setting, at each batch of
+    ``sizes["memory"]`` molecules."""
+    from xequinet_torch import keys
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.run.inference import batch_to_device
+
+    card_run = device.type == "cuda"
+    n_steps = sizes["steps"]
+    rows = {}
+    for n in sizes["memory"]:
+        mols = dps if n == len(dps) else build_molecules(n)
+        b = batch_to_device(collate(mols, kernel_layout=layout(*sizes["layout"])), device)
+        n_real = int(b[keys.EDGE_MASK].sum())
+        for policy in REMAT_POLICIES:
+            module, _, step, ema = train_model(device, **sizes["kw"], **remat_over(policy))
+            step(b, 0, 1.0, ema)  # warm: the optimizer's state and the slot plan's buffers
+            if not card_run:
+                print(f"[remat] {n} molecules, remat {policy}: one step on the CPU (memory and "
+                      f"time not measured)")
+                del module, step, ema
+                continue
+            torch.cuda.synchronize()
+            host = []
+            for i in range(n_steps):
+                t0 = time.perf_counter()
+                step(b, 1 + i, 1.0, ema)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for i in range(n_steps):
+                step(b, 1 + n_steps + i, 1.0, ema)
+            end.record()
+            torch.cuda.synchronize()
+            events = start.elapsed_time(end) / n_steps
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            step(b, 1 + 2 * n_steps, 1.0, ema)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            rows[(n, policy)] = dict(peak=peak, rise=peak - held, held=held,
+                                     host_ms=float(np.median(host)), events_ms=events)
+            print(f"[remat] bf16 mega train step, {n} molecules ({n_real} edges), remat "
+                  f"{policy}: peak device memory {peak / 2**30:.3f} GiB, "
+                  f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held; "
+                  f"{float(np.median(host)):.3f} ms "
+                  f"(host clock, median of {n_steps}; min {min(host):.3f}), {events:.3f} ms (CUDA "
+                  f"events over {n_steps}) — {card}")
+            del module, step, ema
+            torch.cuda.empty_cache()
+        del b
+        if card_run:
+            off = rows[(n, None)]
+            print(f"[remat] {n} molecules: the step's rise above the memory held, full / off "
+                  f"{rows[(n, 'full')]['rise'] / off['rise']:.3f}, save_edge_agg / off "
+                  f"{rows[(n, 'save_edge_agg')]['rise'] / off['rise']:.3f}; step ms full / off "
+                  f"{rows[(n, 'full')]['events_ms'] / off['events_ms']:.3f} (CUDA events) — "
+                  f"{card}")
+            if rows[(n, "full")]["peak"] >= off["peak"]:
+                print(f"[remat] {n} molecules: remat full does NOT lower the step's peak "
+                      f"({rows[(n, 'full')]['peak'] / 2**30:.3f} against "
+                      f"{off['peak'] / 2**30:.3f} GiB)")
+    return rows
+
+
+def remat_ewald(device, card, sizes):
+    """Phase 15 (e): phase 8's periodic XPaiNN-Ewald (EWALD_PBC) on its
+    crystal batch, one force-loss step with the virial under remat "full"
+    and "save_edge_agg" against remat off (energy, forces, virial and
+    gradients, bit for bit under deterministic sums), then one bf16 train
+    step's peak per setting."""
+    from xequinet_torch.data.batching import collate
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.run.inference import batch_to_device
+
+    card_run = device.type == "cuda"
+    dps = build_crystals(sizes["n_cells"])
+    lay = dict(zip(("block_nodes", "chunk", "pad_nodes", "max_chunks"), sizes["crystal_layout"]))
+    b = batch_to_device(collate(dps, kernel_layout=lay), device)
+    over = {**EWALD_PBC, **sizes["kw"], "pallas_layout": sizes["crystal_layout"]}
+    moved = remat_agreement(f"(e) pbc ewald, {len(dps)} cells, bf16", b, device, card, over,
+                            EWALD_TASK)
+    out = {}
+    for policy in REMAT_POLICIES:
+        _, _, step, ema = train_model(device, EWALD_TASK, **over, **remat_over(policy))
+        step(b, 0, 1.0, ema)
+        if card_run:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        cuda_build.reset_launch_counts()
+        step(b, 1, 1.0, ema)
+        if card_run:
+            torch.cuda.synchronize()
+        want = REMAT_MEGA[1] if policy else dict(message_fwd=3, message_bwd=6, message_bwd2=3)
+        counts = path_launches(f"(e) pbc ewald train step, remat {policy}", card_run, **want)
+        if policy:
+            out[f"remat_{policy}_ewald_train_step"] = counts
+        if card_run:
+            peak = torch.cuda.max_memory_allocated()
+            print(f"[remat] (e) pbc ewald bf16 train step, remat {policy}: peak device memory "
+                  f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
+                  f"{held / 2**30:.3f} GiB held — {card}")
+        del step, ema
+        if card_run:
+            torch.cuda.empty_cache()
+    return out, moved
+
+
+def remat_entry_points(device, card, sizes):
+    """Phase 15 (f): run_train with ``remat: true`` for one epoch on bench
+    molecules (3 + 8 + 3 launches per step, 3 + 3 per validation batch),
+    resumed for a second epoch from its checkpoint (the same per step);
+    then the checkpoint through InferenceEngine.predict (3 + 3) and one
+    Calculator.calculate on phase 7's box on the mega route (3 + 3)."""
+    import os
+    import tempfile
+
+    from xequinet_torch import keys
+    from xequinet_torch.convert import load_checkpoint
+    from xequinet_torch.data.store import create_dataset
+    from xequinet_torch.interface.calculator import Calculator
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
+    from xequinet_torch.run.inference import InferenceEngine
+    from xequinet_torch.run.train import run_train
+    from xequinet_torch.training import trainer as trainer_mod
+    from xequinet_torch.utils.config import load_config
+
+    card_run = device.type == "cuda"
+    sync = torch.cuda.synchronize if card_run else (lambda: None)
+    out = {}
+    dps = build_molecules(sizes["n_train"], seed=99)
+    kw = {**FLAGSHIP_KW, "pallas_layout": (BN, CHUNK, PAD_NODES, MAX_CHUNKS), **sizes["kw"],
+          "remat": True}
+    validate, n_valid = trainer_mod.Trainer.validate, []
+
+    def counted_validate(self):
+        n_valid.append(sum(1 for _ in self.valid_loader))
+        return validate(self)
+
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        create_dataset(os.path.join(tmp, "db"), dps, units={})
+        save = os.path.join(tmp, "out")
+        last = os.path.join(save, "xequinet_last.ckpt")
+        trainer = {"max_epochs": 1, "warmup_epochs": 1, "lossfn": "l2",
+                   "losses_weight": TRAIN_WEIGHTS, "ema_decay": 0.999, "grad_clip": 5.0,
+                   "save_dir": save, "log_steps": 4, "seed": 0}
+        if not card_run:
+            trainer["device"] = "cpu"
+        steps0 = 0
+        for tag, extra in (("one epoch", {}),
+                           ("resumed for a second epoch", {"max_epochs": 2, "resume": True,
+                                                           "ckpt_file": last})):
+            over = {"model": {"model_kwargs": kw},
+                    "data": {"db_path": os.path.join(tmp, "db"), "targets": ["energy", "forces"],
+                             "batch_size": sizes["batch"], "valid_batch_size": sizes["batch"]},
+                    "trainer": dict(trainer, **extra)}
+            n_valid.clear()
+            cuda_build.reset_launch_counts()
+            trainer_mod.Trainer.validate = counted_validate
+            try:
+                t0 = time.perf_counter()
+                run_train(load_config(overrides=over))
+                sync()
+                wall = time.perf_counter() - t0
+            finally:
+                trainer_mod.Trainer.validate = validate
+            steps = load_checkpoint(last)["step"] - steps0
+            valid = sum(n_valid)
+            if steps == 0 or valid == 0:
+                fail(f"(f) run_train with remat, {tag}: {steps} steps, {valid} validation batches")
+            want = {k: REMAT_MEGA[1][k] * steps + REMAT_MEGA[0].get(k, 0) * valid
+                    for k in REMAT_MEGA[1]}
+            counts = path_launches(f"(f) run_train with remat, {tag}", card_run, **want)
+            print(f"[remat] (f) run_train with remat, {tag}: {steps} steps and {valid} "
+                  f"validation batches in {wall:.1f} s — {card}")
+            per_valid = {k: REMAT_MEGA[0].get(k, 0) * valid for k in counts}
+            out["remat_full_run_train_step"] = {k: (v - per_valid[k]) // steps
+                                                for k, v in counts.items()} if card_run else counts
+            steps0 += steps
+        eng = InferenceEngine(last, device=device)
+        if not all(getattr(blk, "remat_policy", None) == "full" for blk in eng.module.blocks
+                   if type(blk).__name__ in ("XPainnMessage", "XPainnUpdate")):
+            fail("(f) the remat checkpoint's model is not remat'd")
+        cuda_build.reset_launch_counts()
+        res = eng.predict(dps[:64])
+        sync()
+        out["remat_full_ckpt_predict"] = path_launches("(f) the remat checkpoint's predict",
+                                                       card_run, **REMAT_MEGA[0])
+        f = np.concatenate([r[keys.FORCES] for r in res])
+        z, pos, cell, pbc, _ = md_box(sizes["box"]["n_box"])
+        ei, _ = radius_graph_pbc_np(pos, cell, pbc, 5.0)
+        calc = Calculator(last, pallas="mega", device=device, max_atoms=sizes["box"]["max_box"],
+                          max_edges=md_edge_cap(ei.shape[1]))
+        cuda_build.reset_launch_counts()
+        r = calc.calculate(z, pos, cell=cell, pbc=pbc)
+        sync()
+        out["remat_full_md_call"] = path_launches("(f) the remat checkpoint's Calculator call",
+                                                  card_run, **REMAT_MEGA[0])
+        if calc.last_route != "mega" or not (np.isfinite(f).all() and
+                                             np.isfinite(r[keys.FORCES]).all()):
+            fail(f"(f): route {calc.last_route}, or non-finite forces")
+        print(f"[remat] (f) the remat checkpoint served: predict on {len(res)} molecules mean|F| "
+              f"{np.abs(f).mean():.6f}; Calculator on phase 7's box ({len(z)} atoms, route "
+              f"{calc.last_route}) energy {float(r[keys.TOTAL_ENERGY]):.6f}")
+    return out
+
+
+def phase_remat(dps, b, device, card, sizes):
+    """Phase 15: remat on the card.  (a) f32 and (b) bf16 flagship force-loss
+    steps with remat against remat off; (c) launches; (d) memory and time
+    at two batch sizes; (e) the Ewald crystals; (f) a remat checkpoint
+    through run_train (and its resume), predict and the Calculator.
+    Returns the kernels' launches per path."""
+    t0 = time.perf_counter()
+    out = {}
+    moved = {}
+    for tag, over in (("(a) f32", F32), ("(b) bf16", {})):
+        moved[tag] = remat_agreement(f"{tag} flagship, {len(dps)} molecules", b, device, card,
+                                     dict(over, **sizes["kw"]))
+    if any(moved["(b) bf16"].values()):
+        print(f"[remat] (b) bf16 remat differs from remat off under deterministic sums "
+              f"(within the default sums' spread): {moved['(b) bf16']}")
+    out.update(remat_launches(b, device, card, sizes))
+    remat_memory(dps, device, card, sizes)
+    ewald, moved["(e) ewald"] = remat_ewald(device, card, sizes)
+    out.update(ewald)
+    out.update(remat_entry_points(device, card, sizes))
+    print(f"[phase 15] in {time.perf_counter() - t0:.1f} s")
+    # f32 and the Ewald step must repeat remat off bit for bit (the rest of
+    # the phase first, so that one run shows every reading)
+    for tag in ("(a) f32", "(e) ewald"):
+        if any(moved[tag].values()):
+            fail(f"{tag}: remat is not bit for bit under deterministic sums: {moved[tag]}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -4951,7 +5317,7 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 and 7-14 at a tiny size on the CPU with the "
+                    help="run phases 3-5 and 7-15 at a tiny size on the CPU with the "
                          "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -5256,6 +5622,14 @@ def main():
         for path, counts in p13.items():
             row[f"launches_{path}"] = counts.get(row["name"], 0)
 
+    # phase 15: remat; its paths' launches (per forces-only call and train
+    # step under each policy, mega and v2, the Ewald step, run_train's step,
+    # the checkpoint's predict and Calculator call) stand beside each row's
+    p15 = phase_remat(dps, b, device, card, REMAT_SIZES)
+    for row in rows:
+        for path, counts in p15.items():
+            row[f"launches_{path}"] = counts.get(row["name"], 0)
+
     # phase 14, continued: the floor kernel ran on none of those paths
     floor_on_paths(rows)
 
@@ -5267,7 +5641,7 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-5 and 7-14 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5 and 7-15 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
@@ -5360,6 +5734,10 @@ def rehearsal():
     assert not dx.any() and not d_wf.any() and d_ef.any()
     print(f"[rehearsal] phase 14 (the stream-floor probe) ran its plain floor on {pf['layout']} "
           f"(n_blocks, max_chunks, n_slots) on the CPU (not a device result)")
+    phase_remat(dps, batch_to_device(batch, "cpu"), torch.device("cpu"),
+                "CPU rehearsal, not a device result", REMAT_REHEARSAL)
+    print("[rehearsal] phase 15 (remat: agreement, launches, memory cells, Ewald, run_train, "
+          "predict, Calculator) ran at a tiny size on the CPU (not a device result)")
 
 
 if __name__ == "__main__":

@@ -249,6 +249,30 @@ def test_export_periodic_energy_virial_matches_jax_and_calculator(ckpts, jax_exp
     np.testing.assert_allclose(got[2], ref[keys.VIRIAL], rtol=1e-3, atol=1e-4)
 
 
+def test_export_remat_checkpoint_matches_calculator(tmp_path):
+    """A JAX checkpoint trained with ``remat: true`` (``save_edge_agg``)
+    exports (the exporter traces the model without remat: it changes no
+    output): its energy program with the virial on a free molecule
+    against the port's Calculator serving the same checkpoint with remat,
+    1e-5 for the energy, 1e-4 for forces and virial."""
+    rng = np.random.default_rng(9)
+    path = _write_ckpt(str(tmp_path / "remat.ckpt"), "xpainn",
+                       dict(KW, remat=True, remat_policy="save_edge_agg"), _molecule(rng))
+    texport.export_model(path, str(tmp_path / "out"), max_atoms=16, max_edges=128,
+                         device="cpu")
+    t, tm = texport.load_exported(str(tmp_path / "out"))
+    assert tm["compute_virial"] is True
+    dp = _molecule(rng, 9)
+    got = [g.detach().numpy() for g in t(*[torch.as_tensor(a) for a in
+                                           _padded(dp, 16, 128)])]
+    calc = Calculator(path, compute_virial=True, device="cpu")
+    ref = calc.calculate(dp.atomic_numbers, dp.pos)
+    assert any(getattr(b, "remat_policy", None) for b in calc.module.blocks)
+    assert abs(float(got[0]) - ref[keys.TOTAL_ENERGY]) <= 1e-5 * abs(ref[keys.TOTAL_ENERGY])
+    _held(got[1][:dp.num_atoms], ref[keys.FORCES], 1e-4)
+    _held(got[2], ref[keys.VIRIAL], 1e-4)
+
+
 def test_export_gmx_matches_jax(ckpts, jax_exports, tmp_path):
     """tests/test_round2.py:303: the self-contained GROMACS program (8
     atoms, 1024 edges, max_reps 1) builds its list in the graph: the same

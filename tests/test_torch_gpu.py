@@ -538,6 +538,75 @@ def test_cuda_train_step_launches_all_three_kernels(cuda_device):
     assert counts == _counts(message_fwd=3, message_bwd=6, message_bwd2=3)
 
 
+def _remat_step(device, policy):
+    """(launches, energy, forces, parameter gradients) of one energy + force
+    loss of a 3-block bf16 mega model with remat ``policy`` (None: off),
+    seed-0 weights, under deterministic sums; then one train step's
+    launches."""
+    import torch.utils.deterministic as tud
+
+    from xequinet_torch.training.trainer import loss_and_grads
+
+    kw = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot",
+              num_basis=8, action_blocks=3, output_modes=["energy"],
+              compute_dtype="bfloat16", update_compute_dtype="bfloat16",
+              use_pallas_scatter="mega", pallas_layout=(16, 16, 16, 64))
+    if policy is not None:
+        kw.update(remat=True, remat_policy=policy)
+    module, extra, _ = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    module = module.to(device)
+    rng = np.random.default_rng(0)
+    dps = []
+    for _ in range(6):
+        n = int(rng.integers(4, 10))
+        pos = rng.normal(size=(n, 3)) * 1.5
+        dps.append(Datapoint(rng.integers(1, 9, n), pos, edge_index=radius_graph_np(pos, 5.0)[0],
+                             energy=float(rng.normal()), forces=rng.normal(size=(n, 3))))
+    layout = {"block_nodes": 16, "chunk": 16, "pad_nodes": 16, "max_chunks": 64}
+    batch = batch_to_device(collate(dps, kernel_layout=layout), device)
+    params = list(module.parameters())
+    forward = make_forward(module, extra, create_graph=True)
+    lossfn = WeightedLoss("l2", energy=1.0, forces=10.0)
+    was, fill = torch.are_deterministic_algorithms_enabled(), tud.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, _, out, grads = loss_and_grads(forward, lossfn, params, batch, True, False)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        tud.fill_uninitialized_memory = fill
+    opt = resolve_optimizer("adamw", params)
+    step = make_step_core(forward, lossfn, params, opt,
+                          resolve_lr_schedule("cosine_annealing", 5e-4, 100, warmup_steps=10),
+                          True, False, 5.0, 0.999, ErrorMetric("energy", "forces"))
+    fm.reset_launch_counts()
+    loss, _ = step(batch, 0, 1.0, [p.detach().clone() for p in params])
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    return (dict(fm.LAUNCHES), out[keys.TOTAL_ENERGY].detach(), out[keys.FORCES].detach(),
+            [g.detach() for g in grads])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["full", "save_edge_agg"])
+def test_cuda_remat_train_step_launches_and_bits(cuda_device, policy):
+    """A remat train step of the 3-block mega model on the card launches the
+    JAX program's kernels, 3 + 8 + 3 (test_torch_remat.py reads them from
+    its jaxpr; without remat 3 + 6 + 3), and under deterministic sums its
+    energy, forces and parameter gradients equal those without remat bit
+    for bit, the step without remat run right before (the engine orders
+    the parameter pass by per-thread sequence numbers, and a remat rerun
+    records nodes on the card's backward thread, so a later call's sums
+    may run in another order)."""
+    counts0, e0, f0, g0 = _remat_step(cuda_device, None)
+    assert counts0 == _counts(message_fwd=3, message_bwd=6, message_bwd2=3)
+    counts, e, f, g = _remat_step(cuda_device, policy)
+    assert counts == _counts(message_fwd=3, message_bwd=8, message_bwd2=3)
+    assert torch.equal(e, e0) and torch.equal(f, f0)
+    for a, b in zip(g, g0):
+        assert torch.equal(a, b)
+
+
 def _wide_checks(p, mm, rel, repeat=True):
     """The three message kernels at the problem's widths against their plain
     versions (the second order without and with cwf), zero d_ef / d2ef rows

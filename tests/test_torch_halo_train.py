@@ -16,7 +16,8 @@ mega route: the replicas bit-identical, checkpoints from rank 0 alone, the
 kernel layout written back equal to the one the JAX host functions size
 over the same dataset, and the checkpoint served by HaloCalculator as by
 the Calculator.  The v2-route and mixed-dataset refusals are the JAX
-run_train's.
+run_train's.  Both steps again with remat, bit for bit against the steps
+without.
 """
 
 import jax
@@ -152,6 +153,11 @@ def pool(tmp_path_factory):
                                pallas_layout=(BN, CHUNK, gd["halo"], mxc)),
                        e_label=e_labels, f_label=f_d, wrap_shift=wss, we=WE, wf=WF)
 
+    # the same two steps with remat (the gp 4 step under save_edge_agg, the
+    # dp 2 x gp 2 step on the mega route recomputing everything)
+    cases["gp_remat"] = dict(cases["gp"], kw=dict(KW, remat=True, remat_policy="save_edge_agg"))
+    cases["dp_remat"] = dict(cases["dp"], kw=dict(cases["dp"]["kw"], remat=True))
+
     # run_train with gp_devices 2 x dp_devices 2 on periodic chains, mega
     db = str(work / "db")
     _make_db(db, rng, n_sys=6, n_atoms=80, periodic=True)
@@ -215,6 +221,20 @@ def test_halo_train_step_matches_jax(pool, case):
         for n, g in o[case]["grads"].items():
             np.testing.assert_array_equal(g, outs[0][case]["grads"][n])
     _check_grads(outs[0][case], ref["grads"])
+
+
+@pytest.mark.parametrize("case", ["gp", "dp"])
+def test_halo_train_step_remat_bit_identical(pool, case):
+    """The same halo steps with remat (the JAX halo train step takes the
+    model's remat as it is): each rank's loss and mean gradients equal the
+    step's without remat bit for bit.  The recomputed message blocks
+    replay their halo exchanges in the same order on every rank."""
+    _, outs = pool
+    for o in outs:
+        assert o[case + "_remat"]["loss"] == o[case]["loss"]
+        for tag in ("grads", "nudged_grads"):
+            for n, g in o[case][tag].items():
+                np.testing.assert_array_equal(o[case + "_remat"][tag][n], g)
 
 
 def _jax_layout(db, dp, gp):

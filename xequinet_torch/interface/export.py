@@ -205,15 +205,21 @@ def export_model(
 ) -> str:
     """Write ``output/model.pt2`` and ``output/manifest.json`` for the
     checkpoint (either package's trainer); the program's tensors live on
-    ``device`` (None: the card).  Returns ``output``."""
+    ``device`` (None: the card).  Returns ``output``.
+
+    The program is traced from the checkpoint's model on the plain message
+    route and without ``remat``: rematerialization changes what a backward
+    keeps, not what it computes, and the traced program is one graph with
+    its own memory plan (a checkpoint trained with ``remat: true``
+    exports the same program as one trained without)."""
     from ..models.model import resolve_model
     from ..models.properties import make_forward
     from ..run.inference import load_model_from_checkpoint, resolve_device
 
     dev = resolve_device(device)
     loaded, extra, cutoff, _, mc = load_model_from_checkpoint(ckpt_file)
-    module, _, _ = resolve_model(mc["model_name"],
-                                 **dict(mc["model_kwargs"], use_pallas_scatter=False))
+    module, _, _ = resolve_model(mc["model_name"], **dict(
+        mc["model_kwargs"], use_pallas_scatter=False, remat=False))
     module.load_state_dict(loaded.state_dict())
     module = module.to(dev).eval().requires_grad_(False)
     forward = make_forward(module, extra)

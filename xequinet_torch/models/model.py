@@ -18,6 +18,7 @@ from .electronic import ChargeEmbedding, SpinEmbedding
 from .ewald import EwaldBlock, EwaldInitialNonPBC, EwaldInitialPBC
 from .output import OUTPUT_EXTRA_PROPERTIES, resolve_output
 from .painn import PainnEmbedding, PainnMessage, PainnUpdate
+from .remat import rematerialize, remat
 from .so3krates import EuclideanAttention, InteractionBlock
 from .xmatnet import build_xmatnet
 from .xpainn import XEmbedding, XPainnMessage, XPainnUpdate
@@ -34,7 +35,8 @@ class BlockStack(nn.Module):
 
     def forward(self, data: DataDict) -> DataDict:
         for block in self.blocks:
-            data = block(data)
+            policy = getattr(block, "remat_policy", None)
+            data = block(data) if policy is None else rematerialize(block, data, policy)
         return data
 
 
@@ -61,8 +63,10 @@ def _heads(modes, kwargs: Dict[str, Any], node_dim: int, node_irreps) -> Tuple[l
 def build_xpainn(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
     """XEmbedding -> [Charge / SpinEmbedding] -> N x (Message, Update) ->
     output heads, from the JAX package's model_kwargs.  Returns (module,
-    extra_properties, cutoff).  ``remat`` only changes memory in the JAX
-    package and is ignored here."""
+    extra_properties, cutoff).  ``remat`` recomputes each message and
+    update block's activations in the backward (``models/remat.py``);
+    ``remat_policy`` "save_edge_agg" keeps each message block's aggregate,
+    any other value recomputes everything (JAX model.py:68-85)."""
     node_dim = kwargs.get("node_dim", 128)
     node_irreps = Irreps(kwargs.get("node_irreps", "128x0e + 64x1o + 32x2e"))
     num_basis = kwargs.get("num_basis", 20)
@@ -73,6 +77,7 @@ def build_xpainn(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
     pallas_layout = tuple(kwargs.get("pallas_layout", (256, 1024, 32, 8)))
     compute_dtype = kwargs.get("compute_dtype", "float32")
     update_compute_dtype = kwargs.get("update_compute_dtype", "float32")
+    policy = kwargs.get("remat_policy", "full") if kwargs.get("remat", False) else None
     blocks: List[nn.Module] = [
         XEmbedding(
             node_dim=node_dim, node_irreps=node_irreps,
@@ -88,16 +93,19 @@ def build_xpainn(**kwargs: Any) -> Tuple[BlockStack, List[str], float]:
     if kwargs.get("spin_embed", False):
         blocks.append(SpinEmbedding(node_dim=node_dim, activation=activation))
     for _ in range(kwargs.get("action_blocks", 3)):
-        blocks.append(XPainnMessage(
-            node_dim=node_dim, node_irreps=node_irreps, num_basis=num_basis,
-            activation=activation, layer_norm=layer_norm,
-            compute_dtype=compute_dtype, use_pallas=use_pallas,
-            pallas_layout=pallas_layout,
-        ))
-        blocks.append(XPainnUpdate(
-            node_dim=node_dim, node_irreps=node_irreps, activation=activation,
-            layer_norm=layer_norm, compute_dtype=update_compute_dtype,
-        ))
+        action = [
+            XPainnMessage(
+                node_dim=node_dim, node_irreps=node_irreps, num_basis=num_basis,
+                activation=activation, layer_norm=layer_norm,
+                compute_dtype=compute_dtype, use_pallas=use_pallas,
+                pallas_layout=pallas_layout,
+            ),
+            XPainnUpdate(
+                node_dim=node_dim, node_irreps=node_irreps, activation=activation,
+                layer_norm=layer_norm, compute_dtype=update_compute_dtype,
+            ),
+        ]
+        blocks.extend(action if policy is None else [remat(b, policy) for b in action])
     heads, extra = _heads(kwargs.get("output_modes", ["energy"]), kwargs, node_dim,
                           node_irreps)
     return BlockStack(blocks + heads), extra, cutoff

@@ -32,6 +32,7 @@ from ..ops.spherical import spherical_harmonics
 from .basic import AtomEmbedding, Dense, LayerNorm, resolve_activation
 from .o3layer import EquivariantLayerNorm, O3Linear, bf16_product
 from .rbf import resolve_cutoff, resolve_rbf
+from .remat import edge_agg
 
 DataDict = Dict[str, torch.Tensor]
 
@@ -187,8 +188,9 @@ class XPainnMessage(nn.Module):
         message_equi = scalar_gate(neighbor_equi, filter_out[..., :ni], self.irreps) + \
             scalar_gate(rsh, filter_out[..., ni : 2 * ni], self.irreps)
         message_cat = torch.cat([filter_out[..., 2 * ni :], message_equi], dim=-1)
-        return segment_sum(message_cat, center_idx, n_nodes, data[keys.EDGE_MASK],
-                           scope="edges")
+        # named for the remat policy "save_edge_agg" (xpainn.py:248-250)
+        return edge_agg(segment_sum(message_cat, center_idx, n_nodes, data[keys.EDGE_MASK],
+                                    scope="edges"))
 
     def _slot_plan(self, data, slot_meta, n_nodes):
         """The batch's CSR slot plan, built by the first kernel-route block
@@ -236,7 +238,7 @@ class XPainnMessage(nn.Module):
         )
         message_equi = scalar_gate(rsh, filter_out[..., ni : 2 * ni], self.irreps)
         message_cat = torch.cat([filter_out[..., 2 * ni :], message_equi], dim=-1)
-        agg = segment_sum(message_cat, center_idx, n_nodes, edge_mask)
+        agg = edge_agg(segment_sum(message_cat, center_idx, n_nodes, edge_mask))
         agg = agg.to(data[keys.NODE_INVARIANT].dtype)
         return torch.cat([agg[..., : self.node_dim],
                           agg[..., self.node_dim :] + equi_state_agg.to(agg.dtype)], dim=-1)
@@ -282,7 +284,7 @@ class XPainnMessage(nn.Module):
         # cotangents go back through the exchange and the kernels' backward
         # stays as it is (xpainn.py:333-343)
         spec = _HALO_SPEC.get()
-        return agg if spec is None else halo_refresh(agg, spec)
+        return edge_agg(agg if spec is None else halo_refresh(agg, spec))
 
 
 class XPainnUpdate(nn.Module):

@@ -40,6 +40,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..models import remat
 from .cuda_build import BUILD_INFO, LAUNCHES, build_kernels, reset_launch_counts  # noqa: F401
 from .cuda_build import launch
 from .irreps import Irreps
@@ -208,7 +209,7 @@ def plain_message_bwd(
 ):
     """(dx_cat, d_edge_feat, d_wf_aug): the VJP of :func:`plain_message`
     for the cotangent ``g`` (torch.autograd.grad of it)."""
-    with torch.enable_grad():
+    with torch.enable_grad(), remat.local_graph():
         ins = [
             t if (create_graph and t.requires_grad) else t.detach().requires_grad_()
             for t in (x_cat, edge_feat, wf_aug)
@@ -272,7 +273,7 @@ def plain_message_bwd2(
     of ``_fmb_bwd``'s double VJP of the XLA backward
     (pallas_message.py:1032-1047)."""
     cots = (cx, cef, cwf)
-    with torch.enable_grad():
+    with torch.enable_grad(), remat.local_graph():
         ins = [
             t if (create_graph and t.requires_grad) else t.detach().requires_grad_()
             for t in (x_cat, edge_feat, wf_aug, g)
@@ -940,6 +941,12 @@ class FusedMessage(torch.autograd.Function):
                        chunk, mm_dtype, kernel_bwd)
         ctx.slot_meta = slot_meta
         ctx.save_for_backward(x_cat, edge_feat, wf_aug, edge_mask)
+        if remat.recomputing():
+            # the message block only sums the aggregate into its outputs,
+            # and the backward reads the inputs alone: a recompute launches
+            # nothing (the JAX program keeps no forward pallas_call there)
+            sdp, dp = _pad128(node_dim), _pad128(Irreps(irreps_str).dim)
+            return x_cat.new_empty((n_out, sdp + dp), dtype=torch.float32)
         return message_forward(
             x_cat, edge_feat, wf_aug, slot_meta, edge_mask, irreps_str,
             num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
@@ -978,6 +985,11 @@ class FusedMessageBwd(torch.autograd.Function):
                        chunk, mm_dtype)
         ctx.slot_meta = slot_meta
         ctx.save_for_backward(x_cat, edge_feat, wf_aug, g, edge_mask)
+        if remat.spent_after(5):
+            # a rerun of the first-order VJP that needs only these saves
+            # (remat's first message block): nothing reads the outputs
+            return (torch.empty_like(x_cat), torch.empty_like(edge_feat),
+                    torch.empty_like(wf_aug))
         return message_backward(x_cat, edge_feat, wf_aug, g, slot_meta, edge_mask,
                                 *ctx.statics)
 

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..models import remat
 from .cuda_build import launch
 from .fused_message import build_slot_plan, slot_rows
 from .scatter import segment_sum
@@ -118,6 +119,10 @@ class FusedGatherScaleScatter(torch.autograd.Function):
         plan = slot_meta[6] if len(slot_meta) > 6 else None
         ctx.save_for_backward(x, w, slot_src_global)
         ctx.dst_global = dst_global
+        if remat.recomputing():
+            # the message block only sums this aggregate into its outputs and
+            # the backward reads the inputs alone: a recompute launches nothing
+            return x.new_empty((n_out, x.shape[1]))
         return gather_scale_scatter_v2(x, w, src2, dst2, cb, nc, ws, n_out, block_nodes,
                                        chunk, window, max_chunks, plan)
 
