@@ -5,7 +5,7 @@
                                            # train step of each route with
                                            # torch.profiler
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU run of phases 3-5
-                                           # and 7-15 with the plain versions
+                                           # and 7-16 with the plain versions
 
 Phases (any failed check exits non-zero):
   1. device: the nvidia-smi name / power-limit line; fails without CUDA.
@@ -232,8 +232,25 @@ Phases (any failed check exits non-zero):
      second (3 + 8 + 3 per step, 3 + 3 per validation batch), then its
      checkpoint through predict and a Calculator call on phase 7's box
      (3 + 3 each).
+ 16. the last user-facing pieces (after phase 15): (a) a torch-saved dict
+     of seeded 8-wide vectors for every element, converted by
+     utils/qc.convert_torch_table into a temporary PRE_FOLDER, as the
+     embedding of XPaiNN at FLAGSHIP_KW's widths on the mega route, serving
+     phase 3's molecules with forces (exactly 3 + 3 launches) within the
+     bf16 2e-2 band of the plain route; (b) a reference-format data.lmdb of
+     320 fake-PyG records (bench molecules; past 256 records the keys'
+     byte order is not index order) converted by
+     tools/convert_lmdb_dataset.py without the lmdb package: record i at
+     index i and each split equal to the in-place dataset of the LMDB, then
+     ``train -C`` on it for one epoch on the mega route (exactly 3 + 6 + 3
+     launches per step, 3 + 3 per validation batch, finite losses); (c)
+     300 structures generated on the card at the bf16 study's usage, then
+     tools/bf16_accuracy_study.py's main, 2 epochs each of f32, bf16 and
+     bf16_f32ft at the study's widths: no launch (the plain route, as in
+     JAX), finite test metrics, results.json written, the f32 switch
+     logged, each mode's mean step ms.
 Then one JSON line with the kernels (each with its launches per MD call
-and per phase 8, 9, 10, 11, 12, 13 and 15 path too, and its times on the
+and per phase 8, 9, 10, 11, 12, 13, 15 and 16 path too, and its times on the
 halo layout; the sixth row, the stream floor, with its launches per probe
 call), the card line, and last the device JSON line.
 It imports nothing of JAX or of the JAX package.
@@ -2675,6 +2692,81 @@ def spread_limit(a, b):
     return CLI_TOL + 2.0 * a / max(b, 1e-30)
 
 
+class CountedValidation:
+    """Wraps ``Trainer.validate`` while it is entered: counts the batches
+    that run_train's own valid loader yields (a second pass over it
+    launches nothing) and the kernel launches made inside validate()
+    (read before and after each call)."""
+
+    def __enter__(self):
+        from xequinet_torch.ops import cuda_build
+        from xequinet_torch.training import trainer as trainer_mod
+
+        self.batches, self.launches = 0, dict.fromkeys(cuda_build.LAUNCHES, 0)
+        self.trainer_cls, validate = trainer_mod.Trainer, trainer_mod.Trainer.validate
+        self.validate = validate
+
+        def counted_validate(trainer):
+            self.batches += sum(1 for _ in trainer.valid_loader)
+            before = dict(cuda_build.LAUNCHES)
+            try:
+                return validate(trainer)
+            finally:
+                for k, v in cuda_build.LAUNCHES.items():
+                    self.launches[k] += v - before[k]
+
+        self.trainer_cls.validate = counted_validate
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer_cls.validate = self.validate
+
+    def split(self, tag, counts, steps, card_run, per_step, per_valid):
+        """The launches ``counts`` of a run of ``steps`` steps cut into those
+        of its steps and of its validation batches, each measured; on the
+        card each must be ``per_step`` per step and ``per_valid`` per
+        batch exactly (the rest 0). Returns (per step, per batch)."""
+        in_steps = {k: v - self.launches[k] for k, v in counts.items()}
+        print(f"[launches] {tag}: {self.launches} in {self.batches} validation batches, "
+              f"{in_steps} in {steps} steps")
+        if card_run:
+            want_s = {k: per_step.get(k, 0) * steps for k in counts}
+            want_v = {k: per_valid.get(k, 0) * self.batches for k in counts}
+            if in_steps != want_s or self.launches != want_v:
+                fail(f"{tag}: launches {in_steps} in the steps and {self.launches} in "
+                     f"validation, expected {want_s} and {want_v}")
+        return ({k: v // steps for k, v in in_steps.items()},
+                {k: v // self.batches for k, v in self.launches.items() if v})
+
+
+def train_counted(tag, cfg, last, card_run):
+    """``train -C cfg`` through ``cli.main`` on the mega route: its steps
+    (from its last checkpoint ``last``) and validation batches, and on the
+    card exactly 3 + 6 + 3 launches per step and 3 + 3 per validation
+    batch, each measured on its own (``CountedValidation``).
+    Returns (steps, validation batches, launches, launches per step,
+    launches per validation batch, wall s)."""
+    from xequinet_torch import cli
+    from xequinet_torch.convert import load_checkpoint
+    from xequinet_torch.ops import cuda_build
+
+    cuda_build.reset_launch_counts()
+    with CountedValidation() as cv:
+        t0 = time.perf_counter()
+        cli.main(["train", "-C", cfg])
+        sync_if(card_run)
+        wall = time.perf_counter() - t0
+    steps, valid = load_checkpoint(last)["step"], cv.batches
+    if steps == 0 or valid == 0:
+        fail(f"{tag}: {steps} steps and {valid} validation batches")
+    counts = path_launches(tag, card_run, message_fwd=3 * steps + 3 * valid,
+                           message_bwd=6 * steps + 3 * valid, message_bwd2=3 * steps)
+    per_step, per_valid = cv.split(tag, counts, steps, card_run,
+                                   dict(message_fwd=3, message_bwd=6, message_bwd2=3),
+                                   dict(message_fwd=3, message_bwd=3))
+    return steps, valid, counts, per_step, per_valid, wall
+
+
 def cli_train(tmp, kw, dev_args, card_run, sizes, card):
     """Phase 10 (a): ``train -C`` for one epoch on an XDB dataset of bench
     molecules (3 + 6 + 3 launches per step, 3 + 3 per validation batch);
@@ -2686,8 +2778,6 @@ def cli_train(tmp, kw, dev_args, card_run, sizes, card):
     from xequinet_torch import cli
     from xequinet_torch.convert import load_checkpoint
     from xequinet_torch.data.store import create_dataset
-    from xequinet_torch.ops import cuda_build
-    from xequinet_torch.training import trainer as trainer_mod
 
     db = os.path.join(tmp, "db")
     create_dataset(db, build_molecules(sizes["n_train"], seed=99), units={})
@@ -2701,29 +2791,8 @@ def cli_train(tmp, kw, dev_args, card_run, sizes, card):
     cfg = write_yaml(os.path.join(tmp, "train.yaml"),
                      {"model": {"model_name": "xpainn", "model_kwargs": kw}, "data": data,
                       "trainer": trainer})
-    # the validation batches that run_train's own valid loader yields, counted
-    # at each validate() (a second pass over that loader launches nothing)
-    validate, n_valid = trainer_mod.Trainer.validate, []
-
-    def counted_validate(self):
-        n_valid.append(sum(1 for _ in self.valid_loader))
-        return validate(self)
-
-    cuda_build.reset_launch_counts()
-    trainer_mod.Trainer.validate = counted_validate
-    try:
-        t0 = time.perf_counter()
-        cli.main(["train", "-C", cfg])
-        sync_if(card_run)
-        wall = time.perf_counter() - t0
-    finally:
-        trainer_mod.Trainer.validate = validate
     last = os.path.join(tmp, "out", "xequinet_last.ckpt")
-    steps, valid = load_checkpoint(last)["step"], sum(n_valid)
-    if steps == 0 or valid == 0:
-        fail(f"(a) train: {steps} steps and {valid} validation batches")
-    counts = path_launches("(a) train", card_run, message_fwd=3 * steps + 3 * valid,
-                           message_bwd=6 * steps + 3 * valid, message_bwd2=3 * steps)
+    steps, valid, counts, per_step, _, wall = train_counted("(a) train", cfg, last, card_run)
     print(f"[cli] (a) train -C: 1 epoch, {steps} steps and {valid} validation batches in "
           f"{wall:.1f} s, launches {counts} — {card}")
 
@@ -2770,8 +2839,7 @@ def cli_train(tmp, kw, dev_args, card_run, sizes, card):
           f"{after['epoch']} at step {after['step']}")
     if after["epoch"] != epoch + 1 or after["step"] <= step:
         fail("(a) the resumed run did not go on from the preemption checkpoint")
-    per_valid = {"message_fwd": 3 * valid, "message_bwd": 3 * valid} if card_run else {}
-    return cfg, last, {k: (v - per_valid.get(k, 0)) // steps for k, v in counts.items()}
+    return cfg, last, per_step
 
 
 def sync_if(card_run):
@@ -4823,6 +4891,9 @@ def phase_study(device, card, sizes):
     card_run = device.type == "cuda"
     dev_args = [] if card_run else ["--device", "cpu"]
     t_all = time.perf_counter()
+    # the extended elements rebind the generator's module globals: put the
+    # H, C, N, O set back for later phases
+    hcno = (gen.ELEMENTS, gen.ELEMENT_P)
     study_pes(device, card, sizes)
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         db = os.path.join(tmp, "synth")
@@ -4893,6 +4964,7 @@ def phase_study(device, card, sizes):
             fail(f"(e) route {drift['route']}, launches {drift['launches_per_call']}")
         launches["study_nve_call"] = {k: int(round(v))
                                       for k, v in drift["launches_per_call"].items()}
+    gen.ELEMENTS, gen.ELEMENT_P = hcno
     print(f"[phase 13] in {time.perf_counter() - t_all:.1f} s")
     return launches
 
@@ -5198,7 +5270,6 @@ def remat_entry_points(device, card, sizes):
     from xequinet_torch.ops.radius_graph import radius_graph_pbc_np
     from xequinet_torch.run.inference import InferenceEngine
     from xequinet_torch.run.train import run_train
-    from xequinet_torch.training import trainer as trainer_mod
     from xequinet_torch.utils.config import load_config
 
     card_run = device.type == "cuda"
@@ -5207,12 +5278,6 @@ def remat_entry_points(device, card, sizes):
     dps = build_molecules(sizes["n_train"], seed=99)
     kw = {**FLAGSHIP_KW, "pallas_layout": (BN, CHUNK, PAD_NODES, MAX_CHUNKS), **sizes["kw"],
           "remat": True}
-    validate, n_valid = trainer_mod.Trainer.validate, []
-
-    def counted_validate(self):
-        n_valid.append(sum(1 for _ in self.valid_loader))
-        return validate(self)
-
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         create_dataset(os.path.join(tmp, "db"), dps, units={})
         save = os.path.join(tmp, "out")
@@ -5230,18 +5295,14 @@ def remat_entry_points(device, card, sizes):
                     "data": {"db_path": os.path.join(tmp, "db"), "targets": ["energy", "forces"],
                              "batch_size": sizes["batch"], "valid_batch_size": sizes["batch"]},
                     "trainer": dict(trainer, **extra)}
-            n_valid.clear()
             cuda_build.reset_launch_counts()
-            trainer_mod.Trainer.validate = counted_validate
-            try:
+            with CountedValidation() as cv:
                 t0 = time.perf_counter()
                 run_train(load_config(overrides=over))
                 sync()
                 wall = time.perf_counter() - t0
-            finally:
-                trainer_mod.Trainer.validate = validate
             steps = load_checkpoint(last)["step"] - steps0
-            valid = sum(n_valid)
+            valid = cv.batches
             if steps == 0 or valid == 0:
                 fail(f"(f) run_train with remat, {tag}: {steps} steps, {valid} validation batches")
             want = {k: REMAT_MEGA[1][k] * steps + REMAT_MEGA[0].get(k, 0) * valid
@@ -5249,9 +5310,9 @@ def remat_entry_points(device, card, sizes):
             counts = path_launches(f"(f) run_train with remat, {tag}", card_run, **want)
             print(f"[remat] (f) run_train with remat, {tag}: {steps} steps and {valid} "
                   f"validation batches in {wall:.1f} s — {card}")
-            per_valid = {k: REMAT_MEGA[0].get(k, 0) * valid for k in counts}
-            out["remat_full_run_train_step"] = {k: (v - per_valid[k]) // steps
-                                                for k, v in counts.items()} if card_run else counts
+            per_step, _ = cv.split(f"(f) run_train with remat, {tag}", counts, steps, card_run,
+                                   REMAT_MEGA[1], REMAT_MEGA[0])
+            out["remat_full_run_train_step"] = per_step if card_run else counts
             steps0 += steps
         eng = InferenceEngine(last, device=device)
         if not all(getattr(blk, "remat_policy", None) == "full" for blk in eng.module.blocks
@@ -5310,6 +5371,229 @@ def phase_remat(dps, b, device, card, sizes):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the last user-facing pieces (embedding tables, the LMDB
+# converter, the bf16 accuracy study)
+# ---------------------------------------------------------------------------
+P16_SIZES = dict(kw={}, layout=(BN, CHUNK, PAD_NODES, MAX_CHUNKS), n_records=320, batch=32,
+                 valid_batch=8, n_study=300, study_epochs=2, tiny=False)
+P16_REHEARSAL = dict(kw=dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", num_basis=8,
+                             action_blocks=1),
+                     layout=(32, 32, PAD_NODES, MAX_CHUNKS), n_records=264, batch=32,
+                     valid_batch=8, n_study=48, study_epochs=2, tiny=True)
+# the custom table: seeded 8-wide vectors under these names
+P16_EMBED, P16_AUX = "smoke16", "rand8"
+
+
+def p16_custom_embedding(dps, device, card, tmp, sizes):
+    """(a) A torch-saved dict of seeded 8-wide vectors for every element,
+    converted by ``convert_torch_table`` into a temporary ``PRE_FOLDER``;
+    XPaiNN at FLAGSHIP_KW's widths with that table as its embedding, mega
+    route, serves phase 3's molecules (exactly 3 + 3 launches per predict
+    with forces) within the bf16 band of the plain route."""
+    import os
+    from pathlib import Path
+
+    from xequinet_torch import keys
+    from xequinet_torch.models.basic import AtomEmbedding
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.utils import qc
+
+    card_run = device.type == "cuda"
+    rng = np.random.default_rng(16)
+    pt = os.path.join(tmp, "embedding.pt")
+    torch.save({e: torch.tensor(rng.normal(size=8).astype(np.float32))
+                for e in qc.ELEMENTS_LIST[1:]}, pt)
+    shipped = qc.PRE_FOLDER
+    qc.PRE_FOLDER = Path(tmp) / "pre_computed"
+    try:
+        npz = qc.convert_torch_table(pt, P16_EMBED, P16_AUX)
+        table = np.load(npz)["table"]
+        over = dict(sizes["kw"], embed_basis=P16_EMBED, aux_basis=P16_AUX,
+                    pallas_layout=sizes["layout"])
+        eng = make_engine(device, **over)
+        plain = make_engine(device, **dict(over, use_pallas_scatter=False))
+    finally:
+        qc.PRE_FOLDER = shipped
+        qc.get_embedding_table.cache_clear()
+    fixed = next(m for m in eng.module.modules() if isinstance(m, AtomEmbedding)).fixed
+    if table.shape != (len(qc.ELEMENTS_LIST), 8) or table[0].any() or not np.array_equal(
+            fixed.cpu().numpy(), table.astype(np.float32)):
+        fail(f"(a) the converted table {table.shape} is not the model's embedding")
+    plain.module.load_state_dict(eng.module.state_dict())
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.predict(dps, compute_forces=True)
+    sync_if(card_run)
+    wall = time.perf_counter() - t0
+    counts = path_launches("(a) custom-embedding predict with forces", card_run,
+                           message_fwd=3, message_bwd=3)
+    f = np.concatenate([r[keys.FORCES] for r in res])
+    if len(res) != len(dps) or not np.isfinite(f).all():
+        fail("(a) predict with the converted table: wrong count or non-finite forces")
+    n_g, n_at = len(dps), sum(d.num_atoms for d in dps)
+    compare_outputs(f"(a) bf16 mega vs plain route, {P16_EMBED}_{P16_AUX} embedding",
+                    eng.forward_batch(eng.collate(dps)), plain.forward_batch(plain.collate(dps)),
+                    n_g, n_at, TOL["bfloat16"])
+    print(f"[p16] (a) {npz.name} ({table.shape[0]} x {table.shape[1]}) converted by "
+          f"convert_torch_table; predict with forces of {n_g} molecules in {wall:.2f} s on the "
+          f"mega route, launches {counts} — {card}")
+    return {"custom_embed_predict": counts}
+
+
+def p16_converted_dataset(device, card, tmp, sizes):
+    """(b) A reference-format ``data.lmdb`` of fake-PyG records (bench
+    molecules, more than 256, so that byte order of the keys is not index
+    order), converted by ``tools/convert_lmdb_dataset.py``: the record
+    count, record i at index i at a few indices, each split record for
+    record against the in-place dataset of the LMDB; then ``train -C``
+    on it for one epoch on the mega route."""
+    import os
+    import re
+
+    from xequinet_torch.data import lmdb_pure
+    from xequinet_torch.data.lmdb_reader import pyg_dumps
+    from xequinet_torch.data.store import XDBDataset
+    from xequinet_torch.tools import convert_lmdb_dataset
+
+    card_run = device.type == "cuda"
+    n = sizes["n_records"]
+    mols = build_molecules(n, seed=160)
+    payloads = [{"atomic_numbers": torch.tensor(d.atomic_numbers, dtype=torch.int64),
+                 "pos": torch.tensor(d.pos, dtype=torch.float32),
+                 "energy": torch.tensor([d.energy], dtype=torch.float64),
+                 "forces": torch.tensor(d.forces, dtype=torch.float32)} for d in mols]
+    src, dst = os.path.join(tmp, "ref"), os.path.join(tmp, "xdb")
+    os.makedirs(src)
+    t0 = time.perf_counter()
+    lmdb_pure.write_lmdb(os.path.join(src, "data.lmdb"),
+                         {i.to_bytes(8, "little"): pyg_dumps(p) for i, p in enumerate(payloads)})
+    idx = np.random.default_rng(n).permutation(n).tolist()
+    k = n // 10
+    split = {"train": idx[2 * k:], "valid": idx[:k], "test": idx[k:2 * k]}
+    with open(os.path.join(src, "split.json"), "w") as fh:
+        json.dump(split, fh)
+    with open(os.path.join(src, "info.json"), "w") as fh:
+        json.dump({"units": {"energy": "eV", "pos": "Angstrom"}}, fh)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_lmdb_dataset.main([src, dst])
+    conv_s = time.perf_counter() - t0
+    xdb = XDBDataset(dst, split="train").reader
+    if len(xdb) != n:
+        fail(f"(b) {len(xdb)} records converted of {n}")
+    for i in (0, 1, 255, 256, n - 1):  # key 256 sorts right after key 0 as bytes
+        r, d = xdb[i], mols[i]
+        if not (np.array_equal(r.atomic_numbers, d.atomic_numbers)
+                and np.array_equal(r.pos, d.pos.astype(np.float32))
+                and np.array_equal(r.forces, d.forces.astype(np.float32))
+                and r.energy == d.energy):
+            fail(f"(b) converted record {i} is not source record {i}")
+    xdb.close()
+    for name, want in split.items():
+        got, ref = XDBDataset(dst, split=name), XDBDataset(src, split=name)
+        if len(got) != len(ref) or len(got) != len(want):
+            fail(f"(b) split {name}: {len(got)} converted, {len(ref)} in place")
+        for i in range(len(got)):
+            a, b = got[i], ref[i]
+            if not all(np.array_equal(getattr(a, f), getattr(b, f))
+                       for f in ("atomic_numbers", "pos", "forces", "energy")):
+                fail(f"(b) split {name}, item {i}: the XDB differs from the in-place LMDB")
+        got.reader.close()
+        ref.reader.close()
+    print(f"[p16] (b) {n} fake-PyG records written as data.lmdb in {write_s:.2f} s, converted "
+          f"in {conv_s:.2f} s (no lmdb package: the pure page walker); {n} records, record i "
+          f"at index i spot-checked, each split equal to the in-place dataset")
+
+    kw = model_kwargs("xpainn", dict(sizes["kw"], pallas_layout=sizes["layout"]))
+    save = os.path.join(tmp, "out")
+    trainer = {"max_epochs": 1, "warmup_epochs": 1, "lossfn": "l2",
+               "losses_weight": TRAIN_WEIGHTS, "ema_decay": 0.999, "grad_clip": 5.0,
+               "save_dir": save, "log_steps": 2, "seed": 0}
+    if not card_run:
+        trainer["device"] = "cpu"
+    cfg = write_yaml(os.path.join(tmp, "train16.yaml"), {
+        "model": {"model_name": "xpainn", "model_kwargs": kw},
+        "data": {"db_path": dst, "targets": ["energy", "forces"],
+                 "batch_size": sizes["batch"], "valid_batch_size": sizes["valid_batch"]},
+        "trainer": trainer})
+    steps, valid, counts, per_step, per_valid, wall = train_counted(
+        "(b) train on the converted data", cfg, os.path.join(save, "xequinet_last.ckpt"),
+        card_run)
+    losses = [float(x) for x in re.findall(r"loss (\S+)", open(os.path.join(
+        save, "loss.log")).read())]
+    if not losses or not np.isfinite(losses).all():
+        fail(f"(b) non-finite or missing losses in the log: {losses[:20]}")
+    print(f"[p16] (b) train -C on the converted data: 1 epoch, {steps} steps and {valid} "
+          f"validation batches in {wall:.1f} s, losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"launches {counts} — {card}")
+    return {"converted_train_step": per_step, "converted_valid_batch": per_valid}
+
+
+def p16_bf16_study(device, card, tmp, sizes):
+    """(c) The bf16 accuracy study's path at a short budget: structures
+    generated on the device by the generator's ``main`` at the study's
+    usage (8-20 atoms, H C N O, seed 7), then the study tool's ``main``,
+    2 epochs each of f32, bf16 and bf16_f32ft at the study's widths: the
+    plain route (no launch), finite test metrics, results.json written,
+    the f32 switch logged."""
+    import os
+
+    from xequinet_torch.ops import cuda_build
+    from xequinet_torch.tools import bf16_accuracy_study as bf16
+    from xequinet_torch.tools import make_synthetic_dataset as gen
+
+    card_run = device.type == "cuda"
+    dev_args = [] if card_run else ["--device", "cpu"]
+    db, out = os.path.join(tmp, "synth"), os.path.join(tmp, "bf16_study")
+    t0 = time.perf_counter()
+    gen.main([db, "--n", str(sizes["n_study"])] + dev_args)
+    gen_s = time.perf_counter() - t0
+    modes = ("f32", "bf16", "bf16_f32ft")
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bf16.main([db, "--epochs", str(sizes["study_epochs"]), "--modes", ",".join(modes),
+                     "--out", out] + dev_args + (["--tiny"] if sizes["tiny"] else []))
+    wall = time.perf_counter() - t0
+    counts = path_launches("(c) the bf16 study, plain route", card_run)
+    written = json.loads(open(os.path.join(out, "results.json")).read())
+    for mode in modes:
+        m = written.get(mode, {})
+        flat = [v for p in ("energy", "forces") for v in (m.get(p, {}).get("mae"),
+                                                             m.get(p, {}).get("rmse"))]
+        if None in flat or not np.isfinite(flat).all() or any(written["kernel_launches"][mode]
+                                                                  .values()):
+            fail(f"(c) {mode}: test metrics {m}, launches {written['kernel_launches'][mode]}")
+    log = open(os.path.join(out, "bf16_f32ft", "loss.log")).read()
+    if "f32 fine-tune: compute dtypes switched to float32" not in log:
+        fail("(c) bf16_f32ft: the f32 switch is not in the trainer log")
+    print(f"[p16] (c) {sizes['n_study']} structures generated on {device.type} in {gen_s:.1f} "
+          f"s; the study, {sizes['study_epochs']} epochs per mode, in {wall:.1f} s: "
+          + "; ".join(f"{md} force MAE {res[md]['forces']['mae']:.4f} energy MAE "
+                      f"{res[md]['energy']['mae']:.4f}, {res['wall_s'][md]:.1f} s, mean step "
+                      f"{res['step_ms_mean'][md]:.1f} ms" for md in modes)
+          + f"; launches {counts} — {card}")
+    return {"bf16_study_run": counts}
+
+
+def phase_tools16(dps, device, card, sizes):
+    """Phase 16: (a) a custom embedding table through ``convert_torch_table``
+    served on the mega route; (b) a reference LMDB dataset converted by the
+    port's tool and trained on; (c) the bf16 accuracy study's path.
+    Returns the message-kernel launches per unit of each path."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        out.update(p16_custom_embedding(dps, device, card, tmp, sizes))
+        out.update(p16_converted_dataset(device, card, tmp, sizes))
+        out.update(p16_bf16_study(device, card, tmp, sizes))
+    print(f"[phase 16] in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -5317,7 +5601,7 @@ def main():
                          "torch.profiler and write the per-kernel tables to "
                          "DIR/profile_<tag>.txt")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 and 7-15 at a tiny size on the CPU with the "
+                    help="run phases 3-5 and 7-16 at a tiny size on the CPU with the "
                          "plain versions (never reports ok)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -5630,6 +5914,14 @@ def main():
         for path, counts in p15.items():
             row[f"launches_{path}"] = counts.get(row["name"], 0)
 
+    # phase 16: the last user-facing pieces; each path's launches (per predict
+    # with the converted table, per train step and validation batch on the
+    # converted data, over the whole bf16 study run) stand beside each row's
+    p16 = phase_tools16(dps, device, card, P16_SIZES)
+    for row in rows:
+        for path, counts in p16.items():
+            row[f"launches_{path}"] = counts.get(row["name"], 0)
+
     # phase 14, continued: the floor kernel ran on none of those paths
     floor_on_paths(rows)
 
@@ -5641,7 +5933,7 @@ def main():
 
 
 def rehearsal():
-    """Phases 3-5 and 7-15 at a tiny size on the CPU: plain versions only."""
+    """Phases 3-5 and 7-16 at a tiny size on the CPU: plain versions only."""
     from xequinet_torch import keys
     from xequinet_torch.data.batching import collate
     from xequinet_torch.run.inference import batch_to_device
@@ -5738,6 +6030,11 @@ def rehearsal():
                 "CPU rehearsal, not a device result", REMAT_REHEARSAL)
     print("[rehearsal] phase 15 (remat: agreement, launches, memory cells, Ewald, run_train, "
           "predict, Calculator) ran at a tiny size on the CPU (not a device result)")
+    phase_tools16(dps, torch.device("cpu"), "CPU rehearsal, not a device result",
+                  P16_REHEARSAL)
+    print("[rehearsal] phase 16 (a converted embedding table served, an LMDB dataset converted "
+          "and trained on, the bf16 study's path) ran at a tiny size on the CPU (not a device "
+          "result)")
 
 
 if __name__ == "__main__":

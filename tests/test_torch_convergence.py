@@ -10,7 +10,10 @@ formula on a fixed energy series, and its protocol to the study's bar on
 the synthetic PES.  Also the port's own: the launch ledger and the f32
 switches across a resume, the forces against differences of the energy,
 the energy under both compute dtypes, and ``device_put_sharded_batch``
-defaulting to the card.
+defaulting to the card.  The bf16 accuracy study
+(``xequinet_torch/tools/bf16_accuracy_study.py``): ``make_config`` field
+by field against ``tools/bf16_accuracy_study.py``'s for every dtype mode,
+and its ``main`` end to end on the CPU.
 
 Sizes: clusters of 8-32 atoms; the generator at 6 structures of 8-10
 atoms, seed 7; ``run_train`` two epochs of a 16-wide one-block XPaiNN on
@@ -27,11 +30,13 @@ import numpy as np
 import pytest
 import torch
 
+from tools import bf16_accuracy_study as jbf16
 from tools import convergence_study as jstudy
 from tools import make_synthetic_dataset as jgen
 from xequinet_tpu.utils import qc as jqc
 from xequinet_torch.data.store import XDBDataset
 from xequinet_torch.parallel import data_parallel as tdp
+from xequinet_torch.tools import bf16_accuracy_study as tbf16
 from xequinet_torch.tools import convergence_study as tstudy
 from xequinet_torch.tools.compare_datasets import compare
 from xequinet_torch.tools import make_synthetic_dataset as tgen
@@ -138,6 +143,48 @@ def test_make_config_field_by_field():
     # the port's own field: the card unless asked otherwise
     assert got.trainer.device is None
     assert tstudy.make_config("db", "out", 1, device="cpu").trainer.device == "cpu"
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16msg", "bf16_f32ft"])
+def test_bf16_study_make_config_field_by_field(mode, tiny):
+    got = tbf16.make_config("db", "out", mode, 60, tiny=tiny)
+    want = jbf16.make_config("db", "out", mode, 60, tiny=tiny)
+    n = 0
+    for sec in ("model", "trainer", "data"):
+        g, w = getattr(got, sec), getattr(want, sec)
+        for f in dataclasses.fields(w):
+            assert getattr(g, f.name) == getattr(w, f.name), f"{sec}.{f.name}"
+            n += 1
+    assert n == 48  # every field of the JAX schema
+    assert got.trainer.device is None
+    assert "use_pallas_scatter" not in got.model.model_kwargs  # the plain route
+
+
+def test_bf16_study_main_on_the_cpu(tmp_path):
+    """``main`` with ``--tiny --epochs 1 --modes f32,bf16 --device cpu`` on
+    48 generated structures: results.json under the JAX tool's keys (a
+    mode's test metrics per property), finite, with the run's extras."""
+    tgen.main([str(tmp_path / "db"), "--n", "48", "--atoms", "8", "10", "--device", "cpu"])
+    out = tmp_path / "study"
+    tbf16.main([str(tmp_path / "db"), "--tiny", "--epochs", "1", "--modes", "f32,bf16",
+                "--device", "cpu", "--out", str(out)])
+    res = json.loads((out / "results.json").read_text())
+    for mode in ("f32", "bf16"):
+        assert sorted(res[mode]) == ["energy", "energy/atom", "forces"]
+        for m in res[mode].values():
+            assert sorted(m) == ["count", "mae", "rmse"] and m["count"] > 0
+            assert np.isfinite([m["mae"], m["rmse"]]).all()
+        assert (out / mode / f"bf16study-{mode}_last.ckpt").exists()
+        assert res["wall_s"][mode] > 0 and res["step_ms_mean"][mode] > 0
+        assert not any(res["kernel_launches"][mode].values())
+    assert res["card"] == "CPU" and res["device"] == "cpu" and res["epochs"] == 1
+    assert res["dataset"]["n_structures"] == 48
+    assert res["f32"] != res["bf16"]
+    with pytest.raises(SystemExit):  # an unknown mode, before any training
+        tbf16.main([str(tmp_path / "db"), "--modes", "f32,fp8", "--device", "cpu",
+                    "--out", str(tmp_path / "bad")])
+    assert not (tmp_path / "bad").exists()
 
 
 def test_parse_curve_reads_the_trainers_validation(tmp_path, monkeypatch):

@@ -2,7 +2,9 @@
 against the JAX package on the CPU: the pure-Python LMDB page walker and
 writer (byte for byte), reference XequiNet records (torch tensors inside
 ``torch_geometric`` classes, read without torch_geometric),
-``XDBDataset`` on a ``data.lmdb`` directory, and the trainer's two
+``XDBDataset`` on a ``data.lmdb`` directory, the LMDB-to-XDB converter
+(``xequinet_torch/tools/convert_lmdb_dataset.py``) against the JAX tool
+and the in-place datasets, and the trainer's two
 resume paths: a preemption checkpoint (a ``train`` subprocess sent
 SIGTERM, then ``train --resume``) and a JAX trainer's checkpoint whose
 optimizer state carries over (end to end, and for each optimizer and a
@@ -17,6 +19,7 @@ ill-conditioned).
 """
 
 import copy
+import json
 import os
 import pickle
 import signal
@@ -99,27 +102,6 @@ def test_pure_lmdb_matches_jax(kind, tmp_path):
         rj.close()
 
 
-def _fake_pyg_pickle(monkeypatch, payload):
-    """A record pickled with classes of ``torch_geometric.data`` (a
-    reference XequiNet dataset's ``XequiData``), those modules then
-    removed, so that reading it needs the stubs."""
-    tg = types.ModuleType("torch_geometric")
-    tgd = types.ModuleType("torch_geometric.data")
-    BaseStorage = type("BaseStorage", (), {"__module__": "torch_geometric.data"})
-    Data = type("Data", (), {"__module__": "torch_geometric.data"})
-    tgd.BaseStorage, tgd.Data, tg.data = BaseStorage, Data, tgd
-    monkeypatch.setitem(sys.modules, "torch_geometric", tg)
-    monkeypatch.setitem(sys.modules, "torch_geometric.data", tgd)
-    store = BaseStorage()
-    store._mapping = payload
-    rec = Data()
-    rec._store = store
-    blob = pickle.dumps(rec)
-    monkeypatch.delitem(sys.modules, "torch_geometric")
-    monkeypatch.delitem(sys.modules, "torch_geometric.data")
-    return blob
-
-
 def _payload(i, periodic=False):
     rng = np.random.default_rng(i)
     n = 3 + i % 3
@@ -149,7 +131,7 @@ def test_reference_records_match_jax(monkeypatch):
     """torch tensors inside torch_geometric classes, read without
     torch_geometric: the same datapoint as the JAX reader's."""
     for i, periodic in ((0, False), (1, True)):
-        blob = _fake_pyg_pickle(monkeypatch, _payload(i, periodic))
+        blob = treader.pyg_dumps(_payload(i, periodic))
         with pytest.raises(ImportError):
             import torch_geometric  # noqa: F401
         got = treader.record_to_datapoint(treader.tolerant_loads(blob))
@@ -163,7 +145,7 @@ def test_lmdb_dataset_matches_jax_store(tmp_path, monkeypatch):
     """A reference-format ``data.lmdb`` directory read in place by
     ``XDBDataset``: the JAX store's datapoints, split and transform
     applied."""
-    blobs = {int(i).to_bytes(8, "little"): _fake_pyg_pickle(monkeypatch, _payload(i, i == 2))
+    blobs = {int(i).to_bytes(8, "little"): treader.pyg_dumps(_payload(i, i == 2))
              for i in range(5)}
     tpure.write_lmdb(tmp_path / "data.lmdb", blobs)
     (tmp_path / "info.json").write_text('{"units": {"energy": "eV"}}')
@@ -178,6 +160,101 @@ def test_lmdb_dataset_matches_jax_store(tmp_path, monkeypatch):
     os.remove(tmp_path / "data.lmdb")
     with pytest.raises(FileNotFoundError, match="data.xdb or data.lmdb"):
         XDBDataset(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# the LMDB-to-XDB converter
+# ---------------------------------------------------------------------------
+def _reference_dataset(path, n):
+    """A reference XequiNet dataset directory of ``n`` fake-PyG records
+    (every third periodic), its units and a seeded split."""
+    path.mkdir()
+    blobs = {int(i).to_bytes(8, "little"): treader.pyg_dumps(_payload(i, i % 3 == 2))
+             for i in range(n)}
+    tpure.write_lmdb(path / "data.lmdb", blobs)
+    (path / "info.json").write_text('{"units": {"energy": "eV", "pos": "Angstrom"}}')
+    idx = np.random.default_rng(n).permutation(n).tolist()
+    k = n // 10 or 1
+    split = {"train": idx[2 * k:], "valid": idx[:k], "test": idx[k:2 * k]}
+    (path / "split.json").write_text(json.dumps(split))
+    return split
+
+
+def _jax_convert(src, dst, monkeypatch):
+    """The JAX tool's own ``convert`` under a stand-in ``lmdb`` package (the
+    JAX package's page walker behind ``open`` / ``begin`` / ``cursor``),
+    removed again before it returns."""
+    from tools import convert_lmdb_dataset as jtool
+
+    class Txn:
+        def __init__(self, reader):
+            self.reader = reader
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.reader.close()
+
+        def cursor(self):
+            return self.reader.items()
+
+    lmdb = types.ModuleType("lmdb")
+    lmdb.open = lambda path, **kw: types.SimpleNamespace(
+        begin=lambda: Txn(jpure.PureLMDBReader(path)))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "lmdb", lmdb)
+        jtool.convert(src, dst)
+
+
+def test_lmdb_converter_matches_jax_tool(tmp_path, monkeypatch):
+    """At 5 records the port's tool, with no ``lmdb`` package, writes the
+    JAX tool's ``data.xdb``, ``info.json`` and ``split.json`` byte for byte."""
+    from xequinet_torch.tools import convert_lmdb_dataset as ttool
+
+    _reference_dataset(tmp_path / "src", 5)
+    _jax_convert(tmp_path / "src", tmp_path / "jax", monkeypatch)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "lmdb", None)  # the pure page walker's route
+        assert ttool.convert(tmp_path / "src", tmp_path / "port") == 5
+    for name in ("data.xdb", "info.json", "split.json"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+    assert json.loads((tmp_path / "port" / "info.json").read_text())["num_records"] == 5
+
+
+def test_lmdb_converter_keeps_index_order(tmp_path, monkeypatch):
+    """At 300 records the port's XDB holds record i at index i: each split
+    equals both packages' in-place ``XDBDataset`` of the LMDB.  The JAX
+    tool writes the cursor's order (keys sorted as bytes: 0, 256, 1, 257,
+    ...), where its copied split names other records."""
+    from xequinet_torch.tools import convert_lmdb_dataset as ttool
+
+    n = 300
+    split = _reference_dataset(tmp_path / "src", n)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "lmdb", None)
+        ttool.main([str(tmp_path / "src"), str(tmp_path / "port")])
+    for name in split:
+        got = XDBDataset(tmp_path / "port", split=name)
+        in_place = XDBDataset(tmp_path / "src", split=name)
+        jax_in_place = JXDBDataset(tmp_path / "src", split=name)
+        assert len(got) == len(in_place) == len(jax_in_place) == len(split[name])
+        assert got.units == in_place.units == {"energy": "eV", "pos": "Angstrom"}
+        for i in range(len(got)):
+            _same_datapoint(got[i], in_place[i])
+            _same_datapoint(got[i], jax_in_place[i])
+        for ds in (got, in_place, jax_in_place):
+            ds.reader.close()
+    # the JAX tool: record k of its XDB is the k-th key in byte order
+    _jax_convert(tmp_path / "src", tmp_path / "jax", monkeypatch)
+    cursor = sorted(range(n), key=lambda i: int(i).to_bytes(8, "little"))
+    jax_xdb, port_xdb = XDBDataset(tmp_path / "jax").reader, XDBDataset(tmp_path / "port").reader
+    assert cursor[:4] == [0, 256, 1, 257] and sum(c != i for i, c in enumerate(cursor)) == n - 1
+    for k in (0, 1, 2, 87, 88, n - 1):
+        _same_datapoint(jax_xdb[k], port_xdb[cursor[k]])
+    jax_xdb.close()
+    port_xdb.close()
 
 
 # ---------------------------------------------------------------------------

@@ -74,6 +74,35 @@ def tolerant_loads(blob: bytes) -> Any:
     return TolerantUnpickler(io.BytesIO(blob)).load()
 
 
+def pyg_dumps(fields: Dict[str, Any]) -> bytes:
+    """Pickle ``fields`` (name -> tensor) as reference XequiNet pickles its
+    ``XequiData``: a ``torch_geometric.data.Data`` whose ``_store`` is a
+    ``BaseStorage`` with ``_mapping = fields``.  The two classes are bare
+    stand-ins in stand-in modules, put into ``sys.modules`` only while
+    pickling, so torch_geometric is not needed and reading the blob back
+    needs ``tolerant_loads``."""
+    import sys
+    import types
+
+    names = ("torch_geometric", "torch_geometric.data")
+    tg, tgd = (types.ModuleType(n) for n in names)
+    BaseStorage = type("BaseStorage", (), {"__module__": names[1]})
+    Data = type("Data", (), {"__module__": names[1]})
+    tgd.BaseStorage, tgd.Data, tg.data = BaseStorage, Data, tgd
+    saved = {n: sys.modules.get(n) for n in names}
+    sys.modules.update(zip(names, (tg, tgd)))
+    try:
+        store, rec = BaseStorage(), Data()
+        store._mapping, rec._store = fields, store
+        return pickle.dumps(rec)
+    finally:
+        for n, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = mod
+
+
 def _lookup(obj: Any, name: str, depth: int = 0) -> Any:
     """Find ``name`` anywhere in a stub/dict tree (bounded depth)."""
     if depth > 5:

@@ -6,8 +6,10 @@ arithmetic unit expressions such as "eV/Ang^2" are parsed and evaluated;
 the element tables (symbols, ground-state multiplicities, masses); and
 the per-element embedding tables of the fixed-table atom embedding (each
 element's xTB AO basis projected onto an auxiliary basis), read from the
-``.npz`` copies in ``utils/pre_computed``.  Generating a missing table
-needs PySCF (``gen_int2c1e``), which the port does not carry.
+``.npz`` copies in ``utils/pre_computed``.  A missing table is generated
+by ``gen_int2c1e`` from the xTB and auxiliary basis files in
+``utils/basis`` (copies of the JAX package's), which needs PySCF, or
+converted from a torch-saved dict by ``convert_torch_table``.
 """
 
 from __future__ import annotations
@@ -170,16 +172,65 @@ ATOM_MASS = np.array([0.0,
 # fmt: on
 
 
+BASIS_FOLDER = THIS_FOLDER / "basis"
+
+
+def _save_table(rows, embed_basis: str, aux_basis: str) -> Path:
+    """Write ``rows`` (one per element of ``ELEMENTS_LIST[1:]``) as
+    ``<embed>_<aux>.npz`` under ``PRE_FOLDER`` with a zero padding row 0,
+    and drop ``get_embedding_table``'s cached tables."""
+    table = np.stack(rows)
+    table = np.concatenate([np.zeros((1, table.shape[-1])), table])
+    PRE_FOLDER.mkdir(exist_ok=True)
+    out = PRE_FOLDER / f"{embed_basis}_{aux_basis}.npz"
+    np.savez(out, table=table)
+    get_embedding_table.cache_clear()
+    return out
+
 
 def gen_int2c1e(embed_basis: str = "gfn2-xtb", aux_basis: str = "aux56") -> Path:
-    """Generating an embedding table projects each element's AO basis
-    onto the auxiliary basis with PySCF overlap integrals
-    (``xequinet_tpu/utils/qc.py:153``); not ported.  Raises ImportError,
-    as the JAX function does without PySCF."""
-    raise ImportError(
-        f"generating the {embed_basis}_{aux_basis} embedding table needs PySCF and "
-        "the xTB basis files, which the port does not carry"
+    """Generate per-element embedding vectors by projecting each element's
+    AO basis onto an auxiliary basis via PySCF overlap integrals
+    (``xequinet_tpu/utils/qc.py:175-210``).  Requires pyscf (ImportError
+    without it); the xTB and auxiliary basis files ship in
+    ``utils/basis``, and an ``embed_basis`` without a file there is passed
+    to PySCF by name.  Saves <embed>_<aux>.npz and returns its path."""
+    from pyscf import gto
+
+    basis = (
+        str(BASIS_FOLDER / f"{embed_basis}.dat")
+        if (BASIS_FOLDER / f"{embed_basis}.dat").exists()
+        else embed_basis
     )
+    orbaux = str(BASIS_FOLDER / f"{aux_basis}.dat")
+    aux = gto.M(atom="X 0 0 0", basis={"X": orbaux})
+    nao_aux = aux.nao
+    ao_loc_nr = aux.ao_loc_nr()[:-1]
+
+    rows = []
+    for atom, mult in zip(ELEMENTS_LIST[1:], ATOM_MULT[1:]):
+        mol = gto.M(
+            atom=f"X 0 0 0; {atom} 0 0 0",
+            basis={"X": orbaux, atom: basis},
+            spin=mult - 1,
+        )
+        ovlp = mol.intor("int1e_ovlp")
+        projection = ovlp[:nao_aux, nao_aux:]
+        embedding = np.sum(projection, axis=-1)
+        rows.append(embedding[ao_loc_nr])
+    return _save_table(rows, embed_basis, aux_basis)
+
+
+def convert_torch_table(pt_file: str, embed_basis: str, aux_basis: str) -> Path:
+    """Convert a torch-saved embedding dict (element symbol -> 1-D tensor,
+    every element of ``ELEMENTS_LIST[1:]``) to ``<embed>_<aux>.npz`` under
+    ``PRE_FOLDER`` (``xequinet_tpu/utils/qc.py:213-225``); returns its
+    path."""
+    import torch
+
+    d = torch.load(pt_file, map_location="cpu", weights_only=False)
+    rows = [np.asarray(d[atom], dtype=np.float64) for atom in ELEMENTS_LIST[1:]]
+    return _save_table(rows, embed_basis, aux_basis)
 
 
 @lru_cache(maxsize=None)
@@ -193,7 +244,8 @@ def get_embedding_table(embed_basis: str = "gfn2-xtb", aux_basis: str = "aux28")
         except ImportError as exc:
             raise FileNotFoundError(
                 f"No precomputed embedding table {f} and PySCF is not installed "
-                "to generate it; use embed_basis='one-hot'."
+                "to generate it; convert one with convert_torch_table, or use "
+                "embed_basis='one-hot'."
             ) from exc
     table = np.load(f)["table"].astype(np.float32)
     return tuple(tuple(float(v) for v in row) for row in table)
