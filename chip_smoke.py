@@ -18,10 +18,12 @@ Phases (any failed check exits non-zero):
      version, the backward kernel against the plain VJP on dx, d_ef, d_wf,
      the second-order kernel against the plain double VJP on d2x, d2ef,
      d2wf, d2g, with no cotangent on d_wf (force training) and a random one;
-     the same at three wider shapes on the same slots (Kf = 33, num_basis
+     the same at four other shapes on the same slots (Kf = 33, num_basis
      23; Kf = 128, num_basis 118; H = 1152, node_dim 256 and
-     256x0e+128x1o+64x2e), each also bit for bit on a second call, with the
-     route (tile pass or walk kernels) each takes;
+     256x0e+128x1o+64x2e; H = 640, node_dim 192, which message_bwd's Hopper
+     tile pass refuses and its mma.sync tile pass takes with d_wf in
+     registers), each also bit for bit on a second call, with the route
+     (Hopper tile pass, tile pass or walk kernels) each takes;
      the v2 gather-scale-scatter at the model's call on the same slots (x
      [24576, 480] f32, w2 on every slot in f32 and in bf16); the v1 one at
      bench_kernels.py run's shape (n 16384, e 163840, d 480, bn 256) with
@@ -213,8 +215,10 @@ Phases (any failed check exits non-zero):
      on the same operands timed and split by pass (each split must sum to
      at least 0.9 of its CUDA-event time per call), beside the floor's own
      byte bound, message_bwd's, the bytes the floor moves and the
-     tensor-core ideal, and the reading (stream or body); after phase 15,
-     its launches on every model path, all 0.
+     tensor-core ideal, and the reading (stream or body); message_bwd's
+     Hopper tile pass split by phase (clock64() stamps of its instrumented
+     instance, which counts no launch); after phase 15, the floor's
+     launches on every model path, all 0.
  15. remat (models/remat.py; after phase 13): FLAGSHIP_KW on the mega
      route with remat off, "full" and "save_edge_agg", seed-0 weights, on
      phase 3's batch: (a) f32 and (b) bf16 force-loss energies, forces and
@@ -347,6 +351,16 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_route(name, mm, statics):
+    """Which pass of a message kernel its wrapper takes at these widths (by
+    shape alone, as the wrapper chooses)."""
+    from xequinet_torch.ops import fused_message as fm
+
+    if name == "message_bwd" and fm.hopper_route(mm, *statics):
+        return "Hopper tile pass"
+    return "tile pass" if fm.tile_route(name, mm, *statics) else "walk kernels"
 
 
 def message_problem(batch, device, seed=7, bn=BN, chunk=CHUNK, widths=None):
@@ -494,25 +508,29 @@ def phase_kernels(batch, device):
 
 # the message kernels' widths past the first tile passes' limits: Kf = 33
 # (num_basis 23), Kf = 128 (num_basis 118, the JAX kernels' maximum), H =
-# 1152 (node_dim 256, 256x0e+128x1o+64x2e)
+# 1152 (node_dim 256, 256x0e+128x1o+64x2e); and H = 640 (node_dim 192),
+# past message_bwd's Hopper tile pass (H <= 576), where its mma.sync tile
+# pass keeps d_wf in registers
 WIDE_SHAPES = {"Kf=33": ("128x0e+64x1o+32x2e", 23, 128),
                "Kf=128": ("128x0e+64x1o+32x2e", 118, 128),
-               "H=1152": ("256x0e+128x1o+64x2e", 23, 256)}
+               "H=1152": ("256x0e+128x1o+64x2e", 23, 256),
+               "H=640": ("128x0e+64x1o+32x2e", 20, 192)}
 
 
 def phase_wide_kernels(batch, device):
-    """Phase 3, continued: the three wide shapes on the same slots, each
-    kernel against its plain version in f32 and bf16, repeating bit for
-    bit; prints which route (tile pass or walk kernels) each takes.
+    """Phase 3, continued: the shapes of ``WIDE_SHAPES`` on the same slots,
+    each kernel against its plain version in f32 and bf16, repeating bit
+    for bit; prints which route (Hopper tile pass, tile pass or walk
+    kernels) each takes.
     Returns {shape: its bf16 operands} for phase 6."""
-    from xequinet_torch.ops import fused_message as fm
-
     wide = {}
     for tag, widths in WIDE_SHAPES.items():
         p = message_problem(batch, device, widths=widths)
-        routes = {k: "tile pass" if fm.tile_route(k, "bfloat16", *widths) else "walk kernels"
-                  for k in OUT_NAMES}
+        routes = {k: kernel_route(k, "bfloat16", widths) for k in OUT_NAMES}
         print(f"[kernels] wide shape {tag} {widths}: bf16 routes {routes}")
+        if tag == "H=640" and routes["message_bwd"] != "tile pass":
+            fail(f"H=640: message_bwd takes the {routes['message_bwd']}, not the mma.sync "
+                 f"tile pass this shape is here to check")
         check_message_kernels(p, tag, repeat=True)
         wide[tag] = dict(p, **{k: p[k].to(torch.bfloat16)
                                for k in ("x_cat", "ef", "wf", "g", "cx", "cef")})
@@ -5005,7 +5023,7 @@ def phase_floor(device, card):
     print(f"[floor] kernel against its plain version: the same bits (max |err| {err:g})")
     del got
     try:
-        res = bsf.measure(p)
+        res = bsf.measure(p, phases=("hopper",))
     except RuntimeError as e:
         fail(str(e))
     for line in bsf.report(res, card):
@@ -5020,7 +5038,7 @@ def phase_floor(device, card):
             "moved_ms": res["floor_moved_ms"], "message_bwd_ms": res["message_bwd_ms"],
             "message_bwd_split_ms": res["message_bwd_split_ms"],
             "message_bwd_bound_ms": res["message_bwd_bound_ms"], "ideal_ms": res["ideal_ms"],
-            "reading": res["reading"]}
+            "reading": res["reading"], "message_bwd_phases": res["phases"]}
 
 
 def floor_on_paths(rows):
@@ -5694,7 +5712,8 @@ def main():
         k_ms = time_ms(lambda: kfn(p_mm, mm))
         p_ms = time_ms(lambda: pfn(p_mm, mm), iters=5, warmup=1)
         b_ms, b_by = bound_ms(nbytes, flops, mm)
-        print(f"[time] {name} ({mm}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        print(f"[time] {name} ({mm}), {kernel_route(name, mm, p['statics'])}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP), launches per predict {launches[name]}, per train "
               f"step {per_step[name]} — {card}")
@@ -5720,7 +5739,7 @@ def main():
     # the wide shapes in bf16, on the same slots
     for tag, pw in wide.items():
         for row, (name, _, _, kfn, _), (nbytes, flops) in zip(rows, timed, kernel_costs(pw, mm)):
-            route = "tile pass" if fm.tile_route(name, mm, *pw["statics"]) else "walk kernels"
+            route = kernel_route(name, mm, pw["statics"])
             k_ms = time_ms(lambda: kfn(pw, mm), iters=5, warmup=1)
             b_ms, b_by = bound_ms(nbytes, flops, mm)
             print(f"[time] {name} ({mm}) at {tag} {pw['statics']}, {route}: kernel {k_ms:.4f} "

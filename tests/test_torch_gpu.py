@@ -31,8 +31,14 @@ from xequinet_torch.training.loss import ErrorMetric, WeightedLoss
 from xequinet_torch.training.lr_schedule import resolve_lr_schedule, resolve_optimizer
 from xequinet_torch.training.trainer import make_step_core
 
+# the first three take message_bwd's Hopper tile pass in bf16 (the third is
+# FLAGSHIP_KW's widths); the last two its mma.sync tile pass, with d_wf in
+# registers: H = 640 (node_dim 192, past the Hopper pass's 576) and a run of
+# irreps of odd multiplicity (15x0e)
 CASES = [("16x0e+8x1o+4x2e", 8, 16), ("120x0e+24x1o", 8, 16),
-         ("128x0e+64x1o+32x2e", 20, 128)]
+         ("128x0e+64x1o+32x2e", 20, 128), ("128x0e+64x1o+32x2e", 20, 192),
+         ("15x0e+8x1o+4x2e", 8, 16)]
+MMA_SYNC_CASES = CASES[3:]
 # the widths past the first tile passes' limits: Kf = 33 (num_basis 23), Kf =
 # 128 (num_basis 118, the JAX kernels' maximum) and H = 1152 (node_dim 256)
 WIDE = [("128x0e+64x1o+32x2e", 23, 128), ("128x0e+64x1o+32x2e", 118, 128),
@@ -192,6 +198,33 @@ def test_cuda_message_bwd_many_tiles_per_block(cuda_device, mm, rel):
     assert float(got[1][~p["mask"]].abs().max()) == 0.0
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_SYNC_CASES, ids=("h640", "odd_run"))
+def test_cuda_mma_sync_bwd_many_tiles_per_block(cuda_device, case):
+    """The widths that the Hopper tile pass refuses keep the mma.sync tile
+    pass (d_wf in registers): on a batch of more slot tiles than the card
+    has SMs, with a ragged last tile, against the plain VJP in bf16, and
+    the same bits on a second call."""
+    assert not fm.hopper_route("bfloat16", *case)
+    assert fm.tile_route("message_bwd", "bfloat16", *case)
+    ni, h, hp, d, dp, sdp, kw, kf = fm._launch_dims(*case)
+    assert fm._dwf_regs("message_bwd", ni, case[2], d, kw, kf)
+    p = _problem(cuda_device, *case, n_mols=240, odd_tail=5)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert p["mask"].shape[0] > 3 * 16 * n_sm
+    m = p["meta"]
+    run = lambda: fm.message_bwd_cuda(p["x"], p["ef"], p["wf"], p["g"], m, *p["statics"],
+                                      p["n"], p["bn"], p["chunk"], "bfloat16")
+    got = run()
+    want = fm.plain_message_bwd(p["x"], p["ef"], p["wf"], p["g"], m[2], m[3], p["mask"],
+                                *p["statics"], p["n"], torch.bfloat16)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, run()):
+        _close(a, b, 2e-2)
+        assert torch.equal(a, c)
+    assert float(got[1][~p["mask"]].abs().max()) == 0.0
+
+
 def _ghost_problem(device, bn, seed=0, n=3000):
     """bench.py's periodic MD box at 3000 atoms (x spacing 0.15 A, a
     16 x 16 A cross-section, all axes periodic) in the MD host build's
@@ -258,6 +291,157 @@ def test_cuda_message_kernels_periodic_ghost_layout(cuda_device, bn, mm, rel):
         _close(a, b, rel)
     covered = 1024 * int(m[4][-1] + m[5][-1])
     assert covered < p["mask"].shape[0] and float(got[1][~p["mask"]].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# message_bwd's Hopper tile pass (csrc/message_bwd_hopper.cuh): the ring of
+# stages, the tails of a walk, the halo layout and the bf16x2 products
+# ---------------------------------------------------------------------------
+def _bwd_close(p, rel=2e-2, mask=None):
+    """The bf16 backward against the plain VJP (2e-2 of the largest
+    reference magnitude), zero d_ef rows on every slot that adds nothing,
+    and the same bits on a second call; returns the outputs."""
+    m, mask = p["meta"], p["mask"] if mask is None else mask
+    run = lambda: fm.message_bwd_cuda(p["x"], p["ef"], p["wf"], p["g"], m, *p["statics"],
+                                      p["n"], p["bn"], p["chunk"], "bfloat16")
+    got = run()
+    want = fm.plain_message_bwd(p["x"], p["ef"], p["wf"], p["g"], m[2], m[3], mask,
+                                *p["statics"], p["n"], torch.bfloat16)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, run()):
+        assert torch.isfinite(a).all()
+        _close(a, b, rel)
+        assert torch.equal(a, c)
+    if (~mask).any():
+        assert float(got[1][~mask].abs().max()) == 0.0
+    return got
+
+
+@pytest.mark.gpu
+def test_cuda_hopper_bwd_ring_wraps_and_tails(cuda_device):
+    """Flagship widths (the Hopper tile pass) on a batch of more tiles per
+    block than ring stages, a slot count that is no multiple of 16 (a last
+    tile partly full), whole tiles of padding in the slot_cap tail and
+    slots past the covered chunk range: against the plain VJP, zero d_ef
+    rows on the slots that add nothing, the same bits on a second call."""
+    assert fm.hopper_route("bfloat16", *CASES[2])
+    p = _problem(cuda_device, *CASES[2], n_mols=240, odd_tail=5)
+    n_slots = p["mask"].shape[0]
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ni, h, hp, d, dp, sdp, kw, kf = fm._launch_dims(*CASES[2])
+    nst = fm._hopper_layout(ni, CASES[2][2], d, kw, kf)[1]
+    assert n_slots % 16 == 5 and n_slots // 16 > 2 * nst * n_sm
+    m = p["meta"]
+    covered = p["chunk"] * int(m[4][-1] + m[5][-1])
+    assert covered + 16 < n_slots  # whole tiles past the covered range
+    _bwd_close(p)
+
+
+@pytest.mark.gpu
+def test_cuda_hopper_bwd_zero_slots(cuda_device):
+    """A call with no slot: dx and d_wf zero, d_ef empty."""
+    p = _problem(cuda_device, *CASES[0])
+    z = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    n = p["n"]
+    plan = {"slot_src": z, "slot_dst": z, "dst_ptr": torch.zeros(n + 1, dtype=torch.int32,
+                                                                   device=cuda_device),
+            "dst_slots": z, "dst_pos": z, "src_ptr": torch.zeros(n + 1, dtype=torch.int32,
+                                                                 device=cuda_device),
+            "src_slots": z, "src_pos": z}
+    meta = tuple(p["meta"][:7]) + (plan,)
+    dx, d_ef, d_wf = fm.message_bwd_cuda(p["x"], p["ef"][:0].contiguous(), p["wf"], p["g"],
+                                         meta, *p["statics"], n, p["bn"], p["chunk"],
+                                         "bfloat16")
+    torch.cuda.synchronize()
+    assert d_ef.shape == (0, fm.F_PACK)
+    assert float(dx.abs().max()) == 0.0 and float(d_wf.abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [256, 512])
+def test_cuda_hopper_bwd_halo_shard_layout(cuda_device, bn):
+    """Shard 0 of 4 of a periodic box in HaloCalculator's layout (its
+    partition, a window of local and halo rows, chunk 1024), flagship
+    widths: the Hopper tile pass against the plain VJP."""
+    from xequinet_torch.parallel import halo as hm
+
+    rng = np.random.default_rng(3)
+    n = 3000
+    lx = n * 0.15
+    cell = np.diag([lx, 16.0, 16.0])
+    pos = np.column_stack([(np.arange(n) * 0.15 + rng.normal(size=n) * 0.5) % lx,
+                           rng.uniform(0, 16.0, size=(n, 2))])
+    z = rng.integers(1, 9, size=n).astype(np.int32)
+    stacked, geom, _, _, _, _ = hm.prepare_halo_system(z, pos, 5.0, 4, cell=cell,
+                                                       pbc=np.array([True] * 3))
+    bn = min(bn, geom["n_local"])
+    stacked, _, _ = hm.apply_halo_kernel_layout(stacked, geom,
+                                                {"block_nodes": bn, "chunk": 1024},
+                                                margin=1.3)
+    shard = {k: v[0] for k, v in stacked.items()}
+    shard[keys.POSITIONS] = np.zeros((geom["window"], 3), np.float32)
+    p = _operands(cuda_device, shard, "128x0e+64x1o+32x2e", 20, 128, rng, bn, 1024)
+    assert geom["halo"] > 0 and fm.hopper_route("bfloat16", *p["statics"])
+    _bwd_close(p)
+
+
+def _pair_problem(device, scale, seed=5):
+    """Two-atom molecules (each node the source of one slot, so dx holds each
+    slot's scratch row as it is) at irreps 2x0e+2x1o, whose fw = ef @ wf is
+    exact in any order (small integers): fo = rnd(gs * fw) is then the same
+    bits in the kernel and in the plain version, and so must dgv = rnd(fo *
+    gms_v) be.  gms_v is zero on lane 1 and on the second l = 1 irrep, so
+    that each harmonic d_ef column is one lane's drsh.  ``scale`` multiplies
+    gs and gms_v (2^-6 and 2^-124 put the products below f32's normal
+    range)."""
+    rng = np.random.default_rng(seed)
+    dps = []
+    for _ in range(40):
+        pos = np.array([[0.0, 0.0, 0.0], [1.0 + rng.uniform(), 0.0, 0.0]])
+        dps.append(Datapoint(rng.integers(1, 9, 2), pos, edge_index=radius_graph_np(pos, 5.0)[0]))
+    layout = {"block_nodes": 16, "chunk": 16, "pad_nodes": 16, "max_chunks": 0}
+    batch = collate(dps, kernel_layout=layout)
+    irreps, nb, nd = "2x0e+2x1o", 4, 8
+    p = _operands(device, batch, irreps, nb, nd, rng, 16, 16)
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, nd)
+    kw, t = nb + 1, p["ef"].shape[0]
+    bf = lambda a: torch.as_tensor(a, dtype=torch.float32).to(torch.bfloat16).float()
+    ef = np.zeros((t, fm.F_PACK), np.float32)
+    ef[:, :kw] = rng.integers(-2, 3, size=(t, kw))
+    ef[:, kw:kw + n_y] = rng.normal(size=(t, n_y))
+    wf = np.zeros((fm.F_PACK, hp), np.float32)
+    wf[:kw, :h] = rng.integers(-2, 3, size=(kw, h))
+    x = p["x"].cpu().numpy() * np.where(np.arange(hp + dp) < hp, scale[0], 1.0)
+    g = p["g"].cpu().numpy()
+    g[:, sdp:] *= scale[1]
+    g[:, sdp + 1] = 0.0
+    g[:, sdp + 5:sdp + 8] = 0.0
+    to = lambda a: bf(a).to(device)
+    return dict(p, x=to(x), ef=to(ef), wf=to(wf), g=to(g)), (h, hp, d, kw, kw + n_y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [(1.0, 1.0), (2.0 ** -6, 2.0 ** -124)],
+                         ids=("normal", "below_f32_normal"))
+def test_cuda_hopper_bwd_bf16x2_products_bit_for_bit(cuda_device, scale):
+    """The Hopper pass rounds dgv = fo * gms_v and drsh = fo' * gms_v as
+    __hmul2 on bf16x2 pairs, the plain version (and the TPU kernel) as an
+    f32 product rounded to bf16: the same values on every valid slot, with
+    ordinary products and with products below f32's normal range."""
+    p, (h, hp, d, kw, kf) = _pair_problem(cuda_device, scale)
+    assert fm.hopper_route("bfloat16", *p["statics"])
+    m, mask = p["meta"], p["mask"]
+    dx, d_ef, _ = fm.message_bwd_cuda(p["x"], p["ef"], p["wf"], p["g"], m, *p["statics"],
+                                      p["n"], p["bn"], p["chunk"], "bfloat16")
+    rows, _, d_ef_ref, _ = fm.message_bwd_rows(p["x"], p["ef"], p["wf"], p["g"], m[2], m[3],
+                                               mask, *p["statics"], torch.bfloat16)
+    torch.cuda.synchronize()
+    src = m[2].long()[mask]
+    assert torch.equal(dx[src][:, hp:hp + d], rows[mask][:, h:])  # dgv
+    assert torch.equal(d_ef[mask][:, kw:kf], d_ef_ref[mask][:, kw:kf])  # drsh
+    if scale[1] < 1.0:
+        small = rows[mask][:, h:].abs()
+        assert bool(((small > 0) & (small < 2.0 ** -126)).any())
 
 
 @pytest.mark.gpu

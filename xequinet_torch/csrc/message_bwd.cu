@@ -26,8 +26,24 @@
 // shared memory, one 168 KB block per SM, and its dx walk recomputed the
 // filter and the gate sums of every slot.
 //
-// The bf16 instance (the flagship's) is two passes and the reduction:
-//  * message_bwd_tile_kernel: persistent blocks of 512 threads, one per
+// The bf16 instances are two passes and the reduction.  The tile pass is
+// chosen by shape (ops/fused_message.py: hopper_route, then tile_route):
+//  * at the flagship widths (bf16, Kf <= 32, H <= 576, runs of irreps of
+//    one l of even multiplicity) the Hopper tile pass,
+//    message_bwd_hopper_kernel (message_bwd_hopper.cuh, its notes there): a
+//    producer warp stages whole rows with cp.async.bulk into a ring of
+//    stages completed on mbarriers, three consumer warpgroups split H
+//    between them and run the three contractions as wgmma from shared
+//    memory with H on M, the elementwise steps multiply bf16x2 pairs, and
+//    each slot's scratch row leaves as two bulk stores; no barrier of the
+//    whole block runs per tile.  On the flagship batch its tile pass takes
+//    0.65 ms where this file's pass took 0.95 (NVIDIA H100 80GB HBM3, 700
+//    W; xequinet_torch/tools/bwd_compare.py); its stream floor (the same
+//    streams, a near-empty body) takes 0.29 ms, and the rest is its
+//    elementwise steps (C, A and B in that order) and the waits between
+//    them (xequinet_torch/tools/bwd_stream_floor.py splits it by phase);
+//  * elsewhere message_bwd_tile_kernel below, which the Hopper pass
+//    replaced at those widths: persistent blocks of 512 threads, one per
 //    SM, walk tiles of XEQ_BT = 16 consecutive slots (tile = block + i *
 //    grid, so all SMs work on neighbouring slots and the x / g rows they
 //    gather stay in L2).  The next tile's x rows (live H + D columns), g
@@ -50,9 +66,10 @@
 //    Each valid slot's [dgs | dgv] row (bf16: both are rounded to bf16 in
 //    the TPU kernel, so the scratch loses nothing) goes to a scratch array
 //    at the slot's position in the CSR list by source (plan["src_pos"]).
-//    The copies are hidden behind the compute; what bounds the pass now
-//    is instruction issue in its elementwise steps (16 warps per SM, one
-//    block: the staging takes the shared memory).
+//    The copies are hidden behind the compute; what bounds the pass is its
+//    elementwise steps (16 warps per SM, one block: the staging takes the
+//    shared memory; by phase, C 30%, B 22%, A 18%, the waits and block
+//    barriers 14%, the products 12%).
 //  * message_bwd_dx_rows_kernel: one warp per source row sums its slots'
 //    scratch rows in list order (contiguous, 16-byte loads) and writes each
 //    dx element once, near the card's memory rate (xeq_rows_sum; it and
@@ -92,7 +109,7 @@
 //
 // Rounding in bf16 mode mirrors _bwd_kernel (:411-433): fo, dgv, drsh,
 // dgs and dfw are rounded to bf16; sums are f32.
-#include "message_tile.cuh"
+#include "message_bwd_hopper.cuh"
 
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(128)
@@ -409,7 +426,11 @@ static int launch_bwd(const void* x, const void* ef, const void* wf,
 // so fw runs over 32-row K slices and each slot's dfw row goes to the d_wf
 // pass instead of a partial in registers (compiled only where needed: the
 // other instance keeps the flagship's registers).
-template <bool WF_SMEM, bool WIDE>
+// STAMP: the instance of the phase probe (xeq_bwd_phases, on no model
+// path): thread 0 adds the clock64() cycles of each phase of its block,
+// written to stamps[block][XEQ_STAMPS] (prologue, the wait for a tile and
+// the block barrier, A, B, C, D, E, epilogue).
+template <bool WF_SMEM, bool WIDE, bool STAMP = false>
 __global__ void __launch_bounds__(XEQ_BT_THREADS, 1)
 message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restrict__ ef,
                         const xeq_bf16* __restrict__ wf, const xeq_bf16* __restrict__ g,
@@ -419,8 +440,10 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
                         const int* __restrict__ gate_lane0,
                         const int* __restrict__ gate_dim, xeq_bf16* __restrict__ rows,
                         xeq_bf16* __restrict__ dfw_rows, float* __restrict__ d_ef,
-                        float* __restrict__ dwf_part, const XeqTileDims p) {
+                        float* __restrict__ dwf_part, const XeqTileDims p,
+                        long long* __restrict__ stamps) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
+  XeqStamps<STAMP> sp;
   xeq_bf16* wf_s = (xeq_bf16*)(tile_smem + p.off_wf);    // [kwp][w_st] live rows of wf
   xeq_bf16* dfw_s = (xeq_bf16*)(tile_smem + p.off_dfw);  // [BT][w_st]
   float* dfo_s = (float*)(tile_smem + p.off_dfo);        // [BT][dfo_st]; then d_ef quarters
@@ -461,6 +484,7 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
   xeq_cp_commit();
   XeqSlotIdx ahead =
       xeq_slot_idx(blockIdx.x + grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos, nullptr);
+  sp.mark(0);
   for (int it = 0;; ++it) {
     const int tl = blockIdx.x + it * grid;
     if (tl >= n_tiles) break;
@@ -475,6 +499,7 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       ahead =
           xeq_slot_idx(tl + 2 * grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos, nullptr);
     }
+    sp.mark(1);
     xeq_bf16* x_s = (xeq_bf16*)st;
     const xeq_bf16* g_s = (const xeq_bf16*)(st + p.off_g);
     const xeq_bf16* e_s = (const xeq_bf16*)(st + p.off_e);
@@ -504,6 +529,7 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       }
     }
     __syncthreads();
+    sp.mark(2);
 
     // B: fw on the tensor cores, one n8 column tile per warp at a time (K
     // in 32-row slices of wf, the first slice's A fragments held); per
@@ -557,6 +583,7 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       }
     }
     __syncthreads();
+    sp.mark(3);
 
     // C: one warp per slot, lane pairs: dgv to the scratch row, and drsh
     // summed into the harmonic d_ef columns (per lane in lane order, then a
@@ -592,6 +619,7 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       if constexpr (WIDE)
         xeq_copy_row(dfw_rows + (int64_t)k_w * p.hs, dfw_s + warp * p.w_st, p.hs >> 3);
     }
+    sp.mark(4);
 
     // D1: d_ef[:, f < kwp] = dfw @ wf^T on the tensor cores; warp w takes
     // the column tiles w % 4 (+ 4 j) and K quarter w / 4, its partials to
@@ -621,16 +649,20 @@ message_bwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       ahead =
           xeq_slot_idx(tl + 2 * grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos, nullptr);
     }
+    sp.mark(5);
 
     // E: the filter columns of the warp's d_ef row (the four quarters in
     // order) and zeros past Kf; dfo_s is free once the next tile's first
     // barrier has passed
     if (k_w < p.n_slots)
       xeq_def_row(dfo_s, warp, d_ef + (int64_t)k_w * XEQ_FPACK, p.kw, p.kf, kwp);
+    sp.mark(6);
   }
 
   if constexpr (!WIDE)
     xeq_dwf_part_write(acc, dwf_part + (int64_t)blockIdx.x * p.kf * p.h, p.kf, p.h, n8);
+  sp.mark(7);
+  if (threadIdx.x == 0) sp.write(stamps + (int64_t)blockIdx.x * XEQ_STAMPS);
 }
 
 static int launch_bwd_tiles(const void* x, const void* ef, const void* wf, const void* g,
@@ -657,7 +689,7 @@ static int launch_bwd_tiles(const void* x, const void* ef, const void* wf, const
       (const int*)slot_src, (const int*)slot_dst, (const int*)src_pos,
       (const int*)lane_gate, (const int*)lane_ycol, (const int*)gate_lane0,
       (const int*)gate_dim, (xeq_bf16*)rows, (xeq_bf16*)dfw_rows, (float*)d_ef,
-      (float*)dwf_part, p);
+      (float*)dwf_part, p, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_rows > 0) {
@@ -676,29 +708,66 @@ static int launch_bwd_tiles(const void* x, const void* ef, const void* wf, const
   return (int)cudaGetLastError();
 }
 
+// The Hopper tile pass (message_bwd_hopper.cuh), the dx pass and the d_wf
+// reduction.
+static int launch_bwd_hopper_route(const void* x, const void* ef, const void* wf, const void* g,
+                                   const void* src_ptr, const void* slot_src,
+                                   const void* slot_dst, const void* src_pos,
+                                   const void* lane_ycol, const void* gate_lane0,
+                                   const void* gate_dim, const void* seg, void* rows, void* dx,
+                                   void* d_ef, void* dwf_part, void* dwf, int n_rows,
+                                   int n_slots, int n_part, int ni, int h_dim, int hp, int d,
+                                   int dp, int sdp, int kw, int kf, int n_seg, cudaStream_t s) {
+  XeqHopperDims p;
+  if (!bwd_hopper_dims(p, n_slots, ni, h_dim, hp, d, dp, sdp, kw, kf, n_seg))
+    return (int)cudaErrorInvalidValue;
+  int err = launch_bwd_hopper<false>(x, ef, wf, g, slot_src, slot_dst, src_pos, lane_ycol,
+                                     gate_lane0, gate_dim, seg, rows, d_ef, dwf_part, p, n_part,
+                                     nullptr, s);
+  if (err != cudaSuccess) return err;
+  if (n_rows > 0) {
+    message_bwd_dx_rows_kernel<<<(n_rows + 7) / 8, 256, 0, s>>>(
+        (const xeq_bf16*)rows, (const int*)src_ptr, (float*)dx, n_rows, p.ht8, p.dt8, hp,
+        hp + dp);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
+      (const float*)dwf_part, (float*)dwf, n_part, kf, h_dim, hp);
+  return (int)cudaGetLastError();
+}
+
 #define XEQ_BWD_WALK_ARGS                                                                    \
   x, ef, wf, g, src_ptr, src_slots, slot_src, slot_dst, lane_gate, lane_ycol, gate_lane0,    \
       gate_dim, ylane_ptr, ylane_idx, def_part, dx, d_ef, dwf_part, dwf, n_rows, n_slots,    \
       n_part, ni, h_dim, hp, d, dp, sdp, kw, kf, n_hc, s
 
-// tiles (bf16 only): the tile pass, which the wrapper chooses by shape when
-// a layout of it fits (dfw_rows: its scratch when d_wf leaves the
-// registers); else the walk kernels in the operands' dtype, over n_hc
-// column chunks (def_part: their d_ef partials when n_hc > 1).
+// tiles (bf16 only), chosen by the wrapper by shape: 2, the Hopper tile
+// pass (message_bwd_hopper.cuh; seg: its irrep segments [n_seg] as (u0,
+// j0, mul, l | (ycol - kw) << 8)); 1, the tile pass above where a layout of
+// it fits (dfw_rows: its scratch when d_wf leaves the registers); 0, the
+// walk kernels in the operands' dtype, over n_hc column chunks (def_part:
+// their d_ef partials when n_hc > 1).
 extern "C" int xeq_message_bwd(const void* x, const void* ef, const void* wf,
                                const void* g, const void* src_ptr,
                                const void* src_slots, const void* slot_src,
                                const void* slot_dst, const void* src_pos,
                                const void* lane_gate, const void* lane_ycol,
                                const void* gate_lane0, const void* gate_dim,
-                               const void* ylane_ptr, const void* ylane_idx,
+                               const void* ylane_ptr, const void* ylane_idx, const void* seg,
                                void* rows, void* dfw_rows, void* def_part, void* dx,
                                void* d_ef, void* dwf_part, void* dwf, int n_rows, int n_slots,
                                int n_part, int ni, int h_dim, int hp, int d, int dp, int sdp,
-                               int kw, int kf, int bf16, int tiles, int n_hc, void* stream) {
+                               int kw, int kf, int n_seg, int bf16, int tiles, int n_hc,
+                               void* stream) {
   if (kw > kf || kf > XEQ_FPACK || (hp + dp) % 128 != 0 || n_part < 1 || (tiles && !bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tiles == 2)
+    return launch_bwd_hopper_route(x, ef, wf, g, src_ptr, slot_src, slot_dst, src_pos,
+                                   lane_ycol, gate_lane0, gate_dim, seg, rows, dx, d_ef,
+                                   dwf_part, dwf, n_rows, n_slots, n_part, ni, h_dim, hp, d, dp,
+                                   sdp, kw, kf, n_seg, s);
   if (tiles)
     return launch_bwd_tiles(x, ef, wf, g, src_ptr, slot_src, slot_dst, src_pos, lane_gate,
                             lane_ycol, gate_lane0, gate_dim, rows, dfw_rows, dx, d_ef,
@@ -706,4 +775,44 @@ extern "C" int xeq_message_bwd(const void* x, const void* ef, const void* wf,
                             kw, kf, s);
   if (bf16) return launch_bwd<__nv_bfloat16, true>(XEQ_BWD_WALK_ARGS);
   return launch_bwd<float, false>(XEQ_BWD_WALK_ARGS);
+}
+
+// The phase probe (xequinet_torch/tools/bwd_stream_floor.py; on no model
+// path): one launch of a tile pass alone, with clock64() stamps per phase
+// in stamps: which = 0, the sm_80-style tile kernel's flagship instance
+// (wf's live rows in shared memory, d_wf in registers; [n_part][8]);
+// which = 1, the Hopper tile pass ([n_part][XEQ_HB_WGS + 1][8]: the
+// consumer warpgroups 0 to XEQ_HB_WGS - 1, then the producer).  Its outputs are the pass's: d_ef, the scratch rows and
+// the d_wf partials.
+extern "C" int xeq_bwd_phases(const void* x, const void* ef, const void* wf, const void* g,
+                              const void* slot_src, const void* slot_dst, const void* src_pos,
+                              const void* lane_gate, const void* lane_ycol,
+                              const void* gate_lane0, const void* gate_dim, const void* seg,
+                              void* rows, void* d_ef, void* dwf_part, int n_slots, int n_part,
+                              int ni, int h_dim, int hp, int d, int dp, int sdp, int kw, int kf,
+                              int n_seg, int which, void* stamps, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_part < 1 || stamps == nullptr) return (int)cudaErrorInvalidValue;
+  if (which == 1) {
+    XeqHopperDims p;
+    if (!bwd_hopper_dims(p, n_slots, ni, h_dim, hp, d, dp, sdp, kw, kf, n_seg))
+      return (int)cudaErrorInvalidValue;
+    return launch_bwd_hopper<false>(x, ef, wf, g, slot_src, slot_dst, src_pos, lane_ycol,
+                                    gate_lane0, gate_dim, seg, rows, d_ef, dwf_part, p, n_part,
+                                    (long long*)stamps, s);
+  }
+  XeqTileDims p;
+  if (which != 0 || !bwd_tile_dims(p, n_slots, ni, h_dim, hp, d, dp, sdp, kw, kf) ||
+      !p.wf_smem || !p.dwf_regs)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = message_bwd_tile_kernel<true, false, true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_part, XEQ_BT_THREADS, p.smem, s>>>(
+      (const xeq_bf16*)x, (const xeq_bf16*)ef, (const xeq_bf16*)wf, (const xeq_bf16*)g,
+      (const int*)slot_src, (const int*)slot_dst, (const int*)src_pos, (const int*)lane_gate,
+      (const int*)lane_ycol, (const int*)gate_lane0, (const int*)gate_dim, (xeq_bf16*)rows,
+      nullptr, (float*)d_ef, (float*)dwf_part, p, (long long*)stamps);
+  return (int)cudaGetLastError();
 }

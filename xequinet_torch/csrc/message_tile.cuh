@@ -1,11 +1,24 @@
 // Shared pieces of the bf16 slot-tile kernels (message_fwd.cu,
-// message_bwd.cu, message_bwd2.cu): cp.async staging of slot rows,
-// mma.sync m16n8k16 products with bf16 operands and f32 accumulators over
-// 32-column K slices of the packed edge features, the slot indices of a
-// tile, the pass that sums per-slot scratch rows along a CSR list, the
-// filter-weight gradient pass over per-slot rows, and the first-order
-// backward's tile layout, tile staging and dx pass (message_bwd.cu and
-// bwd_stream_floor.cu).
+// message_bwd.cu, message_bwd2.cu, and the Hopper pass of
+// message_bwd_hopper.cuh).  Which kernel still uses which:
+//  * cp.async staging (xeq_cp_commit / xeq_cp_wait_all, XeqSeg and
+//    xeq_stage_segs), mma.sync m16n8k16 products with bf16 operands and
+//    f32 accumulators (xeq_mma, xeq_frag_a, xeq_wf_b, xeq_load_wf) and
+//    xeq_st2: message_fwd.cu, message_bwd2.cu and message_bwd.cu's mma.sync
+//    tile pass (the widths the Hopper pass does not take);
+//  * the slot indices of a tile (xeq_slot_idx), the transposed fragments
+//    (xeq_frag_at), the d_wf partial in registers (xeq_dwf_part_write), the
+//    d_ef quarters and rows (xeq_def_quarters, xeq_def_row), xeq_copy_row,
+//    xeq_harmonic_sums, the filter-weight gradient pass over per-slot rows
+//    (xeq_dwf_pass): message_bwd2.cu and message_bwd.cu's mma.sync pass;
+//  * the pass that sums per-slot scratch rows along a CSR list
+//    (xeq_rows_sum): message_bwd2.cu, and message_bwd.cu's dx pass
+//    (message_bwd_dx_rows_kernel), which both tile passes of message_bwd.cu
+//    and the stream floor (bwd_stream_floor.cu) run;
+//  * the mma.sync pass's layout and staging (XeqTileDims, bwd_tile_dims,
+//    xeq_tile_load): message_bwd.cu only;
+//  * the conversions (xeq_f, xeq_f2, xeq_b, xeq_pack, xeq_round_up) and the
+//    phase stamps (XeqStamps): every one of them.
 #pragma once
 
 #include "message_common.cuh"
@@ -89,6 +102,41 @@ __device__ __forceinline__ void xeq_frag_at(uint32_t (&a)[2][4], const xeq_bf16*
     a[mt][3] = xeq_pack(p[8 * st + 8], p[9 * st + 8]);
   }
 }
+
+// Phase stamps of the probe instances (xeq_bwd_phases in message_bwd.cu,
+// launched by xequinet_torch/tools/bwd_stream_floor.py only): mark(k) adds
+// the clock64() cycles since the previous mark to phase k (a constant, so
+// the sums stay in registers); nothing without ON.
+#define XEQ_STAMPS 8
+__device__ __forceinline__ long long xeq_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+template <bool ON>
+struct XeqStamps {
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void write(long long*) const {}
+};
+template <>
+struct XeqStamps<true> {
+  long long t[XEQ_STAMPS], last;
+  __device__ __forceinline__ XeqStamps() : last(xeq_clock()) {
+#pragma unroll
+    for (int i = 0; i < XEQ_STAMPS; ++i) t[i] = 0;
+  }
+  __device__ __forceinline__ void mark(int k) {
+    const long long now = xeq_clock();
+    t[k] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void write(long long* out) const {
+#pragma unroll
+    for (int i = 0; i < XEQ_STAMPS; ++i) out[i] = t[i];
+  }
+};
 
 // The slot of this warp in tile ``tile``: its destination row (-1 when it
 // adds nothing or lies past n_slots), source row, and its rows in the
@@ -428,10 +476,10 @@ static int xeq_dwf_pass(const xeq_bf16* ef, const xeq_bf16* a, const xeq_bf16* c
 }
 
 // ---------------------------------------------------------------------------
-// The first-order backward's bf16 tile pass (message_bwd.cu): its sizes and
-// shared-memory layout, the staging of one tile, and its dx pass; shared
-// with bwd_stream_floor.cu, which stages and stores what the tile pass does
-// with a near-empty body.
+// The first-order backward's mma.sync tile pass (message_bwd.cu): its sizes
+// and shared-memory layout and the staging of one tile; and the dx pass of
+// both its tile passes, which the stream floor (bwd_stream_floor.cu) runs
+// too.
 // ---------------------------------------------------------------------------
 // Sizes and shared-memory offsets (bytes) of the tile pass, from the host.
 struct XeqTileDims {

@@ -27,12 +27,13 @@ BUILD_DIR = _PKG / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _MESSAGE_HEADERS = ("message_common.cuh", "message_tile.cuh")
+_BWD_HEADERS = _MESSAGE_HEADERS + ("message_bwd_hopper.cuh",)
 # name -> (source, headers it includes, C entry point, argtypes)
 _KERNELS = {
     "message_fwd": ("message_fwd.cu", _MESSAGE_HEADERS, "xeq_message_fwd",
                     [_P] * 10 + [_I] * 11 + [_P]),
-    "message_bwd": ("message_bwd.cu", _MESSAGE_HEADERS, "xeq_message_bwd",
-                    [_P] * 22 + [_I] * 14 + [_P]),
+    "message_bwd": ("message_bwd.cu", _BWD_HEADERS, "xeq_message_bwd",
+                    [_P] * 23 + [_I] * 15 + [_P]),
     "message_bwd2": ("message_bwd2.cu", _MESSAGE_HEADERS, "xeq_message_bwd2",
                      [_P] * 31 + [_I] * 17 + [_P]),
     "gather_scatter_v2": ("gather_scatter_v2.cu", (), "xeq_gather_scatter_v2",
@@ -41,8 +42,17 @@ _KERNELS = {
                        [_P] * 7 + [_I] * 5 + [_P]),
     # message_bwd's bf16 tile route with a near-empty body: the probe of
     # xequinet_torch/tools/bwd_stream_floor.py, on no model path
-    "bwd_stream_floor": ("bwd_stream_floor.cu", _MESSAGE_HEADERS, "xeq_bwd_stream_floor",
-                         [_P] * 17 + [_I] * 11 + [_P]),
+    "bwd_stream_floor": ("bwd_stream_floor.cu", _BWD_HEADERS, "xeq_bwd_stream_floor",
+                         [_P] * 17 + [_I] * 12 + [_P]),
+}
+# entry points beside a kernel's own in its library, for the probe tools
+# only: (kernel, C symbol, argtypes).  Their launches are instrumented
+# instances of that kernel's passes, not a wrapper's launch, so LAUNCHES
+# does not count them.
+_PROBES = {
+    # the backward's tile passes with clock64() stamps per phase
+    # (xequinet_torch/tools/bwd_stream_floor.py)
+    "bwd_phases": ("message_bwd", "xeq_bwd_phases", [_P] * 15 + [_I] * 12 + [_P] * 2),
 }
 
 # launches of each CUDA kernel wrapper (one per wrapper call that launched)
@@ -120,6 +130,20 @@ def kernel_fn(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def probe(name: str, *args) -> None:
+    """Call the probe entry point ``name`` of ``_PROBES`` (pointers and the
+    stream as Python ints) in its kernel's library; raises on a CUDA error.
+    Not counted in LAUNCHES."""
+    kernel, sym, argtypes = _PROBES[name]
+    kernel_fn(kernel)  # built and loaded
+    fn = getattr(_LIBS[kernel], sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def launch(name: str, *args) -> None:

@@ -42,7 +42,7 @@ import torch
 
 from ..models import remat
 from .cuda_build import BUILD_INFO, LAUNCHES, build_kernels, reset_launch_counts  # noqa: F401
-from .cuda_build import launch
+from .cuda_build import launch, probe
 from .irreps import Irreps
 
 F_PACK = 128  # packed edge-feature width
@@ -110,7 +110,9 @@ def index_maps(irreps_str: str, num_basis: int):
     lane_gate [D] (E1/E2: irrep of lane j), lane_ycol [D] (BY: packed
     column of lane j's harmonic), gate_lane0 / gate_dim [ni] (lanes of
     irrep u), ylane_ptr [nY+1] / ylane_idx (lanes of each harmonic
-    column, ascending)."""
+    column, ascending), seg [n_seg, 4] (runs of irreps of one l: first
+    irrep, first lane, irreps, ``l | (first harmonic column - Kw) << 8``;
+    the Hopper tile pass of ``message_bwd`` walks them)."""
     irreps = Irreps(irreps_str)
     ycol, off = _y_columns(irreps, num_basis)
     lane_gate, lane_ycol, gate_lane0, gate_dim = [], [], [], []
@@ -125,6 +127,17 @@ def index_maps(irreps_str: str, num_basis: int):
                 lane_ycol.append(ycol[ir.l] + m)
             gate += 1
             lane += ir.dim
+    # runs of consecutive irreps of one l (one harmonic column block):
+    # (first irrep, first lane, irreps, l | first harmonic column - Kw << 8)
+    seg = []
+    u = j = 0
+    for mul, ir in irreps:
+        if seg and seg[-1][3] & 3 == ir.l:
+            seg[-1][2] += mul
+        else:
+            seg.append([u, j, mul, ir.l | (ycol[ir.l] - num_basis - 1) << 8])
+        u += mul
+        j += mul * ir.dim
     lane_ycol_a = np.asarray(lane_ycol, dtype=np.int32)
     n_y = off - num_basis - 1
     ylane_idx, ylane_ptr = [], [0]
@@ -137,6 +150,7 @@ def index_maps(irreps_str: str, num_basis: int):
         "lane_gate": as32(lane_gate), "lane_ycol": lane_ycol_a,
         "gate_lane0": as32(gate_lane0), "gate_dim": as32(gate_dim),
         "ylane_ptr": as32(ylane_ptr), "ylane_idx": as32(ylane_idx),
+        "seg": as32(seg).reshape(-1, 4),
     }
 
 
@@ -555,6 +569,53 @@ def tile_route(kernel: str, mm_dtype, irreps_str: str, num_basis: int, node_dim:
     return min(_tile_layouts(kernel, ni, node_dim, d, kw, kf)) <= SMEM_MAX
 
 
+# the Hopper tile pass of message_bwd (csrc/message_bwd_hopper.cuh): its
+# consumer warpgroups, m64 tiles of H, ring stages and irrep segments at
+# most
+HB_WGS, HB_MT, HB_MAXST, HB_SEGS = 3, 9, 4, 8
+
+
+def _hopper_layout(ni: int, node_dim: int, d: int, kw: int, kf: int) -> Tuple[int, int, int]:
+    """(shared memory, ring stages, stage bytes) of ``message_bwd``'s Hopper
+    tile pass, as ``bwd_hopper_dims`` (csrc/message_bwd_hopper.cuh) lays it
+    out: per stage 16 staged x rows ``[gs | gv]`` and g rows ``[gms_s |
+    gms_v]`` (each + 16 bytes), the 16 x 32 edge-feature columns in wgmma's
+    core-matrix layout (1 KB) and the slots' scratch positions; beside the
+    stages wf's live rows (32 x 64 per m64 tile of H, the tiles rounded up
+    to a multiple of ``HB_WGS``), two 64 x 16 dfw tiles per consumer
+    warpgroup, two buffers of the d_ef partials of all but the first
+    warpgroup (128 x 8 f32 each), the tile's dfo gate sums (16 x 2 ni f32)
+    and dgs rows (16 x H bf16), the barriers, the gate table and the
+    segments.  As many stages as fit, at most ``HB_MAXST``."""
+    h = node_dim + 2 * ni
+    n_mt = _ru(-(-h // 64), HB_WGS)  # wf's m64 tiles, zero past H
+    ht8, dt8, sd8 = _ru(h, 8), _ru(d, 8), _ru(node_dim, 8)
+    stage = _ru(16 * ((ht8 + dt8) * 2 + 16) + 16 * ((sd8 + dt8) * 2 + 16) + 1024 + 64, 128)
+    fixed = (n_mt * 4096 + HB_WGS * 2 * 2048 + 2 * (HB_WGS - 1) * 128 * 8 * 4
+             + 16 * (_ru(2 * ni, 16) + 4) * 4 + 16 * (ht8 + 8) * 2 + 2 * HB_MAXST * 8
+             + _ru(ni * 4, 16) + HB_SEGS * 16)
+    nst = min((SMEM_MAX - fixed) // stage, HB_MAXST)
+    return nst * stage + fixed, nst, stage
+
+
+def hopper_route(mm_dtype, irreps_str: str, num_basis: int, node_dim: int) -> bool:
+    """Whether ``message_bwd`` runs its Hopper tile pass (bulk copies by a
+    producer warp into a ring of stages, wgmma with H on M, packed bf16x2
+    steps; csrc/message_bwd_hopper.cuh) at these widths, else what
+    :func:`tile_route` chooses: bf16 operands, Kf <= 32, H <= 576 (the d_wf
+    accumulators of its m64 tiles in registers), every run of irreps of one
+    l of even multiplicity (the lane pairs of its packed steps), at most
+    ``HB_SEGS`` runs, and two stages at least that fit.  The choice is made
+    by shape alone."""
+    if _mm_dtype(mm_dtype) != torch.bfloat16:
+        return False
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    seg = index_maps(irreps_str, num_basis)["seg"]
+    smem, nst, _ = _hopper_layout(ni, node_dim, d, kw, kf)
+    return (kf <= 32 and -(-h // 64) <= HB_MT and nst >= 2 and len(seg) <= HB_SEGS
+            and bool((seg[:, 2] % 2 == 0).all()) and d < 4096 and smem <= SMEM_MAX)
+
+
 def walk_chunks(kernel: str, ni: int, h: int, kw: int, kf: int) -> int:
     """Column chunks of the walk kernels' slot pass (``XEQ_WALK_HC`` in
     ``message_common.cuh``): 1 when the whole filter width's d_wf partial,
@@ -610,13 +671,16 @@ def message_fwd_cuda(
 def _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, node_dim,
                n_out, block_nodes, chunk, mm_dtype):
     """What a launch of the first-order backward takes, shared by
-    :func:`message_bwd_cuda` and :func:`bwd_stream_floor_cuda` so that the
-    two cannot drift: the widths, the route, the operands in the kernel's
+    :func:`message_bwd_cuda`, :func:`bwd_stream_floor_cuda` and
+    :func:`bwd_phase_stamps` so that they cannot drift: the widths, the
+    route (``route``: 2 the Hopper tile pass, 1 the tile pass, 0 the walk
+    kernels), the operands in the kernel's
     dtype, the slot plan, the index maps, the outputs (dx, d_ef, d_wf),
     the per-block d_wf partials and the scratch."""
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
     mm = _mm_dtype(mm_dtype)
-    tiles = tile_route("message_bwd", mm, irreps_str, num_basis, node_dim)
+    hopper = hopper_route(mm, irreps_str, num_basis, node_dim)
+    tiles = hopper or tile_route("message_bwd", mm, irreps_str, num_basis, node_dim)
     dev = x_cat.device
     n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
     cast = lambda t: t.to(mm).contiguous()
@@ -625,7 +689,8 @@ def _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, no
     f32 = dict(dtype=torch.float32, device=dev)
     n_hc = 1 if tiles else walk_chunks("message_bwd", ni, h, kw, kf)
     b = dict(
-        dims=(ni, h, hp, d, dp, sdp, kw, kf), mm=mm, tiles=tiles, n_rows=n_rows,
+        dims=(ni, h, hp, d, dp, sdp, kw, kf), mm=mm, tiles=tiles,
+        route=2 if hopper else int(tiles), n_rows=n_rows,
         t_slots=t_slots, n_part=n_part, n_hc=n_hc, xk=xk, efk=efk, wfk=wfk, gk=gk,
         plan=_plan(slot_meta, n_out, n_rows, block_nodes, chunk),
         maps=_device_maps(irreps_str, num_basis, dev),
@@ -649,7 +714,9 @@ def message_bwd_cuda(
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx_cat, d_edge_feat, d_wf_aug), f32, by ``csrc/message_bwd.cu``.
-    On the tile route (:func:`tile_route`) the tile pass writes each valid
+    At the widths of :func:`hopper_route` its tile pass is the Hopper one
+    (``csrc/message_bwd_hopper.cuh``), elsewhere on the tile route
+    (:func:`tile_route`) the mma.sync one; either writes each valid
     slot's ``[dgs | dgv]`` row to a bf16 scratch of
     :func:`bwd_scratch_shape` (at the slot's position in the list by
     source), which the dx pass sums by source, and past Kf = 32 or H = 768
@@ -670,23 +737,21 @@ def message_bwd_cuda(
         plan["src_pos"].data_ptr(),
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
-        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), b["rows"].data_ptr(),
-        _ptr(b["dfw_rows"]), _ptr(b["def_part"]),
+        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), maps["seg"].data_ptr(),
+        b["rows"].data_ptr(), _ptr(b["dfw_rows"]), _ptr(b["def_part"]),
         b["dx"].data_ptr(), b["d_ef"].data_ptr(), b["dwf_part"].data_ptr(),
         b["d_wf"].data_ptr(),
         b["n_rows"], b["t_slots"], b["n_part"], ni, h, hp, d, dp, sdp, kw, kf,
-        int(b["mm"] == torch.bfloat16), int(b["tiles"]), b["n_hc"],
+        maps["seg"].shape[0], int(b["mm"] == torch.bfloat16), b["route"], b["n_hc"],
         torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
     return b["dx"], b["d_ef"], b["d_wf"]
 
 
 def _floor_route(irreps_str, num_basis, node_dim, mm_dtype) -> bool:
-    """Whether the stream floor takes these widths: message_bwd's bf16 tile
-    route with its d_wf partial in registers (Kf <= 32, H <= 768)."""
-    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
-    return (tile_route("message_bwd", mm_dtype, irreps_str, num_basis, node_dim)
-            and _dwf_regs("message_bwd", ni, node_dim, d, kw, kf))
+    """Whether the stream floor takes these widths: those of message_bwd's
+    Hopper tile pass (:func:`hopper_route`), whose streams it runs."""
+    return hopper_route(mm_dtype, irreps_str, num_basis, node_dim)
 
 
 def bwd_stream_floor_cuda(
@@ -703,8 +768,9 @@ def bwd_stream_floor_cuda(
     if not x_cat.is_cuda:
         raise ValueError("bwd_stream_floor_cuda takes CUDA tensors")
     if not _floor_route(irreps_str, num_basis, node_dim, mm_dtype):
-        raise ValueError("bwd_stream_floor_cuda takes message_bwd's bf16 tile route "
-                         "(tile_route) with its d_wf partial in registers (Kf <= 32, H <= 768)")
+        raise ValueError("bwd_stream_floor_cuda takes the widths of message_bwd's Hopper "
+                         "tile pass (hopper_route: bf16, Kf <= 32, H <= 576, irrep runs of "
+                         "even multiplicity)")
     b = _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, node_dim,
                    n_out, block_nodes, chunk, mm_dtype)
     ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
@@ -714,14 +780,63 @@ def bwd_stream_floor_cuda(
         b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(), b["gk"].data_ptr(),
         plan["src_ptr"].data_ptr(), plan["slot_src"].data_ptr(),
         plan["slot_dst"].data_ptr(), plan["src_pos"].data_ptr(),
-        maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
-        maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(), b["rows"].data_ptr(),
+        maps["lane_ycol"].data_ptr(), maps["gate_lane0"].data_ptr(),
+        maps["gate_dim"].data_ptr(), maps["seg"].data_ptr(), b["rows"].data_ptr(),
         b["dx"].data_ptr(), b["d_ef"].data_ptr(), b["dwf_part"].data_ptr(),
         b["d_wf"].data_ptr(),
         b["n_rows"], b["t_slots"], b["n_part"], ni, h, hp, d, dp, sdp, kw, kf,
-        torch.cuda.current_stream(x_cat.device).cuda_stream,
+        maps["seg"].shape[0], torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
     return b["dx"], b["d_ef"], b["d_wf"]
+
+
+# the phases of bwd_phase_stamps' stamps, in their order (8 per role)
+PHASES = {
+    "tile": ("prologue", "wait + barrier", "A: dfo gate sums", "B: fw, dfw, dgs, fo",
+             "C: dgv, drsh", "D: d_ef, d_wf products", "E: d_ef rows", "epilogue"),
+    "hopper": ("prologue, epilogue", "wait", "first fw product",
+               "B: dfw, dgs, fo (and the warpgroup's barrier)", "d_wf, d_ef products, next fw",
+               "C: dgv, drsh", "barrier of the warpgroups, d_ef rows, release",
+               "A: dfo gate sums (and its barrier)"),
+    "producer": ("prologue", "wait for a free stage", "slot indices", "copies issued", "-",
+                 "-", "-", "epilogue"),
+}
+
+
+def bwd_phase_stamps(
+    x_cat, edge_feat, wf_aug, g, slot_meta,
+    irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype, which: str,
+) -> torch.Tensor:
+    """clock64() cycles per phase of one launch of a ``message_bwd`` tile
+    pass alone, on :func:`message_bwd_cuda`'s operands (the phase probe of
+    ``xequinet_torch/tools/bwd_stream_floor.py``, on no model path; not
+    counted in LAUNCHES).  ``which``: "hopper", the Hopper tile pass
+    (int64 [n_part, HB_WGS + 1, 8]: the consumer warpgroups and the
+    producer warp, phases as in ``PHASES``); "tile", the mma.sync tile pass's
+    flagship instance (int64 [n_part, 8]).  Takes the widths of
+    :func:`hopper_route`."""
+    if which not in ("hopper", "tile") or not hopper_route(mm_dtype, irreps_str, num_basis,
+                                                           node_dim):
+        raise ValueError("bwd_phase_stamps takes which 'hopper' or 'tile' at the widths of "
+                         "hopper_route")
+    b = _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, node_dim,
+                   n_out, block_nodes, chunk, mm_dtype)
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, maps = b["plan"], b["maps"]
+    shape = (b["n_part"], HB_WGS + 1, 8) if which == "hopper" else (b["n_part"], 8)
+    stamps = torch.zeros(shape, dtype=torch.int64, device=x_cat.device)
+    probe(
+        "bwd_phases",
+        b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(), b["gk"].data_ptr(),
+        plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(), plan["src_pos"].data_ptr(),
+        maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
+        maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(), maps["seg"].data_ptr(),
+        b["rows"].data_ptr(), b["d_ef"].data_ptr(), b["dwf_part"].data_ptr(),
+        b["t_slots"], b["n_part"], ni, h, hp, d, dp, sdp, kw, kf, maps["seg"].shape[0],
+        int(which == "hopper"), stamps.data_ptr(),
+        torch.cuda.current_stream(x_cat.device).cuda_stream,
+    )
+    return stamps
 
 
 def plain_bwd_stream_floor(
@@ -783,7 +898,7 @@ def bwd2_scratch_shapes(t_slots: int, h: int, node_dim: int,
 # shows them (the d_wf passes launch only where the tile pass's d_wf
 # partial leaves the registers)
 PASSES = {
-    "message_bwd": (("tile pass", "message_bwd_tile_kernel"),
+    "message_bwd": (("tile pass", "message_bwd_(?:tile|hopper)_kernel"),
                     ("dx pass", "message_bwd_dx_rows_kernel"),
                     ("d_wf pass", "xeq_dwf_pass_kernel"),
                     ("d_wf reduction", "xeq_dwf_reduce_kernel")),

@@ -1,12 +1,20 @@
-"""The first-order message backward's stream floor on the card.
+"""The first-order message backward's stream floor on the card, and the
+split of its tile pass by phase.
 
 Port of the JAX package's ``tools/bwd_stream_floor.py``.  The floor kernel
 (``csrc/bwd_stream_floor.cu``, :func:`~xequinet_torch.ops.fused_message.
-bwd_stream_floor_cuda`) runs ``message_bwd``'s bf16 tile route with a
-near-empty body: the same persistent grid, tile walk, cp.async staging,
-shared memory and stores, then the backward's own dx pass and d_wf
-reduction.  Its time is what moving the backward's operands and results
-costs, below which no change to the backward's arithmetic can go.
+bwd_stream_floor_cuda`) runs ``message_bwd``'s bf16 tile route (its Hopper
+tile pass, ``csrc/message_bwd_hopper.cuh``) with a near-empty body: the
+same persistent grid, tile walk, producer warp, bulk copies into the ring
+of stages, shared memory and stores, then the backward's own dx pass and
+d_wf reduction.  Its time is what moving the backward's operands and
+results costs, below which no change to the backward's arithmetic can go.
+
+The phase split: :func:`~xequinet_torch.ops.fused_message.bwd_phase_stamps`
+launches a tile pass alone with clock64() stamps per phase: the mma.sync
+tile pass (``csrc/message_bwd.cu``, which wider shapes take; no model path
+launches it at these widths) and the Hopper pass.  Each phase's share of the
+stamped cycles times the stamped pass's device time gives its ms.
 
 Reading: with ``ideal`` the tensor-core time of the backward's three
 filter contractions, ``floor + ideal`` near the tile pass's measured time
@@ -22,7 +30,7 @@ held bit for bit against :func:`~xequinet_torch.ops.fused_message.
 plain_bwd_stream_floor`; the floor and ``message_bwd`` on the same
 operands each timed as the median of 3 repetitions of 20 calls (CUDA
 events) and split by pass with torch.profiler, each split held to its
-timed call; the bounds; the reading.
+timed call; the two tile passes split by phase; the bounds; the reading.
 
 Usage:
     python -m xequinet_torch.tools.bwd_stream_floor [--device cpu] [--out PATH]
@@ -295,6 +303,50 @@ def reading(floor_ms, ideal_ms, measured_ms):
                     f"alone closes the gap")
 
 
+def phase_split(p, passes=("tile", "hopper"), calls=SPLIT_CALLS):
+    """``message_bwd``'s tile passes split by phase: for each of ``passes``
+    (``which`` of ``bwd_phase_stamps``: "tile", the mma.sync pass; "hopper",
+    the Hopper pass) the stamped pass's device ms (torch.profiler over
+    ``calls`` launches) and per role its phases' shares of the stamped
+    cycles and ms (share x device ms).  Roles: the block's thread 0 for
+    "tile"; the consumer warpgroups (summed) and the producer warp for
+    "hopper"."""
+    from ..ops import fused_message as fm
+
+    names = {"tile": "message_bwd_tile_kernel", "hopper": "message_bwd_hopper_kernel"}
+    out = {}
+    for which in passes:
+        kname = names[which]
+        fn = lambda: fm.bwd_phase_stamps(*_args(p), which=which)
+        split, _ = pass_split(fn, (("tile pass", kname),), calls)
+        stamps = fn().double().cpu().numpy()
+        torch.cuda.synchronize()
+        ms = split.get("tile pass", float("nan"))
+        roles = ({"block": stamps.sum(0)} if which == "tile" else
+                 {"warpgroups": stamps[:, :-1].sum((0, 1)), "producer": stamps[:, -1].sum(0)})
+        rec = {"stamped_ms": ms}
+        for role, cyc in roles.items():
+            phases = fm.PHASES["producer" if role == "producer" else which]
+            share = cyc / cyc.sum()
+            rec[role] = {n: {"share": float(s), "ms": float(s * ms)}
+                         for n, s in zip(phases, share) if n != "-"}
+        out[which] = rec
+    return out
+
+
+def phase_lines(phases, card):
+    """The printed lines of :func:`phase_split`."""
+    lines = []
+    for which, rec in phases.items():
+        for role, split in rec.items():
+            if role == "stamped_ms":
+                continue
+            by = ", ".join(f"{n} {v['ms']:.4f} ({v['share']:.1%})" for n, v in split.items())
+            lines.append(f"{which} tile pass, stamped {rec['stamped_ms']:.4f} ms, {role}: "
+                         f"{by} — {card}")
+    return lines
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -302,9 +354,10 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def measure(p):
+def measure(p, phases=("tile", "hopper")):
     """The numbers of the JSON on the card (floor first: its launch
-    happens before message_bwd's, with the same operands resident).
+    happens before message_bwd's, with the same operands resident), the
+    tile passes of ``phases`` split by phase (:func:`phase_split`).
     Raises where a split by pass does not account for its timed call."""
     from ..ops import fused_message as fm
 
@@ -320,6 +373,7 @@ def measure(p):
     # the reading compares the tile passes (the dx pass is the same kernel
     # in both)
     verdict, text = reading(floor_split["tile pass"], ideal_ms, bwd_split["tile pass"])
+    phases = phase_split(p, phases)
     n_blocks, max_chunks, n_slots = p["layout"]
     return {
         "floor_ms": floor_ms, "n_blocks": n_blocks, "max_chunks": max_chunks,
@@ -335,7 +389,7 @@ def measure(p):
         "floor_moved_ms": c["moved_bytes"] / PEAK_BYTES * 1e3,
         "scratch_bytes": c["scratch_bytes"], "ideal_flops": c["ideal_flops"],
         "ideal_ms": ideal_ms, "reading": verdict, "reading_text": text,
-        "n_valid_slots": p["n_valid"], "n_atoms": p["n_atoms"],
+        "n_valid_slots": p["n_valid"], "n_atoms": p["n_atoms"], "phases": phases,
     }
 
 
@@ -360,6 +414,7 @@ def report(res, card):
         f"({res['ideal_flops'] / 1e9:.2f} GFLOP at 989 TFLOP/s); plain floor "
         f"{res['plain_ms']:.4f} ms",
         f"reading ({res['reading']}): {res['reading_text']}",
+        *phase_lines(res["phases"], card),
     ]
 
 
