@@ -20,10 +20,11 @@ Phases (any failed check exits non-zero):
      d2wf, d2g, with no cotangent on d_wf (force training) and a random one;
      the same at four other shapes on the same slots (Kf = 33, num_basis
      23; Kf = 128, num_basis 118; H = 1152, node_dim 256 and
-     256x0e+128x1o+64x2e; H = 640, node_dim 192, which message_bwd's Hopper
-     tile pass refuses and its mma.sync tile pass takes with d_wf in
-     registers), each also bit for bit on a second call, with the route
-     (Hopper tile pass, tile pass or walk kernels) each takes;
+     256x0e+128x1o+64x2e; H = 640, node_dim 192, which the Hopper tile
+     passes of message_bwd and message_bwd2 refuse and their mma.sync tile
+     passes take, message_bwd's with d_wf in registers), each also bit for
+     bit on a second call, with the route (Hopper tile pass, tile pass or
+     walk kernels) each takes;
      the v2 gather-scale-scatter at the model's call on the same slots (x
      [24576, 480] f32, w2 on every slot in f32 and in bf16); the v1 one at
      bench_kernels.py run's shape (n 16384, e 163840, d 480, bn 256) with
@@ -55,7 +56,9 @@ Phases (any failed check exits non-zero):
      the bound (bytes and operations the function needs on these inputs),
      the library yardstick where one PyTorch call computes the same
      function (torch.sparse.mm for the v1 op at an [E, 1] weight, timed in
-     turns with the kernel), the backward's and the second order's split
+     turns with the kernel), the pass each message kernel takes (at the
+     flagship widths the Hopper tile passes of message_bwd and, without
+     cwf, message_bwd2), the backward's and the second order's split
      per launch (tile pass, row passes, d_wf pass, reduction;
      torch.profiler) and their scratch bytes, the message kernels' f32
      instances at flagship widths and the wide shapes in bf16 beside their
@@ -360,6 +363,8 @@ def kernel_route(name, mm, statics):
 
     if name == "message_bwd" and fm.hopper_route(mm, *statics):
         return "Hopper tile pass"
+    if name == "message_bwd2" and fm.hopper2_route(mm, *statics):  # no cwf, as trained
+        return "Hopper tile pass"
     return "tile pass" if fm.tile_route(name, mm, *statics) else "walk kernels"
 
 
@@ -528,9 +533,11 @@ def phase_wide_kernels(batch, device):
         p = message_problem(batch, device, widths=widths)
         routes = {k: kernel_route(k, "bfloat16", widths) for k in OUT_NAMES}
         print(f"[kernels] wide shape {tag} {widths}: bf16 routes {routes}")
-        if tag == "H=640" and routes["message_bwd"] != "tile pass":
-            fail(f"H=640: message_bwd takes the {routes['message_bwd']}, not the mma.sync "
-                 f"tile pass this shape is here to check")
+        if tag == "H=640" and (routes["message_bwd"], routes["message_bwd2"]) != (
+                "tile pass", "tile pass"):
+            fail(f"H=640: message_bwd takes the {routes['message_bwd']} and message_bwd2 the "
+                 f"{routes['message_bwd2']}, not the mma.sync tile passes this shape is here "
+                 f"to check")
         check_message_kernels(p, tag, repeat=True)
         wide[tag] = dict(p, **{k: p[k].to(torch.bfloat16)
                                for k in ("x_cat", "ef", "wf", "g", "cx", "cef")})
@@ -5650,6 +5657,15 @@ def main():
         for line in str(rec["ptxas"]).splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+    # the Hopper tile passes' dynamic shared memory at the flagship widths
+    # (ptxas reports static shared memory only)
+    fw = (FLAGSHIP_KW["node_irreps"], FLAGSHIP_KW["num_basis"], FLAGSHIP_KW["node_dim"])
+    ni, _, _, d, _, _, kw, kf = fm._launch_dims(*fw)
+    for name, (smem, nst, stage) in (
+            ("message_bwd", fm._hopper_layout(ni, fw[2], d, kw, kf)),
+            ("message_bwd2", fm._hopper2_layout(ni, fw[2], d, kw, kf, fm.pair_table(*fw)[1]))):
+        print(f"[build] {name}'s Hopper tile pass at the flagship widths: {smem} bytes of "
+              f"dynamic shared memory, {nst} stages of {stage}")
 
     # phase 3: kernels against their plain versions
     t0 = time.perf_counter()
@@ -5720,6 +5736,7 @@ def main():
         # "launches" is the mega route's train step; the two paths' counts
         # stand beside it, each read just after its own reset
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "pass": kernel_route(name, mm, p["statics"]),
                      "launches": per_step[name], "launches_predict": launches[name],
                      "launches_train_step": per_step[name], "max_abs_err": abs_err[name],
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,

@@ -650,6 +650,213 @@ def test_cuda_message_bwd2_many_tiles_per_block(cuda_device, mm, rel):
     assert float(got[1][~p["mask"]].abs().max()) == 0.0
 
 
+# ---------------------------------------------------------------------------
+# message_bwd2's Hopper tile pass (csrc/message_bwd2_hopper.cuh): the ring of
+# stages, the tails of a walk, the halo layout, the packed single products
+# and the widths it refuses
+# ---------------------------------------------------------------------------
+def _bwd2_close(p, cots, rel=2e-2):
+    """The bf16 second order without cwf against the plain double VJP (2e-2
+    of the largest reference magnitude), zero d2ef rows on every slot that
+    adds nothing, zero d2g rows where no slot ends, and the same bits on a
+    second call; returns the outputs."""
+    m, mask = p["meta"], p["mask"]
+    run = lambda: fm.message_bwd2_cuda(p["x"], p["ef"], p["wf"], p["g"], *cots, m,
+                                       *p["statics"], p["n"], p["bn"], p["chunk"], "bfloat16")
+    got = run()
+    want = fm.plain_message_bwd2(p["x"], p["ef"], p["wf"], p["g"], *cots, m[2], m[3], mask,
+                                 *p["statics"], p["n"], torch.bfloat16)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, run()):
+        assert torch.isfinite(a).all()
+        _close(a, b, rel)
+        assert torch.equal(a, c)
+    if (~mask).any():
+        assert float(got[1][~mask].abs().max()) == 0.0
+    return got
+
+
+@pytest.mark.gpu
+def test_cuda_hopper_bwd2_ring_wraps_and_tails(cuda_device):
+    """Flagship widths without cwf (the Hopper tile pass of message_bwd2) on
+    a batch of more tiles per block than ring stages, a slot count that is
+    no multiple of 16 (a last tile partly full), whole tiles of padding in
+    the slot_cap tail and slots past the covered chunk range: against the
+    plain double VJP, zero d2ef rows on the slots that add nothing, zero
+    d2g rows where no slot ends, the same bits on a second call."""
+    assert fm.hopper2_route("bfloat16", *CASES[2])
+    p = _problem(cuda_device, *CASES[2], n_mols=240, odd_tail=5)
+    n_slots = p["mask"].shape[0]
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ni, h, hp, d, dp, sdp, kw, kf = fm._launch_dims(*CASES[2])
+    n_pt = fm.pair_table(*CASES[2])[1]
+    nst = fm._hopper2_layout(ni, CASES[2][2], d, kw, kf, n_pt)[1]
+    assert n_slots % 16 == 5 and n_slots // 16 > 2 * nst * n_sm
+    m = p["meta"]
+    covered = p["chunk"] * int(m[4][-1] + m[5][-1])
+    assert covered + 16 < n_slots  # whole tiles past the covered range
+    got = _bwd2_close(p, _cotangents(p, with_cwf=False))
+    assert float(got[3][_empty_rows(p)].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES[:3], ids=("small", "two_ls", "flagship"))
+def test_cuda_hopper_bwd2_takes_each_hopper_width(cuda_device, case):
+    """Every CASES width the Hopper pass takes (one pair tile and a
+    scalar tile; five pair tiles of l = 0 and l = 1 groups; the flagship's
+    nine m64 tiles), with padding row pairs in the table, on a ragged
+    batch: against the plain double VJP, repeating bit for bit."""
+    assert fm.hopper2_route("bfloat16", *case)
+    tab = fm.pair_table(*case)[0]
+    assert (tab < 0).any() or case == CASES[2]
+    p = _problem(cuda_device, *case, n_mols=60, odd_tail=5)
+    _bwd2_close(p, _cotangents(p, with_cwf=False))
+
+
+@pytest.mark.gpu
+def test_cuda_hopper_bwd2_zero_slots(cuda_device):
+    """A call with no slot: d2x, d2wf and d2g zero, d2ef empty."""
+    p = _problem(cuda_device, *CASES[0])
+    assert fm.hopper2_route("bfloat16", *CASES[0])
+    z = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    n = p["n"]
+    ptr = torch.zeros(n + 1, dtype=torch.int32, device=cuda_device)
+    plan = {"slot_src": z, "slot_dst": z, "dst_ptr": ptr, "dst_slots": z, "dst_pos": z,
+            "src_ptr": ptr.clone(), "src_slots": z, "src_pos": z}
+    meta = tuple(p["meta"][:7]) + (plan,)
+    ef0 = p["ef"][:0].contiguous()
+    d2x, d2ef, d2wf, d2g = fm.message_bwd2_cuda(p["x"], ef0, p["wf"], p["g"], p["x"], ef0, None,
+                                                meta, *p["statics"], n, p["bn"], p["chunk"],
+                                                "bfloat16")
+    torch.cuda.synchronize()
+    assert d2ef.shape == (0, fm.F_PACK)
+    for t in (d2x, d2wf, d2g):
+        assert float(t.abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [256, 512])
+def test_cuda_hopper_bwd2_halo_shard_layout(cuda_device, bn):
+    """Shard 0 of 4 of a periodic box in HaloCalculator's layout (its
+    partition, a window of local and halo rows, chunk 1024), flagship
+    widths without cwf: the Hopper tile pass against the plain double
+    VJP."""
+    from xequinet_torch.parallel import halo as hm
+
+    rng = np.random.default_rng(3)
+    n = 3000
+    lx = n * 0.15
+    cell = np.diag([lx, 16.0, 16.0])
+    pos = np.column_stack([(np.arange(n) * 0.15 + rng.normal(size=n) * 0.5) % lx,
+                           rng.uniform(0, 16.0, size=(n, 2))])
+    z = rng.integers(1, 9, size=n).astype(np.int32)
+    stacked, geom, _, _, _, _ = hm.prepare_halo_system(z, pos, 5.0, 4, cell=cell,
+                                                       pbc=np.array([True] * 3))
+    bn = min(bn, geom["n_local"])
+    stacked, _, _ = hm.apply_halo_kernel_layout(stacked, geom,
+                                                {"block_nodes": bn, "chunk": 1024},
+                                                margin=1.3)
+    shard = {k: v[0] for k, v in stacked.items()}
+    shard[keys.POSITIONS] = np.zeros((geom["window"], 3), np.float32)
+    p = _operands(cuda_device, shard, "128x0e+64x1o+32x2e", 20, 128, rng, bn, 1024)
+    assert geom["halo"] > 0 and fm.hopper2_route("bfloat16", *p["statics"])
+    _bwd2_close(p, _cotangents(p, with_cwf=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [(1.0, 1.0), (2.0 ** -6, 2.0 ** -124)],
+                         ids=("normal", "below_f32_normal"))
+def test_cuda_hopper_bwd2_single_products_bit_for_bit(cuda_device, scale):
+    """The Hopper pass rounds the single products of two bf16 values as
+    __hmul2 on two slots' values, the plain version (and the TPU kernel) as
+    an f32 product rounded to bf16: with fw and r small integers (so that a
+    = rnd(cxh fw + r gs) and the gate sums are exact in any order), the d2x
+    lanes rnd(gms_v a[gate]), the harmonic d2ef columns (one lane of gms_v
+    left per column) and the hidden d2x columns of the gates (dfo and u
+    from rnd(gv gms_v), rnd(ef[y] gms_v), rnd(cxv gms_v), rnd(cef[y] gms_v))
+    are the same values on every valid slot, with ordinary products and
+    with products below f32's normal range (x and cx times 2^-6, gms_v
+    times 2^-124)."""
+    p, (h, hp, d, kw, kf) = _pair_problem(cuda_device, (1.0, scale[1]))
+    assert fm.hopper2_route("bfloat16", *p["statics"])
+    ni = Irreps(p["statics"][0]).num_irreps
+    rng = np.random.default_rng(9)
+    t = p["ef"].shape[0]
+    bf = lambda a: torch.as_tensor(a, dtype=torch.float32).to(torch.bfloat16).float()
+    x = p["x"].cpu().numpy() * scale[0]
+    cx = rng.normal(size=x.shape).astype(np.float32) * scale[0]
+    cx[:, h:hp] = 0.0
+    cx[:, hp + d:] = 0.0
+    cef = np.zeros((t, fm.F_PACK), np.float32)
+    cef[:, :kw] = rng.integers(-2, 3, size=(t, kw))
+    cef[:, kw:kf] = rng.normal(size=(t, kf - kw))
+    to = lambda a: bf(a).to(cuda_device)
+    p = dict(p, x=to(x))
+    cx, cef = to(cx), to(cef)
+    m, mask = p["meta"], p["mask"]
+    d2x, d2ef, _, _ = fm.message_bwd2_cuda(p["x"], p["ef"], p["wf"], p["g"], cx, cef, None, m,
+                                           *p["statics"], p["n"], p["bn"], p["chunk"],
+                                           "bfloat16")
+    # the reference on the CPU: index_add on the card sums with float
+    # atomics, which flush f32's subnormals to zero
+    cpu = lambda t: t.cpu()
+    rows_x, _, _, _, d2ef_ref, _ = fm.message_bwd2_rows(
+        *map(cpu, (p["x"], p["ef"], p["wf"], p["g"], cx, cef)), None, *map(cpu, (m[2], m[3])),
+        mask.cpu(), *p["statics"], torch.bfloat16)
+    d2x, d2ef, src, mask = d2x.cpu(), d2ef.cpu(), m[2].long().cpu()[mask.cpu()], mask.cpu()
+    assert torch.equal(d2x[src][:, hp:hp + d], rows_x[mask][:, h:])  # the d2x lanes
+    assert torch.equal(d2ef[mask][:, kw:kf], d2ef_ref[mask][:, kw:kf])  # harmonic columns
+    assert torch.equal(d2x[src][:, :2 * ni], rows_x[mask][:, :2 * ni])  # the gates' columns
+    if scale[1] < 1.0:
+        small = rows_x[mask][:, h:].abs()
+        assert bool(((small > 0) & (small < 2.0 ** -126)).any())
+
+
+# the widths message_bwd2's Hopper pass refuses, each still on the pass it
+# takes (bf16 without cwf): the mma.sync tile pass at H = 640 and an odd run
+# (d2wf in registers), Kf = 33 and Kf = 128 (WIDE), H = 1152 (LEAN)
+BWD2_REFUSED = MMA_SYNC_CASES + WIDE
+BWD2_REFUSED_IDS = ("h640", "odd_run") + WIDE_IDS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD2_REFUSED, ids=BWD2_REFUSED_IDS)
+def test_cuda_bwd2_refused_widths_keep_their_pass(cuda_device, case):
+    """Each width the Hopper pass refuses takes the mma.sync tile pass, on a
+    batch of more slot tiles than the card has SMs with a ragged last
+    tile: against the plain double VJP in bf16 without cwf, repeating bit
+    for bit; and at the flagship widths f32 and a cotangent on d_wf keep
+    the walk kernels."""
+    assert not fm.hopper2_route("bfloat16", *case)
+    assert fm.tile_route("message_bwd2", "bfloat16", *case)
+    p = _problem(cuda_device, *case, n_mols=200, odd_tail=5)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert p["mask"].shape[0] > 2 * 16 * n_sm
+    _bwd2_close(p, _cotangents(p, with_cwf=False))
+    assert not fm.hopper2_route("float32", *CASES[2])
+    assert not fm.hopper2_route("bfloat16", *CASES[2], has_cwf=True)
+    assert not fm.tile_route("message_bwd2", "bfloat16", *CASES[2], has_cwf=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["tile", "hopper"])
+def test_cuda_bwd2_phase_probe_counts_cycles(cuda_device, which):
+    """The phase probe's stamped instances of message_bwd2's two tile
+    passes run at the flagship widths, stamp cycles for every block (and
+    role) and count no launch in LAUNCHES."""
+    p = _problem(cuda_device, *CASES[2], n_mols=60)
+    cx, cef, _ = _cotangents(p, with_cwf=False)
+    fm.reset_launch_counts()
+    stamps = fm.bwd2_phase_stamps(p["x"], p["ef"], p["wf"], p["g"], cx, cef, p["meta"],
+                                  *p["statics"], p["n"], p["bn"], p["chunk"], "bfloat16",
+                                  which=which)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == _counts()
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert stamps.shape == ((n_sm, fm.HB2_WGS + 1, 8) if which == "hopper" else (n_sm, 8))
+    assert int(stamps.min()) >= 0 and bool((stamps.sum(-1) > 0).all())
+
+
 @pytest.mark.gpu
 def test_cuda_grad_of_grad_runs_bwd2_kernel(cuda_device):
     """Force-training shape on the card: grad-of-grad through

@@ -1,0 +1,178 @@
+// Hopper's asynchronous pieces in PTX and the layout helpers that the
+// Hopper tile passes of the message backward share: message_bwd_hopper.cuh
+// (message_bwd.cu and bwd_stream_floor.cu) and message_bwd2_hopper.cuh
+// (message_bwd2.cu).  mbarriers (init, arrive, arrive with a byte count,
+// a bounded wait), bulk copies global -> shared counted on an mbarrier and
+// shared -> global in bulk groups, the async-proxy fence, named barriers,
+// wgmma's fences, commit and wait, its no-swizzle shared-memory
+// descriptors and the two products both passes issue, and the
+// core-matrix offset of a stage's edge-feature columns.
+#pragma once
+
+#include "message_tile.cuh"
+
+// ---------------------------------------------------------------------------
+// Hopper's asynchronous pieces, in PTX
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t xeq_sa(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void xeq_mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(xeq_sa(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void xeq_mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(xeq_sa(bar)) : "memory");
+}
+
+__device__ __forceinline__ void xeq_mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(xeq_sa(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` of the barrier has completed;
+// traps (the launch then fails) after 2^28 polls, so that a phase that
+// never completes raises instead of hanging the card.
+__device__ __forceinline__ void xeq_mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = xeq_sa(bar);
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    if (n == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (bulk copies, wgmma).
+__device__ __forceinline__ void xeq_fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void xeq_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory, counted on ``bar``.
+__device__ __forceinline__ void xeq_bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(xeq_sa(dst)),
+      "l"(src), "r"(bytes), "r"(xeq_sa(bar))
+      : "memory");
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) from shared to
+// global memory, in the thread's bulk group; wait_read: until the thread's
+// bulk copies have read their shared memory.
+__device__ __forceinline__ void xeq_bulk_s2g(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(xeq_sa(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void xeq_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void xeq_bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void xeq_bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void xeq_wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void xeq_wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void xeq_wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous instructions that own them.
+template <int N>
+__device__ __forceinline__ void xeq_wg_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor, no swizzle: core matrices of 8 rows
+// of 16 bytes; lbo = bytes between core matrices along K, sbo = along M
+// or N.
+__device__ __forceinline__ uint64_t xeq_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((xeq_sa(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d [64 x 16] += A [64 x 16] . B [16 x 16], both from shared memory (TA,
+// TB: the operand is stored M- or N-major), f32 accumulators; acc = 0: d =
+// A . B, whatever d held (no other instruction need define it first).
+template <int TA, int TB>
+__device__ __forceinline__ void xeq_wgmma_n16(float (&d)[8], uint64_t da, uint64_t db,
+                                              int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d [64 x 32] += A [64 x 16] . B [16 x 32], both from shared memory (TA,
+// TB as above); acc = 0 as above.
+template <int TA, int TB>
+__device__ __forceinline__ void xeq_wgmma_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                              int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d [64 x 32] += A [64 x 16] . B [16 x 32], A from registers (the
+// accumulator layout of a 64 x 16 tile, bf16 pairs), B from shared
+// memory (TB as above); acc = 0 as above.
+template <int TB>
+__device__ __forceinline__ void xeq_wgmma_n32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+// Edge-feature column f of slot t of a stage (core-matrix layout: 16-byte
+// rows (t, f/8) at (t/8) * 512 + (f/8) * 128 + (t%8) * 16).
+__device__ __forceinline__ int xeq_hb_ef_off(int t, int f) {
+  return (t >> 3) * 512 + (f >> 3) * 128 + (t & 7) * 16 + (f & 7) * 2;
+}
+
+__device__ __forceinline__ __nv_bfloat162 xeq_bf2(xeq_bf16 lo, xeq_bf16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return v;
+}

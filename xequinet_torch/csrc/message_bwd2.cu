@@ -112,7 +112,13 @@
 // :744-754): fo, a, the products summed into dfo and u, dfw2, dfwr, the
 // harmonic terms of d2ef and the d2x and d2g rows are rounded to bf16;
 // sums are f32.
-#include "message_tile.cuh"
+//
+// At the flagship's widths (ops/fused_message.py::hopper2_route) the bf16
+// tile pass without cwf is the Hopper one of message_bwd2_hopper.cuh (a
+// producer warp's bulk copies into a ring of stages, wgmma with H on M,
+// packed single products), with the same scratch rows, row passes and
+// reduction; the tile pass below takes the other bf16 widths.
+#include "message_bwd2_hopper.cuh"
 
 // r = c . w + (CWF) e . cw: the cotangent of the radial filter at hidden
 // column col (the first rows from the registers w / cw, the rest from wf /
@@ -719,20 +725,32 @@ __device__ __forceinline__ void xeq_gate_sums2(float& sd, float& su, int h, cons
 // fit beside the stage, H = 1152): no phase A; phase B forms each gate
 // column's sums itself from the staged rows, in the same order, and writes
 // dfwr straight to its scratch.
-template <bool WF_SMEM, bool WIDE, bool LEAN>
-__global__ void __launch_bounds__(XEQ_BT_THREADS, 1)
-message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restrict__ ef,
-                         const xeq_bf16* __restrict__ wf, const xeq_bf16* __restrict__ g,
-                         const xeq_bf16* __restrict__ cx, const xeq_bf16* __restrict__ cef,
-                         const int* __restrict__ slot_src, const int* __restrict__ slot_dst,
-                         const int* __restrict__ src_pos, const int* __restrict__ dst_pos,
-                         const int* __restrict__ lane_gate, const int* __restrict__ lane_ycol,
-                         const int* __restrict__ gate_lane0, const int* __restrict__ gate_dim,
-                         xeq_bf16* __restrict__ rows_x, xeq_bf16* __restrict__ rows_g,
-                         xeq_bf16* __restrict__ dfw2_rows, xeq_bf16* __restrict__ dfwr_rows,
-                         float* __restrict__ d2ef, float* __restrict__ dwf_part,
-                         const XeqTile2Dims p) {
+//
+// STAMP: the phase probe's instance (message_bwd2_tile_stamped_kernel,
+// launched by xeq_bwd2_phases only): thread 0 adds the clock64() cycles of
+// each phase of its block, written to stamps[block][XEQ_STAMPS] (prologue
+// and epilogue, the wait for a tile and its barrier, A, B, C, D1, D2 with
+// the next tile's copies, E).  A kernel of its own, so that the other
+// instances keep their parameter block.
+#define XEQ_TILE2_PARAMS                                                                      \
+  const xeq_bf16 *__restrict__ x, const xeq_bf16 *__restrict__ ef,                          \
+      const xeq_bf16 *__restrict__ wf, const xeq_bf16 *__restrict__ g,                      \
+      const xeq_bf16 *__restrict__ cx, const xeq_bf16 *__restrict__ cef,                    \
+      const int *__restrict__ slot_src, const int *__restrict__ slot_dst,                   \
+      const int *__restrict__ src_pos, const int *__restrict__ dst_pos,                     \
+      const int *__restrict__ lane_gate, const int *__restrict__ lane_ycol,                 \
+      const int *__restrict__ gate_lane0, const int *__restrict__ gate_dim,                 \
+      xeq_bf16 *__restrict__ rows_x, xeq_bf16 *__restrict__ rows_g,                         \
+      xeq_bf16 *__restrict__ dfw2_rows, xeq_bf16 *__restrict__ dfwr_rows,                   \
+      float *__restrict__ d2ef, float *__restrict__ dwf_part, const XeqTile2Dims p
+#define XEQ_TILE2_ARGS                                                                        \
+  x, ef, wf, g, cx, cef, slot_src, slot_dst, src_pos, dst_pos, lane_gate, lane_ycol,         \
+      gate_lane0, gate_dim, rows_x, rows_g, dfw2_rows, dfwr_rows, d2ef, dwf_part, p
+
+template <bool WF_SMEM, bool WIDE, bool LEAN, bool STAMP>
+__device__ __forceinline__ void xeq_tile2_body(XEQ_TILE2_PARAMS, long long* __restrict__ stamps) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
+  XeqStamps<STAMP> sp;
   xeq_bf16* x_s = (xeq_bf16*)tile_smem;                // [BT][xs_st] gs|gv; fo at the gates
   xeq_bf16* cx_s = (xeq_bf16*)(tile_smem + p.off_cx);  // [BT][xs_st] cxh|cxv; a in cxh
   const xeq_bf16* g_s = (const xeq_bf16*)(tile_smem + p.off_g);  // [BT][gs_st] gms_s|gms_v
@@ -781,9 +799,11 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
   xeq_cp_commit();
   XeqSlotIdx ahead = xeq_slot_idx(blockIdx.x + grid, n_tiles, p.n_slots, slot_src, slot_dst,
                                   src_pos, dst_pos);
+  sp.mark(0);
   for (int tl = blockIdx.x; tl < n_tiles; tl += grid) {
     xeq_cp_wait_all();
     __syncthreads();  // this tile has landed
+    sp.mark(1);
     const int k_w = tl * XEQ_BT + warp;  // the slot of this warp in phases A, C, E
 
     // A: the gate sums of dfo and u, one warp per slot, a lane per irrep
@@ -815,6 +835,7 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
         ur[p.ni + u] = tr;
       }
     }
+    sp.mark(2);
     __syncthreads();
 
     // B: fw = ef @ wf and r = cef @ wf on the tensor cores (shared B
@@ -902,6 +923,7 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
       }
     }
     __syncthreads();
+    sp.mark(3);
 
     // C: one warp per slot, lane pairs: the vector part of the d2x row, the
     // d2g row, and the harmonic d2ef columns (per lane in lane order, then
@@ -956,11 +978,13 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
           xeq_copy_row(dfwr_rows + (int64_t)k_w * p.hs, dfwr_s + warp * p.w_st, p.hs >> 3);
       }
     }
+    sp.mark(4);
 
     // D1: d2ef[:, f < kwp] = dfw2 @ wf^T on the tensor cores; warp w takes
     // the column tiles w % 4 (+ 4 j) and K quarter w / 4, its partials to
     // shared memory
     xeq_def_quarters(dfw2_s, p.w_st, wfp, wst, p.hs, kwp, dfo_s);
+    sp.mark(5);
     // D2: the block's d2wf partial += ef^T @ dfw2 + cef^T @ dfwr on the
     // tensor cores, in the warp's own column tiles (rows f of two m16 tiles)
     if constexpr (!WIDE) {
@@ -991,16 +1015,33 @@ message_bwd2_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restr
     xeq_cp_commit();
     ahead = xeq_slot_idx(tl + 2 * grid, n_tiles, p.n_slots, slot_src, slot_dst, src_pos,
                          dst_pos);
+    sp.mark(6);
 
     // E: the filter columns of the warp's d2ef row (the four quarters in
     // order) and zeros past Kf; dfo_s is rewritten only after the next
     // tile's first barrier
     if (k_w < p.n_slots)
       xeq_def_row(dfo_s, warp, d2ef + (int64_t)k_w * XEQ_FPACK, p.kw, p.kf, kwp);
+    sp.mark(7);
   }
 
   if constexpr (!WIDE)
     xeq_dwf_part_write(acc, dwf_part + (int64_t)blockIdx.x * p.kf * p.h, p.kf, p.h, n8);
+  sp.mark(0);
+  if (STAMP && threadIdx.x == 0) sp.write(stamps + (int64_t)blockIdx.x * XEQ_STAMPS);
+}
+
+template <bool WF_SMEM, bool WIDE, bool LEAN>
+__global__ void __launch_bounds__(XEQ_BT_THREADS, 1)
+message_bwd2_tile_kernel(XEQ_TILE2_PARAMS) {
+  xeq_tile2_body<WF_SMEM, WIDE, LEAN, false>(XEQ_TILE2_ARGS, nullptr);
+}
+
+// The flagship instance (wf's live rows in shared memory, d2wf in
+// registers) with the phase stamps.
+__global__ void __launch_bounds__(XEQ_BT_THREADS, 1)
+message_bwd2_tile_stamped_kernel(XEQ_TILE2_PARAMS, long long* __restrict__ stamps) {
+  xeq_tile2_body<true, false, false, true>(XEQ_TILE2_ARGS, stamps);
 }
 
 // d2x [n_rows, Hp+Dp] f32: the d2x scratch rows summed by source.
@@ -1122,11 +1163,50 @@ static int launch_bwd2_tiles(const void* x, const void* ef, const void* wf, cons
       ylane_ptr, ylane_idx, def_part, d2x, d2ef, dwf_part, d2wf, d2g, n_out,   \
       n_rows, n_slots, n_part, ni, nd, h_dim, hp, d, dp, sdp, kw, kf, n_hc, s
 
-// tiles (bf16 without cwf only): the tile pass, which the wrapper chooses by
-// shape when a layout of it fits (dfw2_rows / dfwr_rows: its scratch when
-// d2wf leaves the registers); else the walk kernels in the operands' dtype,
-// with or without the cwf terms, over n_hc column chunks (def_part: their
-// d2ef partials when n_hc > 1).
+// The Hopper tile pass (message_bwd2_hopper.cuh), the row passes and the
+// d2wf reduction.
+static int launch_bwd2_hopper_route(const void* x, const void* ef, const void* wf,
+                                    const void* g, const void* cx, const void* cef,
+                                    const void* dst_ptr, const void* src_ptr,
+                                    const void* slot_src, const void* slot_dst,
+                                    const void* src_pos, const void* dst_pos, const void* tab,
+                                    void* rows_x, void* rows_g, void* d2x, void* d2ef,
+                                    void* dwf_part, void* d2wf, void* d2g, int n_out,
+                                    int n_rows, int n_slots, int n_part, int ni, int nd,
+                                    int h_dim, int hp, int d, int dp, int sdp, int kw, int kf,
+                                    int n_pt, cudaStream_t s) {
+  XeqH2Dims p;
+  if (tab == nullptr ||
+      !bwd2_hopper_dims(p, n_slots, ni, nd, h_dim, hp, d, dp, sdp, kw, kf, n_pt))
+    return (int)cudaErrorInvalidValue;
+  int err = launch_bwd2_hopper(x, ef, wf, g, cx, cef, slot_src, slot_dst, src_pos, dst_pos, tab,
+                               rows_x, rows_g, d2ef, dwf_part, p, n_part, nullptr, s);
+  if (err != cudaSuccess) return err;
+  if (n_rows > 0) {
+    message_bwd2_d2x_rows_kernel<<<(n_rows + 7) / 8, 256, 0, s>>>(
+        (const xeq_bf16*)rows_x, (const int*)src_ptr, (float*)d2x, n_rows, p.ht8, p.dt8, hp,
+        hp + dp);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n_out > 0) {
+    message_bwd2_d2g_rows_kernel<<<(n_out + 7) / 8, 256, 0, s>>>(
+        (const xeq_bf16*)rows_g, (const int*)dst_ptr, (float*)d2g, n_out, p.sd8, p.dt8, sdp,
+        sdp + dp);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
+      (const float*)dwf_part, (float*)d2wf, n_part, kf, h_dim, hp);
+  return (int)cudaGetLastError();
+}
+
+// tiles (bf16 without cwf only), chosen by the wrapper by shape: 2, the
+// Hopper tile pass (message_bwd2_hopper.cuh; tab: its pair rows [32 n_tab],
+// n_tab pair tiles); 1, the tile pass above when a layout of it fits
+// (dfw2_rows / dfwr_rows: its scratch when d2wf leaves the registers); 0,
+// the walk kernels in the operands' dtype, with or without the cwf terms,
+// over n_hc column chunks (def_part: their d2ef partials when n_hc > 1).
 extern "C" int xeq_message_bwd2(
     const void* x, const void* ef, const void* wf, const void* g,
     const void* cx, const void* cef, const void* cwf, const void* dst_ptr,
@@ -1134,14 +1214,20 @@ extern "C" int xeq_message_bwd2(
     const void* slot_src, const void* slot_dst, const void* src_pos,
     const void* dst_pos, const void* lane_gate, const void* lane_ycol,
     const void* gate_lane0, const void* gate_dim, const void* ylane_ptr,
-    const void* ylane_idx, void* rows_x, void* rows_g, void* dfw2_rows, void* dfwr_rows,
-    void* def_part, void* d2x, void* d2ef, void* dwf_part, void* d2wf, void* d2g, int n_out,
-    int n_rows, int n_slots, int n_part, int ni, int nd, int h_dim, int hp, int d, int dp,
-    int sdp, int kw, int kf, int bf16, int has_cwf, int tiles, int n_hc, void* stream) {
+    const void* ylane_idx, const void* tab, void* rows_x, void* rows_g, void* dfw2_rows,
+    void* dfwr_rows, void* def_part, void* d2x, void* d2ef, void* dwf_part, void* d2wf,
+    void* d2g, int n_out, int n_rows, int n_slots, int n_part, int ni, int nd, int h_dim,
+    int hp, int d, int dp, int sdp, int kw, int kf, int bf16, int has_cwf, int tiles,
+    int n_hc, int n_tab, void* stream) {
   if (kw > kf || kf > XEQ_FPACK || (hp + dp) % 128 != 0 || (sdp + dp) % 128 != 0 ||
       n_part < 1 || (has_cwf && cwf == nullptr) || (tiles && (!bf16 || has_cwf)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tiles == 2)
+    return launch_bwd2_hopper_route(x, ef, wf, g, cx, cef, dst_ptr, src_ptr, slot_src, slot_dst,
+                                    src_pos, dst_pos, tab, rows_x, rows_g, d2x, d2ef, dwf_part,
+                                    d2wf, d2g, n_out, n_rows, n_slots, n_part, ni, nd, h_dim,
+                                    hp, d, dp, sdp, kw, kf, n_tab, s);
   if (tiles)
     return launch_bwd2_tiles(x, ef, wf, g, cx, cef, dst_ptr, src_ptr, slot_src, slot_dst,
                              src_pos, dst_pos, lane_gate, lane_ycol, gate_lane0, gate_dim,
@@ -1154,4 +1240,49 @@ extern "C" int xeq_message_bwd2(
   }
   if (has_cwf) return launch_bwd2<float, false, true>(XEQ_BWD2_ARGS);
   return launch_bwd2<float, false, false>(XEQ_BWD2_ARGS);
+}
+
+// The phase probe (xequinet_torch/tools/bwd_compare.py; on no model path):
+// one launch of a bf16 tile pass without cwf alone, with clock64() stamps
+// per phase in stamps: which = 0, the mma.sync tile pass's flagship
+// instance (wf's live rows in shared memory, d2wf in registers;
+// [n_part][8]); which = 1, the Hopper tile pass ([n_part][XEQ_H2_WGS +
+// 1][8]: the consumer warpgroups, then the producer; tab, n_tab: its pair
+// rows).  Its outputs are the pass's: d2ef, the scratch rows and the d2wf
+// partials.
+extern "C" int xeq_bwd2_phases(const void* x, const void* ef, const void* wf, const void* g,
+                               const void* cx, const void* cef, const void* slot_src,
+                               const void* slot_dst, const void* src_pos, const void* dst_pos,
+                               const void* lane_gate, const void* lane_ycol,
+                               const void* gate_lane0, const void* gate_dim, const void* tab,
+                               void* rows_x, void* rows_g, void* d2ef, void* dwf_part,
+                               int n_slots, int n_part, int ni, int nd, int h_dim, int hp, int d,
+                               int dp, int sdp, int kw, int kf, int n_tab, int which,
+                               void* stamps, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_part < 1 || stamps == nullptr) return (int)cudaErrorInvalidValue;
+  if (which == 1) {
+    XeqH2Dims q;
+    if (tab == nullptr ||
+        !bwd2_hopper_dims(q, n_slots, ni, nd, h_dim, hp, d, dp, sdp, kw, kf, n_tab))
+      return (int)cudaErrorInvalidValue;
+    return launch_bwd2_hopper(x, ef, wf, g, cx, cef, slot_src, slot_dst, src_pos, dst_pos, tab,
+                              rows_x, rows_g, d2ef, dwf_part, q, n_part, (long long*)stamps, s);
+  }
+  XeqTile2Layout p;
+  if (which != 0 || !bwd2_tile_dims(p, n_slots, ni, nd, h_dim, hp, d, dp, sdp, kw, kf) ||
+      !p.wf_smem || !p.dwf_regs || p.lean)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = message_bwd2_tile_stamped_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_part, XEQ_BT_THREADS, p.smem, s>>>(
+      (const xeq_bf16*)x, (const xeq_bf16*)ef, (const xeq_bf16*)wf, (const xeq_bf16*)g,
+      (const xeq_bf16*)cx, (const xeq_bf16*)cef, (const int*)slot_src, (const int*)slot_dst,
+      (const int*)src_pos, (const int*)dst_pos, (const int*)lane_gate, (const int*)lane_ycol,
+      (const int*)gate_lane0, (const int*)gate_dim, (xeq_bf16*)rows_x, (xeq_bf16*)rows_g,
+      nullptr, nullptr, (float*)d2ef, (float*)dwf_part, static_cast<const XeqTile2Dims&>(p),
+      (long long*)stamps);
+  return (int)cudaGetLastError();
 }

@@ -616,6 +616,100 @@ def hopper_route(mm_dtype, irreps_str: str, num_basis: int, node_dim: int) -> bo
             and bool((seg[:, 2] % 2 == 0).all()) and d < 4096 and smem <= SMEM_MAX)
 
 
+# the Hopper tile pass of message_bwd2 (csrc/message_bwd2_hopper.cuh): its
+# consumer warpgroups, m64 tiles of H and ring stages at most
+HB2_WGS, HB2_MT, HB2_MAXST = 3, 9, 4
+
+
+@functools.lru_cache(maxsize=None)
+def pair_table(irreps_str: str, num_basis: int, node_dim: int) -> Tuple[np.ndarray, int]:
+    """(tab, n_pt): the pair rows of ``message_bwd2``'s Hopper tile pass,
+    int32 [32 n_pt].  Its m64 tiles of H put each irrep u's state gate u
+    and harmonic gate ni + u on one thread's two accumulator rows: entry
+    32 i + 8 w + gq of pair tile i (warp w of the tile's warpgroup i % 3,
+    row group gq) is ``u | first lane << 10 | l << 22 | (first harmonic
+    column - Kw) << 24``, or -1 (a padding row pair).  Each run of irreps
+    of one l is cut into groups of 8 consecutive irreps (a warp's row
+    groups, one l, so that its lane count and harmonic columns are
+    constants; the last group padded), and the groups go to the tiles'
+    warps longest first, each to the warp with the least work so far
+    (2 + 2l + 1 per group, 3 per warp of a scalar tile), ties to the
+    lowest cell; node_dim's columns follow in ``-(-node_dim // 64)`` scalar
+    tiles."""
+    maps = index_maps(irreps_str, num_basis)
+    groups = []
+    for u0, j0, mul, lw in maps["seg"].tolist():
+        dim = 2 * (lw & 3) + 1
+        for g0 in range(0, mul, 8):
+            us = range(u0 + g0, u0 + min(g0 + 8, mul))
+            ent = [u | (j0 + (u - u0) * dim) << 10 | (lw & 3) << 22 | (lw >> 8) << 24
+                   for u in us]
+            groups.append((2 + dim, ent + [-1] * (8 - len(ent))))
+    n_pt = max(1, -(-len(groups) // 4))
+    n_mt = n_pt + -(-node_dim // 64)
+    warp_of = lambda c: (c[0] % HB2_WGS) * 4 + c[1]
+    load = [0] * (4 * HB2_WGS)
+    for i in range(n_pt, n_mt):
+        for w in range(4):
+            load[(i % HB2_WGS) * 4 + w] += 3
+    cells = [(i, w) for i in range(n_pt) for w in range(4)]
+    ent_of = {c: [-1] * 8 for c in cells}
+    for cost, ent in sorted(groups, key=lambda gr: -gr[0]):
+        c = min((c for c in cells if ent_of[c][0] < 0), key=lambda c: (load[warp_of(c)], c))
+        load[warp_of(c)] += cost
+        ent_of[c] = ent
+    tab = np.full(32 * n_pt, -1, dtype=np.int32)
+    for (i, w), ent in ent_of.items():
+        tab[32 * i + 8 * w:32 * i + 8 * w + 8] = ent
+    return tab, n_pt
+
+
+def _hopper2_layout(ni: int, node_dim: int, d: int, kw: int, kf: int,
+                    n_pt: int) -> Tuple[int, int, int]:
+    """(shared memory, ring stages, stage bytes) of ``message_bwd2``'s Hopper
+    tile pass, as ``bwd2_hopper_dims`` (csrc/message_bwd2_hopper.cuh) lays
+    it out: per stage 16 staged x rows ``[gs | gv]``, 16 cx rows and 16 g
+    rows ``[gms_s | gms_v]`` (each + 16 bytes), the 16 x 32 columns of ef
+    and of cef in wgmma's core-matrix layout (1 KB each), their 9 harmonic
+    columns slot-contiguous (288 bytes each) and the slots' two scratch
+    positions; beside the stages wf's live rows (32 x 64 per m64 tile of H,
+    the tiles rounded up to a multiple of ``HB2_WGS``), one 64 x 16 dfw2
+    tile per consumer warpgroup, the 12 consumer warps' harmonic d2ef
+    cells (16 x (Kf - Kw) f32 each), the pair table and the barriers.  As
+    many stages as fit, at most ``HB2_MAXST``."""
+    h = node_dim + 2 * ni
+    n_mt = n_pt + -(-node_dim // 64)
+    ht8, dt8, sd8 = _ru(h, 8), _ru(d, 8), _ru(node_dim, 8)
+    xs, gs = (ht8 + dt8) * 2 + 16, (sd8 + dt8) * 2 + 16
+    stage = _ru(16 * (2 * xs + gs) + 2 * 1024 + 2 * 9 * 16 * 2 + 128, 128)
+    fixed = (_ru(n_mt, HB2_WGS) * 4096 + HB2_WGS * 2048 + 4 * HB2_WGS * 16 * (kf - kw) * 4
+             + _ru(n_pt * 32 * 4, 16) + 2 * HB2_MAXST * 8)
+    nst = min((SMEM_MAX - fixed) // stage, HB2_MAXST)
+    return nst * stage + fixed, nst, stage
+
+
+def hopper2_route(mm_dtype, irreps_str: str, num_basis: int, node_dim: int,
+                  has_cwf: bool = False) -> bool:
+    """Whether ``message_bwd2`` runs its Hopper tile pass (bulk copies by a
+    producer warp into a ring of stages, wgmma with H on M, packed single
+    products; csrc/message_bwd2_hopper.cuh) at these widths, else what
+    :func:`tile_route` chooses: bf16 operands without cwf, Kf <= 32, at
+    most ``HB2_MT`` m64 tiles of H in its row order (:func:`pair_table`:
+    at most 576 columns, the flagship's 9), every run of irreps of one l of
+    even multiplicity, at most 8 runs, and two stages at least that fit.
+    The choice is made by shape alone."""
+    if _mm_dtype(mm_dtype) != torch.bfloat16 or has_cwf:
+        return False
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    seg = index_maps(irreps_str, num_basis)["seg"]
+    if kf > 32 or h > 64 * HB2_MT or len(seg) > 8 or not bool((seg[:, 2] % 2 == 0).all()):
+        return False
+    n_pt = pair_table(irreps_str, num_basis, node_dim)[1]
+    smem, nst, _ = _hopper2_layout(ni, node_dim, d, kw, kf, n_pt)
+    return (n_pt + -(-node_dim // 64) <= HB2_MT and nst >= 2 and ni < 1024 and d < 4096
+            and smem <= SMEM_MAX)
+
+
 def walk_chunks(kernel: str, ni: int, h: int, kw: int, kf: int) -> int:
     """Column chunks of the walk kernels' slot pass (``XEQ_WALK_HC`` in
     ``message_common.cuh``): 1 when the whole filter width's d_wf partial,
@@ -800,6 +894,18 @@ PHASES = {
                "A: dfo gate sums (and its barrier)"),
     "producer": ("prologue", "wait for a free stage", "slot indices", "copies issued", "-",
                  "-", "-", "epilogue"),
+    # message_bwd2's (bwd2_phase_stamps): the mma.sync tile pass by thread 0
+    # of each block, the Hopper pass by each consumer warpgroup (its
+    # producer's as "producer")
+    "tile2": ("prologue, epilogue", "wait + barrier", "A: dfo, u gate sums",
+              "B: fw, r, a, fo, dfw2, dfwr, d2x hidden", "C: d2x lanes, d2g, harmonic d2ef",
+              "D1: d2ef filter columns", "D2: d2wf products, next copies", "E: d2ef rows"),
+    "hopper2": ("prologue, epilogue", "wait for a full stage", "wait for products",
+                "elementwise (and the warpgroup's barrier)", "products issued",
+                "last products' wait", "consumer barriers, harmonic d2ef",
+                "filter d2ef, release"),
+    "producer2": ("prologue", "wait for a free stage", "slot indices, d2ef zeros",
+                  "rows stored, copies issued", "-", "-", "-", "last rows stored, epilogue"),
 }
 
 
@@ -902,7 +1008,7 @@ PASSES = {
                     ("dx pass", "message_bwd_dx_rows_kernel"),
                     ("d_wf pass", "xeq_dwf_pass_kernel"),
                     ("d_wf reduction", "xeq_dwf_reduce_kernel")),
-    "message_bwd2": (("tile pass", "message_bwd2_tile_kernel"),
+    "message_bwd2": (("tile pass", "message_bwd2_(?:tile|hopper)_kernel"),
                      ("d2x pass", "message_bwd2_d2x_rows_kernel"),
                      ("d2g pass", "message_bwd2_d2g_rows_kernel"),
                      ("d2wf pass", "xeq_dwf_pass_kernel"),
@@ -913,17 +1019,91 @@ PASSES = {
 }
 
 
+_DEVICE_TABS: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_pair_table(irreps_str: str, num_basis: int, node_dim: int, device):
+    key = (irreps_str, num_basis, node_dim, str(device))
+    if key not in _DEVICE_TABS:
+        _DEVICE_TABS[key] = torch.as_tensor(pair_table(irreps_str, num_basis, node_dim)[0],
+                                            device=device)
+    return _DEVICE_TABS[key]
+
+
+def _bwd2_setup(x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta, irreps_str, num_basis,
+                node_dim, n_out, block_nodes, chunk, mm_dtype):
+    """What a launch of the second order takes, shared by
+    :func:`message_bwd2_cuda` and :func:`bwd2_phase_stamps`: the widths,
+    the route (``route``: 2 the Hopper tile pass, 1 the tile pass, 0 the
+    walk kernels), the operands and cotangents in the kernel's dtype
+    (``None`` cx or cef as zeros), the slot plan, the index maps, the pair
+    table, the outputs (d2x, d2ef, d2wf, d2g), the per-block d2wf partials
+    and the scratch."""
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    mm = _mm_dtype(mm_dtype)
+    has_cwf = cwf is not None
+    hopper = hopper2_route(mm, irreps_str, num_basis, node_dim, has_cwf)
+    tiles = hopper or tile_route("message_bwd2", mm, irreps_str, num_basis, node_dim, has_cwf)
+    dev = x_cat.device
+    n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
+    if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
+        raise ValueError("fused message: operand shapes do not match the irreps")
+    if g.shape != (n_out, sdp + dp):
+        raise ValueError("fused message: g must be [n_out, SDp + Dp]")
+    cx = torch.zeros_like(x_cat) if cx is None else cx
+    cef = torch.zeros_like(edge_feat) if cef is None else cef
+    if cx.shape != x_cat.shape or cef.shape != edge_feat.shape or (
+            has_cwf and cwf.shape != wf_aug.shape):
+        raise ValueError("fused message: cotangent shapes do not match the operands")
+    cast = lambda t: t.to(mm).contiguous()
+    xk, efk, wfk, gk, cxk, cefk = map(cast, (x_cat, edge_feat, wf_aug, g, cx, cef))
+    n_part = torch.cuda.get_device_properties(dev).multi_processor_count
+    f32 = dict(dtype=torch.float32, device=dev)
+    shape_x, shape_g = bwd2_scratch_shapes(t_slots, h, node_dim, d) if tiles else ((0,), (0,))
+    n_hc = 1 if tiles else walk_chunks("message_bwd2", ni, h, kw, kf)
+    b = dict(
+        dims=(ni, h, hp, d, dp, sdp, kw, kf), mm=mm, route=2 if hopper else int(tiles),
+        n_rows=n_rows, t_slots=t_slots, n_part=n_part, n_hc=n_hc,
+        xk=xk, efk=efk, wfk=wfk, gk=gk, cxk=cxk, cefk=cefk,
+        cwfk=cast(cwf) if has_cwf else None,
+        plan=_plan(slot_meta, n_out, n_rows, block_nodes, chunk),
+        maps=_device_maps(irreps_str, num_basis, dev),
+        tab=(_device_pair_table(irreps_str, num_basis, node_dim, dev) if hopper
+             else torch.empty((0,), dtype=torch.int32, device=dev)),
+        n_tab=pair_table(irreps_str, num_basis, node_dim)[1] if hopper else 0,
+        d2x=torch.empty((n_rows, hp + dp), **f32),
+        d2ef=torch.empty((t_slots, F_PACK), **f32),
+        d2wf_part=torch.empty((n_part, kf, h), **f32),
+        d2wf=torch.empty((F_PACK, hp), **f32),
+        d2g=torch.empty((n_out, sdp + dp), **f32),
+        rows_x=torch.empty(shape_x, dtype=torch.bfloat16, device=dev),
+        rows_g=torch.empty(shape_g, dtype=torch.bfloat16, device=dev),
+        dfw2_rows=_dfw_scratch(tiles and not hopper, "message_bwd2", t_slots, ni, node_dim, d,
+                               kw, kf, dev),
+        dfwr_rows=_dfw_scratch(tiles and not hopper, "message_bwd2", t_slots, ni, node_dim, d,
+                               kw, kf, dev),
+        def_part=torch.empty((n_hc, t_slots, kf) if n_hc > 1 else (0,), **f32),
+    )
+    _check_cuda(xk, efk, wfk, gk, cxk, cefk, b["plan"]["dst_ptr"], b["plan"]["src_ptr"],
+                b["d2x"], b["rows_x"], *(() if b["cwfk"] is None else (b["cwfk"],)))
+    if any(t.data_ptr() % 16 for t in (xk, efk, gk, cxk, cefk)):
+        raise ValueError("fused message: operands must be 16-byte aligned")
+    return b
+
+
 def message_bwd2_cuda(
     x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta,
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(d2x_cat, d2_edge_feat, d2_wf_aug, d2g), f32, by
     ``csrc/message_bwd2.cu``: the VJP of :func:`message_bwd_cuda` for the
-    cotangents (cx, cef, cwf).  On the tile route (bf16 without cwf,
-    :func:`tile_route`) the tile pass writes each valid slot's d2x and d2g
-    rows to the bf16 scratch of :func:`bwd2_scratch_shapes` (at its
-    positions in the lists by source and by destination), which the row
-    passes sum, and past Kf = 32 or H = 768 its dfw2 and dfwr rows to the
+    cotangents (cx, cef, cwf).  On the tile route (bf16 without cwf) the
+    tile pass (at the widths of :func:`hopper2_route` the Hopper one of
+    ``csrc/message_bwd2_hopper.cuh``, elsewhere on :func:`tile_route` the
+    mma.sync one) writes each valid slot's d2x and d2g rows to the bf16
+    scratch of :func:`bwd2_scratch_shapes` (at its positions in the lists
+    by source and by destination), which the row passes sum, and the
+    mma.sync pass past Kf = 32 or H = 768 its dfw2 and dfwr rows to the
     scratch of the d2wf pass; the walk route runs in column chunks where
     the whole width does not fit (:func:`walk_chunks`).
 
@@ -936,62 +1116,70 @@ def message_bwd2_cuda(
     ``wf_aug`` probe pad those entries with constants."""
     if not x_cat.is_cuda:
         raise ValueError("message_bwd2_cuda takes CUDA tensors")
-    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
-    mm = _mm_dtype(mm_dtype)
-    tiles = tile_route("message_bwd2", mm, irreps_str, num_basis, node_dim, cwf is not None)
-    dev = x_cat.device
-    n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
-    if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
-        raise ValueError("fused message: operand shapes do not match the irreps")
-    if g.shape != (n_out, sdp + dp):
-        raise ValueError("fused message: g must be [n_out, SDp + Dp]")
-    cx = torch.zeros_like(x_cat) if cx is None else cx
-    cef = torch.zeros_like(edge_feat) if cef is None else cef
-    if cx.shape != x_cat.shape or cef.shape != edge_feat.shape or (
-            cwf is not None and cwf.shape != wf_aug.shape):
-        raise ValueError("fused message: cotangent shapes do not match the operands")
-    cast = lambda t: t.to(mm).contiguous()
-    xk, efk, wfk, gk, cxk, cefk = map(cast, (x_cat, edge_feat, wf_aug, g, cx, cef))
-    cwfk = None if cwf is None else cast(cwf)
-    plan = _plan(slot_meta, n_out, n_rows, block_nodes, chunk)
-    maps = _device_maps(irreps_str, num_basis, dev)
-    n_part = torch.cuda.get_device_properties(dev).multi_processor_count
-    f32 = dict(dtype=torch.float32, device=dev)
-    d2x = torch.empty((n_rows, hp + dp), **f32)
-    d2ef = torch.empty((t_slots, F_PACK), **f32)
-    d2wf_part = torch.empty((n_part, kf, h), **f32)
-    d2wf = torch.empty((F_PACK, hp), **f32)
-    d2g = torch.empty((n_out, sdp + dp), **f32)
-    shape_x, shape_g = bwd2_scratch_shapes(t_slots, h, node_dim, d) if tiles else ((0,), (0,))
-    rows_x = torch.empty(shape_x, dtype=torch.bfloat16, device=dev)
-    rows_g = torch.empty(shape_g, dtype=torch.bfloat16, device=dev)
-    dfw2_rows, dfwr_rows = (_dfw_scratch(tiles, "message_bwd2", t_slots, ni, node_dim, d, kw,
-                                         kf, dev) for _ in range(2))
-    n_hc = 1 if tiles else walk_chunks("message_bwd2", ni, h, kw, kf)
-    def_part = torch.empty((n_hc, t_slots, kf) if n_hc > 1 else (0,), **f32)
-    _check_cuda(xk, efk, wfk, gk, cxk, cefk, plan["dst_ptr"], plan["src_ptr"], d2x, rows_x,
-                *(() if cwfk is None else (cwfk,)))
-    if any(t.data_ptr() % 16 for t in (xk, efk, gk, cxk, cefk)):
-        raise ValueError("fused message: operands must be 16-byte aligned")
+    b = _bwd2_setup(x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta, irreps_str,
+                    num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype)
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, maps = b["plan"], b["maps"]
     launch(
         "message_bwd2",
-        xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), gk.data_ptr(),
-        cxk.data_ptr(), cefk.data_ptr(), None if cwfk is None else cwfk.data_ptr(),
+        b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(), b["gk"].data_ptr(),
+        b["cxk"].data_ptr(), b["cefk"].data_ptr(),
+        None if b["cwfk"] is None else b["cwfk"].data_ptr(),
         plan["dst_ptr"].data_ptr(), plan["dst_slots"].data_ptr(),
         plan["src_ptr"].data_ptr(), plan["src_slots"].data_ptr(),
         plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(),
         plan["src_pos"].data_ptr(), plan["dst_pos"].data_ptr(),
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
-        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(),
-        rows_x.data_ptr(), rows_g.data_ptr(), _ptr(dfw2_rows), _ptr(dfwr_rows),
-        _ptr(def_part), d2x.data_ptr(), d2ef.data_ptr(), d2wf_part.data_ptr(),
-        d2wf.data_ptr(), d2g.data_ptr(),
-        n_out, n_rows, t_slots, n_part, ni, node_dim, h, hp, d, dp, sdp, kw, kf,
-        int(mm == torch.bfloat16), int(cwfk is not None), int(tiles), n_hc,
-        torch.cuda.current_stream(dev).cuda_stream,
+        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), _ptr(b["tab"]),
+        b["rows_x"].data_ptr(), b["rows_g"].data_ptr(), _ptr(b["dfw2_rows"]),
+        _ptr(b["dfwr_rows"]), _ptr(b["def_part"]), b["d2x"].data_ptr(), b["d2ef"].data_ptr(),
+        b["d2wf_part"].data_ptr(), b["d2wf"].data_ptr(), b["d2g"].data_ptr(),
+        n_out, b["n_rows"], b["t_slots"], b["n_part"], ni, node_dim, h, hp, d, dp, sdp, kw, kf,
+        int(b["mm"] == torch.bfloat16), int(b["cwfk"] is not None), b["route"], b["n_hc"],
+        b["n_tab"], torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
-    return d2x, d2ef, d2wf, d2g
+    return b["d2x"], b["d2ef"], b["d2wf"], b["d2g"]
+
+
+def bwd2_phase_stamps(
+    x_cat, edge_feat, wf_aug, g, cx, cef, slot_meta,
+    irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype, which: str,
+) -> torch.Tensor:
+    """clock64() cycles per phase of one launch of a ``message_bwd2`` bf16
+    tile pass without cwf alone, on :func:`message_bwd2_cuda`'s operands
+    (the phase probe of ``xequinet_torch/tools/bwd_compare.py``, on no
+    model path; not counted in LAUNCHES): :func:`bwd_phase_stamps`'
+    counterpart for the second order.  ``which``: "hopper", the Hopper tile
+    pass (int64 [n_part, HB2_WGS + 1, 8]: the consumer warpgroups and the
+    producer warp, phases as in ``PHASES["hopper2"]`` and
+    ``PHASES["producer2"]``); "tile", the mma.sync tile pass's flagship
+    instance (int64 [n_part, 8], ``PHASES["tile2"]``).  Takes the widths
+    of :func:`hopper2_route`."""
+    if which not in ("hopper", "tile") or not hopper2_route(mm_dtype, irreps_str, num_basis,
+                                                            node_dim):
+        raise ValueError("bwd2_phase_stamps takes which 'hopper' or 'tile' at the widths of "
+                         "hopper2_route")
+    b = _bwd2_setup(x_cat, edge_feat, wf_aug, g, cx, cef, None, slot_meta, irreps_str,
+                    num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype)
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, maps = b["plan"], b["maps"]
+    shape = (b["n_part"], HB2_WGS + 1, 8) if which == "hopper" else (b["n_part"], 8)
+    stamps = torch.zeros(shape, dtype=torch.int64, device=x_cat.device)
+    probe(
+        "bwd2_phases",
+        b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(), b["gk"].data_ptr(),
+        b["cxk"].data_ptr(), b["cefk"].data_ptr(),
+        plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(), plan["src_pos"].data_ptr(),
+        plan["dst_pos"].data_ptr(), maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
+        maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(), _ptr(b["tab"]),
+        b["rows_x"].data_ptr(), b["rows_g"].data_ptr(), b["d2ef"].data_ptr(),
+        b["d2wf_part"].data_ptr(),
+        b["t_slots"], b["n_part"], ni, node_dim, h, hp, d, dp, sdp, kw, kf, b["n_tab"],
+        int(which == "hopper"), stamps.data_ptr(),
+        torch.cuda.current_stream(x_cat.device).cuda_stream,
+    )
+    return stamps
 
 
 # ---------------------------------------------------------------------------

@@ -1,30 +1,38 @@
-"""``message_bwd`` of two source trees timed in turns on one card.
+"""A message backward kernel of two source trees timed in turns on one card.
 
-This process, in the tree this file belongs to (the change), builds the
-operands of three batches once with its own code and saves them to a
-temporary file:
+``--kernel message_bwd`` (the default) or ``--kernel message_bwd2`` (the
+second order without cwf, as force training runs it).  This process, in
+the tree this file belongs to (the change), builds the operands of three
+batches once with its own code and saves them to a temporary file:
 
 * the stream-floor probe's batch (``bwd_stream_floor.problem``, bench.py's
   ``build_batch`` recipe at ``default_rng(0)``),
 * the same recipe at ``default_rng(1234)``, bench.py's flagship batch,
 * shard 0 of 4 of chip_smoke's 10,000-atom periodic box in
-  HaloCalculator's layout (block_nodes 256, chunk 1024).
+  HaloCalculator's layout (block_nodes 256, chunk 1024),
 
-Each tree (a checkout of the repo, e.g. a parent commit unpacked with
-``git archive``) is then imported in a process of its own, in the order
-parent, change, change, parent, so that both run on the same card at the
-same power limit and drift shows as the distance between a tree's own
-runs.  Each process loads the same operands and the same pass names onto
-the card and times its tree's ``message_bwd_cuda`` (bf16) with this
-file's tree's ``bwd_stream_floor.time_calls`` and ``pass_split`` (loaded
-by path): two more warm-up calls, then the median of 3 repetitions of 20
-calls (CUDA events) after its own warm-up, and the split by pass
-(torch.profiler).  Usage, from the root of the change's tree:
+and for ``message_bwd2`` the cotangents cx and cef of each, drawn from
+``default_rng(COT_SEED)`` (cef's columns >= Kf zero, as the model hands
+them in).  Each tree (a checkout of the repo, e.g. a parent commit unpacked
+with ``git archive``) is then imported in a process of its own, in the
+order parent, change, change, parent, so that both run on the same card at
+the same power limit and drift shows as the distance between a tree's own
+runs.  Each process loads the same operands and the same pass names
+(the change's ``PASSES[kernel]``) onto the card and times its tree's
+wrapper (bf16) with this file's tree's ``bwd_stream_floor.time_calls`` and
+``pass_split`` (loaded by path): two more warm-up calls, then the median of
+3 repetitions of 20 calls (CUDA events) after its own warm-up, and the
+split by pass (torch.profiler).  Usage, from the root of the change's tree:
 
-    python -m xequinet_torch.tools.bwd_compare PARENT_ROOT [CHANGE_ROOT]
+    python -m xequinet_torch.tools.bwd_compare PARENT_ROOT [CHANGE_ROOT] \
+        [--kernel message_bwd2] [--phases]
 
 It prints one ``RESULT {...}`` JSON line per process and the card's name
-and power limit.  It needs a card.
+and power limit.  ``--phases`` also splits the change's tile passes of the
+kernel by phase on the flagship batch (clock64() stamps of instrumented
+instances, ``fused_message.bwd2_phase_stamps``: the mma.sync pass and the
+Hopper pass; ``message_bwd2`` only) in this process, after the turns.  It
+needs a card.
 """
 
 from __future__ import annotations
@@ -41,6 +49,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 TOOL = Path(__file__).with_name("bwd_stream_floor.py")
 BATCHES = ("probe", "flagship", "halo_shard0")
+KERNELS = ("message_bwd", "message_bwd2")
+# the seed of message_bwd2's cotangents
+COT_SEED = 11
 
 
 def halo_shard0(dev, irreps, num_basis, node_dim):
@@ -89,9 +100,39 @@ def halo_shard0(dev, irreps, num_basis, node_dim):
             n_rows, bn, 1024, "bfloat16")
 
 
-def save_operands(path):
-    """The three batches' ``message_bwd_cuda`` arguments, built on the CPU
-    by this tree's code, and this tree's pass names of ``message_bwd``."""
+def cotangents(args, seed):
+    """(cx, cef) for one batch's ``message_bwd_cuda`` arguments: normal
+    draws of ``default_rng(seed)`` in bf16, zero where the model hands in
+    zero (x's padding columns, cef's columns >= Kf)."""
+    import numpy as np
+    import torch
+
+    from xequinet_torch.ops import fused_message as fm
+
+    x, ef = args[0], args[1]
+    irreps, nb, nd = args[5:8]
+    _, _, _, _, (h, hp, d, dp, sdp, n_y) = fm.structure_matrices(irreps, nb, nd)
+    rng = np.random.default_rng(seed)
+    cx = rng.normal(size=tuple(x.shape))
+    cx[:, h:hp] = 0.0
+    cx[:, hp + d:] = 0.0
+    cef = rng.normal(size=tuple(ef.shape))
+    cef[:, nb + 1 + n_y:] = 0.0
+    bf = lambda a: torch.as_tensor(a, dtype=torch.float32, device=x.device).to(torch.bfloat16)
+    return bf(cx), bf(cef)
+
+
+def kernel_args(kernel, args, cots=None):
+    """The wrapper's arguments: ``message_bwd_cuda``'s, or for
+    ``message_bwd2_cuda`` the same with (cx, cef) and no cwf after g."""
+    if kernel == "message_bwd":
+        return args
+    return args[:4] + tuple(cots) + (None,) + args[4:]
+
+
+def save_operands(path, kernel="message_bwd"):
+    """The three batches' arguments of ``kernel``'s wrapper, built on the
+    CPU by this tree's code, and this tree's pass names of ``kernel``."""
     import torch
 
     from xequinet_torch.ops import fused_message as fm
@@ -101,7 +142,10 @@ def save_operands(path):
     batches = {"probe": bsf._args(bsf.problem(cpu)),
                "flagship": bsf._args(bsf.problem(cpu, seed=1234)),
                "halo_shard0": halo_shard0(cpu, bsf.IRREPS, bsf.NUM_BASIS, bsf.NODE_DIM)}
-    torch.save({"batches": batches, "passes": fm.PASSES["message_bwd"]}, path)
+    if kernel == "message_bwd2":
+        batches = {k: kernel_args(kernel, a, cotangents(a, COT_SEED))
+                   for k, a in batches.items()}
+    torch.save({"kernel": kernel, "batches": batches, "passes": fm.PASSES[kernel]}, path)
 
 
 def _to(obj, dev):
@@ -128,12 +172,14 @@ def measure_tree(label, operands):
     timing = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(timing)
     dev = torch.device("cuda")
-    cuda_build.build_kernels(["message_bwd"])
     saved = torch.load(operands, weights_only=True)
-    out = {"label": label, "package": str(Path(fm.__file__).parents[1])}
+    kernel = saved["kernel"]
+    cuda_build.build_kernels([kernel])
+    wrapper = getattr(fm, f"{kernel}_cuda")
+    out = {"label": label, "kernel": kernel, "package": str(Path(fm.__file__).parents[1])}
     for name in BATCHES:
         args = _to(saved["batches"][name], dev)
-        fn = lambda: fm.message_bwd_cuda(*args)
+        fn = lambda: wrapper(*args)
         fn(), fn()
         ms = timing.time_calls(fn)
         split, _ = timing.pass_split(fn, saved["passes"])
@@ -142,21 +188,102 @@ def measure_tree(label, operands):
     return out
 
 
+def phase_split(kernel="message_bwd2", passes=("tile", "hopper"), calls=10):
+    """The change's tile passes of ``kernel`` split by phase on the flagship
+    batch: per pass (``which`` of ``bwd2_phase_stamps``: "tile", the
+    mma.sync pass; "hopper", the Hopper pass) the stamped launch's device ms
+    (torch.profiler over ``calls`` launches) and per role its phases'
+    shares of the stamped cycles and their ms (share x device ms).  Roles:
+    the block's thread 0 for "tile"; the consumer warpgroups (summed) and
+    the producer warp for "hopper"."""
+    import torch
+
+    from xequinet_torch.ops import fused_message as fm
+    from xequinet_torch.tools import bwd_stream_floor as bsf
+
+    if kernel != "message_bwd2":
+        raise ValueError("--phases splits message_bwd2's passes (message_bwd's: "
+                         "python -m xequinet_torch.tools.bwd_stream_floor)")
+    dev = torch.device("cuda")
+    args = bsf._args(bsf.problem(dev, seed=1234))
+    cx, cef = cotangents(args, COT_SEED)
+    names = {"tile": "message_bwd2_tile_stamped_kernel", "hopper": "message_bwd2_hopper_kernel"}
+    out = {}
+    for which in passes:
+        kname = names[which]
+        fn = lambda: fm.bwd2_phase_stamps(*args[:4], cx, cef, *args[4:], which=which)
+        split, _ = bsf.pass_split(fn, (("tile pass", kname),), calls)
+        stamps = fn().double().cpu().numpy()
+        torch.cuda.synchronize()
+        ms = split.get("tile pass", float("nan"))
+        roles = ({"block": stamps.sum(0)} if which == "tile" else
+                 {"warpgroups": stamps[:, :-1].sum((0, 1)), "producer": stamps[:, -1].sum(0)})
+        rec = {"stamped_ms": ms}
+        for role, cyc in roles.items():
+            phases = fm.PHASES["producer2" if role == "producer" else which + "2"]
+            share = cyc / cyc.sum()
+            rec[role] = {n: {"share": float(v), "ms": float(v * ms)}
+                         for n, v in zip(phases, share) if n != "-"}
+        if which == "hopper":  # each warpgroup's phases, as ms of the stamped launch
+            per = stamps[:, :-1].sum(0)
+            per = per / per.sum(1, keepdims=True) * ms
+            rec["per_warpgroup_ms"] = {n: [float(v) for v in per[:, c]]
+                                       for c, n in enumerate(fm.PHASES["hopper2"])}
+        out[which] = rec
+    return out
+
+
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["--one"]:  # a child process: the tree is on PYTHONPATH
-        print("RESULT " + json.dumps(measure_tree(argv[1], argv[2])), flush=True)
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("trees", nargs="*", help="PARENT_ROOT [CHANGE_ROOT]")
+    ap.add_argument("--kernel", default="message_bwd", choices=KERNELS)
+    ap.add_argument("--phases", nargs="*", choices=("tile", "hopper"), default=None,
+                    help="also split the change's tile passes of message_bwd2 by phase: "
+                         "the mma.sync pass (tile), the Hopper pass (hopper); both when "
+                         "none is named")
+    ap.add_argument("--one", nargs=2, metavar=("LABEL", "OPERANDS"), help=argparse.SUPPRESS)
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.one:  # a child process: the tree is on PYTHONPATH
+        print("RESULT " + json.dumps(measure_tree(*args.one)), flush=True)
         return None
-    parent = Path(argv[0]).resolve()
-    change = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
+    if not args.trees and args.phases is None:
+        ap.error("PARENT_ROOT is required")
+    parent = Path(args.trees[0]).resolve() if args.trees else None
+    change = Path(args.trees[1]).resolve() if len(args.trees) > 1 else ROOT
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     print(card, flush=True)
     results = []
+    if args.trees:
+        results = compare(parent, change, args.kernel, card)
+    if args.phases is not None:
+        phases = phase_split(args.kernel, tuple(args.phases) or ("tile", "hopper"))
+        print("PHASES " + json.dumps(phases), flush=True)
+        for which, rec in phases.items():
+            for role, split in rec.items():
+                if role == "stamped_ms":
+                    continue
+                if role == "per_warpgroup_ms":
+                    by = ", ".join(f"{n} " + " / ".join(f"{v:.4f}" for v in vs)
+                                   for n, vs in split.items())
+                else:
+                    by = ", ".join(f"{n} {v['ms']:.4f} ({v['share']:.1%})"
+                                   for n, v in split.items())
+                print(f"{args.kernel} {which} tile pass, stamped {rec['stamped_ms']:.4f} ms, "
+                      f"{role}: {by} — {card}")
+    return results
+
+
+def compare(parent, change, kernel, card):
+    """The turns parent, change, change, parent on the three batches; prints
+    each process's RESULT line and a summary per batch."""
+    results = []
     with tempfile.TemporaryDirectory() as tmp:
         operands = os.path.join(tmp, "operands.pt")
-        save_operands(operands)
+        save_operands(operands, kernel)
         for tree, label in ((parent, "parent"), (change, "change"), (change, "change"),
                             (parent, "parent")):
             t0 = time.time()
@@ -171,9 +298,10 @@ def main(argv=None):
             results.append(rec)
             print(line, flush=True)
     for name in BATCHES:
-        print(f"{name}: " + ", ".join(f"{r['label']} {r[name]['ms']:.4f} ms (tile pass "
-                                      f"{r[name]['split'].get('tile pass', float('nan')):.4f})"
-                                      for r in results) + f" — {card}")
+        print(f"{kernel} {name}: " + ", ".join(
+            f"{r['label']} {r[name]['ms']:.4f} ms (tile pass "
+            f"{r[name]['split'].get('tile pass', float('nan')):.4f})" for r in results)
+            + f" — {card}")
     return results
 
 
