@@ -21,7 +21,7 @@ Phases (any failed check exits non-zero):
      the same at four other shapes on the same slots (Kf = 33, num_basis
      23; Kf = 128, num_basis 118; H = 1152, node_dim 256 and
      256x0e+128x1o+64x2e; H = 640, node_dim 192, which the Hopper tile
-     passes of message_bwd and message_bwd2 refuse and their mma.sync tile
+     passes of the three message kernels refuse and their mma.sync tile
      passes take, message_bwd's with d_wf in registers), each also bit for
      bit on a second call, with the route (Hopper tile pass, tile pass or
      walk kernels) each takes;
@@ -57,10 +57,13 @@ Phases (any failed check exits non-zero):
      the library yardstick where one PyTorch call computes the same
      function (torch.sparse.mm for the v1 op at an [E, 1] weight, timed in
      turns with the kernel), the pass each message kernel takes (at the
-     flagship widths the Hopper tile passes of message_bwd and, without
-     cwf, message_bwd2), the backward's and the second order's split
-     per launch (tile pass, row passes, d_wf pass, reduction;
-     torch.profiler) and their scratch bytes, the message kernels' f32
+     flagship widths the Hopper tile passes of message_fwd, message_bwd
+     and, without cwf, message_bwd2: the script fails on another), each
+     wrapper's split per launch (tile pass, row passes, d_wf pass,
+     reduction; torch.profiler) and the backwards' scratch bytes; the
+     forward's Hopper pass again bit for bit on a second call and its error
+     against the plain version beside the mma.sync pass's on the same
+     operands (the phase probe's instance of it); the message kernels' f32
      instances at flagship widths and the wide shapes in bf16 beside their
      bounds, each route's device forward+forces (the wide model's too), the
      mega predict wall time and edges/s, each route's train step ms,
@@ -361,6 +364,8 @@ def kernel_route(name, mm, statics):
     shape alone, as the wrapper chooses)."""
     from xequinet_torch.ops import fused_message as fm
 
+    if name == "message_fwd" and fm.fwd_hopper_route(mm, *statics):
+        return "Hopper tile pass"
     if name == "message_bwd" and fm.hopper_route(mm, *statics):
         return "Hopper tile pass"
     if name == "message_bwd2" and fm.hopper2_route(mm, *statics):  # no cwf, as trained
@@ -533,11 +538,9 @@ def phase_wide_kernels(batch, device):
         p = message_problem(batch, device, widths=widths)
         routes = {k: kernel_route(k, "bfloat16", widths) for k in OUT_NAMES}
         print(f"[kernels] wide shape {tag} {widths}: bf16 routes {routes}")
-        if tag == "H=640" and (routes["message_bwd"], routes["message_bwd2"]) != (
-                "tile pass", "tile pass"):
-            fail(f"H=640: message_bwd takes the {routes['message_bwd']} and message_bwd2 the "
-                 f"{routes['message_bwd2']}, not the mma.sync tile passes this shape is here "
-                 f"to check")
+        if tag == "H=640" and set(routes.values()) != {"tile pass"}:
+            fail(f"H=640: the message kernels take {routes}, not the mma.sync tile passes "
+                 f"this shape is here to check")
         check_message_kernels(p, tag, repeat=True)
         wide[tag] = dict(p, **{k: p[k].to(torch.bfloat16)
                                for k in ("x_cat", "ef", "wf", "g", "cx", "cef")})
@@ -1218,14 +1221,15 @@ def pass_split(name, fn, p_mm, mm, card, calls=10):
     irreps, nb, nd = p_mm["statics"]
     _, _, _, _, (h, _, d, _, _, _) = fm.structure_matrices(irreps, nb, nd)
     t = p_mm["ef"].shape[0]
-    shapes = ([fm.bwd_scratch_shape(t, h, d)] if name == "message_bwd"
-              else list(fm.bwd2_scratch_shapes(t, h, nd, d)))
+    shapes = ([] if name == "message_fwd" else [fm.bwd_scratch_shape(t, h, d)]
+              if name == "message_bwd" else list(fm.bwd2_scratch_shapes(t, h, nd, d)))
     scratch = sum(r * w * 2 for r, w in shapes)
     shown = ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()) or "not measured"
     print(f"[time] {name} ({mm}) per launch by pass (torch.profiler, {calls} calls"
           f"{bsf.seen_note(seen, calls)}): {shown}; scratch "
-          + " + ".join(f"{r} x {w}" for r, w in shapes)
-          + f" bf16 = {scratch / 1e6:.1f} MB written once, read once — {card}")
+          + (" + ".join(f"{r} x {w}" for r, w in shapes)
+             + f" bf16 = {scratch / 1e6:.1f} MB written once, read once" if shapes else "none")
+          + f" — {card}")
     return split, scratch
 
 
@@ -4373,7 +4377,8 @@ def h12_kernels(device, card, sizes):
         k_ms = time_ms(lambda: kfn(p_mm, mm))
         p_ms = time_ms(lambda: pfn(p_mm, mm), iters=5, warmup=1)
         b_ms, b_by = bound_ms(nbytes, flops, mm)
-        print(f"[time] {name} ({mm}) on shard 0's halo layout: kernel {k_ms:.4f} ms, plain "
+        print(f"[time] {name} ({mm}) on shard 0's halo layout, "
+              f"{kernel_route(name, mm, p['statics'])}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.3f} GFLOP) — {card}")
         out[name] = {"max_abs_err": err[name], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -5661,7 +5666,9 @@ def main():
     # (ptxas reports static shared memory only)
     fw = (FLAGSHIP_KW["node_irreps"], FLAGSHIP_KW["num_basis"], FLAGSHIP_KW["node_dim"])
     ni, _, _, d, _, _, kw, kf = fm._launch_dims(*fw)
+    _, n_pt, na = fm.fwd_table(*fw)
     for name, (smem, nst, stage) in (
+            ("message_fwd", fm._fwd_hopper_layout(ni, fw[2], d, kw, kf, n_pt, na)),
             ("message_bwd", fm._hopper_layout(ni, fw[2], d, kw, kf)),
             ("message_bwd2", fm._hopper2_layout(ni, fw[2], d, kw, kf, fm.pair_table(*fw)[1]))):
         print(f"[build] {name}'s Hopper tile pass at the flagship widths: {smem} bytes of "
@@ -5744,6 +5751,27 @@ def main():
         if name in fm.PASSES:
             rows[-1]["split_ms"], rows[-1]["scratch_bytes"] = pass_split(
                 name, lambda: kfn(p_mm, mm), p_mm, mm, card)
+    # message_fwd's Hopper tile pass at the flagship widths: its route, the
+    # same bits on a second call, its bf16 error beside the mma.sync pass's
+    # on the same operands (the phase probe's instance of that pass)
+    if rows[0]["pass"] != "Hopper tile pass":
+        fail(f"message_fwd takes the {rows[0]['pass']} at the flagship widths, not its Hopper "
+             f"tile pass")
+    agg = kernel_fwd(p_mm, mm)[0]
+    if not torch.equal(agg, kernel_fwd(p_mm, mm)[0]):
+        fail("message_fwd's Hopper tile pass: a second call gave other bits")
+    want = plain_fwd(p_mm, mm)[0]
+    _, agg_old = fm.fwd_phase_stamps(p_mm["x_cat"], p_mm["ef"], p_mm["wf"], p_mm["slot_meta"],
+                                     *p_mm["statics"], p_mm["n_out"], p_mm["bn"], p_mm["chunk"],
+                                     mm, which="tile_fwd")
+    e_new, e_old = rel_err(agg, want), rel_err(agg_old, want)
+    print(f"[kernels] message_fwd ({mm}) at the flagship widths: Hopper tile pass "
+          f"max|err|/max|ref| = {e_new:.3e}, the mma.sync tile pass on the same operands "
+          f"{e_old:.3e} (limit {TOL[mm]:g}); the same bits on a second call")
+    if not e_new <= TOL[mm]:
+        fail("message_fwd's Hopper tile pass disagrees with plain")
+    rows[0]["rel_err"], rows[0]["mma_sync_rel_err"] = e_new, e_old
+    del agg, agg_old, want
     # the f32 instances at the flagship widths (f32_finetune_epochs runs
     # them): the walk kernels
     for row, (name, _, _, kfn, _), (nbytes, flops) in zip(rows, timed,

@@ -38,6 +38,7 @@ from xequinet_torch.utils.config import load_config
 from .test_torch_calculator import PBC_CAPS, _check, _pbc_chain, jax_calculator
 from .test_torch_heads import GRAPH_OUT, HEADS
 from .test_torch_model import LAYOUT, _close, _crystals, _jax_forward, _jax_params, _port
+from ._torch_jax_native import module_fixture
 
 SMALL = dict(node_dim=16, node_irreps="16x0e+8x1o+4x2e", embed_basis="one-hot", num_basis=8,
              action_blocks=1, output_modes=["energy"], projection_dim=4)
@@ -53,6 +54,14 @@ FREE = dict(SMALL, use_pbc=False, k_cutoff=0.6, delta_k=0.3, num_k_basis=8,
 @pytest.fixture(autouse=True)
 def _torch_threads():
     torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_order(tmp_path_factory):
+    """The JAX package's cell lists built into a private path, so that its
+    edge order is the one the port reproduces whatever other workers do to
+    the shared library (tests/_torch_jax_native.py)."""
+    yield from module_fixture(tmp_path_factory)
 
 
 def test_k_grids_match_jax():

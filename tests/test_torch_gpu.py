@@ -857,6 +857,153 @@ def test_cuda_bwd2_phase_probe_counts_cycles(cuda_device, which):
     assert int(stamps.min()) >= 0 and bool((stamps.sum(-1) > 0).all())
 
 
+def _fwd_close(p, rel=2e-2):
+    """The bf16 forward against the plain version (2e-2 of the largest
+    reference magnitude), finite, zero rows where no slot ends, and the
+    same bits on a second call; returns the output."""
+    m = p["meta"]
+    run = lambda: fm.message_fwd_cuda(p["x"], p["ef"], p["wf"], m, *p["statics"], p["n"],
+                                      p["bn"], p["chunk"], "bfloat16")
+    out = run()
+    want = fm.plain_message(p["x"], p["ef"], p["wf"], m[2], m[3], p["mask"], *p["statics"],
+                            p["n"], torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _close(out, want, rel)
+    ptr = fm.build_slot_plan(m, p["n"], p["n"], p["bn"], p["chunk"])["dst_ptr"]
+    empty = ptr[1:] == ptr[:-1]
+    if empty.any():
+        assert float(out[empty].abs().max()) == 0.0
+    assert torch.equal(out, run())
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_hopper_fwd_ring_wraps_and_tails(cuda_device):
+    """Flagship widths (the Hopper tile pass of message_fwd) on a batch with
+    a 40-atom molecule (groups of 16 rows of 39 slots each: many more tiles
+    a group than ring stages), groups with a partly full last tile,
+    groups of no slot (a tile of padding) and a slot count that is no
+    multiple of 16: against the plain version, zero rows where no slot
+    ends, the same bits on a second call."""
+    assert fm.fwd_hopper_route("bfloat16", *CASES[2])
+    p = _problem(cuda_device, *CASES[2], n_mols=240, odd_tail=5, dense=40)
+    ni, h, hp, d, dp, sdp, kw, kf = fm._launch_dims(*CASES[2])
+    _, n_pt, na = fm.fwd_table(*CASES[2])
+    nst = fm._fwd_hopper_layout(ni, CASES[2][2], d, kw, kf, n_pt, na)[1]
+    ptr = fm.build_slot_plan(p["meta"], p["n"], p["n"], p["bn"], p["chunk"])["dst_ptr"]
+    ptr = ptr.cpu().numpy()
+    r0 = np.arange(0, p["n"], 16)
+    per_group = ptr[np.minimum(r0 + 16, p["n"])] - ptr[r0]
+    assert per_group.max() > 16 * 2 * nst and (per_group == 0).any()
+    assert (per_group % 16 != 0).any() and p["mask"].shape[0] % 16 == 5
+    _fwd_close(p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES[:3], ids=("small", "two_ls", "flagship"))
+def test_cuda_hopper_fwd_takes_each_hopper_width(cuda_device, case):
+    """Every CASES width the forward's Hopper pass takes (one pair tile and
+    a scalar tile, a warpgroup with padding columns only; five pair tiles
+    of l = 0 and l = 1 groups; the flagship's nine m64 tiles), with padding
+    entries in the table, on a ragged batch: against the plain version,
+    repeating bit for bit."""
+    assert fm.fwd_hopper_route("bfloat16", *case)
+    p = _problem(cuda_device, *case, n_mols=60, odd_tail=5)
+    _fwd_close(p)
+
+
+@pytest.mark.gpu
+def test_cuda_hopper_fwd_zero_slots(cuda_device):
+    """A call with no slot: every group a tile of padding, every row zero."""
+    p = _problem(cuda_device, *CASES[2])
+    assert fm.fwd_hopper_route("bfloat16", *CASES[2])
+    z = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    n = p["n"]
+    ptr = torch.zeros(n + 1, dtype=torch.int32, device=cuda_device)
+    plan = {"slot_src": z, "slot_dst": z, "dst_ptr": ptr, "dst_slots": z, "dst_pos": z,
+            "src_ptr": ptr.clone(), "src_slots": z, "src_pos": z}
+    meta = tuple(p["meta"][:7]) + (plan,)
+    out = fm.message_fwd_cuda(p["x"], p["ef"][:0].contiguous(), p["wf"], meta, *p["statics"],
+                              n, p["bn"], p["chunk"], "bfloat16")
+    torch.cuda.synchronize()
+    assert out.shape == (n, 640) and float(out.abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [256, 512])
+def test_cuda_hopper_fwd_halo_shard_layout(cuda_device, bn):
+    """Shard 0 of 4 of a periodic box in HaloCalculator's layout (its
+    partition, a window of local and halo rows, chunk 1024), flagship
+    widths: the forward's Hopper tile pass against the plain version."""
+    from xequinet_torch.parallel import halo as hm
+
+    rng = np.random.default_rng(3)
+    n = 3000
+    lx = n * 0.15
+    cell = np.diag([lx, 16.0, 16.0])
+    pos = np.column_stack([(np.arange(n) * 0.15 + rng.normal(size=n) * 0.5) % lx,
+                           rng.uniform(0, 16.0, size=(n, 2))])
+    z = rng.integers(1, 9, size=n).astype(np.int32)
+    stacked, geom, _, _, _, _ = hm.prepare_halo_system(z, pos, 5.0, 4, cell=cell,
+                                                       pbc=np.array([True] * 3))
+    bn = min(bn, geom["n_local"])
+    stacked, _, _ = hm.apply_halo_kernel_layout(stacked, geom,
+                                                {"block_nodes": bn, "chunk": 1024},
+                                                margin=1.3)
+    shard = {k: v[0] for k, v in stacked.items()}
+    shard[keys.POSITIONS] = np.zeros((geom["window"], 3), np.float32)
+    p = _operands(cuda_device, shard, "128x0e+64x1o+32x2e", 20, 128, rng, bn, 1024)
+    assert geom["halo"] > 0 and fm.fwd_hopper_route("bfloat16", *p["statics"])
+    _fwd_close(p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD2_REFUSED, ids=BWD2_REFUSED_IDS)
+def test_cuda_fwd_refused_widths_keep_their_pass(cuda_device, case):
+    """Each width the forward's Hopper pass refuses (H = 640, an odd run,
+    Kf = 33, Kf = 128, H = 1152) takes the mma.sync tile pass, on a batch
+    of more groups than the card has SMs with ragged last tiles: against
+    the plain version in bf16, repeating bit for bit; f32 keeps the walk
+    kernel."""
+    assert not fm.fwd_hopper_route("bfloat16", *case)
+    assert fm.tile_route("message_fwd", "bfloat16", *case)
+    p = _problem(cuda_device, *case, n_mols=320, odd_tail=5)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert p["n"] > 16 * n_sm
+    _fwd_close(p)
+    assert not fm.fwd_hopper_route("float32", *CASES[2])
+    assert not fm.tile_route("message_fwd", "float32", *CASES[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["tile_fwd", "hopper_fwd"])
+def test_cuda_fwd_phase_probe_counts_cycles(cuda_device, which):
+    """The phase probe's stamped instances of message_fwd's two tile passes
+    run at the flagship widths, stamp cycles for every block (and role),
+    count no launch in LAUNCHES and give their pass's output: the Hopper
+    pass's bits, the mma.sync pass's within 2e-2 of the plain version."""
+    p = _problem(cuda_device, *CASES[2], n_mols=240)
+    m = p["meta"]
+    args = (p["x"], p["ef"], p["wf"], m, *p["statics"], p["n"], p["bn"], p["chunk"],
+            "bfloat16")
+    want = fm.message_fwd_cuda(*args)
+    fm.reset_launch_counts()
+    stamps, out = fm.fwd_phase_stamps(*args, which=which)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == _counts()
+    if which == "hopper_fwd":
+        assert torch.equal(out, want)
+    else:
+        _close(out, fm.plain_message(p["x"], p["ef"], p["wf"], m[2], m[3], p["mask"],
+                                     *p["statics"], p["n"], torch.bfloat16), 2e-2)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n_groups = -(-p["n"] // 16)
+    assert stamps.shape == ((min(n_sm, n_groups), fm.HF_WGS + 1, 8) if which == "hopper_fwd"
+                            else (n_groups, 8))
+    assert int(stamps.min()) >= 0 and bool((stamps.sum(-1) > 0).all())
+
+
 @pytest.mark.gpu
 def test_cuda_grad_of_grad_runs_bwd2_kernel(cuda_device):
     """Force-training shape on the card: grad-of-grad through

@@ -44,6 +44,7 @@ from xequinet_torch.parallel import halo as thalo
 from xequinet_torch.run.inference import batch_to_device
 
 from tests._torch_halo_worker import run_pool
+from tests._torch_jax_native import module_fixture
 
 KW = dict(node_dim=16, node_irreps="16x0e+8x1o", embed_basis="one-hot", num_basis=8,
           cutoff=5.0, action_blocks=2, output_modes=["energy"])
@@ -54,6 +55,14 @@ N_SHARDS = 4
 @pytest.fixture(autouse=True)
 def _torch_threads():
     torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_order(tmp_path_factory):
+    """The JAX package's cell lists built into a private path, so that its
+    edge order is the one the port reproduces whatever other workers do to
+    the shared library (tests/_torch_jax_native.py)."""
+    yield from module_fixture(tmp_path_factory)
 
 
 def _chain(rng, n=160, cutoff=5.0, lo=0.8, hi=1.6):

@@ -45,11 +45,20 @@ from xequinet_torch.utils.qc import ATOM_MASS
 
 from .test_pbc_mega import _crystal, _ghost_batch
 from .test_torch_calculator import KW, write_ckpt
+from ._torch_jax_native import module_fixture, private_jax_native
 
 
 @pytest.fixture(autouse=True)
 def _torch_threads():
     torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_order(tmp_path_factory):
+    """The JAX package's cell lists built into a private path, so that its
+    edge order is the one the port reproduces whatever other workers do to
+    the shared library (tests/_torch_jax_native.py)."""
+    yield from module_fixture(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
@@ -110,6 +119,26 @@ def test_native_neighbor_lists_match_jax():
         np.testing.assert_array_equal(got[1], want[1])
         plain = trg.radius_graph_pbc_np(xpos, cell, p, 5.0, use_native=False)
         assert _edge_set(*got) == _edge_set(*plain)
+
+
+def test_private_jax_native_survives_a_lost_library(monkeypatch, tmp_path):
+    """A process whose JAX loader gave up on its library (``_build_failed``,
+    as after an error while another worker rebuilt it) searches with numpy,
+    in another edge order than the port's cell lists; the private build of
+    tests/_torch_jax_native.py gives the cell lists' order back."""
+    from xequinet_tpu.ops import native as jn
+
+    monkeypatch.setattr(jn, "_lib", None)
+    monkeypatch.setattr(jn, "_build_failed", True)
+    rng = np.random.default_rng(1)
+    pos = rng.normal(size=(120, 3)) * 4.0
+    got = trg.radius_graph_np(pos, 4.0)
+    assert jn.get_lib() is None
+    lost = jrg.radius_graph_np(pos, 4.0)[0]
+    assert lost.shape == got[0].shape and not np.array_equal(lost, got[0])
+    with private_jax_native(tmp_path):
+        np.testing.assert_array_equal(jrg.radius_graph_np(pos, 4.0)[0], got[0])
+    assert jn._build_failed and jn._lib is None  # the loader's state is put back
 
 
 @pytest.mark.parametrize("max_edges", [64, 600])

@@ -1,12 +1,14 @@
 // Hopper's asynchronous pieces in PTX and the layout helpers that the
-// Hopper tile passes of the message backward share: message_bwd_hopper.cuh
-// (message_bwd.cu and bwd_stream_floor.cu) and message_bwd2_hopper.cuh
-// (message_bwd2.cu).  mbarriers (init, arrive, arrive with a byte count,
-// a bounded wait), bulk copies global -> shared counted on an mbarrier and
-// shared -> global in bulk groups, the async-proxy fence, named barriers,
-// wgmma's fences, commit and wait, its no-swizzle shared-memory
-// descriptors and the two products both passes issue, and the
-// core-matrix offset of a stage's edge-feature columns.
+// Hopper tile passes of the message kernels share: message_bwd_hopper.cuh
+// (message_bwd.cu and bwd_stream_floor.cu), message_bwd2_hopper.cuh
+// (message_bwd2.cu) and message_fwd_hopper.cuh (message_fwd.cu).
+// mbarriers (init, arrive, arrive with a byte count, a bounded wait), bulk
+// copies global -> shared counted on an mbarrier and shared -> global in
+// bulk groups, the async-proxy fence, named barriers, wgmma's fences,
+// commit and waits, its no-swizzle shared-memory descriptors and the
+// products the passes issue, the core-matrix offset of a stage's
+// edge-feature columns, and the pair-row order of H with wf's live rows in
+// it (the second order's and the forward's passes).
 #pragma once
 
 #include "message_tile.cuh"
@@ -99,6 +101,12 @@ __device__ __forceinline__ void xeq_wg_commit() {
 __device__ __forceinline__ void xeq_wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Until at most N of the warpgroup's committed groups are pending (they
+// complete in order).
+template <int N>
+__device__ __forceinline__ void xeq_wg_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of wgmma accumulators
 // across the asynchronous instructions that own them.
@@ -170,9 +178,61 @@ __device__ __forceinline__ int xeq_hb_ef_off(int t, int f) {
   return (t >> 3) * 512 + (f >> 3) * 128 + (t & 7) * 16 + (f & 7) * 2;
 }
 
+// Two f32 values rounded to bf16, as f32.
+__device__ __forceinline__ float2 xeq_rnd2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
 __device__ __forceinline__ __nv_bfloat162 xeq_bf2(xeq_bf16 lo, xeq_bf16 hi) {
   __nv_bfloat162 v;
   v.x = lo;
   v.y = hi;
   return v;
+}
+
+// The column of H that row rho of m64 tile i stands for in the pair-row
+// order (ops/fused_message.py::pair_table), or -1 (padding): in a pair tile
+// the pair row q = 32 i + 8 (rho / 16) + rho % 8 of the table, its state
+// gate u (rho % 16 < 8) or its harmonic gate ni + u; in a scalar tile the
+// node_dim column 64 (i - n_pt) + rho, at 2 ni + c.
+__device__ __forceinline__ int xeq_pair_col(int i, int rho, const int* tab, int n_pt, int ni,
+                                            int nd) {
+  if (i < n_pt) {
+    const int e = tab[32 * i + 8 * (rho >> 4) + (rho & 7)];
+    if (e < 0) return -1;
+    return (e & 1023) + ((rho & 8) ? ni : 0);
+  }
+  const int c = 64 * (i - n_pt) + rho;
+  return c < nd ? 2 * ni + c : -1;
+}
+
+// wf's live rows [Kw, H] (of wf [128, hp]) into n_tiles m64 tiles of H in the
+// pair-row order, in wgmma's core-matrix layout (row hb * 8 + k of the
+// tiles at hb * 512 + (f / 8) * 128 + (f % 8) * 16 + k * 2, 32 columns f):
+// zero for f >= Kw, padding rows and tiles past n_mt.  By the block's
+// ``threads`` threads, one item (8 rows hb, 8 columns f) each: the rows'
+// columns of H looked up once, then all 64 loads issued before the stores.
+__device__ __forceinline__ void xeq_load_wf_pairs(unsigned char* wf_s,
+                                                  const xeq_bf16* __restrict__ wf,
+                                                  const int* tab_s, int n_tiles, int n_mt,
+                                                  int n_pt, int ni, int nd, int kw, int hp,
+                                                  int threads) {
+  for (int it = threadIdx.x; it < n_tiles * 8 * 4; it += threads) {
+    const int hb = it >> 2, f0 = (it & 3) * 8, mt = hb >> 3;
+    int col[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      col[k] = mt < n_mt ? xeq_pair_col(mt, (hb & 7) * 8 + k, tab_s, n_pt, ni, nd) : -1;
+    __align__(16) xeq_bf16 e8[8][8];
+#pragma unroll
+    for (int ff = 0; ff < 8; ++ff)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        e8[ff][k] = f0 + ff < kw && col[k] >= 0 ? wf[(int64_t)(f0 + ff) * hp + col[k]]
+                                                : xeq_b(0.f);
+#pragma unroll
+    for (int ff = 0; ff < 8; ++ff)
+      *reinterpret_cast<uint4*>(wf_s + hb * 512 + (f0 >> 3) * 128 + ff * 16) =
+          *reinterpret_cast<const uint4*>(e8[ff]);
+  }
 }

@@ -166,28 +166,9 @@ static bool bwd2_hopper_dims(XeqH2Dims& p, int n_slots, int ni, int nd, int h_di
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
-// The column of H that row rho of m64 tile i stands for, or -1 (padding):
-// in a pair tile the pair row q = 32 i + 8 (rho / 16) + rho % 8 of the
-// table, its state gate u (rho % 16 < 8) or its harmonic gate ni + u; in a
-// scalar tile the node_dim column 64 (i - n_pt) + rho, at 2 ni + c.
-__device__ __forceinline__ int xeq_h2_col(int i, int rho, const int* tab, int n_pt, int ni,
-                                          int nd) {
-  if (i < n_pt) {
-    const int e = tab[32 * i + 8 * (rho >> 4) + (rho & 7)];
-    if (e < 0) return -1;
-    return (e & 1023) + ((rho & 8) ? ni : 0);
-  }
-  const int c = 64 * (i - n_pt) + rho;
-  return c < nd ? 2 * ni + c : -1;
-}
-
 __device__ __forceinline__ __nv_bfloat162 xeq_ld_pair(const xeq_bf16* a, const xeq_bf16* b,
                                                      int j) {
   return xeq_bf2(a[j], b[j]);
-}
-
-__device__ __forceinline__ float2 xeq_rnd2(float a, float b) {
-  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
 
 // N per-lane values summed over a warp's 8 row groups (lanes 4 gq + cq, gq
@@ -432,21 +413,9 @@ __device__ __forceinline__ void xeq_h2_body(XEQ_H2_PARAMS) {
   }
   for (int i = tid; i < 32 * p.n_pt; i += XEQ_H2_THREADS) tab_s[i] = __ldg(tab + i);
   __syncthreads();
-  // wf's live rows in the pass's row order and the core-matrix layout: row
-  // hb * 8 + k of the m64 tiles is column xeq_h2_col of H; zero for f >= Kw
-  // and padding rows
-  for (int i = tid; i < p.mtw * XEQ_H2_WGS * 8 * 32; i += XEQ_H2_THREADS) {
-    const int hb = i >> 5, f = i & 31, mt = hb >> 3;
-    __align__(16) xeq_bf16 e8[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int h = mt < p.n_mt ? xeq_h2_col(mt, (hb & 7) * 8 + k, tab_s, p.n_pt, p.ni, p.nd)
-                                : -1;
-      e8[k] = f < p.kw && h >= 0 ? wf[(int64_t)f * p.hp + h] : xeq_b(0.f);
-    }
-    *reinterpret_cast<uint4*>(wf_s + hb * 512 + (f >> 3) * 128 + (f & 7) * 16) =
-        *reinterpret_cast<const uint4*>(e8);
-  }
+  // wf's live rows in the pass's row order and the core-matrix layout
+  xeq_load_wf_pairs(wf_s, wf, tab_s, p.mtw * XEQ_H2_WGS, p.n_mt, p.n_pt, p.ni, p.nd, p.kw, p.hp,
+                    XEQ_H2_THREADS);
   for (int i = tid; i < XEQ_H2_CW * XEQ_BT * p.n_y; i += XEQ_H2_THREADS) hs_all[i] = 0.f;
   xeq_fence_async();
   __syncthreads();
@@ -763,7 +732,7 @@ __device__ __forceinline__ void xeq_h2_body(XEQ_H2_PARAMS) {
     for (int q = 0; q < 16; ++q) {
       const int rho = 16 * w + gq + 8 * ((q >> 1) & 1);
       const int f = 8 * (q >> 2) + 2 * cq + (q & 1);
-      const int h = xeq_h2_col(i, rho, tab_s, p.n_pt, p.ni, p.nd);
+      const int h = xeq_pair_col(i, rho, tab_s, p.n_pt, p.ni, p.nd);
       if (f < p.kf && h >= 0) part[(int64_t)f * p.h + h] = has_tiles ? acc[ii][q] : 0.f;
     }
   }

@@ -23,7 +23,14 @@
 // needed it on the FP32 pipes and gathered single x elements through L1 /
 // L2: bound by latency and issue rate.
 //
-// The bf16 instance (the flagship's), message_fwd_tile_kernel: a block
+// At the widths of ops/fused_message.py::fwd_hopper_route (the flagship's)
+// the bf16 instance is the Hopper tile pass of message_fwd_hopper.cuh:
+// persistent blocks of two producer warps (bulk copies into an mbarrier
+// ring) and three consumer warpgroups (fw on wgmma with H on M in the
+// pair-row order, the messages formed in registers, the destination sum
+// as a one-hot wgmma).  Its notes say why; it took the flagship call from
+// 0.39 to 0.21 ms on an H100 (PERF.md).  The other bf16 widths keep the
+// mma.sync tile pass below, message_fwd_tile_kernel: a block
 // of 320 threads owns 16 consecutive destination rows, so its slots are
 // one contiguous run of the CSR list by destination (dst_ptr /
 // dst_slots), in row order.  It walks that run in tiles of 16 slots:
@@ -55,7 +62,7 @@
 // XEQ_STAGE at a time, the filter recomputed per column, its first 32 rows
 // in registers and the rest in 32-row slices (xeq_filter_full).
 //
-#include "message_tile.cuh"
+#include "message_fwd_hopper.cuh"
 
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(128)
@@ -174,15 +181,25 @@ struct XeqFwdDims {
 // edge features span several 32-column slices and fw runs over the K
 // slices of wf (compiled only where needed: the one-slice instance keeps
 // the flagship's constants and registers).
-template <bool WF_SMEM, bool KS>
-__global__ void __launch_bounds__(XEQ_FT_THREADS, 3)
-message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restrict__ ef,
-                        const xeq_bf16* __restrict__ wf, const int* __restrict__ dst_ptr,
-                        const int* __restrict__ dst_slots, const int* __restrict__ slot_src,
-                        const int* __restrict__ slot_dst, const int* __restrict__ lane_gate,
-                        const int* __restrict__ lane_ycol, float* __restrict__ out,
-                        const XeqFwdDims p) {
+//
+// STAMP: the phase probe's instance (message_fwd_tile_stamped_kernel,
+// launched by xeq_fwd_phases only): thread 0 adds the clock64() cycles of
+// each phase of its block, written to stamps[block][XEQ_STAMPS] (phases as
+// in ops/fused_message.py::PHASES["tile_fwd"]).  A kernel of its own, so
+// that the other instances keep their parameter block.
+#define XEQ_FT_PARAMS                                                                       \
+  const xeq_bf16 *__restrict__ x, const xeq_bf16 *__restrict__ ef,                        \
+      const xeq_bf16 *__restrict__ wf, const int *__restrict__ dst_ptr,                   \
+      const int *__restrict__ dst_slots, const int *__restrict__ slot_src,                \
+      const int *__restrict__ slot_dst, const int *__restrict__ lane_gate,                \
+      const int *__restrict__ lane_ycol, float *__restrict__ out, const XeqFwdDims p
+#define XEQ_FT_ARGS \
+  x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, lane_gate, lane_ycol, out, p
+
+template <bool WF_SMEM, bool KS, bool STAMP>
+__device__ __forceinline__ void xeq_fwd_tile_body(XEQ_FT_PARAMS, long long* __restrict__ stamps) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
+  XeqStamps<STAMP> sp;
   xeq_bf16* x_s = (xeq_bf16*)fwd_smem;                     // [BT][xs_st]; fo in place of gs
   const xeq_bf16* e_s = (const xeq_bf16*)(fwd_smem + p.off_e);  // [BT][EST]
   int* dst_s = (int*)(fwd_smem + p.off_dst);               // [BT]
@@ -225,6 +242,7 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
   float2 acc[XEQ_FT_NP];
 #pragma unroll
   for (int i = 0; i < XEQ_FT_NP; ++i) acc[i] = make_float2(0.f, 0.f);
+  sp.mark(0);
   // acc to row r (zero on the pairs with no column), one float2 store each
   auto put = [&](int r) {
 #pragma unroll
@@ -254,8 +272,10 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
       if (lane == 0) dst_s[t] = dst;
     }
     xeq_cp_commit();
+    sp.mark(1);
     xeq_cp_wait_all();
     __syncthreads();
+    sp.mark(2);
 
     // fw on the tensor cores, one n8 column tile per warp at a time (K in
     // 32-row slices of wf, the first slice's A fragments held), and fo =
@@ -294,17 +314,21 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
         }
       }
     }
+    sp.mark(3);
     __syncthreads();
+    sp.mark(4);
 
     // the tile's messages added by destination, in slot order
     for (int q = 0; q < n; ++q) {
       const int i = dst_s[q];
       if (i != cur) {  // the same for every thread of the block
+        sp.mark(5);
         put(cur);
 #pragma unroll
         for (int ip = 0; ip < XEQ_FT_NP; ++ip) acc[ip] = make_float2(0.f, 0.f);
         for (int r = cur + 1; r < i; ++r) put(r);
         cur = i;
+        sp.mark(6);
       }
       const xeq_bf16* xr = x_s + q * p.xs_st;
       const xeq_bf16* er = e_s + q * est + p.kw;
@@ -325,12 +349,28 @@ message_fwd_tile_kernel(const xeq_bf16* __restrict__ x, const xeq_bf16* __restri
         }
       }
     }
+    sp.mark(5);
     __syncthreads();  // the stage is read before the next tile's copies
+    sp.mark(4);
   }
   put(cur);
 #pragma unroll
   for (int ip = 0; ip < XEQ_FT_NP; ++ip) acc[ip] = make_float2(0.f, 0.f);
   for (int r = cur + 1; r < r1; ++r) put(r);
+  sp.mark(7);
+  if (STAMP && threadIdx.x == 0) sp.write(stamps + (int64_t)blockIdx.x * XEQ_STAMPS);
+}
+
+template <bool WF_SMEM, bool KS>
+__global__ void __launch_bounds__(XEQ_FT_THREADS, 3) message_fwd_tile_kernel(XEQ_FT_PARAMS) {
+  xeq_fwd_tile_body<WF_SMEM, KS, false>(XEQ_FT_ARGS, nullptr);
+}
+
+// The flagship instance (wf's live rows in shared memory, one K slice) with
+// the phase stamps.
+__global__ void __launch_bounds__(XEQ_FT_THREADS, 3)
+message_fwd_tile_stamped_kernel(XEQ_FT_PARAMS, long long* __restrict__ stamps) {
+  xeq_fwd_tile_body<true, false, true>(XEQ_FT_ARGS, stamps);
 }
 
 // The tile kernel's shared-memory layout; false when no layout fits
@@ -398,20 +438,70 @@ static int launch_fwd_walk(const void* x, const void* ef, const void* wf, const 
   x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, lane_gate, lane_ycol, out, n_out, ni, \
       nd, hp, d, dp, sdp, kw, kf, s
 
-// tiles (bf16 only): the tile kernel, which the wrapper chooses by shape
-// when its shared memory fits; else the walk kernel in the operands' dtype.
+// tiles (bf16 only), chosen by the wrapper by shape: 2, the Hopper tile pass
+// (message_fwd_hopper.cuh; ftab: its table, n_pt pair tiles, na A tiles a
+// warpgroup, on n_part blocks); 1, the mma.sync tile pass when its shared
+// memory fits; 0, the walk kernel in the operands' dtype.
 extern "C" int xeq_message_fwd(const void* x, const void* ef, const void* wf,
                                const void* dst_ptr, const void* dst_slots,
                                const void* slot_src, const void* slot_dst,
-                               const void* lane_gate, const void* lane_ycol,
+                               const void* lane_gate, const void* lane_ycol, const void* ftab,
                                void* out, int n_out, int ni, int nd, int hp,
                                int d, int dp, int sdp, int kw, int kf,
-                               int bf16, int tiles, void* stream) {
+                               int bf16, int tiles, int n_pt, int na, int n_part, void* stream) {
   if (kw > kf || kf > XEQ_FPACK || (sdp + dp) % 128 != 0 || (tiles && !bf16))
     return (int)cudaErrorInvalidValue;
   if (n_out == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tiles == 2) {
+    XeqHFDims p;
+    if (ftab == nullptr || n_part < 1 ||
+        !fwd_hopper_dims(p, n_out, ni, nd, hp, d, dp, sdp, kw, kf, n_pt, na))
+      return (int)cudaErrorInvalidValue;
+    return launch_fwd_hopper(x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, ftab, out, p,
+                             n_part, nullptr, s);
+  }
   if (tiles) return launch_fwd_tiles(XEQ_FWD_ARGS);
   if (bf16) return launch_fwd_walk<__nv_bfloat16, true>(XEQ_FWD_ARGS);
   return launch_fwd_walk<float, false>(XEQ_FWD_ARGS);
+}
+
+// The phase probe (xequinet_torch/tools/bwd_compare.py --kernel message_fwd
+// --phases; on no model path): one launch of a bf16 tile pass with
+// clock64() stamps per phase in stamps: which = 0, the mma.sync tile
+// pass's flagship instance (wf's live rows in shared memory, one K slice;
+// [n_out / 16 blocks][8]); which = 1, the Hopper tile pass on n_part blocks
+// ([n_part][XEQ_HF_WGS + 1][8]: the consumer warpgroups, then the
+// producer).  Its output is the pass's.
+extern "C" int xeq_fwd_phases(const void* x, const void* ef, const void* wf,
+                              const void* dst_ptr, const void* dst_slots, const void* slot_src,
+                              const void* slot_dst, const void* lane_gate,
+                              const void* lane_ycol, const void* ftab, void* out, int n_out,
+                              int ni, int nd, int hp, int d, int dp, int sdp, int kw, int kf,
+                              int n_pt, int na, int n_part, int which, void* stamps,
+                              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stamps == nullptr || n_out == 0 || kw > kf || (sdp + dp) % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (which == 1) {
+    XeqHFDims q;
+    if (ftab == nullptr || n_part < 1 ||
+        !fwd_hopper_dims(q, n_out, ni, nd, hp, d, dp, sdp, kw, kf, n_pt, na))
+      return (int)cudaErrorInvalidValue;
+    return launch_fwd_hopper(x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, ftab, out, q,
+                             n_part, (long long*)stamps, s);
+  }
+  XeqFwdDims p;
+  if (which != 0 || !fwd_tile_dims(p, n_out, ni, nd, hp, d, dp, sdp, kw, kf) || !p.wf_smem ||
+      kf > XEQ_BT_KE)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = message_fwd_tile_stamped_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(n_out + XEQ_FT_ROWS - 1) / XEQ_FT_ROWS, XEQ_FT_THREADS, p.smem, s>>>(
+      (const xeq_bf16*)x, (const xeq_bf16*)ef, (const xeq_bf16*)wf, (const int*)dst_ptr,
+      (const int*)dst_slots, (const int*)slot_src, (const int*)slot_dst, (const int*)lane_gate,
+      (const int*)lane_ycol, (float*)out, p, (long long*)stamps);
+  return (int)cudaGetLastError();
 }

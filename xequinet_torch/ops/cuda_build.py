@@ -27,14 +27,15 @@ BUILD_DIR = _PKG / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _MESSAGE_HEADERS = ("message_common.cuh", "message_tile.cuh")
-# the PTX pieces and layout helpers of both backwards' Hopper tile passes
+# the PTX pieces and layout helpers of the message kernels' Hopper tile passes
 _HOPPER_HEADERS = _MESSAGE_HEADERS + ("hopper_ptx.cuh",)
 _BWD_HEADERS = _HOPPER_HEADERS + ("message_bwd_hopper.cuh",)
 _BWD2_HEADERS = _HOPPER_HEADERS + ("message_bwd2_hopper.cuh",)
+_FWD_HEADERS = _HOPPER_HEADERS + ("message_fwd_hopper.cuh",)
 # name -> (source, headers it includes, C entry point, argtypes)
 _KERNELS = {
-    "message_fwd": ("message_fwd.cu", _MESSAGE_HEADERS, "xeq_message_fwd",
-                    [_P] * 10 + [_I] * 11 + [_P]),
+    "message_fwd": ("message_fwd.cu", _FWD_HEADERS, "xeq_message_fwd",
+                    [_P] * 11 + [_I] * 14 + [_P]),
     "message_bwd": ("message_bwd.cu", _BWD_HEADERS, "xeq_message_bwd",
                     [_P] * 23 + [_I] * 15 + [_P]),
     "message_bwd2": ("message_bwd2.cu", _BWD2_HEADERS, "xeq_message_bwd2",
@@ -59,6 +60,9 @@ _PROBES = {
     # the second order's tile passes, the same way
     # (xequinet_torch/tools/bwd_compare.py --kernel message_bwd2 --phases)
     "bwd2_phases": ("message_bwd2", "xeq_bwd2_phases", [_P] * 19 + [_I] * 13 + [_P] * 2),
+    # the forward's tile passes, the same way
+    # (xequinet_torch/tools/bwd_compare.py --kernel message_fwd --phases)
+    "fwd_phases": ("message_fwd", "xeq_fwd_phases", [_P] * 11 + [_I] * 13 + [_P] * 2),
 }
 
 # launches of each CUDA kernel wrapper (one per wrapper call that launched)

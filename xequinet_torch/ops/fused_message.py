@@ -710,6 +710,100 @@ def hopper2_route(mm_dtype, irreps_str: str, num_basis: int, node_dim: int,
             and smem <= SMEM_MAX)
 
 
+# the Hopper tile pass of message_fwd (csrc/message_fwd_hopper.cuh): its
+# consumer warpgroups, m64 tiles of H (3 a warpgroup), ring stages, A tiles
+# of 64 output columns a warpgroup at most, and destination rows a group
+HF_WGS, HF_MT, HF_MAXST, HF_NA, HF_ROWS = 3, 9, 4, 5, 16
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_table(irreps_str: str, num_basis: int, node_dim: int) -> Tuple[np.ndarray, int, int]:
+    """(ftab, n_pt, na): the tables of ``message_fwd``'s Hopper tile pass,
+    int32.  H's rows are in :func:`pair_table`'s order (pair tile i and
+    scalar tile i belong to warpgroup i % 3), so that the thread holding an
+    irrep u's gates u and ni + u forms all 2l + 1 of u's message lanes.
+    Each warpgroup writes the message rows it forms into its own A tiles
+    (64 rows each) of the destination product ``out^T += msg^T @ onehot``:
+    its output columns (the vector lanes ``SDp + j`` of its irreps, the
+    node_dim columns of its scalar tiles, and the padding columns, which
+    stay zero, to the warpgroup with the fewest) in ascending order.
+    ``ftab``: the pair entries [32 n_pt]; each entry's A row of its first
+    lane [32 n_pt] (-1 on padding entries); each scalar tile's A row of
+    its first column [n_mt - n_pt]; per warpgroup the output column of each
+    of its ``na * 64`` A rows (-1 past its columns).  ``na``: A tiles a
+    warpgroup walks, the most any needs."""
+    tab, n_pt = pair_table(irreps_str, num_basis, node_dim)
+    _, _, _, d, dp, sdp, _, _ = _launch_dims(irreps_str, num_basis, node_dim)
+    n_mt = n_pt + -(-node_dim // 64)
+    cols = [[] for _ in range(HF_WGS)]
+    for q, e in enumerate(tab.tolist()):
+        if e >= 0:  # the entry's lanes: from its first lane, 2l + 1 of them
+            j0 = sdp + ((e >> 10) & 4095)
+            cols[(q // 32) % HF_WGS] += range(j0, j0 + 2 * ((e >> 22) & 3) + 1)
+    for i in range(n_pt, n_mt):
+        cols[i % HF_WGS] += range(64 * (i - n_pt), min(64 * (i - n_pt + 1), node_dim))
+    for c in list(range(node_dim, sdp)) + list(range(sdp + d, sdp + dp)):
+        min(cols, key=len).append(c)
+    cols = [sorted(c) for c in cols]
+    na = max(-(-len(c) // 64) for c in cols)
+    row = {c: r for cs in cols for r, c in enumerate(cs)}
+    ftab = np.full(64 * n_pt + n_mt - n_pt + HF_WGS * na * 64, -1, dtype=np.int32)
+    ftab[:32 * n_pt] = tab
+    for q, e in enumerate(tab.tolist()):
+        if e >= 0:
+            ftab[32 * n_pt + q] = row[sdp + ((e >> 10) & 4095)]
+    for i in range(n_pt, n_mt):
+        ftab[64 * n_pt + i - n_pt] = row[64 * (i - n_pt)]
+    base = 64 * n_pt + n_mt - n_pt
+    for wg, cs in enumerate(cols):
+        ftab[base + wg * na * 64:base + wg * na * 64 + len(cs)] = cs
+    return ftab, n_pt, na
+
+
+def _fwd_hopper_layout(ni: int, node_dim: int, d: int, kw: int, kf: int, n_pt: int,
+                       na: int) -> Tuple[int, int, int]:
+    """(shared memory, ring stages, stage bytes) of ``message_fwd``'s Hopper
+    tile pass, as ``fwd_hopper_dims`` (csrc/message_fwd_hopper.cuh) lays it
+    out: per stage 16 staged x rows ``[gs | 0 | gv]`` (Hp + D rounded up to
+    8 columns, one bulk copy each, + 16 bytes), the 16 x 32 edge-feature
+    columns in wgmma's core-matrix layout (1 KB),
+    the 9 harmonic columns slot-contiguous (288 bytes), the one-hot
+    [16 slots x 16 rows] (512 bytes) and the slots' destinations and the
+    tile's flags (128 bytes); beside the stages wf's live rows (9 m64 tiles
+    of 32 x 64), each warpgroup's ``na`` A tiles (64 x 16 bf16), the table
+    and the barriers.  As many stages as fit, at most ``HF_MAXST``."""
+    hp, dt8 = _pad128(node_dim + 2 * ni), _ru(d, 8)
+    n_mt = n_pt + -(-node_dim // 64)
+    stage = _ru(16 * ((hp + dt8) * 2 + 16) + 1024 + 9 * 16 * 2 + 512 + 128, 128)
+    n_tab = 64 * n_pt + n_mt - n_pt + HF_WGS * na * 64
+    fixed = HF_MT * 4096 + HF_WGS * na * 2048 + _ru(n_tab * 4, 16) + 2 * HF_MAXST * 8
+    nst = min((SMEM_MAX - fixed) // stage, HF_MAXST)
+    return nst * stage + fixed, nst, stage
+
+
+def fwd_hopper_route(mm_dtype, irreps_str: str, num_basis: int, node_dim: int) -> bool:
+    """Whether ``message_fwd`` runs its Hopper tile pass (bulk copies by two
+    producer warps into a ring of stages, wgmma with H on M, the destination
+    sum as a one-hot wgmma; csrc/message_fwd_hopper.cuh) at these widths,
+    else what :func:`tile_route` chooses: bf16 operands, Kf <= 32, at most
+    ``HF_MT`` m64 tiles of H in :func:`pair_table`'s order, at most
+    ``HF_NA`` A tiles a warpgroup (:func:`fwd_table`), two stages at least
+    that fit, and the irreps of :func:`hopper2_route` (runs of one l of
+    even multiplicity, at most 8), so that the forward and the second order
+    take their Hopper passes on the same models.  The choice is made by
+    shape alone."""
+    if _mm_dtype(mm_dtype) != torch.bfloat16:
+        return False
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    seg = index_maps(irreps_str, num_basis)["seg"]
+    if kf > 32 or h > 64 * HF_MT or len(seg) > 8 or not bool((seg[:, 2] % 2 == 0).all()):
+        return False
+    _, n_pt, na = fwd_table(irreps_str, num_basis, node_dim)
+    smem, nst, _ = _fwd_hopper_layout(ni, node_dim, d, kw, kf, n_pt, na)
+    return (n_pt + -(-node_dim // 64) <= HF_MT and na <= HF_NA and nst >= 2 and ni < 1024
+            and d < 4096 and smem <= SMEM_MAX)
+
+
 def walk_chunks(kernel: str, ni: int, h: int, kw: int, kf: int) -> int:
     """Column chunks of the walk kernels' slot pass (``XEQ_WALK_HC`` in
     ``message_common.cuh``): 1 when the whole filter width's d_wf partial,
@@ -729,37 +823,119 @@ def _dwf_regs(kernel: str, ni: int, node_dim: int, d: int, kw: int, kf: int) -> 
     return kf <= 32 and _ru(h, 16) <= 16 * 8 * 6 and not lean
 
 
+_DEVICE_FTABS: Dict[tuple, torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_static(irreps_str: str, num_basis: int, node_dim: int, mm: str):
+    """The forward's per-shape choices, once per shape (a call's host time
+    is part of the forward's): (widths, dtype, route, n_pt, na)."""
+    dims = _launch_dims(irreps_str, num_basis, node_dim)
+    dt = _mm_dtype(mm)
+    if fwd_hopper_route(dt, irreps_str, num_basis, node_dim):
+        return dims, dt, 2, *fwd_table(irreps_str, num_basis, node_dim)[1:]
+    return dims, dt, int(tile_route("message_fwd", dt, irreps_str, num_basis, node_dim)), 0, 0
+
+
+def _fwd_setup(x_cat, edge_feat, wf_aug, slot_meta, irreps_str, num_basis, node_dim, n_out,
+               block_nodes, chunk, mm_dtype):
+    """What a launch of the forward takes, shared by :func:`message_fwd_cuda`
+    and :func:`fwd_phase_stamps`: the widths, the route (``route``: 2 the
+    Hopper tile pass, 1 the mma.sync tile pass, 0 the walk kernel), the
+    operands in the kernel's dtype, the slot plan, the index maps, the
+    Hopper pass's table and grid (``n_part``: one block per SM, at most one
+    per group of ``HF_ROWS`` destination rows) and the output."""
+    dims, mm, route, n_pt, na = _fwd_static(irreps_str, num_basis, node_dim,
+                                            str(_mm_dtype(mm_dtype)))
+    ni, h, hp, d, dp, sdp, kw, kf = dims
+    if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
+        raise ValueError("fused message: operand shapes do not match the irreps")
+    dev = x_cat.device
+    cast = lambda t: t.to(mm).contiguous()
+    xk, efk, wfk = map(cast, (x_cat, edge_feat, wf_aug))
+    key = (irreps_str, num_basis, node_dim, str(dev))
+    if route == 2 and key not in _DEVICE_FTABS:
+        _DEVICE_FTABS[key] = torch.as_tensor(fwd_table(irreps_str, num_basis, node_dim)[0],
+                                             device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    b = dict(
+        dims=dims, mm=mm, route=route, xk=xk, efk=efk, wfk=wfk, n_pt=n_pt, na=na,
+        ftab=_DEVICE_FTABS[key] if route == 2 else torch.empty((0,), dtype=torch.int32,
+                                                               device=dev),
+        n_part=max(1, min(n_sm, -(-n_out // HF_ROWS))),
+        plan=_plan(slot_meta, n_out, x_cat.shape[0], block_nodes, chunk),
+        maps=_device_maps(irreps_str, num_basis, dev),
+        out=torch.empty((n_out, sdp + dp), dtype=torch.float32, device=dev),
+    )
+    _check_cuda(xk, efk, wfk, b["plan"]["dst_ptr"], b["out"])
+    if any(t.data_ptr() % 16 for t in (xk, efk)):
+        raise ValueError("fused message: operands must be 16-byte aligned")
+    return b
+
+
 def message_fwd_cuda(
     x_cat, edge_feat, wf_aug, slot_meta,
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
 ) -> torch.Tensor:
-    """agg [n_out, SDp+Dp] f32 by ``csrc/message_fwd.cu``."""
+    """agg [n_out, SDp+Dp] f32 by ``csrc/message_fwd.cu``: at the widths of
+    :func:`fwd_hopper_route` its Hopper tile pass
+    (``csrc/message_fwd_hopper.cuh``), elsewhere on :func:`tile_route` the
+    mma.sync tile pass, else the walk kernel."""
     if not x_cat.is_cuda:
         raise ValueError("message_fwd_cuda takes CUDA tensors")
-    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
-    mm = _mm_dtype(mm_dtype)
-    tiles = tile_route("message_fwd", mm, irreps_str, num_basis, node_dim)
-    if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
-        raise ValueError("fused message: operand shapes do not match the irreps")
-    xk = x_cat.to(mm).contiguous()
-    efk = edge_feat.to(mm).contiguous()
-    wfk = wf_aug.to(mm).contiguous()
-    plan = _plan(slot_meta, n_out, x_cat.shape[0], block_nodes, chunk)
-    maps = _device_maps(irreps_str, num_basis, x_cat.device)
-    out = torch.empty((n_out, sdp + dp), dtype=torch.float32, device=x_cat.device)
-    _check_cuda(xk, efk, wfk, plan["dst_ptr"], out)
-    if any(t.data_ptr() % 16 for t in (xk, efk)):
-        raise ValueError("fused message: operands must be 16-byte aligned")
+    b = _fwd_setup(x_cat, edge_feat, wf_aug, slot_meta, irreps_str, num_basis, node_dim, n_out,
+                   block_nodes, chunk, mm_dtype)
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, maps = b["plan"], b["maps"]
     launch(
         "message_fwd",
-        xk.data_ptr(), efk.data_ptr(), wfk.data_ptr(), plan["dst_ptr"].data_ptr(),
+        b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(), plan["dst_ptr"].data_ptr(),
         plan["dst_slots"].data_ptr(), plan["slot_src"].data_ptr(),
         plan["slot_dst"].data_ptr(), maps["lane_gate"].data_ptr(),
-        maps["lane_ycol"].data_ptr(), out.data_ptr(),
-        n_out, ni, node_dim, hp, d, dp, sdp, kw, kf, int(mm == torch.bfloat16), int(tiles),
-        torch.cuda.current_stream(x_cat.device).cuda_stream,
+        maps["lane_ycol"].data_ptr(), _ptr(b["ftab"]), b["out"].data_ptr(),
+        n_out, ni, node_dim, hp, d, dp, sdp, kw, kf, int(b["mm"] == torch.bfloat16), b["route"],
+        b["n_pt"], b["na"], b["n_part"], torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
-    return out
+    return b["out"]
+
+
+def fwd_phase_stamps(
+    x_cat, edge_feat, wf_aug, slot_meta,
+    irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype, which: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(stamps, agg): clock64() cycles per phase of one launch of a
+    ``message_fwd`` bf16 tile pass, and its output, on
+    :func:`message_fwd_cuda`'s operands (the phase probe of
+    ``xequinet_torch/tools/bwd_compare.py --kernel message_fwd --phases``,
+    on no model path; not counted in LAUNCHES): ``which`` "tile_fwd", the
+    mma.sync tile pass's flagship instance (int64 [n_groups, 8], thread 0
+    of each block, ``PHASES["tile_fwd"]``); "hopper_fwd", the Hopper tile
+    pass (int64 [n_part, HF_WGS + 1, 8]: the consumer warpgroups, phases as
+    in ``PHASES["hopper_fwd"]``, then the producer warp,
+    ``PHASES["producer_fwd"]``).  ``agg`` is the pass's output (the old
+    pass's at widths where the wrapper takes the new one).  Takes the
+    widths of :func:`fwd_hopper_route`."""
+    if which not in ("tile_fwd", "hopper_fwd") or not fwd_hopper_route(
+            mm_dtype, irreps_str, num_basis, node_dim):
+        raise ValueError("fwd_phase_stamps takes which 'tile_fwd' or 'hopper_fwd' at the widths "
+                         "of fwd_hopper_route")
+    b = _fwd_setup(x_cat, edge_feat, wf_aug, slot_meta, irreps_str, num_basis, node_dim, n_out,
+                   block_nodes, chunk, mm_dtype)
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, maps = b["plan"], b["maps"]
+    hopper = which == "hopper_fwd"
+    shape = (b["n_part"], HF_WGS + 1, 8) if hopper else (max(1, -(-n_out // 16)), 8)
+    stamps = torch.zeros(shape, dtype=torch.int64, device=x_cat.device)
+    probe(
+        "fwd_phases",
+        b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(), plan["dst_ptr"].data_ptr(),
+        plan["dst_slots"].data_ptr(), plan["slot_src"].data_ptr(),
+        plan["slot_dst"].data_ptr(), maps["lane_gate"].data_ptr(),
+        maps["lane_ycol"].data_ptr(), _ptr(b["ftab"]), b["out"].data_ptr(),
+        n_out, ni, node_dim, hp, d, dp, sdp, kw, kf, b["n_pt"], b["na"], b["n_part"],
+        int(hopper), stamps.data_ptr(), torch.cuda.current_stream(x_cat.device).cuda_stream,
+    )
+    return stamps, b["out"]
 
 
 def _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, node_dim,
@@ -884,7 +1060,8 @@ def bwd_stream_floor_cuda(
     return b["dx"], b["d_ef"], b["d_wf"]
 
 
-# the phases of bwd_phase_stamps' stamps, in their order (8 per role)
+# the phases of bwd_phase_stamps', bwd2_phase_stamps' and fwd_phase_stamps'
+# stamps, in their order (8 per role)
 PHASES = {
     "tile": ("prologue", "wait + barrier", "A: dfo gate sums", "B: fw, dfw, dgs, fo",
              "C: dgv, drsh", "D: d_ef, d_wf products", "E: d_ef rows", "epilogue"),
@@ -906,6 +1083,16 @@ PHASES = {
                 "filter d2ef, release"),
     "producer2": ("prologue", "wait for a free stage", "slot indices, d2ef zeros",
                   "rows stored, copies issued", "-", "-", "-", "last rows stored, epilogue"),
+    # message_fwd's (fwd_phase_stamps): the mma.sync tile pass by thread 0 of
+    # each block, the Hopper pass by each consumer warpgroup and its producer
+    "tile_fwd": ("prologue", "slot indices and copy issue", "wait for copies and the barrier",
+                 "fw products and fo", "barriers", "destination sums", "row writes",
+                 "epilogue"),
+    "hopper_fwd": ("prologue, epilogue", "wait for a full stage", "fw products (issue, waits)",
+                   "fo and message rows", "warpgroup barrier", "destination products issued",
+                   "their wait, release, row writes", "-"),
+    "producer_fwd": ("prologue", "wait for a free stage", "slot indices, edge features",
+                     "stage written", "copies issued", "-", "-", "epilogue"),
 }
 
 
@@ -1000,10 +1187,11 @@ def bwd2_scratch_shapes(t_slots: int, h: int, node_dim: int,
     return bwd_scratch_shape(t_slots, h, d), (t_slots, _round8(node_dim) + _round8(d))
 
 
-# each backward wrapper's launches by pass, by kernel name as torch.profiler
-# shows them (the d_wf passes launch only where the tile pass's d_wf
-# partial leaves the registers)
+# each wrapper's launches by pass, by kernel name as torch.profiler shows
+# them (the forward has one; the d_wf passes launch only where the tile
+# pass's d_wf partial leaves the registers)
 PASSES = {
+    "message_fwd": (("tile pass", "message_fwd_(?:tile|hopper)_kernel"),),
     "message_bwd": (("tile pass", "message_bwd_(?:tile|hopper)_kernel"),
                     ("dx pass", "message_bwd_dx_rows_kernel"),
                     ("d_wf pass", "xeq_dwf_pass_kernel"),

@@ -1,7 +1,9 @@
-"""A message backward kernel of two source trees timed in turns on one card.
+"""A message kernel, either backward or the forward, of two source trees
+timed in turns on one card.
 
-``--kernel message_bwd`` (the default) or ``--kernel message_bwd2`` (the
-second order without cwf, as force training runs it).  This process, in
+``--kernel message_bwd`` (the default), ``--kernel message_bwd2`` (the
+second order without cwf, as force training runs it) or ``--kernel
+message_fwd`` (the forward, on the same operands without g).  This process, in
 the tree this file belongs to (the change), builds the operands of three
 batches once with its own code and saves them to a temporary file:
 
@@ -25,14 +27,17 @@ wrapper (bf16) with this file's tree's ``bwd_stream_floor.time_calls`` and
 split by pass (torch.profiler).  Usage, from the root of the change's tree:
 
     python -m xequinet_torch.tools.bwd_compare PARENT_ROOT [CHANGE_ROOT] \
-        [--kernel message_bwd2] [--phases]
+        [--kernel message_bwd2 | message_fwd] [--phases [PASS ...]]
 
 It prints one ``RESULT {...}`` JSON line per process and the card's name
 and power limit.  ``--phases`` also splits the change's tile passes of the
 kernel by phase on the flagship batch (clock64() stamps of instrumented
-instances, ``fused_message.bwd2_phase_stamps``: the mma.sync pass and the
-Hopper pass; ``message_bwd2`` only) in this process, after the turns.  It
-needs a card.
+instances, on no model path) in this process, after the turns:
+``message_bwd2``'s through ``fused_message.bwd2_phase_stamps`` (``tile``,
+the mma.sync pass; ``hopper``, the Hopper pass), ``message_fwd``'s through
+``fused_message.fwd_phase_stamps`` (``tile_fwd``, ``hopper_fwd``); both of
+the kernel's when none is named; without PARENT_ROOT only the split runs.
+It needs a card.
 """
 
 from __future__ import annotations
@@ -49,7 +54,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 TOOL = Path(__file__).with_name("bwd_stream_floor.py")
 BATCHES = ("probe", "flagship", "halo_shard0")
-KERNELS = ("message_bwd", "message_bwd2")
+KERNELS = ("message_bwd", "message_bwd2", "message_fwd")
+# the passes --phases splits, per kernel: the probe's ``which`` -> (the
+# stamped kernel's name as torch.profiler shows it, the PHASES key of its
+# blocks or warpgroups, that of its producer or None)
+PHASE_PASSES = {
+    "message_bwd2": {"tile": ("message_bwd2_tile_stamped_kernel", "tile2", None),
+                     "hopper": ("message_bwd2_hopper_kernel", "hopper2", "producer2")},
+    "message_fwd": {"tile_fwd": ("message_fwd_tile_stamped_kernel", "tile_fwd", None),
+                    "hopper_fwd": ("message_fwd_hopper_kernel", "hopper_fwd", "producer_fwd")},
+}
 # the seed of message_bwd2's cotangents
 COT_SEED = 11
 
@@ -123,10 +137,13 @@ def cotangents(args, seed):
 
 
 def kernel_args(kernel, args, cots=None):
-    """The wrapper's arguments: ``message_bwd_cuda``'s, or for
-    ``message_bwd2_cuda`` the same with (cx, cef) and no cwf after g."""
+    """The wrapper's arguments: ``message_bwd_cuda``'s, for
+    ``message_bwd2_cuda`` the same with (cx, cef) and no cwf after g, for
+    ``message_fwd_cuda`` the same without g."""
     if kernel == "message_bwd":
         return args
+    if kernel == "message_fwd":
+        return args[:3] + args[4:]
     return args[:4] + tuple(cots) + (None,) + args[4:]
 
 
@@ -142,9 +159,9 @@ def save_operands(path, kernel="message_bwd"):
     batches = {"probe": bsf._args(bsf.problem(cpu)),
                "flagship": bsf._args(bsf.problem(cpu, seed=1234)),
                "halo_shard0": halo_shard0(cpu, bsf.IRREPS, bsf.NUM_BASIS, bsf.NODE_DIM)}
-    if kernel == "message_bwd2":
-        batches = {k: kernel_args(kernel, a, cotangents(a, COT_SEED))
-                   for k, a in batches.items()}
+    if kernel != "message_bwd":
+        batches = {k: kernel_args(kernel, a, cotangents(a, COT_SEED) if kernel ==
+                                  "message_bwd2" else None) for k, a in batches.items()}
     torch.save({"kernel": kernel, "batches": batches, "passes": fm.PASSES[kernel]}, path)
 
 
@@ -188,47 +205,53 @@ def measure_tree(label, operands):
     return out
 
 
-def phase_split(kernel="message_bwd2", passes=("tile", "hopper"), calls=10):
+def phase_split(kernel="message_bwd2", passes=None, calls=10):
     """The change's tile passes of ``kernel`` split by phase on the flagship
-    batch: per pass (``which`` of ``bwd2_phase_stamps``: "tile", the
-    mma.sync pass; "hopper", the Hopper pass) the stamped launch's device ms
-    (torch.profiler over ``calls`` launches) and per role its phases'
-    shares of the stamped cycles and their ms (share x device ms).  Roles:
-    the block's thread 0 for "tile"; the consumer warpgroups (summed) and
-    the producer warp for "hopper"."""
+    batch: per pass (a key of ``PHASE_PASSES[kernel]``: "tile" / "tile_fwd",
+    the mma.sync pass; "hopper" / "hopper_fwd", the Hopper pass) the stamped
+    launch's device ms (torch.profiler over ``calls`` launches) and per role
+    its phases' shares of the stamped cycles and their ms (share x device
+    ms).  Roles: the block's thread 0 for the mma.sync passes; the consumer
+    warpgroups (summed) and the producer warp for the Hopper passes."""
     import torch
 
     from xequinet_torch.ops import fused_message as fm
     from xequinet_torch.tools import bwd_stream_floor as bsf
 
-    if kernel != "message_bwd2":
-        raise ValueError("--phases splits message_bwd2's passes (message_bwd's: "
-                         "python -m xequinet_torch.tools.bwd_stream_floor)")
+    if kernel not in PHASE_PASSES:
+        raise ValueError("--phases splits message_bwd2's and message_fwd's passes "
+                         "(message_bwd's: python -m xequinet_torch.tools.bwd_stream_floor)")
+    passes = tuple(passes or PHASE_PASSES[kernel])
+    if not set(passes) <= set(PHASE_PASSES[kernel]):
+        raise ValueError(f"{kernel}'s passes are {sorted(PHASE_PASSES[kernel])}")
     dev = torch.device("cuda")
     args = bsf._args(bsf.problem(dev, seed=1234))
-    cx, cef = cotangents(args, COT_SEED)
-    names = {"tile": "message_bwd2_tile_stamped_kernel", "hopper": "message_bwd2_hopper_kernel"}
+    if kernel == "message_bwd2":
+        cx, cef = cotangents(args, COT_SEED)
+        stamp = lambda which: fm.bwd2_phase_stamps(*args[:4], cx, cef, *args[4:], which=which)
+    else:
+        stamp = lambda which: fm.fwd_phase_stamps(*kernel_args(kernel, args), which=which)[0]
     out = {}
     for which in passes:
-        kname = names[which]
-        fn = lambda: fm.bwd2_phase_stamps(*args[:4], cx, cef, *args[4:], which=which)
+        kname, role_key, producer_key = PHASE_PASSES[kernel][which]
+        fn = lambda: stamp(which)
         split, _ = bsf.pass_split(fn, (("tile pass", kname),), calls)
         stamps = fn().double().cpu().numpy()
         torch.cuda.synchronize()
         ms = split.get("tile pass", float("nan"))
-        roles = ({"block": stamps.sum(0)} if which == "tile" else
+        roles = ({"block": stamps.sum(0)} if producer_key is None else
                  {"warpgroups": stamps[:, :-1].sum((0, 1)), "producer": stamps[:, -1].sum(0)})
         rec = {"stamped_ms": ms}
         for role, cyc in roles.items():
-            phases = fm.PHASES["producer2" if role == "producer" else which + "2"]
+            phases = fm.PHASES[producer_key if role == "producer" else role_key]
             share = cyc / cyc.sum()
             rec[role] = {n: {"share": float(v), "ms": float(v * ms)}
                          for n, v in zip(phases, share) if n != "-"}
-        if which == "hopper":  # each warpgroup's phases, as ms of the stamped launch
+        if producer_key is not None:  # each warpgroup's phases, as ms of the stamped launch
             per = stamps[:, :-1].sum(0)
             per = per / per.sum(1, keepdims=True) * ms
             rec["per_warpgroup_ms"] = {n: [float(v) for v in per[:, c]]
-                                       for c, n in enumerate(fm.PHASES["hopper2"])}
+                                       for c, n in enumerate(fm.PHASES[role_key]) if n != "-"}
         out[which] = rec
     return out
 
@@ -239,9 +262,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="*", help="PARENT_ROOT [CHANGE_ROOT]")
     ap.add_argument("--kernel", default="message_bwd", choices=KERNELS)
-    ap.add_argument("--phases", nargs="*", choices=("tile", "hopper"), default=None,
-                    help="also split the change's tile passes of message_bwd2 by phase: "
-                         "the mma.sync pass (tile), the Hopper pass (hopper); both when "
+    ap.add_argument("--phases", nargs="*", default=None,
+                    choices=sorted({w for v in PHASE_PASSES.values() for w in v}),
+                    help="also split the change's tile passes of the kernel by phase: "
+                         "message_bwd2's mma.sync pass (tile) and Hopper pass (hopper), "
+                         "message_fwd's (tile_fwd, hopper_fwd); both of the kernel's when "
                          "none is named")
     ap.add_argument("--one", nargs=2, metavar=("LABEL", "OPERANDS"), help=argparse.SUPPRESS)
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
@@ -260,7 +285,7 @@ def main(argv=None):
     if args.trees:
         results = compare(parent, change, args.kernel, card)
     if args.phases is not None:
-        phases = phase_split(args.kernel, tuple(args.phases) or ("tile", "hopper"))
+        phases = phase_split(args.kernel, tuple(args.phases))
         print("PHASES " + json.dumps(phases), flush=True)
         for which, rec in phases.items():
             for role, split in rec.items():
