@@ -23,8 +23,8 @@ Phases (any failed check exits non-zero):
      256x0e+128x1o+64x2e; H = 640, node_dim 192, which the Hopper tile
      passes of the three message kernels refuse and their mma.sync tile
      passes take, message_bwd's with d_wf in registers), each also bit for
-     bit on a second call, with the route (Hopper tile pass, tile pass or
-     walk kernels) each takes;
+     bit on a second call, with the route (Hopper tile pass, tile pass,
+     f32 tile pass or walk kernels) each takes;
      the v2 gather-scale-scatter at the model's call on the same slots (x
      [24576, 480] f32, w2 on every slot in f32 and in bf16); the v1 one at
      bench_kernels.py run's shape (n 16384, e 163840, d 480, bn 256) with
@@ -64,10 +64,15 @@ Phases (any failed check exits non-zero):
      forward's Hopper pass again bit for bit on a second call and its error
      against the plain version beside the mma.sync pass's on the same
      operands (the phase probe's instance of it); the message kernels' f32
-     instances at flagship widths and the wide shapes in bf16 beside their
-     bounds, each route's device forward+forces (the wide model's too), the
+     instances at flagship widths (the backwards' f32 tile passes, each
+     also against its plain version at 1e-5, bit for bit on a second call
+     and split by pass; the script fails if a backward takes another
+     route; the forward's walk kernel) and the wide shapes in bf16 beside
+     their bounds, each route's device forward+forces (the wide model's too), the
      mega predict wall time and edges/s, each route's train step ms,
-     edges/s and peak memory (the wide model's too).
+     edges/s and peak memory (the wide model's too; and the flagship's
+     mega step in f32, with the share its 3 + 6 + 3 message launches
+     take of it at the f32 times above).
   7. MD: (a) bench.py's MD hot loop (md_hotloop_pbc_metric: its
      10,000-atom periodic box, cell diag(1500, 16, 16) A, its rng and
      drift) through Calculator(pallas="mega", skin=0.5, max_atoms=10240,
@@ -370,6 +375,8 @@ def kernel_route(name, mm, statics):
         return "Hopper tile pass"
     if name == "message_bwd2" and fm.hopper2_route(mm, *statics):  # no cwf, as trained
         return "Hopper tile pass"
+    if name in ("message_bwd", "message_bwd2") and fm.f32_route(name, mm, *statics):
+        return "f32 tile pass"
     return "tile pass" if fm.tile_route(name, mm, *statics) else "walk kernels"
 
 
@@ -1211,9 +1218,10 @@ def kernel_costs(p, mm):
 
 def pass_split(name, fn, p_mm, mm, card, calls=10):
     """A wrapper's device time per launch by pass (torch.profiler over
-    ``calls`` calls of ``fn`` after a warm-up) and its bf16 scratch bytes.
-    Returns ({pass: ms per launch} of the passes the profiler saw, scratch
-    bytes)."""
+    ``calls`` calls of ``fn`` after a warm-up) and its scratch bytes (bf16
+    on the bf16 tile routes; the f32 second order's f32 d2g rows; none on
+    the walk kernels and the f32 first order).  Returns ({pass: ms per
+    launch} of the passes the profiler saw, scratch bytes)."""
     from xequinet_torch.ops import fused_message as fm
     from xequinet_torch.tools import bwd_stream_floor as bsf
 
@@ -1221,14 +1229,18 @@ def pass_split(name, fn, p_mm, mm, card, calls=10):
     irreps, nb, nd = p_mm["statics"]
     _, _, _, _, (h, _, d, _, _, _) = fm.structure_matrices(irreps, nb, nd)
     t = p_mm["ef"].shape[0]
-    shapes = ([] if name == "message_fwd" else [fm.bwd_scratch_shape(t, h, d)]
+    route = kernel_route(name, mm, p_mm["statics"])
+    isz, dt = (4, "f32") if mm == "float32" else (2, "bf16")
+    shapes = ([] if name == "message_fwd" or route == "walk kernels" else
+              [fm.bwd2_scratch_shapes(t, h, nd, d)[1]] * (name == "message_bwd2")
+              if route == "f32 tile pass" else [fm.bwd_scratch_shape(t, h, d)]
               if name == "message_bwd" else list(fm.bwd2_scratch_shapes(t, h, nd, d)))
-    scratch = sum(r * w * 2 for r, w in shapes)
+    scratch = sum(r * w * isz for r, w in shapes)
     shown = ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()) or "not measured"
-    print(f"[time] {name} ({mm}) per launch by pass (torch.profiler, {calls} calls"
+    print(f"[time] {name} ({mm}, {route}) per launch by pass (torch.profiler, {calls} calls"
           f"{bsf.seen_note(seen, calls)}): {shown}; scratch "
           + (" + ".join(f"{r} x {w}" for r, w in shapes)
-             + f" bf16 = {scratch / 1e6:.1f} MB written once, read once" if shapes else "none")
+             + f" {dt} = {scratch / 1e6:.1f} MB written once, read once" if shapes else "none")
           + f" — {card}")
     return split, scratch
 
@@ -1259,6 +1271,7 @@ def time_train_step(tag, step, b, ema, i0, n_real, card, dtype="bf16"):
           f"{n_real / (step_ms / 1e3):.1f} edges/s; peak device memory "
           f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
           f"{held / 2**30:.3f} GiB held before the step — {card}")
+    return step_ms
 
 
 def profile_call(tag, fn, out_dir, card, calls=3):
@@ -5772,15 +5785,38 @@ def main():
         fail("message_fwd's Hopper tile pass disagrees with plain")
     rows[0]["rel_err"], rows[0]["mma_sync_rel_err"] = e_new, e_old
     del agg, agg_old, want
-    # the f32 instances at the flagship widths (f32_finetune_epochs runs
-    # them): the walk kernels
-    for row, (name, _, _, kfn, _), (nbytes, flops) in zip(rows, timed,
-                                                         kernel_costs(p, "float32")):
+    # the f32 instances at the flagship widths (f32_finetune_epochs, f32
+    # checkpoints and MD run them): the backwards' f32 tile passes, each
+    # against its plain version and bit for bit on a second call, split by
+    # pass; the forward's walk kernel
+    for row, (name, _, _, kfn, pfn), (nbytes, flops) in zip(rows, timed,
+                                                           kernel_costs(p, "float32")):
+        route = kernel_route(name, "float32", p["statics"])
+        if name != "message_fwd" and route != "f32 tile pass":
+            fail(f"{name} takes the {route} in f32 at the flagship widths, not its f32 tile pass")
         k_ms = time_ms(lambda: kfn(p, "float32"), iters=5, warmup=1)
         b_ms, b_by = bound_ms(nbytes, flops, "float32")
-        print(f"[time] {name} (float32, walk kernels): kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
+        print(f"[time] {name} (float32, {route}): kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
               f"ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) — {card}")
-        row["float32"] = {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by}
+        row["float32"] = {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by, "route": route}
+        if route == "f32 tile pass":
+            got, want = kfn(p, "float32"), pfn(p, "float32")
+            e = max(rel_err(a, b) for a, b in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, kfn(p, "float32")))
+            print(f"[kernels] {name} (float32) at the flagship widths, f32 tile pass: "
+                  f"max|err|/max|ref| = {e:.3e} over {', '.join(OUT_NAMES[name])} (limit "
+                  f"{TOL['float32']:g}); " + ("the same bits on a second call" if same else
+                                              "other bits on a second call"))
+            if not (e <= TOL["float32"] and all(torch.isfinite(a).all() for a in got)):
+                fail(f"{name}'s f32 tile pass disagrees with plain")
+            if not same:
+                fail(f"{name}'s f32 tile pass: a second call gave other bits")
+            row["float32"]["rel_err"] = e
+            row["float32"]["max_abs_err"] = max(float((a - b).abs().max())
+                                                for a, b in zip(got, want))
+            del got, want
+            row["float32"]["split_ms"], row["float32"]["scratch_bytes"] = pass_split(
+                name, lambda: kfn(p, "float32"), p, "float32", card)
     # the wide shapes in bf16, on the same slots
     for tag, pw in wide.items():
         for row, (name, _, _, kfn, _), (nbytes, flops) in zip(rows, timed, kernel_costs(pw, mm)):
@@ -5894,6 +5930,18 @@ def main():
     time_train_step("mega, 3 + 6 + 3 message kernels", step, b, ema, i0, n_real, card)
     time_train_step("v2, 3 v2 kernels", step_v2, b, ema_v2, i0, n_real, card)
     time_train_step("wide mega, 3 + 6 + 3 message kernels", step_w, b, ema_w, 10, n_real, card)
+    # the flagship step in f32 (f32_finetune_epochs and f32 checkpoints
+    # train so) and the share its 3 + 6 + 3 message launches take of it, at
+    # the f32 times measured above
+    _, _, step32, ema32 = train_model(device, **F32)
+    ms32 = time_train_step("mega, 3 + 6 + 3 message kernels", step32, b, ema32, 0, n_real, card,
+                           dtype="f32")
+    k32 = sum(n * row["float32"]["ms"] for n, row in zip((3, 6, 3), rows))
+    print(f"[time] train step (f32, mega): its message kernels 3 x {rows[0]['float32']['ms']:.4f}"
+          f" + 6 x {rows[1]['float32']['ms']:.4f} + 3 x {rows[2]['float32']['ms']:.4f} = "
+          f"{k32:.3f} ms, {k32 / ms32:.1%} of the step's {ms32:.3f} ms — {card}")
+    del step32, ema32
+    torch.cuda.empty_cache()
 
     # phase 14: the backward's stream-floor probe, run beside phase 6's
     # times: torch.profiler in this process has seen no device kernel after

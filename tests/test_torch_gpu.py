@@ -1583,3 +1583,277 @@ def test_cuda_halo_forward_two_ranks_matches_single_process(cuda_device, tmp_pat
         assert abs(r["energy"] - e_want) <= 1e-5 * max(abs(e_want), 1.0)
         f = r["forces"].reshape(-1, 3)[nm]
         assert np.abs(f - f_want).max() <= 1e-4 * np.abs(f_want).max()
+
+
+# ---------------------------------------------------------------------------
+# The f32 tile passes of message_bwd and message_bwd2
+# (csrc/message_f32_tile.cuh): every width they take, the tails of a walk,
+# zero slots, the halo and ghost layouts, the widths they refuse, a train
+# step, the phase probe
+# ---------------------------------------------------------------------------
+# the CASES widths the f32 passes take (all but H = 640: ten consumer warps)
+F32_CASES = CASES[:3] + CASES[4:]
+F32_IDS = ("small", "two_ls", "flagship", "odd_run")
+
+
+def _kernels_run(fn):
+    """The names of the CUDA kernels one call of ``fn`` launches
+    (torch.profiler; a session that recorded no kernel at all, as a
+    profiler in one process sometimes does, is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages())
+        if "_kernel" in names:
+            break
+    return names
+
+
+def _route(kernel, p, cots=None, cwf=None):
+    """The route a call of ``kernel``'s wrapper takes on the problem: 3 the
+    f32 tile pass, 0 the walk kernels (the setup the wrapper launches
+    with)."""
+    m = p["meta"]
+    if kernel == "message_bwd":
+        return fm._bwd_setup(p["x"], p["ef"], p["wf"], p["g"], m, *p["statics"], p["n"],
+                             p["bn"], p["chunk"], "float32")["route"]
+    return fm._bwd2_setup(p["x"], p["ef"], p["wf"], p["g"], *cots, cwf, m, *p["statics"],
+                          p["n"], p["bn"], p["chunk"], "float32")["route"]
+
+
+def _f32_checks(p, cots=None, mask=None):
+    """message_bwd in f32 (or message_bwd2 without cwf with ``cots`` = (cx,
+    cef)) against its plain version within 1e-5 of the largest reference
+    magnitude, zero d_ef rows on the slots that add nothing, zero d2g rows
+    where no slot ends, the same bits on a second call; returns the names
+    of the kernels a call launched."""
+    m, mask = p["meta"], p["mask"] if mask is None else mask
+    if cots is None:
+        run = lambda: fm.message_bwd_cuda(p["x"], p["ef"], p["wf"], p["g"], m, *p["statics"],
+                                          p["n"], p["bn"], p["chunk"], "float32")
+        want = fm.plain_message_bwd(p["x"], p["ef"], p["wf"], p["g"], m[2], m[3], mask,
+                                    *p["statics"], p["n"], torch.float32)
+    else:
+        run = lambda: fm.message_bwd2_cuda(p["x"], p["ef"], p["wf"], p["g"], *cots, None, m,
+                                           *p["statics"], p["n"], p["bn"], p["chunk"],
+                                           "float32")
+        want = fm.message_bwd2_closed(p["x"], p["ef"], p["wf"], p["g"], *cots, None, m[2],
+                                      m[3], mask, *p["statics"], p["n"], torch.float32)
+    got = run()
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, run()):
+        assert torch.isfinite(a).all()
+        _close(a, b, 1e-5)
+        assert torch.equal(a, c)
+    if (~mask).any():
+        assert float(got[1][~mask].abs().max()) == 0.0
+    if cots is not None and got[3].shape[0]:
+        ptr = fm.build_slot_plan(m, p["n"], p["n"], p["bn"], p["chunk"])["dst_ptr"]
+        empty = ptr[1:] == ptr[:-1]
+        if bool(empty.any()):
+            assert float(got[3][empty].abs().max()) == 0.0
+    return _kernels_run(run)
+
+
+def _f32_cots(p):
+    cx, cef, _ = _cotangents(p, with_cwf=False)
+    return cx, cef
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F32_CASES, ids=F32_IDS)
+@pytest.mark.parametrize("kernel", ["message_bwd", "message_bwd2"])
+def test_cuda_f32_passes_take_each_width(cuda_device, case, kernel):
+    """Every CASES width the f32 tile passes take (one to nine consumer
+    warps, padding lanes in their irrep warps, an odd run of irreps), on a
+    ragged batch (padding slots, a slot_cap tail, rows with no slot):
+    against the plain versions at 1e-5, bit for bit on a second call, and
+    through the f32 tile pass, no walk kernel."""
+    assert fm.f32_route(kernel, "float32", *case)
+    p = _problem(cuda_device, *case, n_mols=60, odd_tail=5)
+    cots = _f32_cots(p) if kernel == "message_bwd2" else None
+    assert _route(kernel, p, cots) == 3
+    names = _f32_checks(p, cots)
+    assert f"{kernel}_f32_kernel" in names
+    assert f"{kernel}_dx_kernel" not in names and f"{kernel}_slot_kernel" not in names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["message_bwd", "message_bwd2"])
+def test_cuda_f32_passes_ring_wraps_and_tails(cuda_device, kernel):
+    """Flagship widths on a batch of many more tiles per block than ring
+    stages, a slot count that is no multiple of the tile, whole tiles of
+    padding in the slot_cap tail and slots past the covered chunk range:
+    against the plain versions at 1e-5, bit for bit on a second call."""
+    p = _problem(cuda_device, *CASES[2], n_mols=240, odd_tail=5)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ni, h, hp, d, dp, sdp, kw, kf = fm._launch_dims(*CASES[2])
+    nst = fm._f32_layout(kernel, ni, CASES[2][2], d, kw, kf)[1]
+    assert int(p["mask"].sum()) // fm.F32_BT > 3 * nst * n_sm
+    m = p["meta"]
+    assert p["chunk"] * int(m[4][-1] + m[5][-1]) + 16 < p["mask"].shape[0]
+    _f32_checks(p, _f32_cots(p) if kernel == "message_bwd2" else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["message_bwd", "message_bwd2"])
+def test_cuda_f32_passes_zero_slots(cuda_device, kernel):
+    """A call with no slot: dx (d2x), d_wf (d2wf) and d2g zero, d_ef empty."""
+    p = _problem(cuda_device, *CASES[2])
+    z = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    n = p["n"]
+    zp = torch.zeros(n + 1, dtype=torch.int32, device=cuda_device)
+    plan = {"slot_src": z, "slot_dst": z, "dst_ptr": zp, "dst_slots": z, "dst_pos": z,
+            "src_ptr": zp, "src_slots": z, "src_pos": z}
+    meta = tuple(p["meta"][:7]) + (plan,)
+    ef = p["ef"][:0].contiguous()
+    if kernel == "message_bwd":
+        out = fm.message_bwd_cuda(p["x"], ef, p["wf"], p["g"], meta, *p["statics"], n, p["bn"],
+                                  p["chunk"], "float32")
+    else:
+        out = fm.message_bwd2_cuda(p["x"], ef, p["wf"], p["g"], torch.ones_like(p["x"]),
+                                   torch.ones_like(ef), None, meta, *p["statics"], n, p["bn"],
+                                   p["chunk"], "float32")
+    torch.cuda.synchronize()
+    assert out[1].shape == (0, fm.F_PACK)
+    for t in out[:1] + out[2:]:
+        assert float(t.abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [256, 512])
+def test_cuda_f32_passes_halo_shard_layout(cuda_device, bn):
+    """Shard 0 of 4 of a periodic box in HaloCalculator's layout (local and
+    halo rows in one window, chunk 1024), flagship widths, f32: both passes
+    against their plain versions."""
+    from xequinet_torch.parallel import halo as hm
+
+    rng = np.random.default_rng(3)
+    n = 3000
+    lx = n * 0.15
+    cell = np.diag([lx, 16.0, 16.0])
+    pos = np.column_stack([(np.arange(n) * 0.15 + rng.normal(size=n) * 0.5) % lx,
+                           rng.uniform(0, 16.0, size=(n, 2))])
+    z = rng.integers(1, 9, size=n).astype(np.int32)
+    stacked, geom, _, _, _, _ = hm.prepare_halo_system(z, pos, 5.0, 4, cell=cell,
+                                                       pbc=np.array([True] * 3))
+    bn = min(bn, geom["n_local"])
+    stacked, _, _ = hm.apply_halo_kernel_layout(stacked, geom,
+                                                {"block_nodes": bn, "chunk": 1024},
+                                                margin=1.3)
+    shard = {k: v[0] for k, v in stacked.items()}
+    shard[keys.POSITIONS] = np.zeros((geom["window"], 3), np.float32)
+    p = _operands(cuda_device, shard, "128x0e+64x1o+32x2e", 20, 128, rng, bn, 1024)
+    assert geom["halo"] > 0 and fm.f32_route("message_bwd2", "float32", *p["statics"])
+    _f32_checks(p)
+    _f32_checks(p, _f32_cots(p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [256, 512])
+def test_cuda_f32_passes_periodic_ghost_layout(cuda_device, bn):
+    """The MD hot loop's periodic ghost layout (chunk 1024, a wide window),
+    f32: both passes against their plain versions."""
+    p, plan = _ghost_problem(cuda_device, bn)
+    assert plan["n_ghosts"] > 0
+    _f32_checks(p)
+    _f32_checks(p, _f32_cots(p))
+
+
+# the widths the f32 passes refuse: H = 640 (ten consumer warps), Kf = 33
+# (Kw = 24, Kf past 32) and H = 1152
+F32_REFUSED = [CASES[3], WIDE[0], WIDE[2]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F32_REFUSED, ids=("h640", "kf33", "h1152"))
+def test_cuda_f32_refused_widths_keep_the_walk_kernels(cuda_device, case):
+    """The widths the f32 tile passes refuse, and the second order with a
+    cotangent on d_wf, keep the walk kernels: against the plain versions in
+    f32 at 1e-5, on the walk route."""
+    for kernel in ("message_bwd", "message_bwd2"):
+        assert not fm.f32_route(kernel, "float32", *case)
+    assert not fm.f32_route("message_bwd2", "float32", *CASES[2], has_cwf=True)
+    p = _problem(cuda_device, *case, n_mols=20, odd_tail=5)
+    assert _route("message_bwd", p) == 0 and _route("message_bwd2", p, _f32_cots(p)) == 0
+    _f32_checks(p)
+    _f32_checks(p, _f32_cots(p))
+    q = _problem(cuda_device, *CASES[2], n_mols=20)
+    cots = _cotangents(q, with_cwf=True)
+    assert _route("message_bwd2", q, cots[:2], cots[2]) == 0
+    m = q["meta"]
+    got = fm.message_bwd2_cuda(q["x"], q["ef"], q["wf"], q["g"], *cots, m, *q["statics"],
+                               q["n"], q["bn"], q["chunk"], "float32")
+    want = fm.plain_message_bwd2(q["x"], q["ef"], q["wf"], q["g"], *cots, m[2], m[3],
+                                 q["mask"], *q["statics"], q["n"], torch.float32)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_f32_flagship_train_step_runs_the_f32_passes(cuda_device):
+    """One f32 energy + force train step of a 3-block model at the flagship
+    widths (128x0e+64x1o+32x2e, node_dim 128, 20 bases) on the mega route:
+    3 + 6 + 3 launches, through the f32 tile passes of message_bwd and
+    message_bwd2 and no walk kernel, a finite loss and finite parameters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(node_dim=128, node_irreps="128x0e+64x1o+32x2e", embed_basis="one-hot",
+              num_basis=20, action_blocks=3, output_modes=["energy"],
+              compute_dtype="float32", use_pallas_scatter="mega",
+              pallas_layout=(16, 16, 16, 64))
+    module, extra, _ = resolve_model("xpainn", **kw)
+    init_params(module, seed=0)
+    module = module.to(cuda_device)
+    rng = np.random.default_rng(0)
+    dps = []
+    for _ in range(8):
+        n = int(rng.integers(4, 12))
+        pos = rng.normal(size=(n, 3)) * 1.5
+        dps.append(Datapoint(rng.integers(1, 9, n), pos, edge_index=radius_graph_np(pos, 5.0)[0],
+                             energy=float(rng.normal()), forces=rng.normal(size=(n, 3))))
+    layout = {"block_nodes": 16, "chunk": 16, "pad_nodes": 16, "max_chunks": 64}
+    batch = batch_to_device(collate(dps, kernel_layout=layout), cuda_device)
+    params = list(module.parameters())
+    opt = resolve_optimizer("adamw", params)
+    step = make_step_core(make_forward(module, extra, create_graph=True),
+                          WeightedLoss("l2", energy=1.0, forces=10.0), params, opt,
+                          resolve_lr_schedule("cosine_annealing", 5e-4, 100, warmup_steps=10),
+                          True, False, 5.0, 0.999, ErrorMetric("energy", "forces"))
+    fm.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss, _ = step(batch, 0, 1.0, [q.detach().clone() for q in params])
+        torch.cuda.synchronize()
+    assert torch.isfinite(loss) and all(torch.isfinite(q).all() for q in params)
+    assert fm.LAUNCHES == _counts(message_fwd=3, message_bwd=6, message_bwd2=3)
+    names = " ".join(e.key for e in prof.key_averages())
+    assert "message_bwd_f32_kernel" in names and "message_bwd2_f32_kernel" in names
+    for walk in ("message_bwd_dx_kernel", "message_bwd_slot_kernel", "message_bwd2_dg_kernel",
+                 "message_bwd2_dx_kernel", "message_bwd2_slot_kernel"):
+        assert walk not in names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["message_bwd", "message_bwd2"])
+def test_cuda_f32_phase_probe_counts_cycles(cuda_device, kernel):
+    """The phase probe's stamped instance of each f32 tile pass runs at the
+    flagship widths, stamps cycles for every block's consumers and
+    producer, gives the route's outputs and counts no launch in LAUNCHES."""
+    p = _problem(cuda_device, *CASES[2], n_mols=60)
+    m = p["meta"]
+    args = (p["x"], p["ef"], p["wf"], p["g"])
+    if kernel == "message_bwd2":
+        args += _f32_cots(p) + (None,)
+    args += (m, *p["statics"], p["n"], p["bn"], p["chunk"], "float32")
+    fm.reset_launch_counts()
+    stamps = fm.f32_phase_stamps(kernel, *args)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == _counts()
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert stamps.shape == (n_sm, 2, 8)
+    assert int(stamps.min()) >= 0 and bool((stamps.sum(-1) > 0).all())

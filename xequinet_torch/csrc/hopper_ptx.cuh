@@ -6,7 +6,9 @@
 // copies global -> shared counted on an mbarrier and shared -> global in
 // bulk groups, the async-proxy fence, named barriers, wgmma's fences,
 // commit and waits, its no-swizzle shared-memory descriptors and the
-// products the passes issue, the core-matrix offset of a stage's
+// products the passes issue, a warp's sum of 32 per-lane values by
+// recursive halving (the Hopper pass of message_bwd and the f32 tile passes
+// of message_f32_tile.cuh), the core-matrix offset of a stage's
 // edge-feature columns, and the pair-row order of H with wf's live rows in
 // it (the second order's and the forward's passes).
 #pragma once
@@ -114,6 +116,28 @@ template <int N>
 __device__ __forceinline__ void xeq_wg_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One step of xeq_halving_sum: the lanes with bit O keep the upper O of
+// the 2 O values left, the others the lower, each adding its partner's.
+template <int O>
+__device__ __forceinline__ void xeq_halving_step(float (&v)[32]) {
+  const bool up = threadIdx.x & O;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = up ? v[i] : v[i + O], keep = up ? v[i + O] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// 32 per-lane values summed over the warp by recursive halving (31
+// shuffles, a fixed order): lane L ends with the sum of value L in v[0].
+__device__ __forceinline__ void xeq_halving_sum(float (&v)[32]) {
+  xeq_halving_step<16>(v);
+  xeq_halving_step<8>(v);
+  xeq_halving_step<4>(v);
+  xeq_halving_step<2>(v);
+  xeq_halving_step<1>(v);
 }
 
 // A shared-memory matrix descriptor, no swizzle: core matrices of 8 rows

@@ -89,9 +89,22 @@
 // live rows do not fit (Kf = 128: wf takes 149 KB; H = 1152: a stage is
 // 109 KB), wf's fragments are read from L2, and at H = 1152 one stage is
 // staged while the tile's rows are read (as message_bwd2.cu does).
-// The walk kernels, the first version's FP32 kernels (no TF32 in this
-// port), take the f32 operands and any bf16 shape the tile pass cannot
-// hold: message_bwd_dx_kernel, one thread per (source row, x column)
+// The f32 operands at the widths of ops/fused_message.py::f32_route (the
+// flagship's: Kw <= 24, Kf <= 32, at most 9 consumer warps of units) take
+// the f32 tile pass, message_bwd_f32_kernel (message_f32_tile.cuh, its
+// notes there; no TF32 in this port): a producer warp's bulk copies into a
+// ring of 8-slot stages, consumer threads each owning an irrep or two
+// scalar columns with their columns of wf and of the d_wf partial in
+// registers, the filter formed once per slot and column on the FP32
+// pipes, each block walking a contiguous range of the list by source so
+// that dx is summed in registers (no scratch), d_ef's columns summed over
+// H by recursive halving and a fixed warp order; then
+// xeq_dwf_reduce_kernel.  On the flagship batch it replaced walk kernels
+// that took 6.04 ms (slot pass 4.04, dx walk 1.96; NVIDIA H100 80GB HBM3,
+// 700 W; xequinet_torch/tools/bwd_compare.py --dtype float32).
+// The walk kernels, the first version's FP32 kernels, take the other f32
+// widths and any bf16 shape the tile pass cannot hold:
+// message_bwd_dx_kernel, one thread per (source row, x column)
 // walking the CSR list by source and recomputing each slot's contribution
 // (the filter's first 32 rows in registers, the rest in 32-row slices),
 // and message_bwd_slot_kernel, one block per (contiguous slot range,
@@ -110,6 +123,7 @@
 // Rounding in bf16 mode mirrors _bwd_kernel (:411-433): fo, dgv, drsh,
 // dgs and dfw are rounded to bf16; sums are f32.
 #include "message_bwd_hopper.cuh"
+#include "message_f32_tile.cuh"
 
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(128)
@@ -737,14 +751,48 @@ static int launch_bwd_hopper_route(const void* x, const void* ef, const void* wf
   return (int)cudaGetLastError();
 }
 
+// The f32 tile pass (message_f32_tile.cuh) and the d_wf reduction.  STAMP:
+// the phase probe's instance (xeq_bwd_f32_phases).
+template <bool STAMP>
+__global__ void __launch_bounds__(XEQ_F32_THREADS, 1)
+message_bwd_f32_kernel(const XeqF32Args a, const XeqF32Dims p) {
+  xeq_f32_body<false, STAMP>(a, p);
+}
+
+template <bool STAMP>
+static int launch_bwd_f32_route(const void* x, const void* ef, const void* wf, const void* g,
+                                const void* src_ptr, const void* src_slots, const void* slot_src,
+                                const void* slot_dst, const void* units, void* dx, void* d_ef,
+                                void* dwf_part, void* dwf, int n_rows, int n_slots, int n_part,
+                                int ni, int h_dim, int hp, int d, int dp, int sdp, int kw, int kf,
+                                int n_cw, long long* stamps, cudaStream_t s) {
+  XeqF32Dims p;
+  if (units == nullptr || (STAMP && stamps == nullptr) ||
+      !f32_tile_dims(p, false, n_slots, n_rows, ni, h_dim - 2 * ni, h_dim, hp, d, dp, sdp, kw,
+                     kf, n_cw))
+    return (int)cudaErrorInvalidValue;
+  const XeqF32Args a = {(const float*)x, (const float*)ef, (const float*)wf, (const float*)g,
+                        nullptr, nullptr, (const int*)src_ptr, (const int*)src_slots,
+                        (const int*)slot_src, (const int*)slot_dst, nullptr,
+                        (const int4*)units, (float*)dx, (float*)d_ef, (float*)dwf_part,
+                        nullptr, stamps};
+  const int err = xeq_f32_launch(message_bwd_f32_kernel<STAMP>, a, p, n_part, s);
+  if (err != cudaSuccess) return err;
+  xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
+      (const float*)dwf_part, (float*)dwf, n_part, kf, h_dim, hp);
+  return (int)cudaGetLastError();
+}
+
 #define XEQ_BWD_WALK_ARGS                                                                    \
   x, ef, wf, g, src_ptr, src_slots, slot_src, slot_dst, lane_gate, lane_ycol, gate_lane0,    \
       gate_dim, ylane_ptr, ylane_idx, def_part, dx, d_ef, dwf_part, dwf, n_rows, n_slots,    \
       n_part, ni, h_dim, hp, d, dp, sdp, kw, kf, n_hc, s
 
-// tiles (bf16 only), chosen by the wrapper by shape: 2, the Hopper tile
-// pass (message_bwd_hopper.cuh; seg: its irrep segments [n_seg] as (u0,
-// j0, mul, l | (ycol - kw) << 8)); 1, the tile pass above where a layout of
+// tiles, chosen by the wrapper by shape: 3 (f32 only), the f32 tile pass
+// (message_f32_tile.cuh; seg: its unit table, one int4 per consumer thread,
+// n_seg its consumer warps); 2 (bf16), the Hopper tile pass
+// (message_bwd_hopper.cuh; seg: its irrep segments [n_seg] as (u0, j0, mul,
+// l | (ycol - kw) << 8)); 1 (bf16), the tile pass above where a layout of
 // it fits (dfw_rows: its scratch when d_wf leaves the registers); 0, the
 // walk kernels in the operands' dtype, over n_hc column chunks (def_part:
 // their d_ef partials when n_hc > 1).
@@ -760,9 +808,14 @@ extern "C" int xeq_message_bwd(const void* x, const void* ef, const void* wf,
                                int n_part, int ni, int h_dim, int hp, int d, int dp, int sdp,
                                int kw, int kf, int n_seg, int bf16, int tiles, int n_hc,
                                void* stream) {
-  if (kw > kf || kf > XEQ_FPACK || (hp + dp) % 128 != 0 || n_part < 1 || (tiles && !bf16))
+  if (kw > kf || kf > XEQ_FPACK || (hp + dp) % 128 != 0 || n_part < 1 ||
+      ((tiles == 1 || tiles == 2) && !bf16) || (tiles == 3 && bf16) || tiles < 0 || tiles > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tiles == 3)
+    return launch_bwd_f32_route<false>(x, ef, wf, g, src_ptr, src_slots, slot_src, slot_dst, seg,
+                                       dx, d_ef, dwf_part, dwf, n_rows, n_slots, n_part, ni,
+                                       h_dim, hp, d, dp, sdp, kw, kf, n_seg, nullptr, s);
   if (tiles == 2)
     return launch_bwd_hopper_route(x, ef, wf, g, src_ptr, slot_src, slot_dst, src_pos,
                                    lane_ycol, gate_lane0, gate_dim, seg, rows, dx, d_ef,
@@ -815,4 +868,23 @@ extern "C" int xeq_bwd_phases(const void* x, const void* ef, const void* wf, con
       (const int*)lane_ycol, (const int*)gate_lane0, (const int*)gate_dim, (xeq_bf16*)rows,
       nullptr, (float*)d_ef, (float*)dwf_part, p, (long long*)stamps);
   return (int)cudaGetLastError();
+}
+
+// The f32 tile pass's phase probe (xequinet_torch/tools/bwd_compare.py
+// --dtype float32 --phases; on no model path): the f32 route of
+// xeq_message_bwd (tiles = 3) with the stamped instance of its tile pass,
+// clock64() cycles per phase in stamps [n_part][2][8] (the consumers, then
+// the producer).  Its outputs are the route's.
+extern "C" int xeq_bwd_f32_phases(const void* x, const void* ef, const void* wf, const void* g,
+                                  const void* src_ptr, const void* src_slots,
+                                  const void* slot_src, const void* slot_dst, const void* units,
+                                  void* dx, void* d_ef, void* dwf_part, void* dwf, int n_rows,
+                                  int n_slots, int n_part, int ni, int h_dim, int hp, int d,
+                                  int dp, int sdp, int kw, int kf, int n_cw, void* stamps,
+                                  void* stream) {
+  if (n_part < 1 || kw > kf || (hp + dp) % 128 != 0) return (int)cudaErrorInvalidValue;
+  return launch_bwd_f32_route<true>(x, ef, wf, g, src_ptr, src_slots, slot_src, slot_dst, units,
+                                    dx, d_ef, dwf_part, dwf, n_rows, n_slots, n_part, ni, h_dim,
+                                    hp, d, dp, sdp, kw, kf, n_cw, (long long*)stamps,
+                                    (cudaStream_t)stream);
 }

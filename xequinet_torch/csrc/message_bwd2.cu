@@ -80,7 +80,18 @@
 // gate column's sums from the staged rows itself (the same products in the
 // same order, so the same bits) and writes dfwr straight to its scratch
 // (230 KB at H = 1152, Kf = 33; walk kernels at H = 1152, Kf = 128).
-// The walk kernels take the f32 operands, the bf16 operands with cwf (on
+// The f32 operands without cwf at the widths of
+// ops/fused_message.py::f32_route (the flagship's) take the f32 tile pass,
+// message_bwd2_f32_kernel (message_f32_tile.cuh, its notes there; no TF32):
+// message_bwd.cu's f32 pass with the second order's terms, cx and cef
+// staged beside x and ef, d2x summed in registers along the list by
+// source, and each valid slot's d2g row to an f32 scratch at its position
+// by destination, summed by message_bwd2_d2g_rows_f32_kernel; then
+// xeq_dwf_reduce_kernel.  On the flagship batch it replaced walk kernels
+// that took 13.48 ms (slot pass 5.79, d2x walk 4.00, d2g walk 3.66; NVIDIA
+// H100 80GB HBM3, 700 W; xequinet_torch/tools/bwd_compare.py --kernel
+// message_bwd2 --dtype float32).
+// The walk kernels take the other f32 widths, the operands with cwf (on
 // no model path: tests and chip_smoke.py reach it) and any bf16 shape the
 // tile pass cannot hold, the first version's four launches with or
 // without the cwf terms (CWF); the filter's rows past 32 and the slot
@@ -119,6 +130,7 @@
 // packed single products), with the same scratch rows, row passes and
 // reduction; the tile pass below takes the other bf16 widths.
 #include "message_bwd2_hopper.cuh"
+#include "message_f32_tile.cuh"
 
 // r = c . w + (CWF) e . cw: the cotangent of the radial filter at hidden
 // column col (the first rows from the registers w / cw, the rest from wf /
@@ -1201,12 +1213,58 @@ static int launch_bwd2_hopper_route(const void* x, const void* ef, const void* w
   return (int)cudaGetLastError();
 }
 
-// tiles (bf16 without cwf only), chosen by the wrapper by shape: 2, the
-// Hopper tile pass (message_bwd2_hopper.cuh; tab: its pair rows [32 n_tab],
-// n_tab pair tiles); 1, the tile pass above when a layout of it fits
-// (dfw2_rows / dfwr_rows: its scratch when d2wf leaves the registers); 0,
-// the walk kernels in the operands' dtype, with or without the cwf terms,
-// over n_hc column chunks (def_part: their d2ef partials when n_hc > 1).
+// The f32 tile pass (message_f32_tile.cuh), the d2g pass over its f32
+// scratch rows (rows_g, by destination) and the d2wf reduction.  STAMP: the
+// phase probe's instance (xeq_bwd2_f32_phases).
+template <bool STAMP>
+__global__ void __launch_bounds__(XEQ_F32_THREADS, 1)
+message_bwd2_f32_kernel(const XeqF32Args a, const XeqF32Dims p) {
+  xeq_f32_body<true, STAMP>(a, p);
+}
+
+template <bool STAMP>
+static int launch_bwd2_f32_route(const void* x, const void* ef, const void* wf, const void* g,
+                                 const void* cx, const void* cef, const void* dst_ptr,
+                                 const void* src_ptr, const void* src_slots,
+                                 const void* slot_src, const void* slot_dst,
+                                 const void* dst_pos, const void* units, void* rows_g,
+                                 void* d2x, void* d2ef, void* dwf_part, void* d2wf, void* d2g,
+                                 int n_out, int n_rows, int n_slots, int n_part, int ni, int nd,
+                                 int h_dim, int hp, int d, int dp, int sdp, int kw, int kf,
+                                 int n_cw, long long* stamps, cudaStream_t s) {
+  XeqF32Dims p;
+  if (units == nullptr || (rows_g == nullptr && n_slots > 0) || (STAMP && stamps == nullptr) ||
+      (sdp + dp) % 128 != 0 ||
+      !f32_tile_dims(p, true, n_slots, n_rows, ni, nd, h_dim, hp, d, dp, sdp, kw, kf, n_cw))
+    return (int)cudaErrorInvalidValue;
+  const XeqF32Args a = {(const float*)x, (const float*)ef, (const float*)wf, (const float*)g,
+                        (const float*)cx, (const float*)cef, (const int*)src_ptr,
+                        (const int*)src_slots, (const int*)slot_src, (const int*)slot_dst,
+                        (const int*)dst_pos, (const int4*)units, (float*)d2x, (float*)d2ef,
+                        (float*)dwf_part, (float*)rows_g, stamps};
+  int err = xeq_f32_launch(message_bwd2_f32_kernel<STAMP>, a, p, n_part, s);
+  if (err != cudaSuccess) return err;
+  if (n_out > 0) {
+    message_bwd2_d2g_rows_f32_kernel<<<(n_out + 7) / 8, 256, 0, s>>>(
+        (const float*)rows_g, (const int*)dst_ptr, (float*)d2g, n_out, p.gs, nd, p.sd8, d, sdp,
+        sdp + dp);
+    err = (int)cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  xeq_dwf_reduce_kernel<<<(XEQ_FPACK * hp + 255) / 256, 256, 0, s>>>(
+      (const float*)dwf_part, (float*)d2wf, n_part, kf, h_dim, hp);
+  return (int)cudaGetLastError();
+}
+
+// tiles, chosen by the wrapper by shape: 3 (f32 without cwf), the f32 tile
+// pass (message_f32_tile.cuh; tab: its unit table, one int4 per consumer
+// thread, n_tab its consumer warps; rows_g: its f32 d2g scratch rows); 2
+// (bf16 without cwf), the Hopper tile pass (message_bwd2_hopper.cuh; tab:
+// its pair rows [32 n_tab], n_tab pair tiles); 1 (bf16 without cwf), the
+// tile pass above when a layout of it fits (dfw2_rows / dfwr_rows: its
+// scratch when d2wf leaves the registers); 0, the walk kernels in the
+// operands' dtype, with or without the cwf terms, over n_hc column chunks
+// (def_part: their d2ef partials when n_hc > 1).
 extern "C" int xeq_message_bwd2(
     const void* x, const void* ef, const void* wf, const void* g,
     const void* cx, const void* cef, const void* cwf, const void* dst_ptr,
@@ -1220,9 +1278,15 @@ extern "C" int xeq_message_bwd2(
     int hp, int d, int dp, int sdp, int kw, int kf, int bf16, int has_cwf, int tiles,
     int n_hc, int n_tab, void* stream) {
   if (kw > kf || kf > XEQ_FPACK || (hp + dp) % 128 != 0 || (sdp + dp) % 128 != 0 ||
-      n_part < 1 || (has_cwf && cwf == nullptr) || (tiles && (!bf16 || has_cwf)))
+      n_part < 1 || (has_cwf && cwf == nullptr) || (tiles && has_cwf) ||
+      ((tiles == 1 || tiles == 2) && !bf16) || (tiles == 3 && bf16) || tiles < 0 || tiles > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tiles == 3)
+    return launch_bwd2_f32_route<false>(x, ef, wf, g, cx, cef, dst_ptr, src_ptr, src_slots,
+                                        slot_src, slot_dst, dst_pos, tab, rows_g, d2x, d2ef,
+                                        dwf_part, d2wf, d2g, n_out, n_rows, n_slots, n_part, ni,
+                                        nd, h_dim, hp, d, dp, sdp, kw, kf, n_tab, nullptr, s);
   if (tiles == 2)
     return launch_bwd2_hopper_route(x, ef, wf, g, cx, cef, dst_ptr, src_ptr, slot_src, slot_dst,
                                     src_pos, dst_pos, tab, rows_x, rows_g, d2x, d2ef, dwf_part,
@@ -1285,4 +1349,26 @@ extern "C" int xeq_bwd2_phases(const void* x, const void* ef, const void* wf, co
       nullptr, nullptr, (float*)d2ef, (float*)dwf_part, static_cast<const XeqTile2Dims&>(p),
       (long long*)stamps);
   return (int)cudaGetLastError();
+}
+
+// The f32 tile pass's phase probe (xequinet_torch/tools/bwd_compare.py
+// --kernel message_bwd2 --dtype float32 --phases; on no model path): the f32
+// route of xeq_message_bwd2 (tiles = 3) with the stamped instance of its
+// tile pass, clock64() cycles per phase in stamps [n_part][2][8] (the
+// consumers, then the producer).  Its outputs are the route's.
+extern "C" int xeq_bwd2_f32_phases(const void* x, const void* ef, const void* wf, const void* g,
+                                   const void* cx, const void* cef, const void* dst_ptr,
+                                   const void* src_ptr, const void* src_slots,
+                                   const void* slot_src, const void* slot_dst,
+                                   const void* dst_pos, const void* units, void* rows_g,
+                                   void* d2x, void* d2ef, void* dwf_part, void* d2wf, void* d2g,
+                                   int n_out, int n_rows, int n_slots, int n_part, int ni,
+                                   int nd, int h_dim, int hp, int d, int dp, int sdp, int kw,
+                                   int kf, int n_cw, void* stamps, void* stream) {
+  if (n_part < 1 || kw > kf || (hp + dp) % 128 != 0) return (int)cudaErrorInvalidValue;
+  return launch_bwd2_f32_route<true>(x, ef, wf, g, cx, cef, dst_ptr, src_ptr, src_slots,
+                                     slot_src, slot_dst, dst_pos, units, rows_g, d2x, d2ef,
+                                     dwf_part, d2wf, d2g, n_out, n_rows, n_slots, n_part, ni, nd,
+                                     h_dim, hp, d, dp, sdp, kw, kf, n_cw, (long long*)stamps,
+                                     (cudaStream_t)stream);
 }

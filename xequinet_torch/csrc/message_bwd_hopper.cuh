@@ -248,28 +248,6 @@ __device__ __forceinline__ void xeq_hb_gate_sums(const xeq_bf16* const (&xr)[NV]
   }
 }
 
-// One step of xeq_halving_sum: the lanes with bit O keep the upper O of
-// the 2 O values left, the others the lower, each adding its partner's.
-template <int O>
-__device__ __forceinline__ void xeq_halving_step(float (&v)[32]) {
-  const bool up = threadIdx.x & O;
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    const float send = up ? v[i] : v[i + O], keep = up ? v[i + O] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
-}
-
-// 32 per-lane values summed over the warp by recursive halving (31
-// shuffles, a fixed order): lane L ends with the sum of value L in v[0].
-__device__ __forceinline__ void xeq_halving_sum(float (&v)[32]) {
-  xeq_halving_step<16>(v);
-  xeq_halving_step<8>(v);
-  xeq_halving_step<4>(v);
-  xeq_halving_step<2>(v);
-  xeq_halving_step<1>(v);
-}
-
 #define XEQ_HB_PARAMS                                                                         \
   const xeq_bf16 *__restrict__ x, const xeq_bf16 *__restrict__ ef,                          \
       const xeq_bf16 *__restrict__ wf, const xeq_bf16 *__restrict__ g,                      \

@@ -1,7 +1,9 @@
 // Shared helpers of the fused XPaiNN message kernels (message_fwd.cu,
 // message_bwd.cu, message_bwd2.cu) and of their walk kernels, the CSR-walk
-// instances that take the f32 operands and the bf16 shapes a tile pass
-// cannot hold.  Plain C entry points, built by nvcc for sm_90a into
+// instances that take the f32 widths no f32 tile pass takes (all of the
+// forward's f32; message_f32_tile.cuh takes the backwards' flagship widths)
+// and the bf16 shapes a tile pass cannot hold.  Plain C entry points, built
+// by nvcc for sm_90a into
 // shared libraries that xequinet_torch/ops/fused_message.py loads with
 // ctypes.
 #pragma once

@@ -29,8 +29,10 @@ _I = ctypes.c_int
 _MESSAGE_HEADERS = ("message_common.cuh", "message_tile.cuh")
 # the PTX pieces and layout helpers of the message kernels' Hopper tile passes
 _HOPPER_HEADERS = _MESSAGE_HEADERS + ("hopper_ptx.cuh",)
-_BWD_HEADERS = _HOPPER_HEADERS + ("message_bwd_hopper.cuh",)
-_BWD2_HEADERS = _HOPPER_HEADERS + ("message_bwd2_hopper.cuh",)
+_FLOOR_HEADERS = _HOPPER_HEADERS + ("message_bwd_hopper.cuh",)
+# the backwards' f32 tile passes
+_BWD_HEADERS = _FLOOR_HEADERS + ("message_f32_tile.cuh",)
+_BWD2_HEADERS = _HOPPER_HEADERS + ("message_bwd2_hopper.cuh", "message_f32_tile.cuh")
 _FWD_HEADERS = _HOPPER_HEADERS + ("message_fwd_hopper.cuh",)
 # name -> (source, headers it includes, C entry point, argtypes)
 _KERNELS = {
@@ -46,7 +48,7 @@ _KERNELS = {
                        [_P] * 7 + [_I] * 5 + [_P]),
     # message_bwd's bf16 tile route with a near-empty body: the probe of
     # xequinet_torch/tools/bwd_stream_floor.py, on no model path
-    "bwd_stream_floor": ("bwd_stream_floor.cu", _BWD_HEADERS, "xeq_bwd_stream_floor",
+    "bwd_stream_floor": ("bwd_stream_floor.cu", _FLOOR_HEADERS, "xeq_bwd_stream_floor",
                          [_P] * 17 + [_I] * 12 + [_P]),
 }
 # entry points beside a kernel's own in its library, for the probe tools
@@ -63,6 +65,11 @@ _PROBES = {
     # the forward's tile passes, the same way
     # (xequinet_torch/tools/bwd_compare.py --kernel message_fwd --phases)
     "fwd_phases": ("message_fwd", "xeq_fwd_phases", [_P] * 11 + [_I] * 13 + [_P] * 2),
+    # the f32 tile passes of the two backwards, the same way
+    # (xequinet_torch/tools/bwd_compare.py --dtype float32 --phases)
+    "bwd_f32_phases": ("message_bwd", "xeq_bwd_f32_phases", [_P] * 13 + [_I] * 12 + [_P] * 2),
+    "bwd2_f32_phases": ("message_bwd2", "xeq_bwd2_f32_phases",
+                        [_P] * 19 + [_I] * 14 + [_P] * 2),
 }
 
 # launches of each CUDA kernel wrapper (one per wrapper call that launched)

@@ -804,6 +804,83 @@ def fwd_hopper_route(mm_dtype, irreps_str: str, num_basis: int, node_dim: int) -
             and d < 4096 and smem <= SMEM_MAX)
 
 
+# the f32 tile passes of message_bwd and message_bwd2
+# (csrc/message_f32_tile.cuh): their consumer warps at most, the rows of wf
+# and the edge-feature columns a thread keeps, slots a tile and ring stages
+# at most
+F32_CW, F32_KW, F32_KF, F32_BT, F32_MAXST = 9, 24, 32, 8, 4
+
+
+@functools.lru_cache(maxsize=None)
+def f32_units(irreps_str: str, num_basis: int, node_dim: int) -> Tuple[np.ndarray, int]:
+    """(units, n_cw): the f32 tile passes' consumer threads, int32 [32 n_cw,
+    4], one row (c0, c1, j0, dim | (first harmonic column - Kw) << 8) a
+    thread: an irrep u owns its state gate c0 = u, its harmonic gate c1 =
+    ni + u and its lanes j0 .. j0 + 2l; a scalar unit owns c0 = 2 ni + c and
+    c1 = 2 ni + c + 1 (-1 past node_dim), j0 = -1 and dim 0.  The irreps of
+    one l (ascending l, each ascending u), then the scalar pairs, each kind
+    padded to whole warps with rows (-1, -1, -1, its dim | yc << 8), so that
+    a warp's lane loops are uniform."""
+    irreps = Irreps(irreps_str)
+    ni = irreps.num_irreps
+    maps = index_maps(irreps_str, num_basis)
+    kw = num_basis + 1
+    groups = {}
+    for u, (j0, dim) in enumerate(zip(maps["gate_lane0"].tolist(), maps["gate_dim"].tolist())):
+        yc = int(maps["lane_ycol"][j0]) - kw
+        groups.setdefault(dim, []).append((u, ni + u, j0, dim | yc << 8))
+    rows = []
+    for dim in sorted(groups):
+        ent = groups[dim]
+        rows += ent + [(-1, -1, -1, ent[0][3])] * (-len(ent) % 32)
+    scal = [(2 * ni + c, 2 * ni + c + 1 if c + 1 < node_dim else -1, -1, 0)
+            for c in range(0, node_dim, 2)]
+    rows += scal + [(-1, -1, -1, 0)] * (-len(scal) % 32)
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 4), len(rows) // 32
+
+
+def _f32_layout(kernel: str, ni: int, node_dim: int, d: int, kw: int,
+                kf: int) -> Tuple[int, int, int]:
+    """(shared memory, ring stages, stage bytes) of the f32 tile pass of
+    ``kernel`` ("message_bwd" or "message_bwd2"), as ``f32_tile_dims``
+    (csrc/message_f32_tile.cuh) lays it out: per stage ``F32_BT`` staged x
+    rows ``[gs | gv]`` (H and D rounded up to 8, f32; and as many cx rows in
+    the second order), as many g rows ``[gms_s | gms_v]``, the slots' 32
+    edge-feature columns (and cef's) and their indices (list entry, source,
+    staged x row, position by destination); beside the stages two
+    reduction buffers of d_ef's warp sums (``F32_BT`` x ``F32_CW`` x 32 f32)
+    and the barriers.  As many stages as fit, at most ``F32_MAXST``."""
+    second = kernel == "message_bwd2"
+    h = node_dim + 2 * ni
+    xb = F32_BT * (_ru(h, 8) + _ru(d, 8)) * 4
+    gb = F32_BT * (_ru(node_dim, 8) + _ru(d, 8)) * 4
+    eb = F32_BT * F32_KF * 4
+    stage = _ru((2 if second else 1) * (xb + eb) + gb + 4 * F32_BT * 4, 128)
+    fixed = 2 * F32_BT * F32_CW * 32 * 4 + 2 * F32_MAXST * 8 + 16
+    nst = min((SMEM_MAX - fixed) // stage, F32_MAXST)
+    return nst * stage + fixed, nst, stage
+
+
+def f32_route(kernel: str, mm_dtype, irreps_str: str, num_basis: int, node_dim: int,
+              has_cwf: bool = False) -> bool:
+    """Whether ``kernel`` ("message_bwd" or "message_bwd2") runs its f32
+    tile pass (csrc/message_f32_tile.cuh: a producer warp's bulk copies into
+    a ring of stages, consumer threads owning an irrep or two scalar
+    columns, the products on the FP32 pipes, the list by source walked in
+    contiguous block ranges) at these widths, else its walk kernels: f32
+    operands (the second order without cwf), Kw <= ``F32_KW``, Kf <=
+    ``F32_KF``, at most ``F32_CW`` consumer warps of :func:`f32_units` and
+    two stages at least that fit.  The choice is made by shape alone."""
+    if _mm_dtype(mm_dtype) != torch.float32 or (kernel == "message_bwd2" and has_cwf):
+        return False
+    ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
+    if kw > F32_KW or kf > F32_KF:
+        return False
+    smem, nst, _ = _f32_layout(kernel, ni, node_dim, d, kw, kf)
+    return (f32_units(irreps_str, num_basis, node_dim)[1] <= F32_CW and nst >= 2
+            and smem <= SMEM_MAX)
+
+
 def walk_chunks(kernel: str, ni: int, h: int, kw: int, kf: int) -> int:
     """Column chunks of the walk kernels' slot pass (``XEQ_WALK_HC`` in
     ``message_common.cuh``): 1 when the whole filter width's d_wf partial,
@@ -941,29 +1018,35 @@ def fwd_phase_stamps(
 def _bwd_setup(x_cat, edge_feat, wf_aug, g, slot_meta, irreps_str, num_basis, node_dim,
                n_out, block_nodes, chunk, mm_dtype):
     """What a launch of the first-order backward takes, shared by
-    :func:`message_bwd_cuda`, :func:`bwd_stream_floor_cuda` and
-    :func:`bwd_phase_stamps` so that they cannot drift: the widths, the
-    route (``route``: 2 the Hopper tile pass, 1 the tile pass, 0 the walk
-    kernels), the operands in the kernel's
+    :func:`message_bwd_cuda`, :func:`bwd_stream_floor_cuda`,
+    :func:`bwd_phase_stamps` and :func:`f32_phase_stamps` so that they
+    cannot drift: the widths, the route (``route``: 3 the f32 tile pass, 2
+    the Hopper tile pass, 1 the tile pass, 0 the walk kernels), the
+    operands in the kernel's
     dtype, the slot plan, the index maps, the outputs (dx, d_ef, d_wf),
     the per-block d_wf partials and the scratch."""
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
     mm = _mm_dtype(mm_dtype)
     hopper = hopper_route(mm, irreps_str, num_basis, node_dim)
     tiles = hopper or tile_route("message_bwd", mm, irreps_str, num_basis, node_dim)
+    on_f32 = f32_route("message_bwd", mm, irreps_str, num_basis, node_dim)
     dev = x_cat.device
     n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
     cast = lambda t: t.to(mm).contiguous()
     xk, efk, wfk, gk = map(cast, (x_cat, edge_feat, wf_aug, g))
     n_part = torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
-    n_hc = 1 if tiles else walk_chunks("message_bwd", ni, h, kw, kf)
+    n_hc = 1 if tiles or on_f32 else walk_chunks("message_bwd", ni, h, kw, kf)
+    maps = _device_maps(irreps_str, num_basis, dev)
+    # the table the C side reads as ``seg``: the Hopper pass's irrep
+    # segments, or the f32 pass's units
+    seg = _device_units(irreps_str, num_basis, node_dim, dev) if on_f32 else maps["seg"]
     b = dict(
         dims=(ni, h, hp, d, dp, sdp, kw, kf), mm=mm, tiles=tiles,
-        route=2 if hopper else int(tiles), n_rows=n_rows,
+        route=3 if on_f32 else 2 if hopper else int(tiles), n_rows=n_rows,
         t_slots=t_slots, n_part=n_part, n_hc=n_hc, xk=xk, efk=efk, wfk=wfk, gk=gk,
-        plan=_plan(slot_meta, n_out, n_rows, block_nodes, chunk),
-        maps=_device_maps(irreps_str, num_basis, dev),
+        plan=_plan(slot_meta, n_out, n_rows, block_nodes, chunk), maps=maps, seg=seg,
+        n_seg=f32_units(irreps_str, num_basis, node_dim)[1] if on_f32 else seg.shape[0],
         dx=torch.empty((n_rows, hp + dp), **f32),
         d_ef=torch.empty((t_slots, F_PACK), **f32),
         dwf_part=torch.empty((n_part, kf, h), **f32),
@@ -984,7 +1067,10 @@ def message_bwd_cuda(
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx_cat, d_edge_feat, d_wf_aug), f32, by ``csrc/message_bwd.cu``.
-    At the widths of :func:`hopper_route` its tile pass is the Hopper one
+    f32 operands at the widths of :func:`f32_route` take its f32 tile pass
+    (``csrc/message_f32_tile.cuh``: dx summed in registers along the list by
+    source, no scratch), the other f32 widths the walk kernels.  In bf16, at
+    the widths of :func:`hopper_route` its tile pass is the Hopper one
     (``csrc/message_bwd_hopper.cuh``), elsewhere on the tile route
     (:func:`tile_route`) the mma.sync one; either writes each valid
     slot's ``[dgs | dgv]`` row to a bf16 scratch of
@@ -1007,12 +1093,12 @@ def message_bwd_cuda(
         plan["src_pos"].data_ptr(),
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
-        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), maps["seg"].data_ptr(),
-        b["rows"].data_ptr(), _ptr(b["dfw_rows"]), _ptr(b["def_part"]),
+        maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), b["seg"].data_ptr(),
+        _ptr(b["rows"]), _ptr(b["dfw_rows"]), _ptr(b["def_part"]),
         b["dx"].data_ptr(), b["d_ef"].data_ptr(), b["dwf_part"].data_ptr(),
         b["d_wf"].data_ptr(),
         b["n_rows"], b["t_slots"], b["n_part"], ni, h, hp, d, dp, sdp, kw, kf,
-        maps["seg"].shape[0], int(b["mm"] == torch.bfloat16), b["route"], b["n_hc"],
+        b["n_seg"], int(b["mm"] == torch.bfloat16), b["route"], b["n_hc"],
         torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
     return b["dx"], b["d_ef"], b["d_wf"]
@@ -1093,6 +1179,13 @@ PHASES = {
                    "their wait, release, row writes", "-"),
     "producer_fwd": ("prologue", "wait for a free stage", "slot indices, edge features",
                      "stage written", "copies issued", "-", "-", "epilogue"),
+    # the f32 tile passes' (f32_phase_stamps): thread 0 of the consumers and
+    # lane 0 of the producer warp
+    "f32": ("prologue, epilogue", "wait for a full stage", "operands and gate sums",
+            "filter products, d_wf partial", "elementwise terms", "d_ef warp sums",
+            "barrier, d_ef rows, release", "row writes"),
+    "producer_f32": ("prologue", "wait for a free stage", "slot indices", "copies issued", "-",
+                     "-", "-", "epilogue"),
 }
 
 
@@ -1129,6 +1222,47 @@ def bwd_phase_stamps(
         int(which == "hopper"), stamps.data_ptr(),
         torch.cuda.current_stream(x_cat.device).cuda_stream,
     )
+    return stamps
+
+
+def f32_phase_stamps(kernel: str, *args) -> torch.Tensor:
+    """clock64() cycles per phase of one launch of ``kernel``'s f32 tile pass
+    ("message_bwd" or "message_bwd2"), on the arguments of its wrapper
+    (:func:`message_bwd_cuda`'s, or :func:`message_bwd2_cuda`'s without
+    cwf), with the rest of its route (the phase probe of
+    ``xequinet_torch/tools/bwd_compare.py --dtype float32 --phases``, on no
+    model path; not counted in LAUNCHES): int64 [n_part, 2, 8], the
+    consumers' thread 0 (``PHASES["f32"]``) and the producer's lane 0
+    (``PHASES["producer_f32"]``).  Takes the widths of :func:`f32_route`."""
+    second = kernel == "message_bwd2"
+    if kernel not in ("message_bwd", "message_bwd2"):
+        raise ValueError("f32_phase_stamps takes message_bwd or message_bwd2")
+    b = _bwd2_setup(*args) if second else _bwd_setup(*args)
+    if b["route"] != 3:
+        raise ValueError("f32_phase_stamps takes the widths and dtype of f32_route (f32 "
+                         "operands, no cwf)")
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, dev = b["plan"], b["xk"].device
+    stamps = torch.zeros((b["n_part"], 2, 8), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if second:
+        n_out, node_dim = b["d2g"].shape[0], h - 2 * ni
+        probe("bwd2_f32_phases", b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(),
+              b["gk"].data_ptr(), b["cxk"].data_ptr(), b["cefk"].data_ptr(),
+              plan["dst_ptr"].data_ptr(), plan["src_ptr"].data_ptr(),
+              plan["src_slots"].data_ptr(), plan["slot_src"].data_ptr(),
+              plan["slot_dst"].data_ptr(), plan["dst_pos"].data_ptr(), b["tab"].data_ptr(),
+              b["rows_g"].data_ptr(), b["d2x"].data_ptr(), b["d2ef"].data_ptr(),
+              b["d2wf_part"].data_ptr(), b["d2wf"].data_ptr(), b["d2g"].data_ptr(),
+              n_out, b["n_rows"], b["t_slots"], b["n_part"], ni, node_dim, h, hp, d, dp, sdp,
+              kw, kf, b["n_tab"], stamps.data_ptr(), stream)
+    else:
+        probe("bwd_f32_phases", b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(),
+              b["gk"].data_ptr(), plan["src_ptr"].data_ptr(), plan["src_slots"].data_ptr(),
+              plan["slot_src"].data_ptr(), plan["slot_dst"].data_ptr(), b["seg"].data_ptr(),
+              b["dx"].data_ptr(), b["d_ef"].data_ptr(), b["dwf_part"].data_ptr(),
+              b["d_wf"].data_ptr(), b["n_rows"], b["t_slots"], b["n_part"], ni, h, hp, d, dp,
+              sdp, kw, kf, b["n_seg"], stamps.data_ptr(), stream)
     return stamps
 
 
@@ -1189,18 +1323,29 @@ def bwd2_scratch_shapes(t_slots: int, h: int, node_dim: int,
 
 # each wrapper's launches by pass, by kernel name as torch.profiler shows
 # them (the forward has one; the d_wf passes launch only where the tile
-# pass's d_wf partial leaves the registers)
+# pass's d_wf partial leaves the registers; "tile pass" is whichever tile
+# pass the route takes, the f32 one too; the walk kernels' passes at the
+# widths no tile pass takes)
 PASSES = {
     "message_fwd": (("tile pass", "message_fwd_(?:tile|hopper)_kernel"),),
-    "message_bwd": (("tile pass", "message_bwd_(?:tile|hopper)_kernel"),
+    "message_bwd": (("tile pass", "message_bwd_(?:tile|hopper|f32)_kernel"),
                     ("dx pass", "message_bwd_dx_rows_kernel"),
                     ("d_wf pass", "xeq_dwf_pass_kernel"),
-                    ("d_wf reduction", "xeq_dwf_reduce_kernel")),
-    "message_bwd2": (("tile pass", "message_bwd2_(?:tile|hopper)_kernel"),
+                    ("d_wf reduction", "xeq_dwf_reduce_kernel"),
+                    # the walk kernels (the widths no tile pass takes)
+                    ("dx walk", "message_bwd_dx_kernel"),
+                    ("slot pass", "message_bwd_slot_kernel"),
+                    ("d_ef reduction", "xeq_def_reduce_kernel")),
+    "message_bwd2": (("tile pass", "message_bwd2_(?:tile|hopper|f32)_kernel"),
                      ("d2x pass", "message_bwd2_d2x_rows_kernel"),
-                     ("d2g pass", "message_bwd2_d2g_rows_kernel"),
+                     ("d2g pass", "message_bwd2_d2g_rows(?:_f32)?_kernel"),
                      ("d2wf pass", "xeq_dwf_pass_kernel"),
-                     ("d2wf reduction", "xeq_dwf_reduce_kernel")),
+                     ("d2wf reduction", "xeq_dwf_reduce_kernel"),
+                     # the walk kernels
+                     ("d2g walk", "message_bwd2_dg_kernel"),
+                     ("d2x walk", "message_bwd2_dx_kernel"),
+                     ("slot pass", "message_bwd2_slot_kernel"),
+                     ("d2ef reduction", "xeq_def_reduce_kernel")),
     "bwd_stream_floor": (("tile pass", "bwd_stream_floor_tile_kernel"),
                          ("dx pass", "message_bwd_dx_rows_kernel"),
                          ("d_wf reduction", "xeq_dwf_reduce_kernel")),
@@ -1218,6 +1363,17 @@ def _device_pair_table(irreps_str: str, num_basis: int, node_dim: int, device):
     return _DEVICE_TABS[key]
 
 
+_DEVICE_UNITS: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_units(irreps_str: str, num_basis: int, node_dim: int, device):
+    key = (irreps_str, num_basis, node_dim, str(device))
+    if key not in _DEVICE_UNITS:
+        _DEVICE_UNITS[key] = torch.as_tensor(f32_units(irreps_str, num_basis, node_dim)[0],
+                                             device=device).contiguous()
+    return _DEVICE_UNITS[key]
+
+
 def _bwd2_setup(x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta, irreps_str, num_basis,
                 node_dim, n_out, block_nodes, chunk, mm_dtype):
     """What a launch of the second order takes, shared by
@@ -1232,6 +1388,7 @@ def _bwd2_setup(x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta, irreps_str
     has_cwf = cwf is not None
     hopper = hopper2_route(mm, irreps_str, num_basis, node_dim, has_cwf)
     tiles = hopper or tile_route("message_bwd2", mm, irreps_str, num_basis, node_dim, has_cwf)
+    on_f32 = f32_route("message_bwd2", mm, irreps_str, num_basis, node_dim, has_cwf)
     dev = x_cat.device
     n_rows, t_slots = x_cat.shape[0], edge_feat.shape[0]
     if x_cat.shape[1] != hp + dp or edge_feat.shape[1] != F_PACK or wf_aug.shape != (F_PACK, hp):
@@ -1248,24 +1405,32 @@ def _bwd2_setup(x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta, irreps_str
     n_part = torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
     shape_x, shape_g = bwd2_scratch_shapes(t_slots, h, node_dim, d) if tiles else ((0,), (0,))
-    n_hc = 1 if tiles else walk_chunks("message_bwd2", ni, h, kw, kf)
+    if on_f32:  # the f32 pass sums d2x in registers; its d2g rows are f32
+        shape_x, shape_g = (0,), bwd2_scratch_shapes(t_slots, h, node_dim, d)[1]
+    n_hc = 1 if tiles or on_f32 else walk_chunks("message_bwd2", ni, h, kw, kf)
     b = dict(
-        dims=(ni, h, hp, d, dp, sdp, kw, kf), mm=mm, route=2 if hopper else int(tiles),
+        dims=(ni, h, hp, d, dp, sdp, kw, kf), mm=mm,
+        route=3 if on_f32 else 2 if hopper else int(tiles),
         n_rows=n_rows, t_slots=t_slots, n_part=n_part, n_hc=n_hc,
         xk=xk, efk=efk, wfk=wfk, gk=gk, cxk=cxk, cefk=cefk,
         cwfk=cast(cwf) if has_cwf else None,
         plan=_plan(slot_meta, n_out, n_rows, block_nodes, chunk),
         maps=_device_maps(irreps_str, num_basis, dev),
+        # the table the C side reads as ``tab``: the Hopper pass's pair rows,
+        # or the f32 pass's units
         tab=(_device_pair_table(irreps_str, num_basis, node_dim, dev) if hopper
+             else _device_units(irreps_str, num_basis, node_dim, dev) if on_f32
              else torch.empty((0,), dtype=torch.int32, device=dev)),
-        n_tab=pair_table(irreps_str, num_basis, node_dim)[1] if hopper else 0,
+        n_tab=(pair_table(irreps_str, num_basis, node_dim)[1] if hopper
+               else f32_units(irreps_str, num_basis, node_dim)[1] if on_f32 else 0),
         d2x=torch.empty((n_rows, hp + dp), **f32),
         d2ef=torch.empty((t_slots, F_PACK), **f32),
         d2wf_part=torch.empty((n_part, kf, h), **f32),
         d2wf=torch.empty((F_PACK, hp), **f32),
         d2g=torch.empty((n_out, sdp + dp), **f32),
         rows_x=torch.empty(shape_x, dtype=torch.bfloat16, device=dev),
-        rows_g=torch.empty(shape_g, dtype=torch.bfloat16, device=dev),
+        rows_g=torch.empty(shape_g, dtype=torch.float32 if on_f32 else torch.bfloat16,
+                           device=dev),
         dfw2_rows=_dfw_scratch(tiles and not hopper, "message_bwd2", t_slots, ni, node_dim, d,
                                kw, kf, dev),
         dfwr_rows=_dfw_scratch(tiles and not hopper, "message_bwd2", t_slots, ni, node_dim, d,
@@ -1273,7 +1438,7 @@ def _bwd2_setup(x_cat, edge_feat, wf_aug, g, cx, cef, cwf, slot_meta, irreps_str
         def_part=torch.empty((n_hc, t_slots, kf) if n_hc > 1 else (0,), **f32),
     )
     _check_cuda(xk, efk, wfk, gk, cxk, cefk, b["plan"]["dst_ptr"], b["plan"]["src_ptr"],
-                b["d2x"], b["rows_x"], *(() if b["cwfk"] is None else (b["cwfk"],)))
+                b["d2x"], b["rows_g"], *(() if b["cwfk"] is None else (b["cwfk"],)))
     if any(t.data_ptr() % 16 for t in (xk, efk, gk, cxk, cefk)):
         raise ValueError("fused message: operands must be 16-byte aligned")
     return b
@@ -1285,7 +1450,12 @@ def message_bwd2_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(d2x_cat, d2_edge_feat, d2_wf_aug, d2g), f32, by
     ``csrc/message_bwd2.cu``: the VJP of :func:`message_bwd_cuda` for the
-    cotangents (cx, cef, cwf).  On the tile route (bf16 without cwf) the
+    cotangents (cx, cef, cwf).  f32 operands without cwf at the widths of
+    :func:`f32_route` take its f32 tile pass (``csrc/message_f32_tile.cuh``:
+    d2x summed in registers along the list by source, each valid slot's d2g
+    row to an f32 scratch of ``bwd2_scratch_shapes(...)[1]`` at its
+    position by destination, which a row pass sums).  On the tile route
+    (bf16 without cwf) the
     tile pass (at the widths of :func:`hopper2_route` the Hopper one of
     ``csrc/message_bwd2_hopper.cuh``, elsewhere on :func:`tile_route` the
     mma.sync one) writes each valid slot's d2x and d2g rows to the bf16
@@ -1320,7 +1490,7 @@ def message_bwd2_cuda(
         maps["lane_gate"].data_ptr(), maps["lane_ycol"].data_ptr(),
         maps["gate_lane0"].data_ptr(), maps["gate_dim"].data_ptr(),
         maps["ylane_ptr"].data_ptr(), maps["ylane_idx"].data_ptr(), _ptr(b["tab"]),
-        b["rows_x"].data_ptr(), b["rows_g"].data_ptr(), _ptr(b["dfw2_rows"]),
+        _ptr(b["rows_x"]), _ptr(b["rows_g"]), _ptr(b["dfw2_rows"]),
         _ptr(b["dfwr_rows"]), _ptr(b["def_part"]), b["d2x"].data_ptr(), b["d2ef"].data_ptr(),
         b["d2wf_part"].data_ptr(), b["d2wf"].data_ptr(), b["d2g"].data_ptr(),
         n_out, b["n_rows"], b["t_slots"], b["n_part"], ni, node_dim, h, hp, d, dp, sdp, kw, kf,

@@ -21,13 +21,21 @@ order parent, change, change, parent, so that both run on the same card at
 the same power limit and drift shows as the distance between a tree's own
 runs.  Each process loads the same operands and the same pass names
 (the change's ``PASSES[kernel]``) onto the card and times its tree's
-wrapper (bf16) with this file's tree's ``bwd_stream_floor.time_calls`` and
+wrapper with this file's tree's ``bwd_stream_floor.time_calls`` and
 ``pass_split`` (loaded by path): two more warm-up calls, then the median of
 3 repetitions of 20 calls (CUDA events) after its own warm-up, and the
 split by pass (torch.profiler).  Usage, from the root of the change's tree:
 
     python -m xequinet_torch.tools.bwd_compare PARENT_ROOT [CHANGE_ROOT] \
-        [--kernel message_bwd2 | message_fwd] [--phases [PASS ...]]
+        [--kernel message_bwd2 | message_fwd] [--dtype float32] [--phases [PASS ...]]
+
+``--dtype float32`` times the f32 instances on the same operands cast to
+f32 (bf16 by default, the flagship's dtype).  Each ``RESULT`` line holds a
+digest of the wrapper's outputs on each batch (sha1 of their bytes): in
+bf16 parent and change must print the same digests where a change leaves
+the bf16 passes as they were; in f32 the tool prints the change's largest
+error against the parent's outputs (max |change - parent| / max |parent|
+over the outputs).
 
 It prints one ``RESULT {...}`` JSON line per process and the card's name
 and power limit.  ``--phases`` also splits the change's tile passes of the
@@ -35,13 +43,17 @@ kernel by phase on the flagship batch (clock64() stamps of instrumented
 instances, on no model path) in this process, after the turns:
 ``message_bwd2``'s through ``fused_message.bwd2_phase_stamps`` (``tile``,
 the mma.sync pass; ``hopper``, the Hopper pass), ``message_fwd``'s through
-``fused_message.fwd_phase_stamps`` (``tile_fwd``, ``hopper_fwd``); both of
-the kernel's when none is named; without PARENT_ROOT only the split runs.
+``fused_message.fwd_phase_stamps`` (``tile_fwd``, ``hopper_fwd``), the f32
+tile pass of ``message_bwd`` and ``message_bwd2`` through
+``fused_message.f32_phase_stamps`` (``f32``, on the operands cast to f32);
+all of the kernel's when none is named; without PARENT_ROOT only the split
+runs.
 It needs a card.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -55,12 +67,15 @@ ROOT = Path(__file__).resolve().parents[2]
 TOOL = Path(__file__).with_name("bwd_stream_floor.py")
 BATCHES = ("probe", "flagship", "halo_shard0")
 KERNELS = ("message_bwd", "message_bwd2", "message_fwd")
+DTYPES = ("bfloat16", "float32")
 # the passes --phases splits, per kernel: the probe's ``which`` -> (the
 # stamped kernel's name as torch.profiler shows it, the PHASES key of its
 # blocks or warpgroups, that of its producer or None)
 PHASE_PASSES = {
+    "message_bwd": {"f32": ("message_bwd_f32_kernel", "f32", "producer_f32")},
     "message_bwd2": {"tile": ("message_bwd2_tile_stamped_kernel", "tile2", None),
-                     "hopper": ("message_bwd2_hopper_kernel", "hopper2", "producer2")},
+                     "hopper": ("message_bwd2_hopper_kernel", "hopper2", "producer2"),
+                     "f32": ("message_bwd2_f32_kernel", "f32", "producer_f32")},
     "message_fwd": {"tile_fwd": ("message_fwd_tile_stamped_kernel", "tile_fwd", None),
                     "hopper_fwd": ("message_fwd_hopper_kernel", "hopper_fwd", "producer_fwd")},
 }
@@ -147,9 +162,36 @@ def kernel_args(kernel, args, cots=None):
     return args[:4] + tuple(cots) + (None,) + args[4:]
 
 
-def save_operands(path, kernel="message_bwd"):
-    """The three batches' arguments of ``kernel``'s wrapper, built on the
-    CPU by this tree's code, and this tree's pass names of ``kernel``."""
+def as_dtype(args, dtype):
+    """A wrapper's arguments with its bf16 operands cast to ``dtype`` and
+    its compute dtype (the last argument) set to it."""
+    import torch
+
+    cast = lambda a: a.to(getattr(torch, dtype)) if isinstance(a, torch.Tensor) and \
+        a.dtype == torch.bfloat16 else a
+    return tuple(cast(a) for a in args[:-1]) + (dtype,)
+
+
+def digest(outs):
+    """sha1 of the outputs' bytes, in order (16 hex digits)."""
+    h = hashlib.sha1()
+    for t in outs:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref| over the outputs (each as f32)."""
+    err = max(float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+              for a, b in zip(got, ref))
+    scale = max(float(b.float().abs().max()) if b.numel() else 0.0 for b in ref)
+    return err / max(scale, 1e-30)
+
+
+def save_operands(path, kernel="message_bwd", dtype="bfloat16"):
+    """The three batches' arguments of ``kernel``'s wrapper in ``dtype``,
+    built on the CPU by this tree's code, and this tree's pass names of
+    ``kernel``."""
     import torch
 
     from xequinet_torch.ops import fused_message as fm
@@ -162,7 +204,9 @@ def save_operands(path, kernel="message_bwd"):
     if kernel != "message_bwd":
         batches = {k: kernel_args(kernel, a, cotangents(a, COT_SEED) if kernel ==
                                   "message_bwd2" else None) for k, a in batches.items()}
-    torch.save({"kernel": kernel, "batches": batches, "passes": fm.PASSES[kernel]}, path)
+    batches = {k: as_dtype(a, dtype) for k, a in batches.items()}
+    torch.save({"kernel": kernel, "dtype": dtype, "batches": batches,
+                "passes": fm.PASSES[kernel]}, path)
 
 
 def _to(obj, dev):
@@ -177,9 +221,10 @@ def _to(obj, dev):
     return obj
 
 
-def measure_tree(label, operands):
+def measure_tree(label, operands, save=None):
     """One process's measurement of the xequinet_torch on sys.path, on the
-    saved operands, timed by this file's tree's tool."""
+    saved operands, timed by this file's tree's tool, with the digest of
+    each batch's outputs; ``save``: a path that the outputs go to."""
     import torch
 
     from xequinet_torch.ops import cuda_build
@@ -193,44 +238,59 @@ def measure_tree(label, operands):
     kernel = saved["kernel"]
     cuda_build.build_kernels([kernel])
     wrapper = getattr(fm, f"{kernel}_cuda")
-    out = {"label": label, "kernel": kernel, "package": str(Path(fm.__file__).parents[1])}
+    out = {"label": label, "kernel": kernel, "dtype": saved.get("dtype", "bfloat16"),
+           "package": str(Path(fm.__file__).parents[1])}
+    kept = {}
     for name in BATCHES:
         args = _to(saved["batches"][name], dev)
         fn = lambda: wrapper(*args)
         fn(), fn()
         ms = timing.time_calls(fn)
         split, _ = timing.pass_split(fn, saved["passes"])
-        out[name] = {"ms": ms, "split": split, "split_share": sum(split.values()) / ms}
-        del args
+        outs = fn()
+        outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
+        torch.cuda.synchronize()
+        out[name] = {"ms": ms, "split": split, "split_share": sum(split.values()) / ms,
+                     "digest": digest(outs)}
+        if save:
+            kept[name] = tuple(t.cpu() for t in outs)
+        del args, outs
+    if save:
+        torch.save(kept, save)
     return out
 
 
 def phase_split(kernel="message_bwd2", passes=None, calls=10):
     """The change's tile passes of ``kernel`` split by phase on the flagship
     batch: per pass (a key of ``PHASE_PASSES[kernel]``: "tile" / "tile_fwd",
-    the mma.sync pass; "hopper" / "hopper_fwd", the Hopper pass) the stamped
-    launch's device ms (torch.profiler over ``calls`` launches) and per role
-    its phases' shares of the stamped cycles and their ms (share x device
-    ms).  Roles: the block's thread 0 for the mma.sync passes; the consumer
-    warpgroups (summed) and the producer warp for the Hopper passes."""
+    the mma.sync pass; "hopper" / "hopper_fwd", the Hopper pass; "f32", the
+    f32 tile pass on the operands cast to f32) the stamped launch's device
+    ms (torch.profiler over ``calls`` launches) and per role its phases'
+    shares of the stamped cycles and their ms (share x device ms).  Roles:
+    the block's thread 0 for the mma.sync passes; the consumer warpgroups
+    (summed) and the producer warp for the Hopper passes; the consumers'
+    thread 0 and the producer warp for the f32 passes."""
     import torch
 
     from xequinet_torch.ops import fused_message as fm
     from xequinet_torch.tools import bwd_stream_floor as bsf
 
-    if kernel not in PHASE_PASSES:
-        raise ValueError("--phases splits message_bwd2's and message_fwd's passes "
-                         "(message_bwd's: python -m xequinet_torch.tools.bwd_stream_floor)")
     passes = tuple(passes or PHASE_PASSES[kernel])
     if not set(passes) <= set(PHASE_PASSES[kernel]):
-        raise ValueError(f"{kernel}'s passes are {sorted(PHASE_PASSES[kernel])}")
+        raise ValueError(f"{kernel}'s passes are {sorted(PHASE_PASSES[kernel])} "
+                         "(message_bwd's bf16 passes: python -m "
+                         "xequinet_torch.tools.bwd_stream_floor)")
     dev = torch.device("cuda")
     args = bsf._args(bsf.problem(dev, seed=1234))
-    if kernel == "message_bwd2":
-        cx, cef = cotangents(args, COT_SEED)
-        stamp = lambda which: fm.bwd2_phase_stamps(*args[:4], cx, cef, *args[4:], which=which)
-    else:
-        stamp = lambda which: fm.fwd_phase_stamps(*kernel_args(kernel, args), which=which)[0]
+    cots = cotangents(args, COT_SEED) if kernel == "message_bwd2" else None
+
+    def stamp(which):
+        if which == "f32":  # the f32 instance, on the same operands cast to f32
+            return fm.f32_phase_stamps(kernel, *as_dtype(kernel_args(kernel, args, cots),
+                                                         "float32"))
+        if kernel == "message_bwd2":
+            return fm.bwd2_phase_stamps(*args[:4], *cots, *args[4:], which=which)
+        return fm.fwd_phase_stamps(*kernel_args(kernel, args), which=which)[0]
     out = {}
     for which in passes:
         kname, role_key, producer_key = PHASE_PASSES[kernel][which]
@@ -239,15 +299,16 @@ def phase_split(kernel="message_bwd2", passes=None, calls=10):
         stamps = fn().double().cpu().numpy()
         torch.cuda.synchronize()
         ms = split.get("tile pass", float("nan"))
+        lead = "consumers" if which == "f32" else "warpgroups"  # thread 0 of all consumers
         roles = ({"block": stamps.sum(0)} if producer_key is None else
-                 {"warpgroups": stamps[:, :-1].sum((0, 1)), "producer": stamps[:, -1].sum(0)})
+                 {lead: stamps[:, :-1].sum((0, 1)), "producer": stamps[:, -1].sum(0)})
         rec = {"stamped_ms": ms}
         for role, cyc in roles.items():
             phases = fm.PHASES[producer_key if role == "producer" else role_key]
             share = cyc / cyc.sum()
             rec[role] = {n: {"share": float(v), "ms": float(v * ms)}
                          for n, v in zip(phases, share) if n != "-"}
-        if producer_key is not None:  # each warpgroup's phases, as ms of the stamped launch
+        if producer_key is not None and which != "f32":  # each warpgroup's phases, as ms
             per = stamps[:, :-1].sum(0)
             per = per / per.sum(1, keepdims=True) * ms
             rec["per_warpgroup_ms"] = {n: [float(v) for v in per[:, c]]
@@ -256,7 +317,7 @@ def phase_split(kernel="message_bwd2", passes=None, calls=10):
     return out
 
 
-def main(argv=None):
+def build_parser():
     import argparse
 
     ap = argparse.ArgumentParser()
@@ -266,9 +327,17 @@ def main(argv=None):
                     choices=sorted({w for v in PHASE_PASSES.values() for w in v}),
                     help="also split the change's tile passes of the kernel by phase: "
                          "message_bwd2's mma.sync pass (tile) and Hopper pass (hopper), "
-                         "message_fwd's (tile_fwd, hopper_fwd); both of the kernel's when "
-                         "none is named")
-    ap.add_argument("--one", nargs=2, metavar=("LABEL", "OPERANDS"), help=argparse.SUPPRESS)
+                         "message_fwd's (tile_fwd, hopper_fwd), the f32 pass of message_bwd "
+                         "and message_bwd2 (f32); all of the kernel's when none is named")
+    ap.add_argument("--dtype", default="bfloat16", choices=DTYPES,
+                    help="the operands' dtype, so the instance timed (bf16 by default)")
+    ap.add_argument("--one", nargs="+", metavar="LABEL OPERANDS [SAVE]",
+                    help=argparse.SUPPRESS)
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if args.one:  # a child process: the tree is on PYTHONPATH
         print("RESULT " + json.dumps(measure_tree(*args.one)), flush=True)
@@ -283,7 +352,7 @@ def main(argv=None):
     print(card, flush=True)
     results = []
     if args.trees:
-        results = compare(parent, change, args.kernel, card)
+        results = compare(parent, change, args.kernel, card, args.dtype)
     if args.phases is not None:
         phases = phase_split(args.kernel, tuple(args.phases))
         print("PHASES " + json.dumps(phases), flush=True)
@@ -302,19 +371,26 @@ def main(argv=None):
     return results
 
 
-def compare(parent, change, kernel, card):
+def compare(parent, change, kernel, card, dtype="bfloat16"):
     """The turns parent, change, change, parent on the three batches; prints
-    each process's RESULT line and a summary per batch."""
+    each process's RESULT line, a summary per batch and, per batch, whether
+    the two trees' first runs gave the same bits (the digests) and, in f32,
+    the change's largest error against the parent's outputs."""
+    import torch
+
     results = []
     with tempfile.TemporaryDirectory() as tmp:
         operands = os.path.join(tmp, "operands.pt")
-        save_operands(operands, kernel)
-        for tree, label in ((parent, "parent"), (change, "change"), (change, "change"),
-                            (parent, "parent")):
+        save_operands(operands, kernel, dtype)
+        kept = [os.path.join(tmp, f"outputs{i}.pt") for i in range(2)]
+        for i, (tree, label) in enumerate(((parent, "parent"), (change, "change"),
+                                           (change, "change"), (parent, "parent"))):
             t0 = time.time()
             env = dict(os.environ, PYTHONPATH=str(tree))
-            run = subprocess.run([sys.executable, __file__, "--one", label, operands], cwd=tree,
-                                 env=env, capture_output=True, text=True, timeout=900)
+            save = [kept[i]] if dtype == "float32" and i < 2 else []
+            run = subprocess.run([sys.executable, __file__, "--one", label, operands] + save,
+                                 cwd=tree, env=env, capture_output=True, text=True,
+                                 timeout=900)
             line = next((s for s in run.stdout.splitlines() if s.startswith("RESULT ")), None)
             if run.returncode != 0 or line is None:
                 raise RuntimeError(f"{label} ({tree}) failed:\n{run.stderr[-4000:]}")
@@ -322,11 +398,21 @@ def compare(parent, change, kernel, card):
             rec["seconds"] = time.time() - t0
             results.append(rec)
             print(line, flush=True)
+        ref, got = ((torch.load(k, weights_only=True) for k in kept) if dtype == "float32"
+                    else (None, None))
     for name in BATCHES:
-        print(f"{kernel} {name}: " + ", ".join(
-            f"{r['label']} {r[name]['ms']:.4f} ms (tile pass "
-            f"{r[name]['split'].get('tile pass', float('nan')):.4f})" for r in results)
+        print(f"{kernel} ({dtype}) {name}: " + ", ".join(
+            f"{r['label']} {r[name]['ms']:.4f} ms (" + ", ".join(
+                f"{k} {v:.4f}" for k, v in r[name]['split'].items()) + ")" for r in results)
             + f" — {card}")
+        same = results[0][name]["digest"] == results[1][name]["digest"]
+        line = f"{kernel} ({dtype}) {name}: digests parent {results[0][name]['digest']}, " \
+               f"change {results[1][name]['digest']}: " + ("the same bits" if same else "differ")
+        if ref is not None:
+            err = rel_err(got[name], ref[name])
+            results[1][name]["rel_err_vs_parent"] = err
+            line += f"; change against parent max|err|/max|parent| = {err:.3e}"
+        print(line, flush=True)
     return results
 
 
