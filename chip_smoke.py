@@ -64,11 +64,11 @@ Phases (any failed check exits non-zero):
      forward's Hopper pass again bit for bit on a second call and its error
      against the plain version beside the mma.sync pass's on the same
      operands (the phase probe's instance of it); the message kernels' f32
-     instances at flagship widths (the backwards' f32 tile passes, each
+     instances at flagship widths (the f32 tile passes of all three, each
      also against its plain version at 1e-5, bit for bit on a second call
-     and split by pass; the script fails if a backward takes another
-     route; the forward's walk kernel) and the wide shapes in bf16 beside
-     their bounds, each route's device forward+forces (the wide model's too), the
+     and split by pass; the script fails if one takes another route) and
+     the wide shapes in bf16 and in f32 (on whichever pass each takes)
+     beside their bounds, each route's device forward+forces (the wide model's too), the
      mega predict wall time and edges/s, each route's train step ms,
      edges/s and peak memory (the wide model's too; and the flagship's
      mega step in f32, with the share its 3 + 6 + 3 message launches
@@ -375,7 +375,7 @@ def kernel_route(name, mm, statics):
         return "Hopper tile pass"
     if name == "message_bwd2" and fm.hopper2_route(mm, *statics):  # no cwf, as trained
         return "Hopper tile pass"
-    if name in ("message_bwd", "message_bwd2") and fm.f32_route(name, mm, *statics):
+    if fm.f32_route(name, mm, *statics):  # no cwf in the second order, as trained
         return "f32 tile pass"
     return "tile pass" if fm.tile_route(name, mm, *statics) else "walk kernels"
 
@@ -5786,37 +5786,36 @@ def main():
     rows[0]["rel_err"], rows[0]["mma_sync_rel_err"] = e_new, e_old
     del agg, agg_old, want
     # the f32 instances at the flagship widths (f32_finetune_epochs, f32
-    # checkpoints and MD run them): the backwards' f32 tile passes, each
+    # checkpoints and MD run them): the f32 tile passes of the three, each
     # against its plain version and bit for bit on a second call, split by
-    # pass; the forward's walk kernel
+    # pass
     for row, (name, _, _, kfn, pfn), (nbytes, flops) in zip(rows, timed,
                                                            kernel_costs(p, "float32")):
         route = kernel_route(name, "float32", p["statics"])
-        if name != "message_fwd" and route != "f32 tile pass":
+        if route != "f32 tile pass":
             fail(f"{name} takes the {route} in f32 at the flagship widths, not its f32 tile pass")
         k_ms = time_ms(lambda: kfn(p, "float32"), iters=5, warmup=1)
         b_ms, b_by = bound_ms(nbytes, flops, "float32")
         print(f"[time] {name} (float32, {route}): kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
               f"ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) — {card}")
         row["float32"] = {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by, "route": route}
-        if route == "f32 tile pass":
-            got, want = kfn(p, "float32"), pfn(p, "float32")
-            e = max(rel_err(a, b) for a, b in zip(got, want))
-            same = all(torch.equal(a, b) for a, b in zip(got, kfn(p, "float32")))
-            print(f"[kernels] {name} (float32) at the flagship widths, f32 tile pass: "
-                  f"max|err|/max|ref| = {e:.3e} over {', '.join(OUT_NAMES[name])} (limit "
-                  f"{TOL['float32']:g}); " + ("the same bits on a second call" if same else
-                                              "other bits on a second call"))
-            if not (e <= TOL["float32"] and all(torch.isfinite(a).all() for a in got)):
-                fail(f"{name}'s f32 tile pass disagrees with plain")
-            if not same:
-                fail(f"{name}'s f32 tile pass: a second call gave other bits")
-            row["float32"]["rel_err"] = e
-            row["float32"]["max_abs_err"] = max(float((a - b).abs().max())
-                                                for a, b in zip(got, want))
-            del got, want
-            row["float32"]["split_ms"], row["float32"]["scratch_bytes"] = pass_split(
-                name, lambda: kfn(p, "float32"), p, "float32", card)
+        got, want = kfn(p, "float32"), pfn(p, "float32")
+        e = max(rel_err(a, b) for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, kfn(p, "float32")))
+        print(f"[kernels] {name} (float32) at the flagship widths, f32 tile pass: "
+              f"max|err|/max|ref| = {e:.3e} over {', '.join(OUT_NAMES[name])} (limit "
+              f"{TOL['float32']:g}); " + ("the same bits on a second call" if same else
+                                          "other bits on a second call"))
+        if not (e <= TOL["float32"] and all(torch.isfinite(a).all() for a in got)):
+            fail(f"{name}'s f32 tile pass disagrees with plain")
+        if not same:
+            fail(f"{name}'s f32 tile pass: a second call gave other bits")
+        row["float32"]["rel_err"] = e
+        row["float32"]["max_abs_err"] = max(float((a - b).abs().max())
+                                            for a, b in zip(got, want))
+        del got, want
+        row["float32"]["split_ms"], row["float32"]["scratch_bytes"] = pass_split(
+            name, lambda: kfn(p, "float32"), p, "float32", card)
     # the wide shapes in bf16, on the same slots
     for tag, pw in wide.items():
         for row, (name, _, _, kfn, _), (nbytes, flops) in zip(rows, timed, kernel_costs(pw, mm)):
@@ -5830,6 +5829,23 @@ def main():
                 "ms": k_ms, "bound_ms": b_ms, "bound_by": b_by, "route": route}
             if name in fm.PASSES:
                 pass_split(name, lambda: kfn(pw, mm), pw, mm, card)
+    # the wide shapes in f32 on the same slots (the operands above, cast),
+    # on whichever pass each takes: the widths past f32_route keep the walk
+    # kernels
+    for tag, pw in wide.items():
+        pw32 = dict(pw, **{k: pw[k].float() for k in ("x_cat", "ef", "wf", "g", "cx", "cef")})
+        for row, (name, _, _, kfn, _), (nbytes, flops) in zip(rows, timed,
+                                                               kernel_costs(pw32, "float32")):
+            route = kernel_route(name, "float32", pw["statics"])
+            k_ms = time_ms(lambda: kfn(pw32, "float32"), iters=5, warmup=1)
+            b_ms, b_by = bound_ms(nbytes, flops, "float32")
+            print(f"[time] {name} (float32) at {tag} {pw['statics']}, {route}: kernel "
+                  f"{k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP) — {card}")
+            row.setdefault("wide_float32", {})[tag] = {
+                "ms": k_ms, "bound_ms": b_ms, "bound_by": b_by, "route": route}
+        del pw32
+        torch.cuda.empty_cache()
     del wide
     # why the second order has a specialisation without the cwf terms:
     # against the general kernel on a materialised zero cwf, interleaved

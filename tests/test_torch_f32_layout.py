@@ -164,7 +164,7 @@ def test_phases_of_the_f32_passes():
                                                      "producer_f32")
     assert bc.PHASE_PASSES["message_bwd2"]["f32"][0] == "message_bwd2_f32_kernel"
     with pytest.raises(ValueError):
-        fm.f32_phase_stamps("message_fwd")
+        fm.f32_phase_stamps("gather_scatter_v2")
 
 
 def test_bwd_compare_takes_dtype_float32():

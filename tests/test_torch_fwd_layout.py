@@ -48,11 +48,12 @@ def test_flagship_widths_take_the_fwd_hopper_pass():
     columns, the 512-byte one-hot and 128 bytes of destinations and flags
     (38,144 with its rounding), beside wf's 9 m64 tiles, three warpgroups'
     4 A tiles of 2 KB, the table of 7 pair tiles (1,218 ints) and the
-    barriers; f32 keeps the walk kernel."""
+    barriers; f32 takes its own tile pass (route 3,
+    tests/test_torch_f32_fwd_layout.py)."""
     assert fm.fwd_hopper_route("bfloat16", *FLAGSHIP)
     assert fm._fwd_static(*FLAGSHIP, "bfloat16")[2:] == (2, 7, 4)
     assert not fm.fwd_hopper_route("float32", *FLAGSHIP)
-    assert fm._fwd_static(*FLAGSHIP, "float32")[2] == 0
+    assert fm._fwd_static(*FLAGSHIP, "float32")[2] == 3
     ni, h, hp, d, dp, sdp, kw, kf = fm._launch_dims(*FLAGSHIP)
     smem, nst, stage = fm._fwd_hopper_layout(ni, FLAGSHIP[2], d, kw, kf, 7, 4)
     assert stage == 38144 == 128 * -(-(16 * 2256 + 1024 + 288 + 512 + 128) // 128)
@@ -64,11 +65,14 @@ def test_flagship_widths_take_the_fwd_hopper_pass():
 @pytest.mark.parametrize("dims", REFUSED, ids=REFUSED_IDS)
 def test_refused_widths_keep_the_mma_sync_pass(dims):
     """H = 640, an odd run, Kf = 33 / 128 and H = 1152: the mma.sync tile
-    pass in bf16 (route 1), the walk kernel in f32 (route 0)."""
+    pass in bf16 (route 1); in f32 the walk kernel (route 0), but for the
+    odd run, which the f32 tile pass takes (route 3, its 4 consumer
+    warps)."""
     assert not fm.fwd_hopper_route("bfloat16", *dims)
     assert fm.tile_route("message_fwd", "bfloat16", *dims)
     assert fm._fwd_static(*dims, "bfloat16")[2:] == (1, 0, 0)
-    assert fm._fwd_static(*dims, "float32")[2:] == (0, 0, 0)
+    odd_run = dims == REFUSED[1]
+    assert fm._fwd_static(*dims, "float32")[2:] == ((3, 4, 0) if odd_run else (0, 0, 0))
 
 
 @pytest.mark.parametrize("dims", TAKEN, ids=TAKEN_IDS)
@@ -214,10 +218,11 @@ def test_emulated_order_of_work_equals_the_plain_forward(dims):
 def test_passes_and_phases_name_the_fwd_passes():
     """torch.profiler's kernel names of the forward's split by pass: the
     Hopper and the mma.sync tile passes under "tile pass", not the probe's
-    stamped mma.sync instance nor the walk kernel; eight phases of each
-    stamped pass and of the Hopper pass's producer."""
+    stamped mma.sync instance nor the walk kernel (a pass of its own, the
+    second); eight phases of each stamped pass and of the Hopper pass's
+    producer."""
     tag, name = fm.PASSES["message_fwd"][0]
-    assert tag == "tile pass" and len(fm.PASSES["message_fwd"]) == 1
+    assert tag == "tile pass" and len(fm.PASSES["message_fwd"]) == 2
     for key in ("void message_fwd_hopper_kernel<false>(__nv_bfloat16 const*)",
                 "void message_fwd_tile_kernel<true, false>(__nv_bfloat16 const*)"):
         assert re.search(rf"\b{name}\b", key)

@@ -1799,8 +1799,9 @@ def test_cuda_f32_refused_widths_keep_the_walk_kernels(cuda_device, case):
 def test_cuda_f32_flagship_train_step_runs_the_f32_passes(cuda_device):
     """One f32 energy + force train step of a 3-block model at the flagship
     widths (128x0e+64x1o+32x2e, node_dim 128, 20 bases) on the mega route:
-    3 + 6 + 3 launches, through the f32 tile passes of message_bwd and
-    message_bwd2 and no walk kernel, a finite loss and finite parameters."""
+    3 + 6 + 3 launches, through the f32 tile passes of message_bwd,
+    message_bwd2 and message_fwd (the forward's 3 times in the step) and no
+    walk kernel, a finite loss and finite parameters."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(node_dim=128, node_irreps="128x0e+64x1o+32x2e", embed_basis="one-hot",
@@ -1834,8 +1835,9 @@ def test_cuda_f32_flagship_train_step_runs_the_f32_passes(cuda_device):
     names = " ".join(e.key for e in prof.key_averages())
     assert "message_bwd_f32_kernel" in names and "message_bwd2_f32_kernel" in names
     for walk in ("message_bwd_dx_kernel", "message_bwd_slot_kernel", "message_bwd2_dg_kernel",
-                 "message_bwd2_dx_kernel", "message_bwd2_slot_kernel"):
+                 "message_bwd2_dx_kernel", "message_bwd2_slot_kernel", "message_fwd_kernel"):
         assert walk not in names
+    assert sum(e.count for e in prof.key_averages() if "message_fwd_f32_kernel" in e.key) == 3
 
 
 @pytest.mark.gpu
@@ -1857,3 +1859,199 @@ def test_cuda_f32_phase_probe_counts_cycles(cuda_device, kernel):
     n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert stamps.shape == (n_sm, 2, 8)
     assert int(stamps.min()) >= 0 and bool((stamps.sum(-1) > 0).all())
+
+
+# ---------------------------------------------------------------------------
+# message_fwd's f32 tile pass (csrc/message_fwd_f32.cuh): every width it
+# takes, the ring and the tails of a range, zero slots, the halo and ghost
+# layouts, the widths it refuses, a train step, the phase probe
+# ---------------------------------------------------------------------------
+def _fwd_route32(p, n_out=None):
+    """The route the f32 forward takes on the problem: 3 the f32 tile pass,
+    0 the walk kernel (the setup the wrapper launches with)."""
+    return fm._fwd_setup(p["x"], p["ef"], p["wf"], p["meta"], *p["statics"],
+                         p["n"] if n_out is None else n_out, p["bn"], p["chunk"],
+                         "float32")["route"]
+
+
+def _fwd_f32_checks(p, n_out=None):
+    """message_fwd in f32 on ``n_out`` output rows (all of x's by default)
+    against its plain version within 1e-5 of the largest reference
+    magnitude, finite, zero rows where no slot ends, the same bits on a
+    second call; returns the names of the kernels a call launched."""
+    m, n_out = p["meta"], p["n"] if n_out is None else n_out
+    run = lambda: fm.message_fwd_cuda(p["x"], p["ef"], p["wf"], m, *p["statics"], n_out,
+                                      p["bn"], p["chunk"], "float32")
+    # slots ending past n_out add nothing: the plain sums' first n_out rows
+    want = fm.plain_message(p["x"], p["ef"], p["wf"], m[2], m[3], p["mask"], *p["statics"],
+                            p["n"], torch.float32)[:n_out]
+    got = run()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    _close(got, want, 1e-5)
+    assert torch.equal(got, run())
+    ptr = fm.build_slot_plan(m, n_out, p["n"], p["bn"], p["chunk"])["dst_ptr"]
+    empty = ptr[1:] == ptr[:-1]
+    if bool(empty.any()):
+        assert float(got[empty].abs().max()) == 0.0
+    return _kernels_run(run)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F32_CASES, ids=F32_IDS)
+def test_cuda_fwd_f32_pass_takes_each_width(cuda_device, case):
+    """Every CASES width the forward's f32 tile pass takes (one to nine
+    consumer warps, padding lanes in their irrep warps, an odd run of
+    irreps), on a ragged batch (padding slots, a slot_cap tail, rows with
+    no slot): against the plain version at 1e-5, bit for bit on a second
+    call, through the f32 tile pass and not the walk kernel."""
+    assert fm.f32_route("message_fwd", "float32", *case)
+    p = _problem(cuda_device, *case, n_mols=60, odd_tail=5)
+    assert _fwd_route32(p) == 3
+    names = _fwd_f32_checks(p)
+    assert "message_fwd_f32_kernel" in names and "message_fwd_kernel" not in names
+
+
+@pytest.mark.gpu
+def test_cuda_fwd_f32_pass_ring_wraps_and_tails(cuda_device):
+    """Flagship widths on a batch of many more tiles per block than ring
+    stages, with a 40-atom molecule (rows of 39 slots: a destination's run
+    over five tiles), a slot count that is no multiple of the tile, padding
+    slots and slots past the covered chunk range; then on fewer rows than
+    x has (n_out below x's rows, as in the halo and ghost layouts): against
+    the plain version at 1e-5, bit for bit on a second call."""
+    p = _problem(cuda_device, *CASES[2], n_mols=480, odd_tail=5, dense=40)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ni, h, hp, d, dp, sdp, kw, kf = fm._launch_dims(*CASES[2])
+    nst = fm._f32_layout("message_fwd", ni, CASES[2][2], d, kw, kf)[1]
+    assert int(p["mask"].sum()) // fm.F32_BT // n_sm > 2 * nst
+    m = p["meta"]
+    assert p["chunk"] * int(m[4][-1] + m[5][-1]) + 16 < p["mask"].shape[0]
+    _fwd_f32_checks(p)
+    assert _fwd_route32(p, p["n"] - 37) == 3
+    _fwd_f32_checks(p, p["n"] - 37)
+
+
+@pytest.mark.gpu
+def test_cuda_fwd_f32_pass_trailing_rows_without_slots(cuda_device):
+    """A batch padded to 512-row blocks, as bench.py's is: its last 571
+    rows have no slot, more than one block's share of rows and slots, so
+    the run is cut among several blocks (a row weighs as one slot): every
+    row written, those without a slot exactly zero, against the plain
+    version at 1e-5, bit for bit on a second call."""
+    p = _problem(cuda_device, *CASES[2], n_mols=60, odd_tail=5, bn=512, chunk=512)
+    ptr = fm.build_slot_plan(p["meta"], p["n"], p["n"], p["bn"], p["chunk"])["dst_ptr"]
+    trailing = p["n"] - 1 - int(torch.nonzero(ptr[1:] > ptr[:-1]).max())
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert trailing > 2 * (int(ptr[-1]) + p["n"]) // n_sm
+    assert _fwd_route32(p) == 3
+    _fwd_f32_checks(p)
+
+
+@pytest.mark.gpu
+def test_cuda_fwd_f32_pass_zero_slots(cuda_device):
+    """A call with no slot, on the f32 tile pass: every row zero; and a
+    batch of fewer rows than the card has SMs (a block per row, most rows
+    without a slot)."""
+    p = _problem(cuda_device, *CASES[2])
+    z = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    n = p["n"]
+    ptr = torch.zeros(n + 1, dtype=torch.int32, device=cuda_device)
+    plan = {"slot_src": z, "slot_dst": z, "dst_ptr": ptr, "dst_slots": z, "dst_pos": z,
+            "src_ptr": ptr.clone(), "src_slots": z, "src_pos": z}
+    meta = tuple(p["meta"][:7]) + (plan,)
+    out = fm.message_fwd_cuda(p["x"], p["ef"][:0].contiguous(), p["wf"], meta, *p["statics"],
+                              n, p["bn"], p["chunk"], "float32")
+    torch.cuda.synchronize()
+    assert out.shape == (n, 640) and float(out.abs().max()) == 0.0
+    q = _problem(cuda_device, *CASES[2], n_mols=2)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert q["n"] < n_sm and _fwd_route32(q) == 3
+    _fwd_f32_checks(q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [256, 512])
+def test_cuda_fwd_f32_pass_halo_shard_layout(cuda_device, bn):
+    """Shard 0 of 4 of a periodic box in HaloCalculator's layout (local and
+    halo rows in one window, chunk 1024), flagship widths, f32: the
+    forward's f32 tile pass against the plain version, on all of the
+    window's rows and on its first n_local rows."""
+    from xequinet_torch.parallel import halo as hm
+
+    rng = np.random.default_rng(3)
+    n = 3000
+    lx = n * 0.15
+    cell = np.diag([lx, 16.0, 16.0])
+    pos = np.column_stack([(np.arange(n) * 0.15 + rng.normal(size=n) * 0.5) % lx,
+                           rng.uniform(0, 16.0, size=(n, 2))])
+    z = rng.integers(1, 9, size=n).astype(np.int32)
+    stacked, geom, _, _, _, _ = hm.prepare_halo_system(z, pos, 5.0, 4, cell=cell,
+                                                       pbc=np.array([True] * 3))
+    bn = min(bn, geom["n_local"])
+    stacked, _, _ = hm.apply_halo_kernel_layout(stacked, geom,
+                                                {"block_nodes": bn, "chunk": 1024},
+                                                margin=1.3)
+    shard = {k: v[0] for k, v in stacked.items()}
+    shard[keys.POSITIONS] = np.zeros((geom["window"], 3), np.float32)
+    p = _operands(cuda_device, shard, "128x0e+64x1o+32x2e", 20, 128, rng, bn, 1024)
+    assert geom["halo"] > 0 and _fwd_route32(p) == 3
+    _fwd_f32_checks(p)
+    _fwd_f32_checks(p, geom["n_local"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [256, 512])
+def test_cuda_fwd_f32_pass_periodic_ghost_layout(cuda_device, bn):
+    """The MD hot loop's periodic ghost layout (chunk 1024, a wide window),
+    f32: the forward's f32 tile pass against the plain version, on all rows
+    and on the real (non-ghost) ones' count."""
+    p, plan = _ghost_problem(cuda_device, bn)
+    assert plan["n_ghosts"] > 0 and _fwd_route32(p) == 3
+    _fwd_f32_checks(p)
+    _fwd_f32_checks(p, p["n"] - plan["n_ghosts"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F32_REFUSED, ids=("h640", "kf33", "h1152"))
+def test_cuda_fwd_f32_refused_widths_keep_the_walk_kernel(cuda_device, case):
+    """The widths the forward's f32 tile pass refuses keep the walk kernel:
+    against the plain version in f32 at 1e-5, on the walk route."""
+    assert not fm.f32_route("message_fwd", "float32", *case)
+    p = _problem(cuda_device, *case, n_mols=20, odd_tail=5)
+    assert _fwd_route32(p) == 0
+    names = _fwd_f32_checks(p)
+    assert "message_fwd_kernel" in names and "message_fwd_f32_kernel" not in names
+
+
+@pytest.mark.gpu
+def test_cuda_fwd_f32_phase_probe_counts_cycles(cuda_device):
+    """The phase probe's stamped instance of the forward's f32 pass runs at
+    the flagship widths, stamps cycles for every block's consumer warps and
+    producer, and counts no launch in LAUNCHES; other dtypes are refused."""
+    p = _problem(cuda_device, *CASES[2], n_mols=60)
+    m = p["meta"]
+    args = (p["x"], p["ef"], p["wf"], m, *p["statics"], p["n"], p["bn"], p["chunk"])
+    fm.reset_launch_counts()
+    stamps = fm.f32_phase_stamps("message_fwd", *args, "float32")
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == _counts()
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n_cw = fm.f32_units(*CASES[2])[1]
+    assert stamps.shape == (min(n_sm, p["n"]), n_cw + 1, 8)
+    assert int(stamps.min()) >= 0 and bool((stamps.sum(-1) > 0).all())
+    with pytest.raises(ValueError, match="f32_route"):
+        fm.f32_phase_stamps("message_fwd", *args, "bfloat16")
+
+
+@pytest.mark.gpu
+def test_cuda_fwd_f32_pass_split_runs_of_one_l(cuda_device):
+    """Irreps of one l in two runs (8x0e+4x1o+8x0e): the l = 0 warp's
+    units hold irreps of both runs, so its output columns are not one run
+    of the row: against the plain version at 1e-5, bit for bit on a second
+    call, on the f32 tile pass."""
+    case = ("8x0e+4x1o+8x0e", 8, 16)
+    assert fm.f32_route("message_fwd", "float32", *case)
+    p = _problem(cuda_device, *case, n_mols=60, odd_tail=5)
+    assert _fwd_route32(p) == 3
+    assert "message_fwd_f32_kernel" in _fwd_f32_checks(p)

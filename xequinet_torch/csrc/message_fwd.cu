@@ -55,13 +55,20 @@
 // KS); wf's live rows stay in shared memory where they fit (at Kf = 128,
 // 149 KB: one block per SM), else its fragments are read from L2.  H =
 // 1152 with SDp + Dp = 1280 output columns fits as it is (141 KB).
+// The f32 operands at the widths of ops/fused_message.py::f32_route (the
+// flagship's) take the f32 tile pass, message_fwd_f32_kernel
+// (message_fwd_f32.cuh, its notes there; no TF32): the f32 backwards'
+// consumer units and producer ring (message_f32_tile.cuh) on contiguous
+// ranges of the list by destination, each row summed in registers and
+// written once.
 // The walk kernel, message_fwd_kernel (the first version; FP32 FMAs, no
-// TF32 in this port), takes the f32 operands and any bf16 shape the tile
-// kernel cannot hold (SDp + Dp > 1280): one thread per (destination row,
-// output column), a block of 8 rows and a 128-column tile, slots staged
-// XEQ_STAGE at a time, the filter recomputed per column, its first 32 rows
-// in registers and the rest in 32-row slices (xeq_filter_full).
+// TF32 in this port), takes the other f32 widths and any bf16 shape the
+// tile kernel cannot hold (SDp + Dp > 1280): one thread per (destination
+// row, output column), a block of 8 rows and a 128-column tile, slots
+// staged XEQ_STAGE at a time, the filter recomputed per column, its first
+// 32 rows in registers and the rest in 32-row slices (xeq_filter_full).
 //
+#include "message_fwd_f32.cuh"
 #include "message_fwd_hopper.cuh"
 
 template <typename T, bool BF16>
@@ -438,10 +445,12 @@ static int launch_fwd_walk(const void* x, const void* ef, const void* wf, const 
   x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, lane_gate, lane_ycol, out, n_out, ni, \
       nd, hp, d, dp, sdp, kw, kf, s
 
-// tiles (bf16 only), chosen by the wrapper by shape: 2, the Hopper tile pass
-// (message_fwd_hopper.cuh; ftab: its table, n_pt pair tiles, na A tiles a
-// warpgroup, on n_part blocks); 1, the mma.sync tile pass when its shared
-// memory fits; 0, the walk kernel in the operands' dtype.
+// tiles, chosen by the wrapper by shape: 3 (f32 only), the f32 tile pass
+// (message_fwd_f32.cuh; ftab: its unit table, one int4 per consumer
+// thread, n_pt its consumer warps, on n_part blocks); 2 (bf16), the Hopper
+// tile pass (message_fwd_hopper.cuh; ftab: its table, n_pt pair tiles, na
+// A tiles a warpgroup, on n_part blocks); 1 (bf16), the mma.sync tile pass
+// when its shared memory fits; 0, the walk kernel in the operands' dtype.
 extern "C" int xeq_message_fwd(const void* x, const void* ef, const void* wf,
                                const void* dst_ptr, const void* dst_slots,
                                const void* slot_src, const void* slot_dst,
@@ -449,10 +458,14 @@ extern "C" int xeq_message_fwd(const void* x, const void* ef, const void* wf,
                                void* out, int n_out, int ni, int nd, int hp,
                                int d, int dp, int sdp, int kw, int kf,
                                int bf16, int tiles, int n_pt, int na, int n_part, void* stream) {
-  if (kw > kf || kf > XEQ_FPACK || (sdp + dp) % 128 != 0 || (tiles && !bf16))
+  if (kw > kf || kf > XEQ_FPACK || (sdp + dp) % 128 != 0 || tiles < 0 || tiles > 3 ||
+      ((tiles == 1 || tiles == 2) && !bf16) || (tiles == 3 && bf16))
     return (int)cudaErrorInvalidValue;
   if (n_out == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tiles == 3)
+    return launch_fwd_f32(x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, ftab, out, n_out,
+                          ni, nd, hp, d, dp, sdp, kw, kf, n_pt, n_part, nullptr, s);
   if (tiles == 2) {
     XeqHFDims p;
     if (ftab == nullptr || n_part < 1 ||
@@ -504,4 +517,23 @@ extern "C" int xeq_fwd_phases(const void* x, const void* ef, const void* wf,
       (const int*)dst_slots, (const int*)slot_src, (const int*)slot_dst, (const int*)lane_gate,
       (const int*)lane_ycol, (float*)out, p, (long long*)stamps);
   return (int)cudaGetLastError();
+}
+
+// The f32 tile pass's phase probe (xequinet_torch/tools/bwd_compare.py
+// --kernel message_fwd --dtype float32 --phases f32; on no model path): the
+// f32 route of xeq_message_fwd (tiles = 3) with the stamped instance of its
+// pass, clock64() cycles per phase in stamps [n_part][n_cw + 1][8] (each
+// consumer warp's lane 0, then the first producer warp's).  Its output is
+// the route's.
+extern "C" int xeq_fwd_f32_phases(const void* x, const void* ef, const void* wf,
+                                  const void* dst_ptr, const void* dst_slots,
+                                  const void* slot_src, const void* slot_dst, const void* units,
+                                  void* out, int n_out, int ni, int nd, int hp, int d, int dp,
+                                  int sdp, int kw, int kf, int n_cw, int n_part, void* stamps,
+                                  void* stream) {
+  if (stamps == nullptr || n_out == 0 || kw > kf || (sdp + dp) % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd_f32(x, ef, wf, dst_ptr, dst_slots, slot_src, slot_dst, units, out, n_out, ni,
+                        nd, hp, d, dp, sdp, kw, kf, n_cw, n_part, (long long*)stamps,
+                        (cudaStream_t)stream);
 }

@@ -33,7 +33,9 @@ _FLOOR_HEADERS = _HOPPER_HEADERS + ("message_bwd_hopper.cuh",)
 # the backwards' f32 tile passes
 _BWD_HEADERS = _FLOOR_HEADERS + ("message_f32_tile.cuh",)
 _BWD2_HEADERS = _HOPPER_HEADERS + ("message_bwd2_hopper.cuh", "message_f32_tile.cuh")
-_FWD_HEADERS = _HOPPER_HEADERS + ("message_fwd_hopper.cuh",)
+# the forward's Hopper pass, and its f32 pass on the backwards' f32 pieces
+_FWD_HEADERS = _HOPPER_HEADERS + ("message_fwd_hopper.cuh", "message_f32_tile.cuh",
+                                  "message_fwd_f32.cuh")
 # name -> (source, headers it includes, C entry point, argtypes)
 _KERNELS = {
     "message_fwd": ("message_fwd.cu", _FWD_HEADERS, "xeq_message_fwd",
@@ -70,6 +72,10 @@ _PROBES = {
     "bwd_f32_phases": ("message_bwd", "xeq_bwd_f32_phases", [_P] * 13 + [_I] * 12 + [_P] * 2),
     "bwd2_f32_phases": ("message_bwd2", "xeq_bwd2_f32_phases",
                         [_P] * 19 + [_I] * 14 + [_P] * 2),
+    # the forward's f32 tile pass, the same way
+    # (xequinet_torch/tools/bwd_compare.py --kernel message_fwd --dtype float32
+    # --phases f32)
+    "fwd_f32_phases": ("message_fwd", "xeq_fwd_f32_phases", [_P] * 9 + [_I] * 11 + [_P] * 2),
 }
 
 # launches of each CUDA kernel wrapper (one per wrapper call that launched)

@@ -805,10 +805,12 @@ def fwd_hopper_route(mm_dtype, irreps_str: str, num_basis: int, node_dim: int) -
 
 
 # the f32 tile passes of message_bwd and message_bwd2
-# (csrc/message_f32_tile.cuh): their consumer warps at most, the rows of wf
-# and the edge-feature columns a thread keeps, slots a tile and ring stages
-# at most
+# (csrc/message_f32_tile.cuh) and of message_fwd (csrc/message_fwd_f32.cuh):
+# their consumer warps at most, the rows of wf and the edge-feature columns
+# a thread keeps, slots a tile and ring stages at most (the backwards'; the
+# forward's FF_MAXST)
 F32_CW, F32_KW, F32_KF, F32_BT, F32_MAXST = 9, 24, 32, 8, 4
+FF_MAXST = 6
 
 
 @functools.lru_cache(maxsize=None)
@@ -842,16 +844,27 @@ def f32_units(irreps_str: str, num_basis: int, node_dim: int) -> Tuple[np.ndarra
 def _f32_layout(kernel: str, ni: int, node_dim: int, d: int, kw: int,
                 kf: int) -> Tuple[int, int, int]:
     """(shared memory, ring stages, stage bytes) of the f32 tile pass of
-    ``kernel`` ("message_bwd" or "message_bwd2"), as ``f32_tile_dims``
+    ``kernel``: "message_bwd" or "message_bwd2", as ``f32_tile_dims``
     (csrc/message_f32_tile.cuh) lays it out: per stage ``F32_BT`` staged x
     rows ``[gs | gv]`` (H and D rounded up to 8, f32; and as many cx rows in
     the second order), as many g rows ``[gms_s | gms_v]``, the slots' 32
     edge-feature columns (and cef's) and their indices (list entry, source,
     staged x row, position by destination); beside the stages two
     reduction buffers of d_ef's warp sums (``F32_BT`` x ``F32_CW`` x 32 f32)
-    and the barriers.  As many stages as fit, at most ``F32_MAXST``."""
-    second = kernel == "message_bwd2"
+    and the barriers.  As many stages as fit, at most ``F32_MAXST``.
+    "message_fwd", as ``fwd_f32_dims`` (csrc/message_fwd_f32.cuh) lays it
+    out: per stage ``F32_BT`` source rows ``[gs | 0 | gv]`` (Hp + D rounded
+    up to 8 f32, one bulk copy each), the slots' 32 edge-feature columns and
+    their destination rows; beside the stages the barriers and the block's
+    row range.  As many stages as fit, at most ``FF_MAXST``."""
     h = node_dim + 2 * ni
+    if kernel == "message_fwd":
+        stage = _ru(F32_BT * (_pad128(h) + _ru(d, 8)) * 4 + F32_BT * F32_KF * 4 + F32_BT * 4,
+                    128)
+        fixed = 2 * FF_MAXST * 8 + 16
+        nst = min((SMEM_MAX - fixed) // stage, FF_MAXST)
+        return nst * stage + fixed, nst, stage
+    second = kernel == "message_bwd2"
     xb = F32_BT * (_ru(h, 8) + _ru(d, 8)) * 4
     gb = F32_BT * (_ru(node_dim, 8) + _ru(d, 8)) * 4
     eb = F32_BT * F32_KF * 4
@@ -863,14 +876,16 @@ def _f32_layout(kernel: str, ni: int, node_dim: int, d: int, kw: int,
 
 def f32_route(kernel: str, mm_dtype, irreps_str: str, num_basis: int, node_dim: int,
               has_cwf: bool = False) -> bool:
-    """Whether ``kernel`` ("message_bwd" or "message_bwd2") runs its f32
-    tile pass (csrc/message_f32_tile.cuh: a producer warp's bulk copies into
-    a ring of stages, consumer threads owning an irrep or two scalar
-    columns, the products on the FP32 pipes, the list by source walked in
-    contiguous block ranges) at these widths, else its walk kernels: f32
-    operands (the second order without cwf), Kw <= ``F32_KW``, Kf <=
-    ``F32_KF``, at most ``F32_CW`` consumer warps of :func:`f32_units` and
-    two stages at least that fit.  The choice is made by shape alone."""
+    """Whether ``kernel`` ("message_bwd", "message_bwd2" or "message_fwd")
+    runs its f32 tile pass (csrc/message_f32_tile.cuh, and for the forward
+    csrc/message_fwd_f32.cuh on the same units and ring: producer warps'
+    bulk copies into a ring of stages, consumer threads owning an irrep or
+    two scalar columns, the products on the FP32 pipes, the list by source
+    (the forward: by destination) walked in contiguous block ranges) at
+    these widths, else its walk kernels: f32 operands (the second order
+    without cwf), Kw <= ``F32_KW``, Kf <= ``F32_KF``, at most ``F32_CW``
+    consumer warps of :func:`f32_units` and two stages at least that fit.
+    The choice is made by shape alone."""
     if _mm_dtype(mm_dtype) != torch.float32 or (kernel == "message_bwd2" and has_cwf):
         return False
     ni, h, hp, d, dp, sdp, kw, kf = _launch_dims(irreps_str, num_basis, node_dim)
@@ -906,22 +921,28 @@ _DEVICE_FTABS: Dict[tuple, torch.Tensor] = {}
 @functools.lru_cache(maxsize=None)
 def _fwd_static(irreps_str: str, num_basis: int, node_dim: int, mm: str):
     """The forward's per-shape choices, once per shape (a call's host time
-    is part of the forward's): (widths, dtype, route, n_pt, na)."""
+    is part of the forward's): (widths, dtype, route, n_pt, na); on the f32
+    tile pass (route 3) n_pt is its consumer warps and na 0."""
     dims = _launch_dims(irreps_str, num_basis, node_dim)
     dt = _mm_dtype(mm)
     if fwd_hopper_route(dt, irreps_str, num_basis, node_dim):
         return dims, dt, 2, *fwd_table(irreps_str, num_basis, node_dim)[1:]
+    if f32_route("message_fwd", dt, irreps_str, num_basis, node_dim):
+        return dims, dt, 3, f32_units(irreps_str, num_basis, node_dim)[1], 0
     return dims, dt, int(tile_route("message_fwd", dt, irreps_str, num_basis, node_dim)), 0, 0
 
 
 def _fwd_setup(x_cat, edge_feat, wf_aug, slot_meta, irreps_str, num_basis, node_dim, n_out,
                block_nodes, chunk, mm_dtype):
-    """What a launch of the forward takes, shared by :func:`message_fwd_cuda`
-    and :func:`fwd_phase_stamps`: the widths, the route (``route``: 2 the
-    Hopper tile pass, 1 the mma.sync tile pass, 0 the walk kernel), the
-    operands in the kernel's dtype, the slot plan, the index maps, the
-    Hopper pass's table and grid (``n_part``: one block per SM, at most one
-    per group of ``HF_ROWS`` destination rows) and the output."""
+    """What a launch of the forward takes, shared by :func:`message_fwd_cuda`,
+    :func:`fwd_phase_stamps` and :func:`f32_phase_stamps`: the widths, the
+    route (``route``: 3 the f32 tile pass, 2 the Hopper tile pass, 1 the
+    mma.sync tile pass, 0 the walk kernel), the operands in the kernel's
+    dtype, the slot plan, the index maps, the table the C side reads as
+    ``ftab`` (the Hopper pass's table, or the f32 pass's units) and the
+    grid (``n_part``: one block per SM, at most one per group of
+    ``HF_ROWS`` destination rows on the Hopper pass, one per row on the f32
+    pass) and the output."""
     dims, mm, route, n_pt, na = _fwd_static(irreps_str, num_basis, node_dim,
                                             str(_mm_dtype(mm_dtype)))
     ni, h, hp, d, dp, sdp, kw, kf = dims
@@ -934,12 +955,13 @@ def _fwd_setup(x_cat, edge_feat, wf_aug, slot_meta, irreps_str, num_basis, node_
     if route == 2 and key not in _DEVICE_FTABS:
         _DEVICE_FTABS[key] = torch.as_tensor(fwd_table(irreps_str, num_basis, node_dim)[0],
                                              device=dev)
+    ftab = (_DEVICE_FTABS[key] if route == 2 else
+            _device_units(irreps_str, num_basis, node_dim, dev) if route == 3 else
+            torch.empty((0,), dtype=torch.int32, device=dev))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     b = dict(
-        dims=dims, mm=mm, route=route, xk=xk, efk=efk, wfk=wfk, n_pt=n_pt, na=na,
-        ftab=_DEVICE_FTABS[key] if route == 2 else torch.empty((0,), dtype=torch.int32,
-                                                               device=dev),
-        n_part=max(1, min(n_sm, -(-n_out // HF_ROWS))),
+        dims=dims, mm=mm, route=route, xk=xk, efk=efk, wfk=wfk, n_pt=n_pt, na=na, ftab=ftab,
+        n_part=max(1, min(n_sm, n_out if route == 3 else -(-n_out // HF_ROWS))),
         plan=_plan(slot_meta, n_out, x_cat.shape[0], block_nodes, chunk),
         maps=_device_maps(irreps_str, num_basis, dev),
         out=torch.empty((n_out, sdp + dp), dtype=torch.float32, device=dev),
@@ -954,8 +976,11 @@ def message_fwd_cuda(
     x_cat, edge_feat, wf_aug, slot_meta,
     irreps_str, num_basis, node_dim, n_out, block_nodes, chunk, mm_dtype,
 ) -> torch.Tensor:
-    """agg [n_out, SDp+Dp] f32 by ``csrc/message_fwd.cu``: at the widths of
-    :func:`fwd_hopper_route` its Hopper tile pass
+    """agg [n_out, SDp+Dp] f32 by ``csrc/message_fwd.cu``: f32 operands at
+    the widths of :func:`f32_route` take its f32 tile pass
+    (``csrc/message_fwd_f32.cuh``: each row summed in registers along the
+    list by destination, no scratch), the other f32 widths the walk kernel;
+    bf16 at the widths of :func:`fwd_hopper_route` its Hopper tile pass
     (``csrc/message_fwd_hopper.cuh``), elsewhere on :func:`tile_route` the
     mma.sync tile pass, else the walk kernel."""
     if not x_cat.is_cuda:
@@ -1186,6 +1211,11 @@ PHASES = {
             "barrier, d_ef rows, release", "row writes"),
     "producer_f32": ("prologue", "wait for a free stage", "slot indices", "copies issued", "-",
                      "-", "-", "epilogue"),
+    # the forward's f32 tile pass (f32_phase_stamps("message_fwd", ...)):
+    # lane 0 of each consumer warp; its first producer warp's lane 0 as
+    # "producer_f32"
+    "f32_fwd": ("prologue", "wait for a full stage", "operands", "filter products", "messages",
+                "sums and row writes", "release", "-"),
 }
 
 
@@ -1227,16 +1257,22 @@ def bwd_phase_stamps(
 
 def f32_phase_stamps(kernel: str, *args) -> torch.Tensor:
     """clock64() cycles per phase of one launch of ``kernel``'s f32 tile pass
-    ("message_bwd" or "message_bwd2"), on the arguments of its wrapper
-    (:func:`message_bwd_cuda`'s, or :func:`message_bwd2_cuda`'s without
-    cwf), with the rest of its route (the phase probe of
-    ``xequinet_torch/tools/bwd_compare.py --dtype float32 --phases``, on no
-    model path; not counted in LAUNCHES): int64 [n_part, 2, 8], the
-    consumers' thread 0 (``PHASES["f32"]``) and the producer's lane 0
-    (``PHASES["producer_f32"]``).  Takes the widths of :func:`f32_route`."""
+    ("message_bwd", "message_bwd2" or "message_fwd"), on the arguments of
+    its wrapper (:func:`message_bwd_cuda`'s, :func:`message_bwd2_cuda`'s
+    without cwf, or :func:`message_fwd_cuda`'s), with the rest of its route
+    (the phase probe of ``xequinet_torch/tools/bwd_compare.py --dtype
+    float32 --phases``, on no model path; not counted in LAUNCHES): for the
+    backwards int64 [n_part, 2, 8], the consumers' thread 0
+    (``PHASES["f32"]``) and the producer's lane 0
+    (``PHASES["producer_f32"]``); for the forward int64 [n_part, n_cw + 1,
+    8], lane 0 of each consumer warp (``PHASES["f32_fwd"]``) and of the
+    first producer warp (``PHASES["producer_f32"]``).  Takes the widths of
+    :func:`f32_route`."""
+    if kernel not in ("message_bwd", "message_bwd2", "message_fwd"):
+        raise ValueError("f32_phase_stamps takes message_bwd, message_bwd2 or message_fwd")
+    if kernel == "message_fwd":
+        return _fwd_f32_phase_stamps(*args)
     second = kernel == "message_bwd2"
-    if kernel not in ("message_bwd", "message_bwd2"):
-        raise ValueError("f32_phase_stamps takes message_bwd or message_bwd2")
     b = _bwd2_setup(*args) if second else _bwd_setup(*args)
     if b["route"] != 3:
         raise ValueError("f32_phase_stamps takes the widths and dtype of f32_route (f32 "
@@ -1263,6 +1299,24 @@ def f32_phase_stamps(kernel: str, *args) -> torch.Tensor:
               b["dx"].data_ptr(), b["d_ef"].data_ptr(), b["dwf_part"].data_ptr(),
               b["d_wf"].data_ptr(), b["n_rows"], b["t_slots"], b["n_part"], ni, h, hp, d, dp,
               sdp, kw, kf, b["n_seg"], stamps.data_ptr(), stream)
+    return stamps
+
+
+def _fwd_f32_phase_stamps(x_cat, edge_feat, wf_aug, slot_meta, irreps_str, num_basis, node_dim,
+                          n_out, block_nodes, chunk, mm_dtype) -> torch.Tensor:
+    b = _fwd_setup(x_cat, edge_feat, wf_aug, slot_meta, irreps_str, num_basis, node_dim, n_out,
+                   block_nodes, chunk, mm_dtype)
+    if b["route"] != 3:
+        raise ValueError("f32_phase_stamps takes the widths and dtype of f32_route (f32 "
+                         "operands)")
+    ni, h, hp, d, dp, sdp, kw, kf = b["dims"]
+    plan, dev = b["plan"], b["xk"].device
+    stamps = torch.zeros((b["n_part"], b["n_pt"] + 1, 8), dtype=torch.int64, device=dev)
+    probe("fwd_f32_phases", b["xk"].data_ptr(), b["efk"].data_ptr(), b["wfk"].data_ptr(),
+          plan["dst_ptr"].data_ptr(), plan["dst_slots"].data_ptr(), plan["slot_src"].data_ptr(),
+          plan["slot_dst"].data_ptr(), b["ftab"].data_ptr(), b["out"].data_ptr(), n_out, ni,
+          node_dim, hp, d, dp, sdp, kw, kf, b["n_pt"], b["n_part"], stamps.data_ptr(),
+          torch.cuda.current_stream(dev).cuda_stream)
     return stamps
 
 
@@ -1322,12 +1376,13 @@ def bwd2_scratch_shapes(t_slots: int, h: int, node_dim: int,
 
 
 # each wrapper's launches by pass, by kernel name as torch.profiler shows
-# them (the forward has one; the d_wf passes launch only where the tile
-# pass's d_wf partial leaves the registers; "tile pass" is whichever tile
-# pass the route takes, the f32 one too; the walk kernels' passes at the
-# widths no tile pass takes)
+# them (the forward launches one, its tile pass or its walk kernel; the d_wf
+# passes launch only where the tile pass's d_wf partial leaves the
+# registers; "tile pass" is whichever tile pass the route takes, the f32
+# one too; the walk kernels' passes at the widths no tile pass takes)
 PASSES = {
-    "message_fwd": (("tile pass", "message_fwd_(?:tile|hopper)_kernel"),),
+    "message_fwd": (("tile pass", "message_fwd_(?:tile|hopper|f32)_kernel"),
+                    ("walk kernel", "message_fwd_kernel")),
     "message_bwd": (("tile pass", "message_bwd_(?:tile|hopper|f32)_kernel"),
                     ("dx pass", "message_bwd_dx_rows_kernel"),
                     ("d_wf pass", "xeq_dwf_pass_kernel"),

@@ -44,10 +44,10 @@ instances, on no model path) in this process, after the turns:
 ``message_bwd2``'s through ``fused_message.bwd2_phase_stamps`` (``tile``,
 the mma.sync pass; ``hopper``, the Hopper pass), ``message_fwd``'s through
 ``fused_message.fwd_phase_stamps`` (``tile_fwd``, ``hopper_fwd``), the f32
-tile pass of ``message_bwd`` and ``message_bwd2`` through
-``fused_message.f32_phase_stamps`` (``f32``, on the operands cast to f32);
-all of the kernel's when none is named; without PARENT_ROOT only the split
-runs.
+tile pass of each of the three kernels through
+``fused_message.f32_phase_stamps`` (``f32``, on the operands cast to f32;
+the forward's split per consumer warp too); all of the kernel's when none
+is named; without PARENT_ROOT only the split runs.
 It needs a card.
 """
 
@@ -77,7 +77,8 @@ PHASE_PASSES = {
                      "hopper": ("message_bwd2_hopper_kernel", "hopper2", "producer2"),
                      "f32": ("message_bwd2_f32_kernel", "f32", "producer_f32")},
     "message_fwd": {"tile_fwd": ("message_fwd_tile_stamped_kernel", "tile_fwd", None),
-                    "hopper_fwd": ("message_fwd_hopper_kernel", "hopper_fwd", "producer_fwd")},
+                    "hopper_fwd": ("message_fwd_hopper_kernel", "hopper_fwd", "producer_fwd"),
+                    "f32": ("message_fwd_f32_kernel", "f32_fwd", "producer_f32")},
 }
 # the seed of message_bwd2's cotangents
 COT_SEED = 11
@@ -269,7 +270,10 @@ def phase_split(kernel="message_bwd2", passes=None, calls=10):
     shares of the stamped cycles and their ms (share x device ms).  Roles:
     the block's thread 0 for the mma.sync passes; the consumer warpgroups
     (summed) and the producer warp for the Hopper passes; the consumers'
-    thread 0 and the producer warp for the f32 passes."""
+    thread 0 (the forward's: each consumer warp's lane 0, summed) and the
+    producer warp for the f32 passes.  Where more than one consumer role is
+    stamped, also each one's phases as ms ("per_warpgroup_ms", the
+    forward's f32 pass "per_warp_ms")."""
     import torch
 
     from xequinet_torch.ops import fused_message as fm
@@ -308,11 +312,12 @@ def phase_split(kernel="message_bwd2", passes=None, calls=10):
             share = cyc / cyc.sum()
             rec[role] = {n: {"share": float(v), "ms": float(v * ms)}
                          for n, v in zip(phases, share) if n != "-"}
-        if producer_key is not None and which != "f32":  # each warpgroup's phases, as ms
+        if producer_key is not None and stamps.shape[1] > 2:  # each role's phases, as ms
             per = stamps[:, :-1].sum(0)
             per = per / per.sum(1, keepdims=True) * ms
-            rec["per_warpgroup_ms"] = {n: [float(v) for v in per[:, c]]
-                                       for c, n in enumerate(fm.PHASES[role_key]) if n != "-"}
+            rec["per_warp_ms" if which == "f32" else "per_warpgroup_ms"] = {
+                n: [float(v) for v in per[:, c]]
+                for c, n in enumerate(fm.PHASES[role_key]) if n != "-"}
         out[which] = rec
     return out
 
@@ -327,8 +332,8 @@ def build_parser():
                     choices=sorted({w for v in PHASE_PASSES.values() for w in v}),
                     help="also split the change's tile passes of the kernel by phase: "
                          "message_bwd2's mma.sync pass (tile) and Hopper pass (hopper), "
-                         "message_fwd's (tile_fwd, hopper_fwd), the f32 pass of message_bwd "
-                         "and message_bwd2 (f32); all of the kernel's when none is named")
+                         "message_fwd's (tile_fwd, hopper_fwd), the f32 pass of each kernel "
+                         "(f32); all of the kernel's when none is named")
     ap.add_argument("--dtype", default="bfloat16", choices=DTYPES,
                     help="the operands' dtype, so the instance timed (bf16 by default)")
     ap.add_argument("--one", nargs="+", metavar="LABEL OPERANDS [SAVE]",
@@ -360,7 +365,7 @@ def main(argv=None):
             for role, split in rec.items():
                 if role == "stamped_ms":
                     continue
-                if role == "per_warpgroup_ms":
+                if role in ("per_warpgroup_ms", "per_warp_ms"):
                     by = ", ".join(f"{n} " + " / ".join(f"{v:.4f}" for v in vs)
                                    for n, vs in split.items())
                 else:
